@@ -1,0 +1,503 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port (``mmmm_tpu_torch``) on one NVIDIA GPU.
+
+Run from the repository root on a machine with a card:
+
+    python3 chip_smoke.py [--log-dir DIR]
+
+Phases, in order; any failure exits non-zero before the result lines:
+
+ 1. print the card's name and power limit (``nvidia-smi``);
+ 2. build the CUDA kernels from ``mmmm_tpu_torch/csrc`` (``nvcc``, sm_90a);
+ 3. hold each kernel (K1-K4) against its plain PyTorch version on the card,
+    at the grounded path's shapes and at edge cases, and time the kernel,
+    the plain version and one PyTorch library call (CUDA events, medians);
+ 4. run ``generate_grounded`` at ``MMMMConfig.tiny()`` in fp32 on the card
+    and on the CPU (plain versions) and require the same tokens and masks;
+ 5. run the grounded report path at the flagship width (CogVLM-17B +
+    SegVol SAM, bf16 LLM/ViT, fp32 SAM, random weights from a seed): B=4,
+    prompt 192 with 146 vision tokens, 128 new tokens, 4 targets; check the
+    masks and that every kernel's launch counter moved by its expected count;
+    then profile one more run (device time by kernel group and by stage,
+    busy share);
+ 6. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+
+``--log-dir`` keeps the build log and the results as JSON there.
+No JAX and nothing of ``mmmm_tpu`` is imported.
+"""
+from __future__ import annotations
+
+import argparse
+import bisect
+import json
+import re
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+# Data-sheet peaks (dense): HBM bytes/s, bf16 tensor FLOP/s, fp32 CUDA-core FLOP/s.
+PEAKS = {
+    "H100 SXM": (3.35e12, 989e12, 67e12),
+    "H100 PCIe": (2.0e12, 756e12, 51e12),
+    "H100 NVL": (3.9e12, 835e12, 60e12),
+}
+B, PROMPT, N_VIS, NEW, TARGETS = 4, 192, 146, 128, 4
+EXPECTED_LAUNCHES = {"K4": 63 + 12, "K3": 32, "K2": 32 * NEW, "K1": 32 * NEW}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_peaks(name: str):
+    key = "H100 PCIe" if "PCIe" in name else "H100 NVL" if "NVL" in name else "H100 SXM"
+    return key, PEAKS[key]
+
+
+def bound(bytes_moved: float, flops: float, flop_rate: float, bw: float):
+    t_bytes, t_ops = bytes_moved / bw, flops / flop_rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_ms(fn, reps: int = 7, inner: int = 10) -> float:
+    """Median over ``reps`` of the mean device time of ``inner`` back-to-back
+    calls. A sleep kernel queued ahead of each timed run holds the device
+    while the host enqueues the calls, so the host's launch cost (tens of us
+    for a ctypes launch on a slow host) is not timed."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)  # ~10 ms of device clock cycles
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def check(name: str, err: float, tol: float) -> None:
+    log(f"  {name}: max_abs_err {err:.3e} (tol {tol:g})")
+    if not err <= tol:
+        raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
+
+
+class Rotating:
+    """Cycles through copies of a call's inputs so each timed call finds its
+    operands outside the 50 MB L2, as the decode loop does."""
+
+    def __init__(self, copies):
+        self.copies, self.i = copies, 0
+
+    def next(self):
+        self.i = (self.i + 1) % len(self.copies)
+        return self.copies[self.i]
+
+
+def kernel_phase(peaks, gen):
+    from mmmm_tpu_torch.ops import decode_kernel as dk
+    from mmmm_tpu_torch.ops import dense_attn as da
+    from mmmm_tpu_torch.ops import flash as fl
+    from mmmm_tpu_torch.ops.attention import build_mask
+
+    bw, bf16_rate, fp32_rate = peaks
+    dev = torch.device("cuda")
+    rnd = lambda *s, dt=torch.bfloat16: torch.randn(*s, generator=gen, device=dev).to(dt)
+    out = {}
+
+    # ---- K4 dense attention: ViT (bf16) and SAM encoder (fp32) -------------------
+    log("K4 dense attention")
+    entry = None
+    for label, (b, s, h, d, dt, tol) in {
+        "vit": (B, 1153, 16, 112, torch.bfloat16, 2e-2),
+        "sam": (B, 512, 12, 64, torch.float32, 1e-4),
+    }.items():
+        q, k, v = (rnd(b, s, h, d, dt=dt) for _ in range(3))
+        scale = d ** -0.5
+        err = max_err(da.dense_attention(q, k, v, scale), da.dense_attention_plain(q, k, v, scale))
+        check(f"K4 {label} {tuple(q.shape)} {dt}", err, tol)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        esz = q.element_size()
+        bms, by = bound(4 * q.numel() * esz, 4 * b * h * s * s * d,
+                        bf16_rate if dt == torch.bfloat16 else fp32_rate, bw)
+        row = {
+            "shape": [b, s, h, d], "dtype": str(dt).split(".")[-1], "max_abs_err": err,
+            "ms": time_ms(lambda: da.dense_attention(q, k, v, scale)),
+            "plain_ms": time_ms(lambda: da.dense_attention_plain(q, k, v, scale), inner=2),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale)),
+            "bound_ms": bms, "bound_by": by,
+        }
+        log(f"  K4 {label}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"library {row['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+        if entry is None:
+            entry = dict(row, variants=[])
+        else:
+            entry["variants"].append(row)
+    for b, s, h, d, dt, tol in [(1, 1153, 16, 88, torch.bfloat16, 2e-2),
+                                (2, 77, 4, 64, torch.float32, 1e-4),
+                                (2, 33, 2, 8, torch.float32, 1e-4)]:
+        q, k, v = (rnd(b, s, h, d, dt=dt) for _ in range(3))
+        check(f"K4 edge {tuple(q.shape)} {dt}", max_err(da.dense_attention(q, k, v, d ** -0.5),
+              da.dense_attention_plain(q, k, v, d ** -0.5)), tol)
+    out["K4"] = entry
+
+    # ---- K3 flash forward (LLM prefill) ------------------------------------------
+    log("K3 flash forward")
+    b, s, h, d = B, PROMPT, 32, 128
+    q, k, v = (rnd(b, s, h, d) for _ in range(3))
+    lens = torch.tensor([s, 170, 150, s], device=dev)
+    seg = (torch.arange(s, device=dev)[None] < lens[:, None]).to(torch.int32)
+    scale = d ** -0.5
+    o, lse = fl.flash_segment_attention(q, k, v, seg, seg, causal=True, scale=scale)
+    ro, rlse = fl.flash_segment_attention_plain(q, k, v, seg, seg, causal=True, scale=scale)
+    err = max_err(o, ro)
+    check(f"K3 out {tuple(q.shape)} bf16 causal", err, 2e-2)
+    check("K3 lse", max_err(lse, rlse), 1e-3)
+    mask = build_mask(seg, seg, True)
+    pairs = int(mask.sum().item())
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    amask = mask[:, None]
+    bms, by = bound(4 * q.numel() * 2 + 2 * seg.numel() * 4 + lse.numel() * 4,
+                    4 * d * h * pairs, bf16_rate, bw)
+    out["K3"] = {
+        "shape": [b, s, h, d], "dtype": "bfloat16", "max_abs_err": err, "valid_pairs": pairs,
+        "ms": time_ms(lambda: fl.flash_segment_attention(q, k, v, seg, seg, causal=True,
+                                                         scale=scale)),
+        "plain_ms": time_ms(lambda: fl.flash_segment_attention_plain(q, k, v, seg, seg,
+                                                                     causal=True, scale=scale)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask,
+                                                                     scale=scale)),
+        "bound_ms": bms, "bound_by": by,
+    }
+    for dt, tol in [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]:
+        q, k, v = (rnd(2, 40, 2, 16, dt=dt) for _ in range(3))
+        qs = (torch.arange(40, device=dev)[None] < torch.tensor([[40], [29]], device=dev))
+        qs = qs.to(torch.int32)
+        ks = qs.clone()
+        ks[0, :3] = 2  # query rows 0..2 of sample 0 see no key of their segment
+        o, lse = fl.flash_segment_attention(q, k, v, qs, ks, causal=True, scale=0.25)
+        ro, rlse = fl.flash_segment_attention_plain(q, k, v, qs, ks, causal=True, scale=0.25)
+        check(f"K3 edge (masked rows) {dt}", max(max_err(o, ro), max_err(lse, rlse)), tol)
+        if not (torch.all(o[0, :3] == 0) and torch.all(lse[0, :, :3] == 0)):
+            raise AssertionError("K3: a fully masked row is not zero")
+
+    # ---- K1 decode attention and K2 KV append --------------------------------------
+    log("K1 decode attention, K2 KV append")
+    b, h, smax, d = B, 32, PROMPT + NEW, 128
+    copies = [(rnd(b, h, smax, d), rnd(b, h, smax, d)) for _ in range(8)]
+    q = rnd(b, 1, h, d)
+    kc, vc = copies[0]
+    kv_len = torch.tensor([1, 150, smax, 0], dtype=torch.int32, device=dev)
+    check("K1 edge kv_len (1, 150, Smax, 0)",
+          max_err(dk.decode_attention(q, kc, vc, kv_len), dk.decode_attention_plain(q, kc, vc, kv_len)),
+          2e-2)
+    mid = torch.full((b,), (PROMPT + 1 + smax) // 2, dtype=torch.int32, device=dev)
+    err = max_err(dk.decode_attention(q, kc, vc, mid), dk.decode_attention_plain(q, kc, vc, mid))
+    check(f"K1 {tuple(kc.shape)} bf16 kv_len {int(mid[0])}", err, 2e-2)
+    rot = Rotating(copies)
+    valid = (torch.arange(smax, device=dev)[None] < mid[:, None])[:, None, None, :]
+    qh = q.transpose(1, 2).contiguous()
+
+    def lib_k1():
+        kk, vv = rot.next()
+        return F.scaled_dot_product_attention(qh, kk, vv, attn_mask=valid)
+
+    n_read = int(mid.sum().item())
+    bms, by = bound(2 * n_read * h * d * 2 + 2 * q.numel() * 2, 4 * n_read * h * d, bf16_rate, bw)
+    out["K1"] = {
+        "shape": [b, h, smax, d], "kv_len": int(mid[0]), "dtype": "bfloat16", "max_abs_err": err,
+        "ms": time_ms(lambda: dk.decode_attention(q, *rot.next(), mid)),
+        "plain_ms": time_ms(lambda: dk.decode_attention_plain(q, *rot.next(), mid)),
+        "library_ms": time_ms(lib_k1),
+        "bound_ms": bms, "bound_by": by,
+    }
+
+    kn, vn = rnd(b, h, 1, d), rnd(b, h, 1, d)
+    for widx in ([PROMPT, 0, smax - 1, smax + 7], [-1, 5, 300, -400]):
+        w = torch.tensor(widx, dtype=torch.int32, device=dev)
+        rk, rv = dk.kv_append_plain(kc.clone(), vc.clone(), kn, vn, w)
+        gk, gv = dk.kv_append(kc.clone(), vc.clone(), kn, vn, w)
+        if not (torch.equal(gk, rk) and torch.equal(gv, rv)):
+            raise AssertionError(f"K2: not bit-equal to the plain version at write_index {widx}")
+        log(f"  K2 write_index {widx}: bit-equal")
+    w = torch.tensor([PROMPT, PROMPT + 1, PROMPT + 2, PROMPT + 3], dtype=torch.int32, device=dev)
+    bms, by = bound(4 * kn.numel() * 2, 0, bf16_rate, bw)
+    out["K2"] = {
+        "shape": [b, h, smax, d], "dtype": "bfloat16", "max_abs_err": 0.0,
+        "ms": time_ms(lambda: dk.kv_append(*rot.next(), kn, vn, w)),
+        "plain_ms": time_ms(lambda: dk.kv_append_plain(*rot.next(), kn, vn, w)),
+        "library_ms": None,
+        "bound_ms": bms, "bound_by": by,
+    }
+    torch.cuda.synchronize()
+    for name in ("K4", "K3", "K1", "K2"):
+        r = out[name]
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        log(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib}, "
+            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+    return out
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def tiny_reference_phase():
+    """The same tiny fp32 run on the card (kernels) and on the CPU (plain
+    versions) must give the same tokens and masks within 2e-4."""
+    from mmmm_tpu_torch import MMMMConfig, generate_grounded, init_params
+    from mmmm_tpu_torch.data.tokenizer import MMMMTokenizer
+
+    log("tiny reference: card vs CPU")
+    tok = MMMMTokenizer.byte_fallback()
+    cfg = MMMMConfig.tiny(vocab_size=len(tok))
+    params = init_params(cfg, 0, torch.float32, "cpu")
+    rng = np.random.default_rng(0)
+    n_vis, b = 18, 3
+    lens = [1 + n_vis + t for t in (5, 9, 7)]
+    s = max(lens)
+    ids, tt, pos = (np.zeros((b, s), np.int32) for _ in range(3))
+    for i, n in enumerate(lens):
+        text = n - 1 - n_vis
+        ids[i, :n] = np.concatenate([[1], np.full(n_vis, 3), rng.integers(4, 250, size=text)])
+        tt[i, 1:1 + n_vis] = 1
+        pos[i, :n] = np.concatenate([[0, 1], np.full(n_vis - 2, 2), [3], np.arange(4, 4 + text)])
+    img = rng.normal(size=(b, 3, 4, 16, 16)).astype(np.float32)
+    gimg = rng.normal(size=(b, 3, 4, 16, 16)).astype(np.float32)
+    args = (cfg, tok, ids, tt, pos, np.asarray(lens), img, (4, 4, 4), (1, 1, 1))
+    kw = dict(max_new_tokens=8, max_targets=2, grounding_image=gimg, force_grounding=True,
+              vis_span=(1, 1 + n_vis))
+    ref = generate_grounded(params, *args, device="cpu", **kw)
+    got = generate_grounded(_tree_to(params, "cuda"), *args, device="cuda", **kw)
+    if not np.array_equal(got.tokens, ref.tokens):
+        raise AssertionError(f"tiny: tokens differ\n{got.tokens}\n{ref.tokens}")
+    err = max_err(got.masks.cpu(), ref.masks)
+    check("tiny masks (card vs CPU)", err, 2e-4)
+    return {"tokens_equal": True, "masks_max_abs_err": err}
+
+
+def flagship_phase(gen):
+    from mmmm_tpu_torch import MMMMConfig, generate_grounded, init_params
+    from mmmm_tpu_torch.data.tokenizer import SPECIAL_TOKENS, MMMMTokenizer, _ByteBackend
+    from mmmm_tpu_torch.models.cogvlm import CogVLMConfig
+    from mmmm_tpu_torch.models.segvol import SamConfig
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+
+    log("flagship grounded report path")
+    cfg = MMMMConfig(vlm=CogVLMConfig.cogvlm17b(), sam=SamConfig())
+    tok = MMMMTokenizer(_ByteBackend(), {t: 32000 + i for i, t in enumerate(SPECIAL_TOKENS)})
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    # bias the <p>/</p> head columns so the random model writes tag pairs
+    head = params["cogvlm"]["llm"]["lm_head"]
+    head[:, tok.bop_token_id] += 3.8
+    head[:, tok.eop_token_id] += 3.6
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _flat_values(params))
+    init_s = time.perf_counter() - t0
+    log(f"  init_params: {n_params / 1e9:.3f} B params in {init_s:.3f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    ids = rng.integers(4, 32000, size=(B, PROMPT)).astype(np.int32)
+    tt = np.zeros((B, PROMPT), np.int32)
+    tt[:, 1:1 + N_VIS] = 1
+    pos = np.concatenate([[0, 1], np.full(N_VIS - 2, 2), [3, 4],
+                          5 + np.arange(PROMPT - N_VIS - 2)]).astype(np.int32)
+    pos = np.broadcast_to(pos, (B, PROMPT)).copy()
+    lens = np.full((B,), PROMPT, np.int32)
+    image = torch.randn((B, 3, 32, 384, 384), generator=gen, device=dev).to(torch.bfloat16)
+    gimg = torch.randn((B, 3, 32, 256, 256), generator=gen, device=dev)
+
+    def run():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = generate_grounded(params, cfg, tok, ids, tt, pos, lens, image, (16, 16, 16),
+                                (2, 2, 2), max_new_tokens=NEW, max_targets=TARGETS,
+                                grounding_image=gimg, force_grounding=True,
+                                vis_span=(1, 1 + N_VIS), device="cuda")
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    _, first_s = run()
+    log(f"  first run (warm-up): {first_s:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    for kern in KERNELS.values():
+        kern.launches = 0
+    res, steady_s = run()
+    launches = {name: kern.launches for name, kern in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  steady run: {steady_s:.3f} s, {B / steady_s:.4f} reports/s, "
+        f"peak memory {peak / 2**30:.2f} GiB, launches {launches}")
+    for name, want in EXPECTED_LAUNCHES.items():
+        if launches.get(name) != want:
+            raise AssertionError(f"{name}: {launches.get(name)} launches, expected {want}")
+
+    m = res.masks
+    if tuple(m.shape) != (B, TARGETS, 32, 256, 256) or not torch.isfinite(m).all():
+        raise AssertionError(f"masks: shape {tuple(m.shape)} or non-finite values")
+    if res.tokens.shape != (B, NEW) or not (res.tokens >= 0).all() or not (res.tokens < 32008).all():
+        raise AssertionError(f"tokens: bad shape or ids {res.tokens.shape}")
+    log(f"  tokens[0][:24] {res.tokens[0][:24].tolist()} num_generated "
+        f"{res.num_generated.tolist()} targets {[None if t is None else len(t) for t in res.targets]}")
+    out = {"init_s": init_s, "first_run_s": first_s, "steady_run_s": steady_s,
+           "reports_per_s": B / steady_s, "peak_mem_gib": peak / 2**30, "launches": launches,
+           "num_generated": res.num_generated.tolist(), "params_b": n_params / 1e9}
+    out["profile"] = profile_run(run)
+    return out, launches
+
+
+def _flat_values(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _flat_values(v)
+        else:
+            yield v
+
+
+# profiler spans of generate_grounded's stages (record_function names)
+STAGES = ("vit", "llm_prefill", "decode", "sam")
+KERNEL_GROUPS = (  # (label, substrings of a kernel name), first match wins
+    ("K4 dense attention", ("attn_mma_kernel<112, false>", "attn_tile_kernel<float, 8, false>")),
+    ("K3 flash forward", ("attn_mma_kernel<128, true>",)),
+    ("K1 decode attention", ("decode_attn_kernel",)),
+    ("K2 KV append", ("kv_append_kernel",)),
+    ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma", "splitK")),
+    ("elementwise / reduce / copy", ("at::native",)),
+)
+
+
+def profile_run(run):
+    """Device time by kernel group; host time, device span and kernel time by
+    stage; and the device's busy share of the run's wall time, over one more
+    flagship run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall_s = run()
+    averages = prof.key_averages()
+    kernels = [ev for ev in averages
+               if ev.device_type == DeviceType.CUDA and ev.key not in STAGES]
+    busy_us = sum(ev.self_device_time_total for ev in kernels)
+    groups: dict[str, list] = {}
+    for ev in kernels:
+        label = next((g for g, keys in KERNEL_GROUPS if any(k in ev.key for k in keys)), "other")
+        acc = groups.setdefault(label, [0.0, 0])
+        acc[0] += ev.self_device_time_total
+        acc[1] += ev.count
+    log(f"  profile: wall {wall_s:.3f} s (profiled run), kernels busy {busy_us / 1e6:.3f} s "
+        f"({100 * busy_us / 1e6 / wall_s:.1f}% of wall)")
+    # a stage's span is recorded on the host (its CPU time) and on the device
+    # timeline (first to last of its kernels); the kernels that start inside
+    # the device span give the stage's busy time
+    events = prof.events()
+    host_span = {e.name: e for e in events if e.name in STAGES and e.device_type == DeviceType.CPU}
+    device_span = {e.name: e for e in events
+                   if e.name in STAGES and e.device_type == DeviceType.CUDA}
+    starts = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in events
+                    if e.device_type == DeviceType.CUDA and e.name not in STAGES)
+    stages = {}
+    for name in STAGES:
+        h, d = host_span.get(name), device_span.get(name)
+        stage = {"host_ms": None if h is None else h.time_range.elapsed_us() / 1e3,
+                 "device_span_ms": None, "kernels_ms": None}
+        if d is not None:
+            lo = bisect.bisect_left(starts, (d.time_range.start, -1.0))
+            hi = bisect.bisect_left(starts, (d.time_range.end, -1.0))
+            stage["device_span_ms"] = d.time_range.elapsed_us() / 1e3
+            stage["kernels_ms"] = sum(us for _, us in starts[lo:hi]) / 1e3
+        stages[name] = stage
+        log(f"    stage {name:12s} " + ", ".join(
+            f"{k} {'n/a' if v is None else f'{v:.3f}'}" for k, v in stage.items()))
+    for label, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        log(f"    {us / 1e3:10.3f} ms  {n:7d} launches  {label}")
+    top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:15]
+    for ev in top:
+        log(f"    {ev.self_device_time_total / 1e3:10.3f} ms  {ev.count:7d}x  {ev.key[:90]}")
+    return {"wall_s": wall_s, "kernels_busy_s": busy_us / 1e6, "stages": stages,
+            "groups": {k: {"ms": v[0] / 1e3, "launches": v[1]} for k, v in groups.items()},
+            "top": [{"ms": ev.self_device_time_total / 1e3, "count": ev.count,
+                     "name": ev.key[:160]} for ev in top]}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--log-dir", type=Path, default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    try:
+        from mmmm_tpu_torch.ops import _cuda
+    except ImportError as e:
+        print(f"chip_smoke: cannot import mmmm_tpu_torch ({e}); run from the repository root",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 SAM path is full fp32
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    name = torch.cuda.get_device_name(0)
+    peak_key, peaks = card_peaks(name)
+    log(f"device {name}, count {torch.cuda.device_count()}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}; bounds use the {peak_key} data sheet {peaks}")
+
+    t0 = time.perf_counter()
+    so = _cuda.build()
+    _cuda.library()
+    build_s = time.perf_counter() - t0
+    build_log = so.with_suffix(".log").read_text() if so.with_suffix(".log").exists() else ""
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", build_log)]
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", build_log)]
+    log(f"build: {build_s:.3f} s -> {so.name}; {len(regs)} kernels, max registers "
+        f"{max(regs, default=0)}, spill stores {sum(spills)} bytes")
+    if args.log_dir is not None:
+        args.log_dir.mkdir(parents=True, exist_ok=True)
+        shutil.copy(so.with_suffix(".log"), args.log_dir / "kernel_build.log")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {"card": card, "device": name, "bounds_from": peak_key, "build_s": build_s}
+    results["kernels"] = kernel_phase(peaks, gen)
+    results["tiny_reference"] = tiny_reference_phase()
+    results["flagship"], launches = flagship_phase(gen)
+
+    kernels = []
+    for kid in ("K1", "K2", "K3", "K4"):
+        kern, r = _cuda.KERNELS[kid], results["kernels"][kid]
+        entry = {"name": kid, "route": "cuda", "source": kern.source, "replaces": kern.replaces,
+                 "launches": launches[kid], "kernel_ms": r["ms"]}
+        entry.update({k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")})
+        entry.update({k: v for k, v in r.items() if k not in entry})
+        kernels.append(entry)
+    if args.log_dir is not None:
+        (args.log_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,19 @@
+"""PyTorch + CUDA port of ``mmmm_tpu`` for one NVIDIA H100.
+
+The port imports PyTorch only, never JAX and nothing of ``mmmm_tpu``. Its
+layout mirrors the JAX package (``ops``, ``models/cogvlm``,
+``models/segvol``, ``models/{generate,inference,mmmm}.py``,
+``data/tokenizer.py``); parameters are nested dicts of tensors in the JAX
+tree's layout (``params.py``). The TPU's Pallas kernels on the grounded
+report path are CUDA C++ kernels in ``csrc/`` (K1-K4), built with ``nvcc``
+at first use; every kernel wrapper takes its plain PyTorch version for CPU
+tensors and launches the kernel for CUDA tensors.
+
+Entry points run on the card unless the caller passes ``device="cpu"``.
+"""
+from .models.inference import GroundedResult, generate_grounded
+from .models.mmmm import MMMMConfig
+from .params import init_params, params_from_jax
+
+__all__ = ["GroundedResult", "MMMMConfig", "generate_grounded", "init_params",
+           "params_from_jax"]

@@ -1,0 +1,36 @@
+// K4: all-valid bidirectional attention, (B, S, H, D) -> (B, S, H, D).
+//
+// Replaces: mmmm_tpu/ops/dense_attn.py dense_attention -> _dense_fwd_bhsd
+// (Pallas body `_kernel`), used by the EVA ViT (bf16, S=1153, H=16, D=112
+// at the flagship width) and the SegVol SAM encoder (fp32, S=512, H=12, D=64).
+//
+// What bounds it on an H100: operations. The ViT call is 4*B*H*S^2*D = 38
+// GFLOP against 66 MB of q/k/v/out, far above the card's ~295 FLOP/byte
+// ridge; the SAM call is fp32 and must stay off TF32, so its ceiling is the
+// 67 TFLOP/s fp32 CUDA-core rate.
+//
+// Design: the TPU kernel held a sample-head's whole K/V in 16 MB of VMEM and
+// took one full-row softmax. At S=1153, D=112 that K/V is ~516 KB in bf16,
+// more than a block's 227 KB of shared memory, so this kernel streams K/V
+// tiles with an online softmax instead, one block per (sample, head,
+// 64-query tile); the padded tail past S is masked by index. bf16 runs both
+// products on the tensor cores with warp-level mma.sync (attn_mma.cuh); fp32
+// stays full fp32 on CUDA cores (attn_tile.cuh). The wgmma/TMA form is later
+// work.
+#include "attn_mma.cuh"
+#include "attn_tile.cuh"
+
+extern "C" int mmmm_dense_attention(const void* q, const void* k, const void* v,
+                                    void* out, int B, int S, int H, int D,
+                                    float scale, int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (is_bf16) {
+    err = mmmm::launch_attn_mma<false>(q, k, v, out, nullptr, nullptr, nullptr, B, S, S, H,
+                                       D, scale, 0, st);
+  } else {
+    err = mmmm::launch_attn_tile<float, false>(q, k, v, out, nullptr, nullptr, nullptr,
+                                               B, S, S, H, D, scale, 0, st);
+  }
+  return static_cast<int>(err);
+}

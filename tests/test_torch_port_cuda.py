@@ -1,0 +1,70 @@
+"""The port's CUDA kernels (K1-K4) against their plain PyTorch versions on the
+card. Every test is marked ``cuda`` and skips without a GPU.
+
+This file imports neither JAX nor ``mmmm_tpu``, so it also runs where only
+PyTorch is installed; tests/conftest.py imports JAX, so on such a machine
+run it as ``python3 -m pytest --noconftest tests/test_torch_port_cuda.py``.
+"""
+import pytest
+import torch
+
+from mmmm_tpu_torch.ops import decode_kernel as pdec
+from mmmm_tpu_torch.ops import dense_attn as pdense
+from mmmm_tpu_torch.ops import flash as pflash
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(112, torch.bfloat16), (88, torch.bfloat16),
+                                     (64, torch.float32)])
+def test_dense_attention_kernel(cuda, d, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(2, 77, 4, d, generator=g, device=cuda).to(dtype) for _ in range(3))
+    got = pdense.dense_attention(q, k, v, d ** -0.5)
+    ref = pdense.dense_attention_plain(q, k, v, d ** -0.5)
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2 if dtype == torch.bfloat16
+                               else 1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(2, 100, 4, 128, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    seg = (torch.arange(100, device=cuda)[None] < torch.tensor([[100], [61]], device=cuda))
+    q_seg = seg.to(torch.int32)
+    kv_seg = q_seg.clone()
+    kv_seg[0, :3] = 2  # query rows 0..2 of sample 0 see no key of their segment
+    out, lse = pflash.flash_segment_attention(q, k, v, q_seg, kv_seg, causal=True,
+                                              scale=128 ** -0.5)
+    ref, ref_lse = pflash.flash_segment_attention_plain(q, k, v, q_seg, kv_seg, causal=True,
+                                                        scale=128 ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=2e-2 if dtype == torch.bfloat16 else 1e-4, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    assert torch.all(out[0, :3] == 0) and torch.all(lse[0, :, :3] == 0)
+    assert torch.all(out[1, 61:] == 0) and torch.all(lse[1, :, 61:] == 0)
+
+
+@pytest.mark.cuda
+def test_decode_kernels(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    b, h, smax, d = 3, 4, 40, 128
+    kc, vc = (torch.randn(b, h, smax, d, generator=g, device=cuda).bfloat16() for _ in range(2))
+    kn, vn = (torch.randn(b, h, 1, d, generator=g, device=cuda).bfloat16() for _ in range(2))
+    q = torch.randn(b, 1, h, d, generator=g, device=cuda).bfloat16()
+    widx = torch.tensor([0, 20, smax - 1], dtype=torch.int32, device=cuda)
+    ref_k, ref_v = pdec.kv_append_plain(kc.clone(), vc.clone(), kn, vn, widx)
+    pdec.kv_append(kc, vc, kn, vn, widx)
+    assert torch.equal(kc, ref_k) and torch.equal(vc, ref_v)
+    kv_len = torch.tensor([1, 21, smax], dtype=torch.int32, device=cuda)
+    got = pdec.decode_attention(q, kc, vc, kv_len)
+    ref = pdec.decode_attention_plain(q, kc, vc, kv_len)
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=0)
