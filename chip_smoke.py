@@ -9,17 +9,23 @@ Phases, in order; any failure exits non-zero before the result lines:
 
  1. print the card's name and power limit (``nvidia-smi``);
  2. build the CUDA kernels from ``mmmm_tpu_torch/csrc`` (``nvcc``, sm_90a);
- 3. hold each kernel (K1-K4) against its plain PyTorch version on the card,
-    at the grounded path's shapes and at edge cases, and time the kernel,
-    the plain version and one PyTorch library call (CUDA events, medians);
+ 3. hold each kernel (K1-K6, K8, K9) against its plain PyTorch version on
+    the card, at the grounded path's shapes and at edge cases, and time the
+    kernel, the plain version and one PyTorch library call (CUDA events,
+    medians); time the W8A16 ``qdot`` against a bf16 ``torch.matmul`` at
+    decode rows;
  4. run ``generate_grounded`` at ``MMMMConfig.tiny()`` in fp32 on the card
-    and on the CPU (plain versions) and require the same tokens and masks;
+    and on the CPU (plain versions), greedy and n-gram speculative, bf16 and
+    int8 KV, plain and W8A16 weights, and require the same tokens and masks;
  5. run the grounded report path at the flagship width (CogVLM-17B +
     SegVol SAM, bf16 LLM/ViT, fp32 SAM, random weights from a seed): B=4,
-    prompt 192 with 146 vision tokens, 128 new tokens, 4 targets; check the
-    masks and that every kernel's launch counter moved by its expected count;
-    then profile one more run (device time by kernel group and by stage,
-    busy share);
+    prompt 192 with 146 vision tokens, 128 new tokens, 4 targets, as three
+    runs: (a) greedy, bf16 weights and KV cache; then, with the LLM
+    quantized in place to W8A16, (b) speculative with 7 drafts and a bf16
+    KV cache (the reference bench's default decode) and (c) greedy with an
+    int8 KV cache. Each is warmed up once, then run with every launch
+    counter at 0 and checked for its masks and its exact launch counts,
+    then profiled (device time by kernel group and by stage, busy share);
  6. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 ``--log-dir`` keeps the build log and the results as JSON there.
@@ -49,7 +55,22 @@ PEAKS = {
     "H100 NVL": (3.9e12, 835e12, 60e12),
 }
 B, PROMPT, N_VIS, NEW, TARGETS = 4, 192, 146, 128, 4
-EXPECTED_LAUNCHES = {"K4": 63 + 12, "K3": 32, "K2": 32 * NEW, "K1": 32 * NEW}
+DRAFT = 7  # the reference bench's spec default: verify windows of 8
+WINDOW = DRAFT + 1
+LAYERS = 32
+# flagship launches per run; "iters" is scaled by the run's verify steps
+RUNS = {
+    "a_greedy_bf16": dict(kw={}, launches={"K4": 63 + 12, "K3": LAYERS, "K2": LAYERS * NEW,
+                                           "K1": LAYERS * NEW}),
+    "b_spec7_w8a16": dict(kw=dict(spec_draft_len=DRAFT),
+                          launches={"K4": 63 + 12, "K3": LAYERS, "K5": "iters", "K6": "iters"}),
+    "c_int8kv_w8a16": dict(kw=dict(kv_cache_dtype="int8"),
+                           launches={"K4": 63 + 12, "K3": LAYERS, "K8": LAYERS * NEW,
+                                     "K9": LAYERS * NEW}),
+}
+KERNEL_RUN = {"K1": "a_greedy_bf16", "K2": "a_greedy_bf16", "K3": "a_greedy_bf16",
+              "K4": "a_greedy_bf16", "K5": "b_spec7_w8a16", "K6": "b_spec7_w8a16",
+              "K8": "c_int8kv_w8a16", "K9": "c_int8kv_w8a16"}
 
 
 def log(msg: str) -> None:
@@ -243,13 +264,173 @@ def kernel_phase(peaks, gen):
         "library_ms": None,
         "bound_ms": bms, "bound_by": by,
     }
+    spec_kernel_phase(peaks, gen, out)
     torch.cuda.synchronize()
-    for name in ("K4", "K3", "K1", "K2"):
+    for name in ("K4", "K3", "K1", "K2", "K5", "K6", "K8", "K9"):
         r = out[name]
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib}, "
             f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
     return out
+
+
+def spec_kernel_phase(peaks, gen, out):
+    """K5, K6 (speculative verify, Smax = prompt + new + window) and K8, K9
+    (int8 KV greedy, Smax = prompt + new) at the flagship's shapes."""
+    from mmmm_tpu_torch.ops import decode_kernel as dk
+    from mmmm_tpu_torch.ops.quant import quantize_kv
+
+    bw, bf16_rate, fp32_rate = peaks
+    dev = torch.device("cuda")
+    rnd = lambda *s, dt=torch.bfloat16: torch.randn(*s, generator=gen, device=dev).to(dt)
+    h, d = 32, 128
+
+    # ---- K5 window append, K6 window attention ------------------------------------
+    log("K5 window append, K6 window attention")
+    smax = PROMPT + NEW + WINDOW
+    copies = [(rnd(B, h, smax, d), rnd(B, h, smax, d)) for _ in range(8)]
+    rot = Rotating(copies)
+    kc, vc = copies[0]
+    kn, vn = rnd(B, h, WINDOW, d), rnd(B, h, WINDOW, d)
+    for widx in ([PROMPT, 13, smax - WINDOW, smax - 3], [-1, 0, 400, -400]):
+        w = torch.tensor(widx, dtype=torch.int32, device=dev)
+        rk, rv = dk.kv_append_plain(kc.clone(), vc.clone(), kn, vn, w)
+        gk, gv = dk.kv_append_multi(kc.clone(), vc.clone(), kn, vn, w)
+        if not (torch.equal(gk, rk) and torch.equal(gv, rv)):
+            raise AssertionError(f"K5: not bit-equal to the plain version at write_index {widx}")
+        log(f"  K5 write_index {widx}: bit-equal")
+    a, b_, new = (rnd(2, 4, n, 64, dt=torch.float32) for n in (40, 40, 5))
+    w = torch.tensor([-2, 35], dtype=torch.int32, device=dev)
+    ra, rb = dk.kv_append_plain(a.clone(), b_.clone(), new, new, w)
+    ga, gb = dk.kv_append_multi(a.clone(), b_.clone(), new, new, w)
+    if not (torch.equal(ga, ra) and torch.equal(gb, rb)):
+        raise AssertionError("K5: fp32 window not bit-equal")
+    log("  K5 fp32 (2, 4, 40, 64) window 5: bit-equal")
+    t_mid = (PROMPT + smax - WINDOW) // 2
+    w_mid = torch.full((B,), t_mid, dtype=torch.int32, device=dev)
+    q = rnd(B, WINDOW, h, d)
+    err = 0.0
+    for widx in ([t_mid] * B, [0, 150, smax - WINDOW, smax - 1]):
+        w = torch.tensor(widx, dtype=torch.int32, device=dev)
+        e = max_err(dk.decode_attention_window(q, kc, vc, w),
+                    dk.decode_attention_window_plain(q, kc, vc, w))
+        check(f"K6 {tuple(q.shape)} over {tuple(kc.shape)} bf16 write_index {widx}", e, 2e-2)
+        err = max(err, e)
+    for nq, dt, tol in [(2, torch.bfloat16, 2e-2), (5, torch.float32, 1e-4),
+                        (8, torch.float32, 1e-4)]:
+        qq, ka, va = rnd(3, nq, 4, 64, dt=dt), rnd(3, 4, 50, 64, dt=dt), rnd(3, 4, 50, 64, dt=dt)
+        w = torch.tensor([0, 20, 50 - nq], dtype=torch.int32, device=dev)
+        check(f"K6 edge window {nq} {dt}", max_err(dk.decode_attention_window(qq, ka, va, w),
+              dk.decode_attention_window_plain(qq, ka, va, w)), tol)
+    slot = torch.arange(smax, device=dev)
+    lens = w_mid[:, None] + torch.arange(1, WINDOW + 1, device=dev)  # (B, K)
+    amask = (slot[None, None] < lens[..., None])[:, None]  # (B, 1, K, Smax)
+    qh = q.transpose(1, 2).contiguous()
+
+    def lib_k6():
+        kk, vv = rot.next()
+        return F.scaled_dot_product_attention(qh, kk, vv, attn_mask=amask)
+
+    n_read = B * (t_mid + WINDOW)  # slots read for all queries of a (b, h)
+    pairs = int(lens.sum().item())  # (query, slot) pairs per head
+    k5_bms, k5_by = bound(4 * kn.numel() * 2, 0, bf16_rate, bw)
+    out["K5"] = {
+        "shape": [B, h, smax, d], "window": WINDOW, "dtype": "bfloat16", "max_abs_err": 0.0,
+        "ms": time_ms(lambda: dk.kv_append_multi(*rot.next(), kn, vn, w_mid)),
+        "plain_ms": time_ms(lambda: dk.kv_append_plain(*rot.next(), kn, vn, w_mid)),
+        "library_ms": None, "bound_ms": k5_bms, "bound_by": k5_by,
+    }
+    bms, by = bound(2 * n_read * h * d * 2 + 2 * q.numel() * 2, 4 * pairs * h * d, bf16_rate, bw)
+    out["K6"] = {
+        "shape": [B, h, smax, d], "window": WINDOW, "write_index": t_mid, "dtype": "bfloat16",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: dk.decode_attention_window(q, *rot.next(), w_mid)),
+        "plain_ms": time_ms(lambda: dk.decode_attention_window_plain(q, *rot.next(), w_mid)),
+        "library_ms": time_ms(lib_k6), "bound_ms": bms, "bound_by": by,
+    }
+    del copies, rot, kc, vc
+
+    # ---- K8 int8 append, K9 int8 decode attention ------------------------------------
+    log("K8 int8 append, K9 int8 decode attention")
+    smax = PROMPT + NEW
+
+    def q8_cache():
+        kq, ks = quantize_kv(rnd(B, h, smax, d))
+        vq, vs = quantize_kv(rnd(B, h, smax, d))
+        return {"kq": kq, "ks": ks, "vq": vq, "vs": vs}
+
+    caches = [q8_cache() for _ in range(8)]
+    rot = Rotating(caches)
+    cache = caches[0]
+    new = [*quantize_kv(rnd(B, h, 1, d)), *quantize_kv(rnd(B, h, 1, d))]
+    for widx in ([PROMPT, 0, smax - 1, smax + 7], [-1, 5, 300, -400]):
+        w = torch.tensor(widx, dtype=torch.int32, device=dev)
+        ref = dk.kv_append_q8_plain({k: v.clone() for k, v in cache.items()}, *new, w)
+        got = dk.kv_append_q8({k: v.clone() for k, v in cache.items()}, *new, w)
+        if not all(torch.equal(got[k], ref[k]) for k in dk.Q8_LEAVES):
+            raise AssertionError(f"K8: not bit-equal to the plain version at write_index {widx}")
+        log(f"  K8 write_index {widx}: bit-equal")
+    leaves = lambda c: [c[k] for k in dk.Q8_LEAVES]
+    q = rnd(B, 1, h, d)
+    kv_len = torch.tensor([1, 150, smax, 0], dtype=torch.int32, device=dev)
+    check("K9 edge kv_len (1, 150, Smax, 0)",
+          max_err(dk.decode_attention_q8(q, *leaves(cache), kv_len),
+                  dk.decode_attention_q8_plain(q, *leaves(cache), kv_len)), 2e-2)
+    mid = torch.full((B,), (PROMPT + 1 + smax) // 2, dtype=torch.int32, device=dev)
+    err = max_err(dk.decode_attention_q8(q, *leaves(cache), mid),
+                  dk.decode_attention_q8_plain(q, *leaves(cache), mid))
+    check(f"K9 {tuple(cache['kq'].shape)} int8, q bf16, kv_len {int(mid[0])}", err, 2e-2)
+    for dd in (16, 64):
+        kq, ks = quantize_kv(rnd(3, 4, 40, dd))
+        vq, vs = quantize_kv(rnd(3, 4, 40, dd))
+        qq = rnd(3, 1, 4, dd, dt=torch.float32)
+        ln = torch.tensor([0, 17, 40], dtype=torch.int32, device=dev)
+        check(f"K9 edge D={dd} q fp32", max_err(dk.decode_attention_q8(qq, kq, ks, vq, vs, ln),
+              dk.decode_attention_q8_plain(qq, kq, ks, vq, vs, ln)), 1e-4)
+    n_read = int(mid.sum().item())
+    k8_bms, k8_by = bound(2 * 2 * B * h * (d + 2), 0, bf16_rate, bw)
+    out["K8"] = {
+        "shape": [B, h, smax, d], "dtype": "int8", "max_abs_err": 0.0,
+        "ms": time_ms(lambda: dk.kv_append_q8(rot.next(), *new, mid)),
+        "plain_ms": time_ms(lambda: dk.kv_append_q8_plain(rot.next(), *new, mid)),
+        "library_ms": None, "bound_ms": k8_bms, "bound_by": k8_by,
+    }
+    bms, by = bound(2 * n_read * h * (d + 2) + 2 * q.numel() * 2, 4 * n_read * h * d,
+                    bf16_rate, bw)
+    out["K9"] = {
+        "shape": [B, h, smax, d], "kv_len": int(mid[0]), "dtype": "int8 KV, bf16 q",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: dk.decode_attention_q8(q, *leaves(rot.next()), mid)),
+        "plain_ms": time_ms(lambda: dk.decode_attention_q8_plain(q, *leaves(rot.next()), mid)),
+        "library_ms": None, "bound_ms": bms, "bound_by": by,
+    }
+
+
+def qdot_phase(peaks, gen):
+    """The W8A16 product as the port runs it (the int8 weight cast to bf16,
+    a cuBLAS product, the scale after it) against a bf16 ``torch.matmul``,
+    at decode rows (4: greedy, 32: a verify window of 8 for 4 samples)."""
+    from mmmm_tpu_torch.ops.quant import qdot, quantize_int8
+
+    bw = peaks[0]
+    log("W8A16 qdot vs bf16 matmul")
+    rows = []
+    for k, n in ((4096, 11008), (4096, 32008)):
+        w = torch.randn(k, n, generator=gen, device="cuda").mul_(0.02).to(torch.bfloat16)
+        wq = quantize_int8(w)
+        for m in (4, 32):
+            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+            row = {"m": m, "k": k, "n": n,
+                   "w8a16_ms": time_ms(lambda: qdot(x, wq)),
+                   "bf16_ms": time_ms(lambda: x @ w),
+                   "w8a16_bound_ms": (k * n + 4 * n + 2 * m * (k + n)) / bw * 1e3,
+                   "bf16_bound_ms": (2 * k * n + 2 * m * (k + n)) / bw * 1e3}
+            log(f"  M={m} {k}x{n}: W8A16 {row['w8a16_ms']:.4f} ms (bound "
+                f"{row['w8a16_bound_ms']:.4f}), bf16 {row['bf16_ms']:.4f} ms (bound "
+                f"{row['bf16_bound_ms']:.4f})")
+            rows.append(row)
+        del w, wq
+    return rows
 
 
 def _tree_to(tree, device):
@@ -258,15 +439,20 @@ def _tree_to(tree, device):
 
 
 def tiny_reference_phase():
-    """The same tiny fp32 run on the card (kernels) and on the CPU (plain
-    versions) must give the same tokens and masks within 2e-4."""
+    """The same tiny fp32 runs on the card (kernels) and on the CPU (plain
+    versions) must give the same tokens (and verify steps) and masks within
+    2e-4: greedy over bf16-path caches, then over W8A16 weights speculative,
+    greedy with an int8 KV cache, and both together."""
     from mmmm_tpu_torch import MMMMConfig, generate_grounded, init_params
     from mmmm_tpu_torch.data.tokenizer import MMMMTokenizer
+    from mmmm_tpu_torch.ops.quant import quantize_llm_for_serving
 
     log("tiny reference: card vs CPU")
     tok = MMMMTokenizer.byte_fallback()
     cfg = MMMMConfig.tiny(vocab_size=len(tok))
     params = init_params(cfg, 0, torch.float32, "cpu")
+    qparams = dict(params, cogvlm=quantize_llm_for_serving(params["cogvlm"],
+                                                           release_originals=False))
     rng = np.random.default_rng(0)
     n_vis, b = 18, 3
     lens = [1 + n_vis + t for t in (5, 9, 7)]
@@ -282,21 +468,34 @@ def tiny_reference_phase():
     args = (cfg, tok, ids, tt, pos, np.asarray(lens), img, (4, 4, 4), (1, 1, 1))
     kw = dict(max_new_tokens=8, max_targets=2, grounding_image=gimg, force_grounding=True,
               vis_span=(1, 1 + n_vis))
-    ref = generate_grounded(params, *args, device="cpu", **kw)
-    got = generate_grounded(_tree_to(params, "cuda"), *args, device="cuda", **kw)
-    if not np.array_equal(got.tokens, ref.tokens):
-        raise AssertionError(f"tiny: tokens differ\n{got.tokens}\n{ref.tokens}")
-    err = max_err(got.masks.cpu(), ref.masks)
-    check("tiny masks (card vs CPU)", err, 2e-4)
-    return {"tokens_equal": True, "masks_max_abs_err": err}
+    out = {}
+    for label, tree, extra in [
+            ("greedy bf16 weights", params, {}),
+            ("spec 3, W8A16", qparams, dict(spec_draft_len=3)),
+            ("greedy int8 KV, W8A16", qparams, dict(kv_cache_dtype="int8")),
+            ("spec 7 int8 KV, W8A16", qparams, dict(spec_draft_len=7, kv_cache_dtype="int8"))]:
+        ref = generate_grounded(tree, *args, device="cpu", **kw, **extra)
+        got = generate_grounded(_tree_to(tree, "cuda"), *args, device="cuda", **kw, **extra)
+        if not np.array_equal(got.tokens, ref.tokens):
+            raise AssertionError(f"tiny {label}: tokens differ\n{got.tokens}\n{ref.tokens}")
+        if (got.spec_stats or {}).get("iters") != (ref.spec_stats or {}).get("iters"):
+            raise AssertionError(f"tiny {label}: {got.spec_stats} vs {ref.spec_stats}")
+        err = max_err(got.masks.cpu(), ref.masks)
+        check(f"tiny {label}: tokens equal, masks (card vs CPU)", err, 2e-4)
+        out[label] = {"tokens_equal": True, "masks_max_abs_err": err,
+                      "spec_stats": got.spec_stats}
+    return out
 
 
 def flagship_phase(gen):
+    """Runs (a), (b) and (c) at the flagship width; returns their results and
+    each run's launch counts."""
     from mmmm_tpu_torch import MMMMConfig, generate_grounded, init_params
     from mmmm_tpu_torch.data.tokenizer import SPECIAL_TOKENS, MMMMTokenizer, _ByteBackend
     from mmmm_tpu_torch.models.cogvlm import CogVLMConfig
     from mmmm_tpu_torch.models.segvol import SamConfig
     from mmmm_tpu_torch.ops._cuda import KERNELS
+    from mmmm_tpu_torch.ops.quant import quantize_llm_for_serving
 
     log("flagship grounded report path")
     cfg = MMMMConfig(vlm=CogVLMConfig.cogvlm17b(), sam=SamConfig())
@@ -307,6 +506,7 @@ def flagship_phase(gen):
     head = params["cogvlm"]["llm"]["lm_head"]
     head[:, tok.bop_token_id] += 3.8
     head[:, tok.eop_token_id] += 3.6
+    del head
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _flat_values(params))
     init_s = time.perf_counter() - t0
@@ -324,43 +524,72 @@ def flagship_phase(gen):
     lens = np.full((B,), PROMPT, np.int32)
     image = torch.randn((B, 3, 32, 384, 384), generator=gen, device=dev).to(torch.bfloat16)
     gimg = torch.randn((B, 3, 32, 256, 256), generator=gen, device=dev)
+    out = {"init_s": init_s, "params_b": n_params / 1e9, "runs": {}}
+    all_launches = {}
 
-    def run():
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = generate_grounded(params, cfg, tok, ids, tt, pos, lens, image, (16, 16, 16),
-                                (2, 2, 2), max_new_tokens=NEW, max_targets=TARGETS,
-                                grounding_image=gimg, force_grounding=True,
-                                vis_span=(1, 1 + N_VIS), device="cuda")
-        torch.cuda.synchronize()
-        return res, time.perf_counter() - t
+    for label, spec in RUNS.items():
+        if label == "b_spec7_w8a16":
+            t0 = time.perf_counter()
+            params["cogvlm"] = quantize_llm_for_serving(params["cogvlm"])
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            out["quantize_s"] = time.perf_counter() - t0
+            log(f"  LLM quantized in place to W8A16 in {out['quantize_s']:.3f} s, "
+                f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
-    _, first_s = run()
-    log(f"  first run (warm-up): {first_s:.3f} s")
-    torch.cuda.reset_peak_memory_stats()
-    for kern in KERNELS.values():
-        kern.launches = 0
-    res, steady_s = run()
-    launches = {name: kern.launches for name, kern in KERNELS.items()}
-    peak = torch.cuda.max_memory_allocated()
-    log(f"  steady run: {steady_s:.3f} s, {B / steady_s:.4f} reports/s, "
-        f"peak memory {peak / 2**30:.2f} GiB, launches {launches}")
-    for name, want in EXPECTED_LAUNCHES.items():
-        if launches.get(name) != want:
-            raise AssertionError(f"{name}: {launches.get(name)} launches, expected {want}")
+        def run(kw=spec["kw"]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = generate_grounded(params, cfg, tok, ids, tt, pos, lens, image, (16, 16, 16),
+                                    (2, 2, 2), max_new_tokens=NEW, max_targets=TARGETS,
+                                    grounding_image=gimg, force_grounding=True,
+                                    vis_span=(1, 1 + N_VIS), device="cuda", **kw)
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t
 
-    m = res.masks
-    if tuple(m.shape) != (B, TARGETS, 32, 256, 256) or not torch.isfinite(m).all():
-        raise AssertionError(f"masks: shape {tuple(m.shape)} or non-finite values")
-    if res.tokens.shape != (B, NEW) or not (res.tokens >= 0).all() or not (res.tokens < 32008).all():
-        raise AssertionError(f"tokens: bad shape or ids {res.tokens.shape}")
-    log(f"  tokens[0][:24] {res.tokens[0][:24].tolist()} num_generated "
-        f"{res.num_generated.tolist()} targets {[None if t is None else len(t) for t in res.targets]}")
-    out = {"init_s": init_s, "first_run_s": first_s, "steady_run_s": steady_s,
-           "reports_per_s": B / steady_s, "peak_mem_gib": peak / 2**30, "launches": launches,
-           "num_generated": res.num_generated.tolist(), "params_b": n_params / 1e9}
-    out["profile"] = profile_run(run)
-    return out, launches
+        log(f"  run {label} {spec['kw']}")
+        _, first_s = run()
+        log(f"    first run (warm-up): {first_s:.3f} s")
+        torch.cuda.reset_peak_memory_stats()
+        for kern in KERNELS.values():
+            kern.launches = 0
+        res, steady_s = run()
+        launches = {name: kern.launches for name, kern in KERNELS.items()}
+        peak = torch.cuda.max_memory_allocated()
+        iters = res.spec_stats["iters"] if res.spec_stats else NEW
+        tps = res.spec_stats["tokens_per_step"] if res.spec_stats else 1.0
+        log(f"    steady run: {steady_s:.3f} s, {B / steady_s:.4f} reports/s, "
+            f"tokens_per_step {tps:.4f} ({iters} decode steps), peak memory "
+            f"{peak / 2**30:.2f} GiB, launches {launches}")
+        want = {name: 0 for name in KERNELS}
+        want.update({k: LAYERS * iters if v == "iters" else v
+                     for k, v in spec["launches"].items()})
+        for name, n in want.items():
+            if launches[name] != n:
+                raise AssertionError(f"{label}: {name} launched {launches[name]} times, "
+                                     f"expected {n}")
+        m = res.masks
+        if tuple(m.shape) != (B, TARGETS, 32, 256, 256) or not torch.isfinite(m).all():
+            raise AssertionError(f"{label} masks: shape {tuple(m.shape)} or non-finite values")
+        if (res.tokens.shape != (B, NEW) or not (res.tokens >= 0).all()
+                or not (res.tokens < 32008).all()):
+            raise AssertionError(f"{label} tokens: bad shape or ids {res.tokens.shape}")
+        log(f"    tokens[0][:24] {res.tokens[0][:24].tolist()} num_generated "
+            f"{res.num_generated.tolist()} targets "
+            f"{[None if t is None else len(t) for t in res.targets]}")
+        r = {"first_run_s": first_s, "steady_run_s": steady_s, "reports_per_s": B / steady_s,
+             "tokens_per_step": tps, "decode_steps": iters, "peak_mem_gib": peak / 2**30,
+             "launches": launches, "num_generated": res.num_generated.tolist()}
+        r["profile"] = profile_run(run)
+        # device busy time over the profiled run's wall, and over the steady
+        # (unprofiled) run's wall, which the profiler does not slow
+        r["busy_share_profiled"] = r["profile"]["kernels_busy_s"] / r["profile"]["wall_s"]
+        r["busy_share_steady"] = r["profile"]["kernels_busy_s"] / steady_s
+        log(f"    device busy share: {r['busy_share_steady']:.4f} of the steady run, "
+            f"{r['busy_share_profiled']:.4f} of the profiled run")
+        out["runs"][label] = r
+        all_launches[label] = launches
+    return out, all_launches
 
 
 def _flat_values(tree):
@@ -377,6 +606,10 @@ KERNEL_GROUPS = (  # (label, substrings of a kernel name), first match wins
     ("K4 dense attention", ("attn_mma_kernel<112, false>", "attn_tile_kernel<float, 8, false>")),
     ("K3 flash forward", ("attn_mma_kernel<128, true>",)),
     ("K1 decode attention", ("decode_attn_kernel",)),
+    ("K6 window attention", ("decode_window_kernel",)),
+    ("K9 int8 decode attention", ("decode_q8_kernel",)),
+    ("K5 window append", ("kv_append_multi_kernel",)),
+    ("K8 int8 append", ("kv_append_q8_kernel",)),
     ("K2 KV append", ("kv_append_kernel",)),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma", "splitK")),
     ("elementwise / reduce / copy", ("at::native",)),
@@ -479,14 +712,15 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {"card": card, "device": name, "bounds_from": peak_key, "build_s": build_s}
     results["kernels"] = kernel_phase(peaks, gen)
+    results["qdot"] = qdot_phase(peaks, gen)
     results["tiny_reference"] = tiny_reference_phase()
     results["flagship"], launches = flagship_phase(gen)
 
     kernels = []
-    for kid in ("K1", "K2", "K3", "K4"):
+    for kid, run in KERNEL_RUN.items():
         kern, r = _cuda.KERNELS[kid], results["kernels"][kid]
         entry = {"name": kid, "route": "cuda", "source": kern.source, "replaces": kern.replaces,
-                 "launches": launches[kid], "kernel_ms": r["ms"]}
+                 "launches": launches[run][kid], "launches_in_run": run, "kernel_ms": r["ms"]}
         entry.update({k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")})
         entry.update({k: v for k, v in r.items() if k not in entry})

@@ -17,32 +17,12 @@
 // 0). Each warp keeps its own online-softmax state (fp32); the 8 partial
 // states are merged through shared memory. Output is (B, 1, H, D) in the
 // input dtype; kv_len = 0 gives zeros, as the TPU kernel does.
-#include "attn_tile.cuh"
+#include "decode_common.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kUnroll = 4;
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float out[4]) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  out[0] = a.x;
-  out[1] = a.y;
-  out[2] = b.x;
-  out[3] = b.y;
-}
-
-__device__ __forceinline__ void load4(const float* p, float out[4]) {
-  const float4 raw = *reinterpret_cast<const float4*>(p);
-  out[0] = raw.x;
-  out[1] = raw.y;
-  out[2] = raw.z;
-  out[3] = raw.w;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -63,7 +43,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   len = len < 0 ? 0 : (len > Smax ? Smax : len);
 
   float qv[4] = {0.f, 0.f, 0.f, 0.f};
-  if (lane_ok) load4(q + (size_t)bh * D + d0, qv);  // q: (B, 1, H, D)
+  if (lane_ok) mmmm::load4(q + (size_t)bh * D + d0, qv);  // q: (B, 1, H, D)
   const T* kb = kc + (size_t)bh * Smax * D;
   const T* vb = vc + (size_t)bh * Smax * D;
 
@@ -77,8 +57,8 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     for (int u = 0; u < kUnroll; ++u) {
       const int j = j0 + u;
       if (lane_ok && j < len) {
-        load4(kb + (size_t)j * D + d0, kr[u]);
-        load4(vb + (size_t)j * D + d0, vr[u]);
+        mmmm::load4(kb + (size_t)j * D + d0, kr[u]);
+        mmmm::load4(vb + (size_t)j * D + d0, vr[u]);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e) kr[u][e] = vr[u][e] = 0.f;

@@ -12,18 +12,36 @@ SwiGLU MLP weights). Three routings are kept from the reference:
     language / vision / language runs, each through one expert;
   - ``lang_only`` for decode, where every token is provably language-routed.
 
-Prefill attention is kernel K3 (causal, segment ids); decode appends the new
-K/V row with kernel K2 and attends with kernel K1. Caches are per-layer
-(B, H, Smax, D) pairs, and decode appends to them IN PLACE.
+Every projection goes through ``qdot``, so the LLM weights may be plain or
+W8A16 ``{"q", "s"}`` leaves (``ops/quant.py``).
+
+Prefill attention is kernel K3 (causal, segment ids). Caches are per-layer
+(B, H, Smax, D) pairs in the model's dtype, or int8 dicts
+``{"kq", "ks", "vq", "vs"}`` with one bf16 scale per (sample, head, slot);
+decode appends to them IN PLACE. A decode step feeds one token or a
+speculative verify window of up to 8 and dispatches as the reference's
+cache branch does:
+
+  cache   tokens  append, then attention
+  pair    1       K2, K1
+  pair    2-8     K5, K6 (query j sees slots < write_index + j + 1)
+  int8    1       ``quantize_kv``, K8, K9
+  int8    > 1     plain: quantize, indexed write, ``dequantize_kv``, then
+                  ``decode_attention_bhsd``, as the reference does outside
+                  its kernels
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ...ops.decode_kernel import decode_attention, kv_append
+from ...ops.attention import decode_attention_bhsd
+from ...ops.decode_kernel import (decode_attention, decode_attention_q8,
+                                  decode_attention_window, dus_rows, kv_append,
+                                  kv_append_multi, kv_append_q8)
 from ...ops.flash import flash_segment_attention
 from ...ops.norm import rms_norm
+from ...ops.quant import dequantize_kv, qdot, quantize_kv
 from ...ops.rope import apply_rope, rope_cos_sin
 from ...params import layer
 from .config import CogVLMConfig
@@ -41,18 +59,19 @@ def vision_expert_mask(token_type_ids: torch.Tensor) -> torch.Tensor:
 
 
 def _swiglu(t, mp):
-    return (F.silu(t @ mp["gate"]) * (t @ mp["up"])) @ mp["down"]
+    return qdot(F.silu(qdot(t, mp["gate"])) * qdot(t, mp["up"]), mp["down"])
 
 
 def _routing(lp, *, vis_mask=None, expert_span=None, lang_only=False):
     """(dual, mlp) callables for one layer's expert routing."""
     if lang_only:
-        return (lambda t, wv, wl: t @ wl), (lambda t: _swiglu(t, lp["lang_mlp"]))
+        return (lambda t, wv, wl: qdot(t, wl)), (lambda t: _swiglu(t, lp["lang_mlp"]))
     if expert_span is not None:
         lo, hi = expert_span
 
         def dual(t, wv, wl):
-            return torch.cat([t[:, :lo] @ wl, t[:, lo:hi] @ wv, t[:, hi:] @ wl], dim=1)
+            return torch.cat([qdot(t[:, :lo], wl), qdot(t[:, lo:hi], wv), qdot(t[:, hi:], wl)],
+                             dim=1)
 
         def mlp(t):
             return torch.cat([_swiglu(t[:, :lo], lp["lang_mlp"]),
@@ -61,7 +80,7 @@ def _routing(lp, *, vis_mask=None, expert_span=None, lang_only=False):
 
         return dual, mlp
     sel = vis_mask[..., None]
-    return ((lambda t, wv, wl: torch.where(sel, t @ wv, t @ wl)),
+    return ((lambda t, wv, wl: torch.where(sel, qdot(t, wv), qdot(t, wl))),
             (lambda t: torch.where(sel, _swiglu(t, lp["vis_mlp"]), _swiglu(t, lp["lang_mlp"]))))
 
 
@@ -81,19 +100,41 @@ def _decoder_layer(x, lp, cfg: CogVLMConfig, *, position_ids, cos, sin, attend, 
     return x + mlp(rms_norm(x, lp["post_ln"], cfg.rms_norm_eps))
 
 
+def _new_cache(k, v, smax: int, kv_cache_dtype: str):
+    """A layer's cache of ``smax`` slots holding the prompt's rotated K/V
+    (B, S, H, D) in its first S slots: a (k, v) pair in their dtype, or an
+    int8 dict for ``kv_cache_dtype="int8"``."""
+    b, s, h, d = k.shape
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    if kv_cache_dtype == "int8":
+        cache = {"kq": torch.zeros((b, h, smax, d), dtype=torch.int8, device=k.device),
+                 "ks": torch.zeros((b, h, smax, 1), dtype=torch.bfloat16, device=k.device)}
+        cache["vq"], cache["vs"] = torch.zeros_like(cache["kq"]), torch.zeros_like(cache["ks"])
+        for t, (qk, sk) in ((kt, ("kq", "ks")), (vt, ("vq", "vs"))):
+            cache[qk][:, :, :s], cache[sk][:, :, :s] = quantize_kv(t)
+        return cache
+    kc = torch.zeros((b, h, smax, d), dtype=k.dtype, device=k.device)
+    vc = torch.zeros_like(kc)
+    kc[:, :, :s], vc[:, :, :s] = kt, vt
+    return kc, vc
+
+
 def llm_prefill(params: dict, cfg: CogVLMConfig, inputs_embeds, token_type_ids, position_ids,
-                segments, *, smax: int, vis_span: tuple[int, int] | None = None):
+                segments, *, smax: int, vis_span: tuple[int, int] | None = None,
+                kv_cache_dtype: str = "bf16"):
     """Full-sequence prefill writing each layer's rotated K/V into a
-    preallocated (B, H, Smax, D) cache pair.
+    preallocated cache of ``smax`` slots: a (B, H, Smax, D) pair in the
+    model's dtype, or with ``kv_cache_dtype="int8"`` a per-slot quantized
+    dict (the prefill's own attention reads the unquantized K/V).
 
     ``vis_span=(lo, hi)`` declares every row's vision tokens are [lo, hi),
     so layers take the static span path over [lo, hi - 1) (the off-by-one
     rule); otherwise the dual masked path. Returns (hidden (B, S, C) after
-    the final norm, per-layer [(k_cache, v_cache), ...])."""
-    b, s, _ = inputs_embeds.shape
-    h, d = cfg.num_attention_heads, cfg.head_dim
-    dev = inputs_embeds.device
-    cos, sin = rope_cos_sin(cfg.max_position_embeddings, d, device=dev)
+    the final norm, per-layer caches)."""
+    if kv_cache_dtype not in ("bf16", "int8"):
+        raise ValueError(f"kv_cache_dtype must be 'bf16' or 'int8', got {kv_cache_dtype!r}")
+    d = cfg.head_dim
+    cos, sin = rope_cos_sin(cfg.max_position_embeddings, d, device=inputs_embeds.device)
     vis_mask = vision_expert_mask(token_type_ids)
     expert_span = None if vis_span is None else (vis_span[0], vis_span[1] - 1)
     seg = segments.to(torch.int32).contiguous()
@@ -102,38 +143,64 @@ def llm_prefill(params: dict, cfg: CogVLMConfig, inputs_embeds, token_type_ids, 
     caches = []
     for li in range(cfg.num_hidden_layers):
         lp = layer(params["layers"], li)
-        kc = torch.zeros((b, h, smax, d), dtype=x.dtype, device=dev)
-        vc = torch.zeros_like(kc)
 
-        def attend(q, k, v, kc=kc, vc=vc):
-            kc[:, :, :s] = k.transpose(1, 2)
-            vc[:, :, :s] = v.transpose(1, 2)
+        def attend(q, k, v):
+            caches.append(_new_cache(k, v, smax, kv_cache_dtype))
             return flash_segment_attention(q, k, v, seg, seg, causal=True, scale=scale)[0]
 
         x = _decoder_layer(x, lp, cfg, position_ids=position_ids, cos=cos, sin=sin,
                            attend=attend,
                            routing=_routing(lp, vis_mask=vis_mask, expert_span=expert_span))
-        caches.append((kc, vc))
     return rms_norm(x, params["norm"], cfg.rms_norm_eps), caches
+
+
+def _cached_attention(q, k, v, cache, write_index, kv_len):
+    """Append this step's K/V (B, Sq, H, D) to one layer's cache in place and
+    attend to it (the dispatch table in the module docstring)."""
+    sq = q.shape[1]
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    if isinstance(cache, dict):
+        (kq, ks), (vq, vs) = quantize_kv(kt), quantize_kv(vt)
+        if sq == 1:
+            kv_append_q8(cache, kq, ks, vq, vs, write_index)
+            return decode_attention_q8(q, cache["kq"], cache["ks"], cache["vq"], cache["vs"],
+                                       kv_len)
+        for key, new in (("kq", kq), ("ks", ks), ("vq", vq), ("vs", vs)):
+            dus_rows(cache[key], new, write_index)
+        smax = cache["kq"].shape[2]
+        valid = torch.arange(smax, device=q.device) < kv_len[..., None]
+        return decode_attention_bhsd(q, dequantize_kv(cache["kq"], cache["ks"], k.dtype),
+                                     dequantize_kv(cache["vq"], cache["vs"], v.dtype), valid)
+    kc, vc = cache
+    if sq == 1:
+        kv_append(kc, vc, kt, vt, write_index)
+        return decode_attention(q, kc, vc, kv_len)
+    if sq > 8:
+        raise NotImplementedError(f"a verify window holds at most 8 tokens, got {sq}")
+    kv_append_multi(kc, vc, kt, vt, write_index)
+    return decode_attention_window(q, kc, vc, write_index)
 
 
 def llm_decode_step(params: dict, cfg: CogVLMConfig, inputs_embeds, position_ids, kv_caches,
                     write_index, kv_len):
-    """Decode one token per sample against the caches.
+    """Decode one token per sample, or verify a window of Sq <= 8 tokens,
+    against the caches.
 
-    inputs_embeds (B, 1, C); position_ids (B, 1); ``write_index`` (B,) int32
-    is the slot the token's K/V goes to and ``kv_len`` (B,) int32 the valid
-    slots including it. The caches are updated IN PLACE (kernel K2) and
-    returned. Returns (hidden (B, 1, C) after the final norm, caches)."""
+    inputs_embeds (B, Sq, C); position_ids (B, Sq); ``write_index`` (B,)
+    int32 is the first slot the window's K/V goes to. ``kv_len`` is (B,)
+    int32, the valid slots including the token, for Sq = 1; for a window it
+    is (B, Sq) with ``kv_len[b, j] = write_index[b] + j + 1`` (query j sees
+    the prefix and the window causally), the contract the window kernel K6
+    derives from ``write_index``. The caches are updated IN PLACE and
+    returned. Returns (hidden (B, Sq, C) after the final norm, caches)."""
     d = cfg.head_dim
     cos, sin = rope_cos_sin(cfg.max_position_embeddings, d, device=inputs_embeds.device)
     x = inputs_embeds
-    for li, (kc, vc) in enumerate(kv_caches):
+    for li, cache in enumerate(kv_caches):
         lp = layer(params["layers"], li)
 
-        def attend(q, k, v, kc=kc, vc=vc):
-            kv_append(kc, vc, k.transpose(1, 2), v.transpose(1, 2), write_index)
-            return decode_attention(q, kc, vc, kv_len)
+        def attend(q, k, v, cache=cache):
+            return _cached_attention(q, k, v, cache, write_index, kv_len)
 
         x = _decoder_layer(x, lp, cfg, position_ids=position_ids, cos=cos, sin=sin,
                            attend=attend, routing=_routing(lp, lang_only=True))

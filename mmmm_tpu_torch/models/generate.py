@@ -1,6 +1,8 @@
 """Greedy generation over preallocated KV caches, the port of
 ``mmmm_tpu/models/generate.py`` (``prefill_decode_state``,
-``greedy_decode_from_state``, ``greedy_generate``).
+``greedy_decode_from_state``, ``greedy_generate``). The caches are pairs in
+the model's dtype or, with ``kv_cache_dtype="int8"``, per-slot quantized;
+the ``lm_head`` may be plain or W8A16 (``qdot``).
 
 The decode loop is a Python loop over ``max_new_tokens`` steps that stays on
 the device (no host sync per step). Kept from the reference:
@@ -18,6 +20,7 @@ import dataclasses
 import torch
 from torch.profiler import record_function
 
+from ..ops.quant import qdot
 from .cogvlm import CogVLMConfig
 from .cogvlm.decoder import llm_decode_step, llm_prefill
 from .cogvlm.model import splice_vision_embeds
@@ -34,7 +37,8 @@ class GenerateResult:
 
 def prefill_decode_state(params: dict, cfg: CogVLMConfig, input_ids, token_type_ids,
                          position_ids, prompt_len, *, smax: int, eos_token_id: int,
-                         image=None, patch_size=None, pool_size=None, vis_span=None):
+                         image=None, patch_size=None, pool_size=None, vis_span=None,
+                         kv_cache_dtype: str = "bf16"):
     """Prefill the (right-padded) multimodal prompt into caches of ``smax``
     slots; returns ``(state, prefill_hidden, last_hidden)``. ``params`` is
     the CogVLM tree ``{"llm": ..., "vision": ...}``."""
@@ -49,11 +53,12 @@ def prefill_decode_state(params: dict, cfg: CogVLMConfig, input_ids, token_type_
                                                         patch_size, pool_size))
     with record_function("llm_prefill"):
         hidden, caches = llm_prefill(llm, cfg, emb, token_type_ids, position_ids, segments,
-                                     smax=smax, vis_span=vis_span)
+                                     smax=smax, vis_span=vis_span,
+                                     kv_cache_dtype=kv_cache_dtype)
     rows = torch.arange(b, device=dev)
     last_idx = prompt_len.long() - 1
     last_hidden = hidden[rows, last_idx]  # (B, C)
-    tok0 = torch.argmax((last_hidden @ llm["lm_head"]).float(), dim=-1).to(torch.int32)
+    tok0 = torch.argmax(qdot(last_hidden, llm["lm_head"]).float(), dim=-1).to(torch.int32)
     state = {
         "caches": caches,
         "tok": tok0,  # token to feed next
@@ -79,7 +84,7 @@ def greedy_decode_from_state(params: dict, cfg: CogVLMConfig, state: dict, hidde
         hidden_t, caches = llm_decode_step(llm, cfg, emb_t, pos[:, None], state["caches"],
                                            state["write"], state["write"] + 1)
         hidden_t = hidden_t[:, 0]
-        next_tok = torch.argmax((hidden_t @ llm["lm_head"]).float(), dim=-1).to(torch.int32)
+        next_tok = torch.argmax(qdot(hidden_t, llm["lm_head"]).float(), dim=-1).to(torch.int32)
         next_tok = torch.where(state["done"], eos_token_id, next_tok)
         toks.append(tok)
         hids.append(hidden_t)
@@ -103,12 +108,13 @@ def greedy_decode_from_state(params: dict, cfg: CogVLMConfig, state: dict, hidde
 def greedy_generate(params: dict, cfg: CogVLMConfig, input_ids, token_type_ids, position_ids,
                     prompt_len, *, max_new_tokens: int, eos_token_id: int, bop_token_id: int,
                     eop_token_id: int, image=None, patch_size=None, pool_size=None,
-                    vis_span=None) -> GenerateResult:
+                    vis_span=None, kv_cache_dtype: str = "bf16") -> GenerateResult:
     """Prefill + greedy decode; the caches hold ``S_prompt + max_new_tokens`` slots."""
     state, hidden, last_hidden = prefill_decode_state(
         params, cfg, input_ids, token_type_ids, position_ids, prompt_len,
         smax=input_ids.shape[1] + max_new_tokens, eos_token_id=eos_token_id,
         image=image, patch_size=patch_size, pool_size=pool_size, vis_span=vis_span,
+        kv_cache_dtype=kv_cache_dtype,
     )
     with record_function("decode"):
         return greedy_decode_from_state(

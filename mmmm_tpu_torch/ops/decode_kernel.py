@@ -1,9 +1,18 @@
-"""K1 and K2: the decode-step kernels over a (B, H, Smax, D) KV cache, the port
-of ``mmmm_tpu/ops/decode_kernel.py`` ``decode_attention_pallas`` (both its
-full and ragged forms) and ``kv_append_pallas``.
+"""The decode-step kernels over a (B, H, Smax, D) KV cache, the port of
+``mmmm_tpu/ops/decode_kernel.py``:
+
+  - K1 ``decode_attention`` (``decode_attention_pallas``, full and ragged);
+  - K2 ``kv_append`` (``kv_append_pallas``);
+  - K5 ``kv_append_multi`` (``kv_append_pallas_multi``): a verify window;
+  - K6 ``decode_attention_window`` (``decode_attention_pallas_window``);
+  - K8 ``kv_append_q8`` (``kv_append_pallas_q8``): the int8 cache;
+  - K9 ``decode_attention_q8`` (``decode_attention_pallas_q8``, full and
+    ragged).
 
 Each wrapper takes its plain version for CPU tensors and launches the CUDA
-kernel (``csrc/decode_attn.cu``, ``csrc/kv_append.cu``) for CUDA tensors.
+kernel (``csrc/decode_attn.cu``, ``csrc/decode_window.cu``,
+``csrc/decode_q8.cu``, ``csrc/kv_append.cu``) for CUDA tensors. The appends
+work in place with the reference's ``dynamic_update_slice`` edge rule.
 """
 from __future__ import annotations
 
@@ -27,20 +36,54 @@ K2 = _cuda.register(_cuda.Kernel(
     source="mmmm_tpu_torch/csrc/kv_append.cu",
     replaces="mmmm_tpu/ops/decode_kernel.py:48 kv_append_pallas (pallas_call :75)",
 ))
+K5 = _cuda.register(_cuda.Kernel(
+    "K5", "mmmm_kv_append_multi",
+    [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.I, _cuda.I,
+     _cuda.I, _cuda.I, _cuda.P],
+    source="mmmm_tpu_torch/csrc/kv_append.cu",
+    replaces="mmmm_tpu/ops/decode_kernel.py:126 kv_append_pallas_multi (pallas_call :157)",
+))
+K6 = _cuda.register(_cuda.Kernel(
+    "K6", "mmmm_decode_attention_window",
+    [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.I, _cuda.I,
+     _cuda.I, _cuda.F, _cuda.I, _cuda.P],
+    source="mmmm_tpu_torch/csrc/decode_window.cu",
+    replaces="mmmm_tpu/ops/decode_kernel.py:437 decode_attention_pallas_window "
+             "(pallas_call :459)",
+))
+K8 = _cuda.register(_cuda.Kernel(
+    "K8", "mmmm_kv_append_q8",
+    [_cuda.P] * 9 + [_cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.P],
+    source="mmmm_tpu_torch/csrc/kv_append.cu",
+    replaces="mmmm_tpu/ops/decode_kernel.py:203 kv_append_pallas_q8 (pallas_call :255)",
+))
+K9 = _cuda.register(_cuda.Kernel(
+    "K9", "mmmm_decode_attention_q8",
+    [_cuda.P] * 7 + [_cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.I, _cuda.P],
+    source="mmmm_tpu_torch/csrc/decode_q8.cu",
+    replaces="mmmm_tpu/ops/decode_kernel.py:328 decode_attention_pallas_q8 "
+             "(pallas_call :377 via :370; ragged :704 -> :733)",
+))
+
+
+def dus_rows(cache, new, write_index):
+    """Rows ``new[b, :, :K]`` go to slots ``[t, t + K)`` of ``cache[b]``, in
+    place, where ``t`` is ``write_index[b]`` after the reference's
+    ``dynamic_update_slice`` rule: a negative start counts from the end once,
+    then it is clamped to ``[0, Smax - K]`` (the window shifts)."""
+    smax, k = cache.shape[2], new.shape[2]
+    t = write_index.long()
+    t = torch.where(t < 0, t + smax, t).clamp(0, smax - k)
+    slots = t[:, None] + torch.arange(k, device=cache.device)
+    rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
+    cache[rows, :, slots] = new.transpose(1, 2)
+    return cache
 
 
 def kv_append_plain(k_cache, v_cache, k_new, v_new, write_index):
-    """Plain version: row ``[b, :, 0]`` of the new K/V goes to slot
-    ``write_index[b]``, in place. At the edges it does what the reference's
-    ``dynamic_update_slice`` does: a negative index counts from the end, then
-    the slot is clamped to ``[0, Smax - 1]``."""
-    smax = k_cache.shape[2]
-    slot = write_index.long()
-    slot = torch.where(slot < 0, slot + smax, slot).clamp(0, smax - 1)
-    rows = torch.arange(k_cache.shape[0], device=k_cache.device)
-    k_cache[rows, :, slot] = k_new[:, :, 0]
-    v_cache[rows, :, slot] = v_new[:, :, 0]
-    return k_cache, v_cache
+    """Plain version of K2 and K5: rows ``[b, :, :K]`` of the new K/V go to
+    slots ``[t, t + K)`` from ``write_index[b]``, in place (``dus_rows``)."""
+    return dus_rows(k_cache, k_new, write_index), dus_rows(v_cache, v_new, write_index)
 
 
 def kv_append(k_cache, v_cache, k_new, v_new, write_index):
@@ -64,6 +107,14 @@ def kv_append(k_cache, v_cache, k_new, v_new, write_index):
     return k_cache, v_cache
 
 
+def _masked_softmax(logits, valid):
+    """fp32 softmax over the last axis restricted to ``valid``; a row with no
+    valid entry gives zeros, as the TPU decode kernels do."""
+    logits = torch.where(valid, logits, NEG_INF)
+    p = torch.where(valid, torch.exp(logits - logits.amax(dim=-1, keepdim=True)), 0.0)
+    return p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+
 def decode_attention_plain(q, k_cache, v_cache, kv_len, scale: float | None = None):
     """Plain version, all fp32 as the TPU kernel is: slots ``< kv_len[b]``
     are valid; a sample with no valid slot gets zeros."""
@@ -74,10 +125,7 @@ def decode_attention_plain(q, k_cache, v_cache, kv_len, scale: float | None = No
     valid = valid[:, None, None, :]  # (B, 1, 1, Smax)
     qh = q.float().transpose(1, 2)  # (B, H, 1, D)
     logits = torch.einsum("bhqd,bhkd->bhqk", qh, k_cache.float()) * scale
-    logits = torch.where(valid, logits, NEG_INF)
-    m = logits.amax(dim=-1, keepdim=True)
-    p = torch.where(valid, torch.exp(logits - m), 0.0)
-    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    p = _masked_softmax(logits, valid)
     out = torch.einsum("bhqk,bhkd->bhqd", p, v_cache.float())
     return out.transpose(1, 2).to(q.dtype)  # (B, 1, H, D)
 
@@ -105,4 +153,155 @@ def decode_attention(q, k_cache, v_cache, kv_len, scale: float | None = None):
     K1(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr(),
        out.data_ptr(), b, h, smax, d, float(scale), int(q.dtype == torch.bfloat16),
        _cuda.stream_of(q))
+    return out
+
+
+def kv_append_multi(k_cache, v_cache, k_new, v_new, write_index):
+    """Append a K-row window per sample into the caches IN PLACE; returns the
+    (same) caches. ``k_new``/``v_new``: (B, H, K, D); ``write_index``: (B,)
+    the first slot."""
+    if _cuda.on_cpu("kv_append_multi", k_cache):
+        return kv_append_plain(k_cache, v_cache, k_new, v_new, write_index)
+    _cuda.check_cuda("kv_append_multi", k_cache, v_cache, k_new, v_new,
+                     dtypes=(torch.bfloat16, torch.float32), align=4)
+    _cuda.check_cuda("kv_append_multi", write_index, dtypes=(torch.int32,), align=4)
+    b, h, smax, d = k_cache.shape
+    k = k_new.shape[2]
+    if (v_cache.shape != k_cache.shape or k_new.shape != (b, h, k, d)
+            or v_new.shape != k_new.shape or not 1 <= k <= smax):
+        raise ValueError(f"kv_append_multi: cache {k_cache.shape} vs new rows {k_new.shape}")
+    if len({k_cache.dtype, v_cache.dtype, k_new.dtype, v_new.dtype}) != 1:
+        raise ValueError("kv_append_multi: caches and new rows must share one dtype")
+    if write_index.shape != (b,):
+        raise ValueError(f"kv_append_multi: write_index must be ({b},), "
+                         f"got {tuple(write_index.shape)}")
+    K5(k_cache.data_ptr(), v_cache.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+       write_index.data_ptr(), b, h, smax, k, d, k_cache.element_size(),
+       _cuda.stream_of(k_cache))
+    return k_cache, v_cache
+
+
+def decode_attention_window_plain(q, k_cache, v_cache, write_index,
+                                  scale: float | None = None):
+    """Plain version: ``decode_attention_bhsd`` under the verify mask (query
+    j sees slots ``< write_index[b] + j + 1``), fp32 logits and softmax, the
+    probabilities cast to the cache dtype before the PV product, as the TPU
+    kernel does; a query with no valid slot gets zeros."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    nq, smax = q.shape[1], k_cache.shape[2]
+    kv_len = write_index.long()[:, None] + torch.arange(1, nq + 1, device=q.device)
+    valid = (torch.arange(smax, device=q.device) < kv_len[..., None])[:, None]  # (B,1,K,S)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float().transpose(1, 2), k_cache.float()) * scale
+    p = _masked_softmax(logits, valid)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v_cache.dtype), v_cache)
+    return out.transpose(1, 2).to(q.dtype)  # (B, K, H, D)
+
+
+def decode_attention_window(q, k_cache, v_cache, write_index, scale: float | None = None):
+    """Verify-window attention: q (B, K, H, D) with 1 <= K <= 8, caches
+    (B, H, Smax, D) that already hold the window, write_index (B,) the
+    window's first slot -> (B, K, H, D) in q's dtype."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _cuda.on_cpu("decode_attention_window", q):
+        return decode_attention_window_plain(q, k_cache, v_cache, write_index, scale)
+    _cuda.check_cuda("decode_attention_window", q, k_cache, v_cache,
+                     dtypes=(torch.bfloat16, torch.float32))
+    _cuda.check_cuda("decode_attention_window", write_index, dtypes=(torch.int32,), align=4)
+    b, h, smax, d = k_cache.shape
+    nq = q.shape[1]
+    if q.shape != (b, nq, h, d) or v_cache.shape != k_cache.shape or not 1 <= nq <= 8:
+        raise ValueError(f"decode_attention_window: q {q.shape} vs cache {k_cache.shape}")
+    if not q.dtype == k_cache.dtype == v_cache.dtype:
+        raise ValueError("decode_attention_window: q and caches must share one dtype")
+    if write_index.shape != (b,):
+        raise ValueError(f"decode_attention_window: write_index must be ({b},), "
+                         f"got {tuple(write_index.shape)}")
+    if d > 128 or d % 4:
+        raise ValueError(f"decode_attention_window: head dim {d} must be <= 128 and a "
+                         "multiple of 4")
+    out = torch.empty_like(q)
+    K6(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), write_index.data_ptr(),
+       out.data_ptr(), b, nq, h, smax, d, float(scale), int(q.dtype == torch.bfloat16),
+       _cuda.stream_of(q))
+    return out
+
+
+Q8_LEAVES = ("kq", "ks", "vq", "vs")
+
+
+def kv_append_q8_plain(cache: dict, kq_new, ks_new, vq_new, vs_new, write_index) -> dict:
+    """Plain version: the new int8 rows and their scales go to slot
+    ``write_index[b]`` of the four leaves, in place (``dus_rows``)."""
+    for key, new in zip(Q8_LEAVES, (kq_new, ks_new, vq_new, vs_new)):
+        dus_rows(cache[key], new, write_index)
+    return cache
+
+
+def kv_append_q8(cache: dict, kq_new, ks_new, vq_new, vs_new, write_index) -> dict:
+    """Append one quantized K/V row per sample into an int8 cache
+    ``{"kq", "ks", "vq", "vs"}`` ((B, H, Smax, D) int8, (B, H, Smax, 1) bf16)
+    IN PLACE; returns the (same) cache. New rows (B, H, 1, D) int8 and
+    scales (B, H, 1, 1) bf16; ``write_index`` (B,)."""
+    if _cuda.on_cpu("kv_append_q8", cache["kq"]):
+        return kv_append_q8_plain(cache, kq_new, ks_new, vq_new, vs_new, write_index)
+    kq, ks, vq, vs = (cache[k] for k in Q8_LEAVES)
+    _cuda.check_cuda("kv_append_q8", kq, vq, kq_new, vq_new, dtypes=(torch.int8,), align=4)
+    _cuda.check_cuda("kv_append_q8", ks, vs, ks_new, vs_new, dtypes=(torch.bfloat16,), align=2)
+    _cuda.check_cuda("kv_append_q8", write_index, dtypes=(torch.int32,), align=4)
+    b, h, smax, d = kq.shape
+    if (vq.shape != kq.shape or ks.shape != (b, h, smax, 1) or vs.shape != ks.shape
+            or kq_new.shape != (b, h, 1, d) or vq_new.shape != kq_new.shape
+            or ks_new.shape != (b, h, 1, 1) or vs_new.shape != ks_new.shape):
+        raise ValueError(f"kv_append_q8: cache {kq.shape} vs new rows {kq_new.shape}")
+    if write_index.shape != (b,):
+        raise ValueError(f"kv_append_q8: write_index must be ({b},), "
+                         f"got {tuple(write_index.shape)}")
+    K8(kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(), kq_new.data_ptr(),
+       ks_new.data_ptr(), vq_new.data_ptr(), vs_new.data_ptr(), write_index.data_ptr(),
+       b, h, smax, d, _cuda.stream_of(kq))
+    return cache
+
+
+def decode_attention_q8_plain(q, kq, ks, vq, vs, kv_len, scale: float | None = None):
+    """Plain version, all fp32 as the TPU kernel is: logits
+    ``(q . k_q) * k_s * scale`` over the slots ``< kv_len[b]``, output
+    ``sum_j p_j * v_s[j] * v_q[j]``; a sample with no valid slot gets zeros."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    smax = kq.shape[2]
+    valid = (torch.arange(smax, device=q.device)[None, :] < kv_len[:, None].long())
+    valid = valid[:, None, None, :]  # (B, 1, 1, Smax)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float().transpose(1, 2), kq.float())
+    logits = logits * ks.float().transpose(-1, -2) * scale
+    w = _masked_softmax(logits, valid) * vs.float().transpose(-1, -2)
+    out = torch.einsum("bhqk,bhkd->bhqd", w, vq.float())
+    return out.transpose(1, 2).to(q.dtype)  # (B, 1, H, D)
+
+
+def decode_attention_q8(q, kq, ks, vq, vs, kv_len, scale: float | None = None):
+    """One query token per sample against an int8 cache: q (B, 1, H, D) bf16
+    or fp32, kq/vq (B, H, Smax, D) int8, ks/vs (B, H, Smax, 1) bf16, kv_len
+    (B,) -> (B, 1, H, D) in q's dtype."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _cuda.on_cpu("decode_attention_q8", q):
+        return decode_attention_q8_plain(q, kq, ks, vq, vs, kv_len, scale)
+    _cuda.check_cuda("decode_attention_q8", q, dtypes=(torch.bfloat16, torch.float32))
+    _cuda.check_cuda("decode_attention_q8", kq, vq, dtypes=(torch.int8,))
+    _cuda.check_cuda("decode_attention_q8", ks, vs, dtypes=(torch.bfloat16,), align=2)
+    _cuda.check_cuda("decode_attention_q8", kv_len, dtypes=(torch.int32,), align=4)
+    b, h, smax, d = kq.shape
+    if (q.shape != (b, 1, h, d) or vq.shape != kq.shape or ks.shape != (b, h, smax, 1)
+            or vs.shape != ks.shape):
+        raise ValueError(f"decode_attention_q8: q {q.shape} vs cache {kq.shape}")
+    if kv_len.shape != (b,):
+        raise ValueError(f"decode_attention_q8: kv_len must be ({b},), got {tuple(kv_len.shape)}")
+    if d not in (16, 32, 64, 128):
+        raise ValueError(f"decode_attention_q8: head dim {d} must be 16, 32, 64 or 128")
+    out = torch.empty_like(q)
+    K9(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
+       kv_len.data_ptr(), out.data_ptr(), b, h, smax, d, float(scale),
+       int(q.dtype == torch.bfloat16), _cuda.stream_of(q))
     return out

@@ -19,6 +19,7 @@ import torch
 
 from .models.mmmm import MMMMConfig
 from .ops._cuda import resolve_device
+from .ops.quant import LLM_QUANT_KEYS, MLP_QUANT_KEYS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,6 +212,13 @@ def init_params(cfg: MMMMConfig, seed: int = 0, dtype: torch.dtype = torch.bfloa
     return _unflatten(flat)
 
 
+# the leaves quantize_llm_for_serving converts to {"q", "s"}
+_QUANTIZABLE = frozenset(
+    [f"cogvlm/llm/layers/{k}" for k in LLM_QUANT_KEYS]
+    + [f"cogvlm/llm/layers/{m}/{k}" for m in ("lang_mlp", "vis_mlp") for k in MLP_QUANT_KEYS]
+    + ["cogvlm/llm/lm_head"])
+
+
 def _to_tensor(arr, device) -> torch.Tensor:
     a = np.asarray(arr)
     if a.dtype.name == "bfloat16":
@@ -224,22 +232,33 @@ def params_from_jax(tree: dict, device: str | torch.device = "cuda", *,
     anything ``np.asarray`` takes) onto the port's parameters on ``device``,
     keeping each leaf's dtype.
 
+    The LLM weights that ``quantize_llm_for_serving`` converts may come as
+    its ``{"q", "s"}`` int8 leaves instead (``q`` of the weight's shape,
+    ``s`` with dim -2 of size 1).
+
     Raises on a leaf the port does not consume and on a port parameter the
     tree leaves unset (the set of names does not depend on the widths);
     with ``cfg`` it also checks every shape."""
     dev = resolve_device(device)
     flat = _flatten(tree)
     spec = _flatten(param_spec(cfg or MMMMConfig.tiny()))
-    unknown = sorted(set(flat) - set(spec))
-    missing = sorted(set(spec) - set(flat))
+    wanted = {}  # tree path -> expected shape
+    for path, leaf in spec.items():
+        if path in _QUANTIZABLE and f"{path}/q" in flat:
+            wanted[f"{path}/q"] = leaf.shape
+            wanted[f"{path}/s"] = (*leaf.shape[:-2], 1, leaf.shape[-1])
+        else:
+            wanted[path] = leaf.shape
+    unknown = sorted(set(flat) - set(wanted))
+    missing = sorted(set(wanted) - set(flat))
     if unknown or missing:
         raise ValueError(f"params_from_jax: leaves not consumed {unknown}; "
                          f"parameters left unset {missing}")
     out = {}
-    for path, leaf in spec.items():
+    for path, shape in wanted.items():
         t = _to_tensor(flat[path], dev)
-        if cfg is not None and tuple(t.shape) != leaf.shape:
+        if cfg is not None and tuple(t.shape) != shape:
             raise ValueError(f"params_from_jax: {path} has shape {tuple(t.shape)}, "
-                             f"expected {leaf.shape}")
+                             f"expected {shape}")
         out[path] = t
     return _unflatten(out)

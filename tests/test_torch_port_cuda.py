@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K4) against their plain PyTorch versions on the
+"""The port's CUDA kernels (K1-K6, K8, K9) against their plain PyTorch versions on the
 card. Every test is marked ``cuda`` and skips without a GPU.
 
 This file imports neither JAX nor ``mmmm_tpu``, so it also runs where only
@@ -11,6 +11,7 @@ import torch
 from mmmm_tpu_torch.ops import decode_kernel as pdec
 from mmmm_tpu_torch.ops import dense_attn as pdense
 from mmmm_tpu_torch.ops import flash as pflash
+from mmmm_tpu_torch.ops.quant import quantize_kv
 
 
 @pytest.fixture
@@ -68,3 +69,50 @@ def test_decode_kernels(cuda):
     got = pdec.decode_attention(q, kc, vc, kv_len)
     ref = pdec.decode_attention_plain(q, kc, vc, kv_len)
     torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_window_kernels(cuda, dtype):
+    """K5 bit-equal to its plain version (in range, at Smax, past either end,
+    negative); K6 within 2e-2 (bf16) / 1e-4 (fp32) for windows of 2 to 8."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    b, h, smax, d = 3, 4, 48, 128
+    kc, vc = (torch.randn(b, h, smax, d, generator=g, device=cuda).to(dtype) for _ in range(2))
+    for nq, widx in [(8, [0, 13, smax - 8]), (3, [-1, 50, -60]), (2, [7, 0, 46])]:
+        kn, vn = (torch.randn(b, h, nq, d, generator=g, device=cuda).to(dtype) for _ in range(2))
+        w = torch.tensor(widx, dtype=torch.int32, device=cuda)
+        ref_k, ref_v = pdec.kv_append_plain(kc.clone(), vc.clone(), kn, vn, w)
+        pdec.kv_append_multi(kc, vc, kn, vn, w)
+        assert torch.equal(kc, ref_k) and torch.equal(vc, ref_v)
+        q = torch.randn(b, nq, h, d, generator=g, device=cuda).to(dtype)
+        got = pdec.decode_attention_window(q, kc, vc, w)
+        ref = pdec.decode_attention_window_plain(q, kc, vc, w)
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                   atol=2e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(128, torch.bfloat16), (16, torch.float32)])
+def test_q8_kernels(cuda, d, dtype):
+    """K8 bit-equal to its plain version; K9 within 2e-2 (bf16) / 1e-4
+    (fp32), kv_len 0 and Smax included."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    b, h, smax = 4, 4, 40
+    kq, ks = quantize_kv(torch.randn(b, h, smax, d, generator=g, device=cuda))
+    vq, vs = quantize_kv(torch.randn(b, h, smax, d, generator=g, device=cuda))
+    cache = {"kq": kq, "ks": ks, "vq": vq, "vs": vs}
+    new = [*quantize_kv(torch.randn(b, h, 1, d, generator=g, device=cuda)),
+           *quantize_kv(torch.randn(b, h, 1, d, generator=g, device=cuda))]
+    w = torch.tensor([0, 17, smax - 1, -1], dtype=torch.int32, device=cuda)
+    ref = pdec.kv_append_q8_plain({k: v.clone() for k, v in cache.items()}, *new, w)
+    pdec.kv_append_q8(cache, *new, w)
+    assert all(torch.equal(cache[k], ref[k]) for k in pdec.Q8_LEAVES)
+    q = torch.randn(b, 1, h, d, generator=g, device=cuda).to(dtype)
+    kv_len = torch.tensor([0, 1, 23, smax], dtype=torch.int32, device=cuda)
+    leaves = [cache[k] for k in pdec.Q8_LEAVES]
+    got = pdec.decode_attention_q8(q, *leaves, kv_len)
+    want = pdec.decode_attention_q8_plain(q, *leaves, kv_len)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2e-2 if dtype == torch.bfloat16 else 1e-4)
+    assert torch.all(got[0] == 0)
