@@ -14,6 +14,9 @@
 // that the 8 rows one `ldmatrix` phase reads fall in distinct banks.
 // Softmax state (row max, row sum) is fp32 in the exp2 domain; P is rounded
 // to bf16 for the PV product, as the plain version rounds its probabilities.
+// NOSM (probe P1, K4's measurement floor) replaces the softmax by one
+// multiply, P = (S * scale) * 1e-4 with keys past Skv at 0, and writes the
+// unnormalized P V.
 //
 // This is the simple tensor-core form: no cp.async/TMA pipelining, no wgmma.
 #pragma once
@@ -100,8 +103,9 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16 (*dst)[DP + 8],
 }
 
 // q: (B, Sq, H, D); k, v: (B, Skv, H, D); out: (B, Sq, H, D), bf16, contiguous.
-// MASKED and `causal` as in attn_tile_kernel; `scale_log2` = scale * log2(e).
-template <int DP, bool MASKED>
+// MASKED and `causal` as in attn_tile_kernel; `scale_log2` = scale * log2(e)
+// (the plain scale under NOSM).
+template <int DP, bool MASKED, bool NOSM = false>
 __global__ void __launch_bounds__(kMmaThreads)
 attn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
@@ -182,47 +186,55 @@ attn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
       }
     }
 
-    // mask, scale, online softmax (element e: row rows[e >> 1], key ... + (e & 1))
+    if constexpr (NOSM) {
 #pragma unroll
-    for (int nt = 0; nt < NST; ++nt) {
+      for (int nt = 0; nt < NST; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kk = 8 * nt + 2 * t + (e & 1);
-        const int kj = k0 + kk;
-        bool ok = kj < Skv;
-        if (MASKED) {
-          const int rh = e >> 1;
-          ok = ok && qs[rh] != 0 && kseg_s[kk] == qs[rh] && (!causal || rows[rh] >= kj);
-        }
-        s[nt][e] = ok ? s[nt][e] * scale_log2 : kNegInf;
-      }
-    }
-#pragma unroll
-    for (int rh = 0; rh < 2; ++rh) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int nt = 0; nt < NST; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * rh], s[nt][2 * rh + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[rh], mx);
-      const float alpha = exp2f(m[rh] - m_new);
-      m[rh] = m_new;
-      float p_sum = 0.f;
+        for (int e = 0; e < 4; ++e)
+          s[nt][e] = k0 + 8 * nt + 2 * t + (e & 1) < Skv ? (s[nt][e] * scale_log2) * 1e-4f : 0.f;
+    } else {
+      // mask, scale, online softmax (element e: row rows[e >> 1], key ... + (e & 1))
 #pragma unroll
       for (int nt = 0; nt < NST; ++nt) {
 #pragma unroll
-        for (int e = 2 * rh; e < 2 * rh + 2; ++e) {
-          // masked logits are exactly kNegInf; valid ones are far above it
-          const float p = s[nt][e] > 0.5f * kNegInf ? exp2f(s[nt][e] - m_new) : 0.f;
-          s[nt][e] = p;
-          p_sum += p;
+        for (int e = 0; e < 4; ++e) {
+          const int kk = 8 * nt + 2 * t + (e & 1);
+          const int kj = k0 + kk;
+          bool ok = kj < Skv;
+          if (MASKED) {
+            const int rh = e >> 1;
+            ok = ok && qs[rh] != 0 && kseg_s[kk] == qs[rh] && (!causal || rows[rh] >= kj);
+          }
+          s[nt][e] = ok ? s[nt][e] * scale_log2 : kNegInf;
         }
       }
-      l[rh] = l[rh] * alpha + p_sum;  // this thread's share of the row sum
 #pragma unroll
-      for (int dt = 0; dt < NDT; ++dt) {
-        o[dt][2 * rh] *= alpha;
-        o[dt][2 * rh + 1] *= alpha;
+      for (int rh = 0; rh < 2; ++rh) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int nt = 0; nt < NST; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * rh], s[nt][2 * rh + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[rh], mx);
+        const float alpha = exp2f(m[rh] - m_new);
+        m[rh] = m_new;
+        float p_sum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < NST; ++nt) {
+#pragma unroll
+          for (int e = 2 * rh; e < 2 * rh + 2; ++e) {
+            // masked logits are exactly kNegInf; valid ones are far above it
+            const float p = s[nt][e] > 0.5f * kNegInf ? exp2f(s[nt][e] - m_new) : 0.f;
+            s[nt][e] = p;
+            p_sum += p;
+          }
+        }
+        l[rh] = l[rh] * alpha + p_sum;  // this thread's share of the row sum
+#pragma unroll
+        for (int dt = 0; dt < NDT; ++dt) {
+          o[dt][2 * rh] *= alpha;
+          o[dt][2 * rh + 1] *= alpha;
+        }
       }
     }
 
@@ -250,7 +262,7 @@ attn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
     lt += __shfl_xor_sync(0xffffffffu, lt, 2);
     const int row = rows[rh];
     if (row >= Sq) continue;
-    const float inv = lt > 0.f ? 1.f / lt : 0.f;
+    const float inv = NOSM ? 1.f : (lt > 0.f ? 1.f / lt : 0.f);
     __nv_bfloat16* orow = out + ((size_t)(b * Sq + row) * H + h) * D;
 #pragma unroll
     for (int dt = 0; dt < NDT; ++dt) {
@@ -274,7 +286,7 @@ inline int pick_dp(int D) {
   return 0;
 }
 
-template <bool MASKED>
+template <bool MASKED, bool NOSM = false>
 cudaError_t launch_attn_mma(const void* q, const void* k, const void* v, void* out,
                             float* lse, const int* qseg, const int* kseg, int B, int Sq,
                             int Skv, int H, int D, float scale, int causal,
@@ -285,10 +297,10 @@ cudaError_t launch_attn_mma(const void* q, const void* k, const void* v, void* o
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   auto* op = static_cast<__nv_bfloat16*>(out);
-  const float sl2 = scale * kLog2e;
+  const float sl2 = NOSM ? scale : scale * kLog2e;
 #define MMMM_MMA_CASE(DP_)                                                          \
   case DP_:                                                                         \
-    attn_mma_kernel<DP_, MASKED><<<grid, kMmaThreads, 0, stream>>>(                 \
+    attn_mma_kernel<DP_, MASKED, NOSM><<<grid, kMmaThreads, 0, stream>>>(           \
         qp, kp, vp, op, lse, qseg, kseg, Sq, Skv, H, D, sl2, causal);               \
     break;
   switch (pick_dp(D)) {

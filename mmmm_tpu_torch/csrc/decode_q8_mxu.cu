@@ -1,0 +1,258 @@
+// K10: single-token decode attention over an int8 KV cache as exact
+// split-int8 integer dots.
+//
+// Replaces: mmmm_tpu/ops/decode_kernel.py decode_attention_pallas_q8_mxu
+// (Pallas body `_decode_kernel_q8_mxu`, with `_q14_split` of q, which the
+// reference runs before the kernel and this kernel runs inside). Per
+// (sample, head), all as the reference:
+//   q = (128 * q_hi + q_lo) * q_s,     q_s = max|q| / 16256 (14-bit split)
+//   s32 = 128 * <k_q, q_hi> + <k_q, q_lo>                      (int32)
+//   logit = s32 * k_s * (q_s * scale), masked at slot >= kv_len
+//   w = softmax(logit) * v_s;  w14 = rint(w / w_s), w_s = max(w) / 16256
+//   o32 = 128 * <v_q^T, w_hi> + <v_q^T, w_lo>;  out = o32 * w_s
+// Integer sums are taken modulo 2^32 (unsigned, then reinterpreted), which
+// is what the reference's int32 arithmetic gives: |o32| can pass 2^31 above
+// kv_len ~1040 under near-uniform attention, and then kernel, plain version
+// and reference wrap alike. The integers are exact and independent of the
+// order of summation; only exp and the softmax sums round differently.
+//
+// What bounds it on an H100: bytes, as K9 (the valid int8 K and V rows and
+// their scales, read once).
+//
+// Design: one block per (sample, head), 8 warps. The q split happens in the
+// block (a block-wide max, IEEE division, round-half-even). Logits: a slot's
+// int8 K row is read by D/16 lanes, 16 bytes each, and dotted with the
+// packed q_hi and q_lo by __dp4a; the Smax logits stay in shared memory
+// for the full-row softmax (the weights' maximum is needed before they are
+// split). Values: each thread owns one 4-byte word column of V (4 head
+// dims) and a share of the slots; four slots' words are transposed with
+// __byte_perm so that one __dp4a multiplies 4 slots of one head dim by the
+// packed w_hi (or w_lo) of those slots. int8 mma.sync m16n8k32 is later work.
+#include "attn_tile.cuh"
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+
+__device__ __forceinline__ float block_max(float v, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float r = red[0];
+#pragma unroll
+  for (int i = 1; i < kWarps; ++i) r = fmaxf(r, red[i]);
+  __syncthreads();
+  return r;
+}
+
+__device__ __forceinline__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float r = red[0];
+#pragma unroll
+  for (int i = 1; i < kWarps; ++i) r += red[i];
+  __syncthreads();
+  return r;
+}
+
+// LPS = lanes per K row = D / 16. Dynamic shared memory: 6 * roundup(Smax, 4)
+// bytes (fp32 logits, then the int8 w_hi and w_lo of every slot).
+template <typename T, int LPS>
+__global__ void __launch_bounds__(kThreads)
+decode_q8_mxu_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
+                     const __nv_bfloat16* __restrict__ ks, const int8_t* __restrict__ vq,
+                     const __nv_bfloat16* __restrict__ vs, const int* __restrict__ kv_len,
+                     T* __restrict__ out, int H, int Smax, float scale) {
+  constexpr int D = 16 * LPS;
+  constexpr int G = 32 / LPS;          // K rows a warp reads at once
+  constexpr int WC = D / 4;            // 4-byte word columns of a V row
+  constexpr int NSG = kThreads / WC;   // slot groups of the value pass
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[kWarps];
+  __shared__ __align__(16) int8_t qsplit[2][D];
+  __shared__ unsigned osum[NSG][D];
+
+  const int smax4 = (Smax + 3) & ~3;
+  float* logit = reinterpret_cast<float*>(smem);
+  int8_t* whi = reinterpret_cast<int8_t*>(logit + smax4);
+  int8_t* wlo = whi + smax4;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  int len = kv_len[b];
+  len = len < 0 ? 0 : (len > Smax ? Smax : len);
+  const size_t row0 = (size_t)bh * Smax;
+
+  // ---- q -> (q_hi, q_lo, q_s) -------------------------------------------------------
+  const float qv = tid < D ? mmmm::to_f(q[(size_t)bh * D + tid]) : 0.f;
+  const float qs = fmaxf(block_max(fabsf(qv), red), 1e-8f) / 16256.f;
+  if (tid < D) {
+    const int x14 = __float2int_rn(qv / qs);
+    const int hi = x14 >> 7;
+    qsplit[0][tid] = static_cast<int8_t>(hi);
+    qsplit[1][tid] = static_cast<int8_t>(x14 - hi * 128);
+  }
+  __syncthreads();
+
+  // ---- logits of the valid slots ------------------------------------------------------
+  {
+    const int g = lane / LPS;
+    const int d0 = 16 * (lane % LPS);
+    const int4 qh = *reinterpret_cast<const int4*>(&qsplit[0][d0]);
+    const int4 ql = *reinterpret_cast<const int4*>(&qsplit[1][d0]);
+    const float qss = qs * scale;
+    for (int base = warp * G; base < len; base += kWarps * G) {
+      const int j = base + g;
+      int a = 0, c = 0;
+      if (j < len) {
+        const int4 kr = *reinterpret_cast<const int4*>(kq + (row0 + j) * D + d0);
+        a = __dp4a(kr.x, qh.x, a);
+        a = __dp4a(kr.y, qh.y, a);
+        a = __dp4a(kr.z, qh.z, a);
+        a = __dp4a(kr.w, qh.w, a);
+        c = __dp4a(kr.x, ql.x, c);
+        c = __dp4a(kr.y, ql.y, c);
+        c = __dp4a(kr.z, ql.z, c);
+        c = __dp4a(kr.w, ql.w, c);
+      }
+#pragma unroll
+      for (int off = LPS / 2; off > 0; off >>= 1) {
+        a += __shfl_xor_sync(0xffffffffu, a, off);
+        c += __shfl_xor_sync(0xffffffffu, c, off);
+      }
+      if (j < len && lane % LPS == 0) {
+        const int s32 = static_cast<int>(128u * static_cast<unsigned>(a) + static_cast<unsigned>(c));
+        logit[j] = (static_cast<float>(s32) * __bfloat162float(ks[row0 + j])) * qss;
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- softmax, folded with v_s, split to (w_hi, w_lo) ----------------------------------
+  float mx = mmmm::kNegInf;
+  for (int j = tid; j < len; j += kThreads) mx = fmaxf(mx, logit[j]);
+  mx = block_max(mx, red);
+  float sum = 0.f;
+  for (int j = tid; j < len; j += kThreads) {
+    const float p = expf(logit[j] - mx);
+    logit[j] = p;
+    sum += p;
+  }
+  const float denom = fmaxf(block_sum(sum, red), 1e-30f);
+  float wmx = 0.f;
+  for (int j = tid; j < len; j += kThreads) {
+    const float w = (logit[j] / denom) * __bfloat162float(vs[row0 + j]);
+    logit[j] = w;
+    wmx = fmaxf(wmx, w);
+  }
+  const float ws = fmaxf(block_max(wmx, red), 1e-30f) / 16256.f;
+  for (int j = tid; j < smax4; j += kThreads) {
+    int hi = 0, lo = 0;
+    if (j < len) {
+      const int w14 = __float2int_rn(logit[j] / ws);
+      hi = w14 >> 7;
+      lo = w14 - hi * 128;
+    }
+    whi[j] = static_cast<int8_t>(hi);
+    wlo[j] = static_cast<int8_t>(lo);
+  }
+  __syncthreads();
+
+  // ---- o32 = 128 <v_q^T, w_hi> + <v_q^T, w_lo> -----------------------------------------
+  {
+    const int c = tid % WC;
+    const int sg = tid / WC;
+    int ah[4] = {0, 0, 0, 0}, al[4] = {0, 0, 0, 0};
+    for (int j0 = 4 * sg; j0 < len; j0 += 4 * NSG) {
+      unsigned r[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        r[i] = j0 + i < Smax
+                   ? *reinterpret_cast<const unsigned*>(vq + (row0 + j0 + i) * D + 4 * c)
+                   : 0u;
+      // t[d] = byte d of r[0..3]: head dim 4c + d of the four slots
+      const unsigned lo01 = __byte_perm(r[0], r[1], 0x5140);
+      const unsigned lo23 = __byte_perm(r[2], r[3], 0x5140);
+      const unsigned hi01 = __byte_perm(r[0], r[1], 0x7362);
+      const unsigned hi23 = __byte_perm(r[2], r[3], 0x7362);
+      const int t[4] = {static_cast<int>(__byte_perm(lo01, lo23, 0x5410)),
+                        static_cast<int>(__byte_perm(lo01, lo23, 0x7632)),
+                        static_cast<int>(__byte_perm(hi01, hi23, 0x5410)),
+                        static_cast<int>(__byte_perm(hi01, hi23, 0x7632))};
+      const int wh = *reinterpret_cast<const int*>(whi + j0);
+      const int wl = *reinterpret_cast<const int*>(wlo + j0);
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        ah[d] = __dp4a(t[d], wh, ah[d]);
+        al[d] = __dp4a(t[d], wl, al[d]);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < 4; ++d)
+      osum[sg][4 * c + d] = 128u * static_cast<unsigned>(ah[d]) + static_cast<unsigned>(al[d]);
+  }
+  __syncthreads();
+  for (int d = tid; d < D; d += kThreads) {
+    unsigned o = 0u;
+    for (int s = 0; s < NSG; ++s) o += osum[s][d];
+    out[(size_t)bh * D + d] = mmmm::from_f<T>(static_cast<float>(static_cast<int>(o)) * ws);
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* kq, const void* ks, const void* vq, const void* vs,
+           const int* lens, void* out, int B, int H, int Smax, int D, float scale,
+           cudaStream_t st) {
+  const size_t smem = 6 * (size_t)((Smax + 3) & ~3);
+  const T* qp = static_cast<const T*>(q);
+  const int8_t* kqp = static_cast<const int8_t*>(kq);
+  const int8_t* vqp = static_cast<const int8_t*>(vq);
+  const __nv_bfloat16* ksp = static_cast<const __nv_bfloat16*>(ks);
+  const __nv_bfloat16* vsp = static_cast<const __nv_bfloat16*>(vs);
+  T* op = static_cast<T*>(out);
+  switch (D) {
+#define MMMM_MXU_CASE(DIM)                                                                \
+  case DIM: {                                                                             \
+    auto* kern = decode_q8_mxu_kernel<T, DIM / 16>;                                       \
+    if (smem > 40 * 1024) {                                                               \
+      const cudaError_t err = cudaFuncSetAttribute(                                       \
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));      \
+      if (err != cudaSuccess) return static_cast<int>(err);                               \
+    }                                                                                     \
+    kern<<<B * H, kThreads, smem, st>>>(qp, kqp, ksp, vqp, vsp, lens, op, H, Smax, scale); \
+    break;                                                                                \
+  }
+    MMMM_MXU_CASE(16)
+    MMMM_MXU_CASE(32)
+    MMMM_MXU_CASE(64)
+    MMMM_MXU_CASE(128)
+#undef MMMM_MXU_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q, out: (B, 1, H, D) bf16 or fp32; kq, vq: (B, H, Smax, D) int8; ks, vs:
+// (B, H, Smax, 1) bf16; kv_len (B,) int32. D is 16, 32, 64 or 128.
+extern "C" int mmmm_decode_attention_q8_mxu(const void* q, const void* kq, const void* ks,
+                                            const void* vq, const void* vs,
+                                            const void* kv_len, void* out, int B, int H,
+                                            int Smax, int D, float scale, int is_bf16,
+                                            void* stream) {
+  if (B <= 0 || H <= 0 || Smax <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* lens = static_cast<const int*>(kv_len);
+  if (is_bf16)
+    return launch<__nv_bfloat16>(q, kq, ks, vq, vs, lens, out, B, H, Smax, D, scale, st);
+  return launch<float>(q, kq, ks, vq, vs, lens, out, B, H, Smax, D, scale, st);
+}

@@ -17,6 +17,14 @@
 // products on the tensor cores with warp-level mma.sync (attn_mma.cuh); fp32
 // stays full fp32 on CUDA cores (attn_tile.cuh). The wgmma/TMA form is later
 // work.
+//
+// K12 (mmmm_tpu/ops/dense_attn.py _dense_fwd_bshd, Pallas body
+// `_kernel_bshd`) computes K4's function on (B, S, H, D) blocks; this
+// kernel reads that layout natively, so it is K12's counterpart too.
+//
+// P1 (scripts/tpu_probes.py nosm_fwd, Pallas body `_kernel_nosm`) is K4 with
+// the softmax replaced by one multiply, a floor for K4's time:
+// mmmm_dense_attention_nosm runs the same tensor-core kernel with NOSM.
 #include "attn_mma.cuh"
 #include "attn_tile.cuh"
 
@@ -33,4 +41,14 @@ extern "C" int mmmm_dense_attention(const void* q, const void* k, const void* v,
                                                B, S, S, H, D, scale, 0, st);
   }
   return static_cast<int>(err);
+}
+
+// P1: q, k, v, out (B, S, H, D) bf16; out = ((q k^T * scale) * 1e-4) v, keys
+// past S contributing 0, probabilities rounded to bf16 as K4's are.
+extern "C" int mmmm_dense_attention_nosm(const void* q, const void* k, const void* v,
+                                         void* out, int B, int S, int H, int D, float scale,
+                                         void* stream) {
+  return static_cast<int>(mmmm::launch_attn_mma<false, true>(
+      q, k, v, out, nullptr, nullptr, nullptr, B, S, S, H, D, scale, 0,
+      static_cast<cudaStream_t>(stream)));
 }

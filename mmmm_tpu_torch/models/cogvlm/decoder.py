@@ -12,8 +12,12 @@ SwiGLU MLP weights). Three routings are kept from the reference:
     language / vision / language runs, each through one expert;
   - ``lang_only`` for decode, where every token is provably language-routed.
 
-Every projection goes through ``qdot``, so the LLM weights may be plain or
-W8A16 ``{"q", "s"}`` leaves (``ops/quant.py``).
+Every projection goes through ``qdot``, so the LLM weights may be plain,
+int8 ``{"q", "s"}`` or int4 ``{"q4", "s4"}`` leaves (``ops/quant.py``). Two
+switches of the reference are keywords here: ``w8a8`` (``MMMM_W8A8``) runs
+the decode projections as W8A8, ``w8a8_prefill`` (``MMMM_W8A8_PREFILL``)
+the prefill's static-span projections; the ``lm_head`` (applied by the
+callers) stays W8A16 in both.
 
 Prefill attention is kernel K3 (causal, segment ids). Caches are per-layer
 (B, H, Smax, D) pairs in the model's dtype, or int8 dicts
@@ -25,12 +29,15 @@ cache branch does:
   cache   tokens  append, then attention
   pair    1       K2, K1
   pair    2-8     K5, K6 (query j sees slots < write_index + j + 1)
-  int8    1       ``quantize_kv``, K8, K9
+  int8    1       ``quantize_kv``, K8, K9 (K10 with ``q8_mxu=True``, the
+                  reference's ``MMMM_Q8_MXU``, where its condition holds)
   int8    > 1     plain: quantize, indexed write, ``dequantize_kv``, then
                   ``decode_attention_bhsd``, as the reference does outside
                   its kernels
 """
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 import torch.nn.functional as F
@@ -58,25 +65,26 @@ def vision_expert_mask(token_type_ids: torch.Tensor) -> torch.Tensor:
     return F.pad(m, (0, 1), value=False)
 
 
-def _swiglu(t, mp):
-    return qdot(F.silu(qdot(t, mp["gate"])) * qdot(t, mp["up"]), mp["down"])
+def _swiglu(t, mp, qd=qdot):
+    return qd(F.silu(qd(t, mp["gate"])) * qd(t, mp["up"]), mp["down"])
 
 
-def _routing(lp, *, vis_mask=None, expert_span=None, lang_only=False):
-    """(dual, mlp) callables for one layer's expert routing."""
+def _routing(lp, *, vis_mask=None, expert_span=None, lang_only=False, act_quant=False):
+    """(dual, mlp) callables for one layer's expert routing; ``act_quant``
+    (W8A8) applies to the ``lang_only`` and ``expert_span`` routings."""
+    qd = partial(qdot, act_quant=act_quant)
     if lang_only:
-        return (lambda t, wv, wl: qdot(t, wl)), (lambda t: _swiglu(t, lp["lang_mlp"]))
+        return (lambda t, wv, wl: qd(t, wl)), (lambda t: _swiglu(t, lp["lang_mlp"], qd))
     if expert_span is not None:
         lo, hi = expert_span
 
         def dual(t, wv, wl):
-            return torch.cat([qdot(t[:, :lo], wl), qdot(t[:, lo:hi], wv), qdot(t[:, hi:], wl)],
-                             dim=1)
+            return torch.cat([qd(t[:, :lo], wl), qd(t[:, lo:hi], wv), qd(t[:, hi:], wl)], dim=1)
 
         def mlp(t):
-            return torch.cat([_swiglu(t[:, :lo], lp["lang_mlp"]),
-                              _swiglu(t[:, lo:hi], lp["vis_mlp"]),
-                              _swiglu(t[:, hi:], lp["lang_mlp"])], dim=1)
+            return torch.cat([_swiglu(t[:, :lo], lp["lang_mlp"], qd),
+                              _swiglu(t[:, lo:hi], lp["vis_mlp"], qd),
+                              _swiglu(t[:, hi:], lp["lang_mlp"], qd)], dim=1)
 
         return dual, mlp
     sel = vis_mask[..., None]
@@ -100,61 +108,80 @@ def _decoder_layer(x, lp, cfg: CogVLMConfig, *, position_ids, cos, sin, attend, 
     return x + mlp(rms_norm(x, lp["post_ln"], cfg.rms_norm_eps))
 
 
-def _new_cache(k, v, smax: int, kv_cache_dtype: str):
-    """A layer's cache of ``smax`` slots holding the prompt's rotated K/V
-    (B, S, H, D) in its first S slots: a (k, v) pair in their dtype, or an
-    int8 dict for ``kv_cache_dtype="int8"``."""
-    b, s, h, d = k.shape
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+def empty_cache(b: int, h: int, smax: int, d: int, dtype, device, kv_cache_dtype: str):
+    """One layer's zeroed cache of ``smax`` slots: a (k, v) pair of
+    (B, H, Smax, D) in ``dtype``, or for ``kv_cache_dtype="int8"`` a dict of
+    int8 rows ``kq``/``vq`` and bf16 per-slot scales ``ks``/``vs``."""
     if kv_cache_dtype == "int8":
-        cache = {"kq": torch.zeros((b, h, smax, d), dtype=torch.int8, device=k.device),
-                 "ks": torch.zeros((b, h, smax, 1), dtype=torch.bfloat16, device=k.device)}
-        cache["vq"], cache["vs"] = torch.zeros_like(cache["kq"]), torch.zeros_like(cache["ks"])
+        kq = torch.zeros((b, h, smax, d), dtype=torch.int8, device=device)
+        ks = torch.zeros((b, h, smax, 1), dtype=torch.bfloat16, device=device)
+        return {"kq": kq, "ks": ks, "vq": torch.zeros_like(kq), "vs": torch.zeros_like(ks)}
+    kc = torch.zeros((b, h, smax, d), dtype=dtype, device=device)
+    return kc, torch.zeros_like(kc)
+
+
+def cache_rows(cache, lo: int, hi: int):
+    """Samples [lo, hi) of a layer's cache, as views (contiguous, since the
+    batch dim leads)."""
+    if isinstance(cache, dict):
+        return {key: t[lo:hi] for key, t in cache.items()}
+    return tuple(t[lo:hi] for t in cache)
+
+
+def _fill_cache(cache, k, v):
+    """Write the prompt's rotated K/V (B, S, H, D) into the first S slots."""
+    s = k.shape[1]
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    if isinstance(cache, dict):
         for t, (qk, sk) in ((kt, ("kq", "ks")), (vt, ("vq", "vs"))):
             cache[qk][:, :, :s], cache[sk][:, :, :s] = quantize_kv(t)
-        return cache
-    kc = torch.zeros((b, h, smax, d), dtype=k.dtype, device=k.device)
-    vc = torch.zeros_like(kc)
-    kc[:, :, :s], vc[:, :, :s] = kt, vt
-    return kc, vc
+    else:
+        cache[0][:, :, :s], cache[1][:, :, :s] = kt, vt
+    return cache
 
 
 def llm_prefill(params: dict, cfg: CogVLMConfig, inputs_embeds, token_type_ids, position_ids,
                 segments, *, smax: int, vis_span: tuple[int, int] | None = None,
-                kv_cache_dtype: str = "bf16"):
+                kv_cache_dtype: str = "bf16", w8a8_prefill: bool = False, caches=None):
     """Full-sequence prefill writing each layer's rotated K/V into a
     preallocated cache of ``smax`` slots: a (B, H, Smax, D) pair in the
     model's dtype, or with ``kv_cache_dtype="int8"`` a per-slot quantized
-    dict (the prefill's own attention reads the unquantized K/V).
+    dict (the prefill's own attention reads the unquantized K/V). ``caches``
+    gives the per-layer caches to write (views of larger ones, for chunked
+    prefill); by default they are allocated here.
 
     ``vis_span=(lo, hi)`` declares every row's vision tokens are [lo, hi),
     so layers take the static span path over [lo, hi - 1) (the off-by-one
-    rule); otherwise the dual masked path. Returns (hidden (B, S, C) after
-    the final norm, per-layer caches)."""
+    rule), W8A8 with ``w8a8_prefill``; otherwise the dual masked path.
+    Returns (hidden (B, S, C) after the final norm, per-layer caches)."""
     if kv_cache_dtype not in ("bf16", "int8"):
         raise ValueError(f"kv_cache_dtype must be 'bf16' or 'int8', got {kv_cache_dtype!r}")
-    d = cfg.head_dim
+    b, d = inputs_embeds.shape[0], cfg.head_dim
+    if caches is None:
+        caches = [empty_cache(b, cfg.num_attention_heads, smax, d, inputs_embeds.dtype,
+                              inputs_embeds.device, kv_cache_dtype)
+                  for _ in range(cfg.num_hidden_layers)]
     cos, sin = rope_cos_sin(cfg.max_position_embeddings, d, device=inputs_embeds.device)
     vis_mask = vision_expert_mask(token_type_ids)
     expert_span = None if vis_span is None else (vis_span[0], vis_span[1] - 1)
     seg = segments.to(torch.int32).contiguous()
     scale = d ** -0.5
     x = inputs_embeds
-    caches = []
     for li in range(cfg.num_hidden_layers):
         lp = layer(params["layers"], li)
 
-        def attend(q, k, v):
-            caches.append(_new_cache(k, v, smax, kv_cache_dtype))
+        def attend(q, k, v, cache=caches[li]):
+            _fill_cache(cache, k, v)
             return flash_segment_attention(q, k, v, seg, seg, causal=True, scale=scale)[0]
 
         x = _decoder_layer(x, lp, cfg, position_ids=position_ids, cos=cos, sin=sin,
                            attend=attend,
-                           routing=_routing(lp, vis_mask=vis_mask, expert_span=expert_span))
+                           routing=_routing(lp, vis_mask=vis_mask, expert_span=expert_span,
+                                            act_quant=w8a8_prefill))
     return rms_norm(x, params["norm"], cfg.rms_norm_eps), caches
 
 
-def _cached_attention(q, k, v, cache, write_index, kv_len):
+def _cached_attention(q, k, v, cache, write_index, kv_len, q8_mxu=False):
     """Append this step's K/V (B, Sq, H, D) to one layer's cache in place and
     attend to it (the dispatch table in the module docstring)."""
     sq = q.shape[1]
@@ -164,7 +191,7 @@ def _cached_attention(q, k, v, cache, write_index, kv_len):
         if sq == 1:
             kv_append_q8(cache, kq, ks, vq, vs, write_index)
             return decode_attention_q8(q, cache["kq"], cache["ks"], cache["vq"], cache["vs"],
-                                       kv_len)
+                                       kv_len, q8_mxu=q8_mxu)
         for key, new in (("kq", kq), ("ks", ks), ("vq", vq), ("vs", vs)):
             dus_rows(cache[key], new, write_index)
         smax = cache["kq"].shape[2]
@@ -182,7 +209,7 @@ def _cached_attention(q, k, v, cache, write_index, kv_len):
 
 
 def llm_decode_step(params: dict, cfg: CogVLMConfig, inputs_embeds, position_ids, kv_caches,
-                    write_index, kv_len):
+                    write_index, kv_len, *, w8a8: bool = False, q8_mxu: bool = False):
     """Decode one token per sample, or verify a window of Sq <= 8 tokens,
     against the caches.
 
@@ -192,7 +219,9 @@ def llm_decode_step(params: dict, cfg: CogVLMConfig, inputs_embeds, position_ids
     is (B, Sq) with ``kv_len[b, j] = write_index[b] + j + 1`` (query j sees
     the prefix and the window causally), the contract the window kernel K6
     derives from ``write_index``. The caches are updated IN PLACE and
-    returned. Returns (hidden (B, Sq, C) after the final norm, caches)."""
+    returned. ``w8a8`` runs the projections W8A8; ``q8_mxu`` asks for the
+    split-int8 read of an int8 cache. Returns (hidden (B, Sq, C) after the
+    final norm, caches)."""
     d = cfg.head_dim
     cos, sin = rope_cos_sin(cfg.max_position_embeddings, d, device=inputs_embeds.device)
     x = inputs_embeds
@@ -200,8 +229,8 @@ def llm_decode_step(params: dict, cfg: CogVLMConfig, inputs_embeds, position_ids
         lp = layer(params["layers"], li)
 
         def attend(q, k, v, cache=cache):
-            return _cached_attention(q, k, v, cache, write_index, kv_len)
+            return _cached_attention(q, k, v, cache, write_index, kv_len, q8_mxu)
 
         x = _decoder_layer(x, lp, cfg, position_ids=position_ids, cos=cos, sin=sin,
-                           attend=attend, routing=_routing(lp, lang_only=True))
+                           attend=attend, routing=_routing(lp, lang_only=True, act_quant=w8a8))
     return rms_norm(x, params["norm"], cfg.rms_norm_eps), kv_caches

@@ -32,7 +32,7 @@ def dense_pe(params: dict, grid_shape: tuple[int, int, int]) -> torch.Tensor:
     gauss = params["pe_gaussian"]
     coords = torch.from_numpy(np.stack([g[1] / d1, g[0] / d0, g[2] / d2], axis=-1))
     coords = 2 * coords.to(gauss.device) - 1
-    proj = 2 * math.pi * (coords @ gauss)
+    proj = 2 * math.pi * (coords @ gauss.float())  # fp32, as the reference promotes
     return torch.cat([proj.sin(), proj.cos()], dim=-1).permute(3, 0, 1, 2)
 
 
@@ -44,11 +44,19 @@ def encode_text_prompt(params: dict, text_embedding: torch.Tensor, grid_shape):
     return sparse, dense
 
 
+def _linear(x, w, b):
+    """``x @ w + b`` in the wider of the two dtypes, as the reference's
+    type promotion gives it where a bf16 head meets the fp32 positional
+    grid (``sam_bf16``)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt) + b.to(dt)
+
+
 def _attn(p, q, k, v, num_heads: int):
     """Multi-head attention on (..., S, C) operands."""
-    qh = q @ p["q_w"] + p["q_b"]
-    kh = k @ p["k_w"] + p["k_b"]
-    vh = v @ p["v_w"] + p["v_b"]
+    qh = _linear(q, p["q_w"], p["q_b"])
+    kh = _linear(k, p["k_w"], p["k_b"])
+    vh = _linear(v, p["v_w"], p["v_b"])
     internal = qh.shape[-1]
     d = internal // num_heads
 
@@ -59,7 +67,7 @@ def _attn(p, q, k, v, num_heads: int):
     logits = (qh.float() @ kh.float().transpose(-1, -2))
     probs = torch.softmax(logits * d ** -0.5, dim=-1).to(vh.dtype)
     out = (probs @ vh).transpose(-3, -2).reshape(*q.shape[:-1], internal)
-    return out @ p["out_w"] + p["out_b"]
+    return _linear(out, p["out_w"], p["out_b"])
 
 
 def _ln(p, x):

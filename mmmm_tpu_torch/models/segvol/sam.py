@@ -1,9 +1,13 @@
-"""Semantic SAM forward over a fixed-size target axis, the port of
-``_decode_all_targets`` and ``sam_forward`` in
-``mmmm_tpu/models/segvol/sam.py``."""
+"""SAM forward passes over a fixed-size target axis, the port of
+``_decode_all_targets``, ``sam_forward`` (semantic: masks),
+``instance_sam_forward`` and ``InstanceSamOutput`` (instance: masks, boxes
+and presence logits) in ``mmmm_tpu/models/segvol/sam.py``."""
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+import torch.nn.functional as F
 
 from ...ops.resample import trilinear_resize
 from .config import SamConfig
@@ -36,3 +40,32 @@ def sam_forward(params: dict, cfg: SamConfig, image: torch.Tensor,
     masks, _ = _decode_all_targets(params, cfg, embeds, prompts, patch_size[0])
     semantic_low = masks[:, :, 0]
     return trilinear_resize(semantic_low, tuple(image.shape[2:])), semantic_low
+
+
+@dataclasses.dataclass
+class InstanceSamOutput:
+    """All tensors carry (B, N_targets, ...) axes; padded targets are invalid."""
+
+    masks_logits: torch.Tensor  # (B, N, K+1, D, H, W), or low-res without upsampling
+    masks_logits_low_res: torch.Tensor  # (B, N, K+1, d', h', w')
+    boxes: torch.Tensor  # (B, N, K+1, 6) CenterSize in [0, 1], fp32
+    disc_logit: torch.Tensor  # (B, N, K) fp32
+
+
+def instance_sam_forward(params: dict, cfg: SamConfig, image: torch.Tensor,
+                         patch_size: tuple[int, int, int], prompts: torch.Tensor, *,
+                         upsample_to_image: bool = True) -> InstanceSamOutput:
+    """Instance path: the mask decoder's tokens through the DETR-style box
+    head (``relu(relu(t w1 + b1) w2 + b2) w3 + b3`` -> sigmoid) and the
+    presence head over tokens ``1:`` (``relu(t w1 + b1) w2 + b2``)."""
+    embeds = encoder_forward(params["encoder"], cfg, image, patch_size)
+    masks_low, tokens = _decode_all_targets(params, cfg, embeds, prompts, patch_size[0])
+    bh, dh = params["box_head"], params["disc_head"]
+    x = F.relu(tokens @ bh["w1"] + bh["b1"])
+    x = F.relu(x @ bh["w2"] + bh["b2"])
+    boxes = torch.sigmoid((x @ bh["w3"] + bh["b3"]).float())
+    y = F.relu(tokens[:, :, 1:] @ dh["w1"] + dh["b1"])
+    disc = (y @ dh["w2"] + dh["b2"])[..., 0].float()
+    full = (trilinear_resize(masks_low, tuple(image.shape[2:])) if upsample_to_image
+            else masks_low)
+    return InstanceSamOutput(full, masks_low, boxes, disc)

@@ -23,7 +23,7 @@ from torch.profiler import record_function
 from ..ops.quant import qdot
 from .cogvlm import CogVLMConfig
 from .cogvlm.decoder import llm_decode_step
-from .generate import GenerateResult, prefill_decode_state
+from .generate import GenerateResult, chunked_prefill_decode_state
 
 
 def ngram_draft(hist: torch.Tensor, hist_len: torch.Tensor, *, n_draft: int,
@@ -68,25 +68,27 @@ def ngram_speculative_generate(params: dict, cfg: CogVLMConfig, input_ids, token
                                image=None, patch_size=None, pool_size=None, vis_span=None,
                                kv_cache_dtype: str = "bf16", draft_len: int = 7,
                                ngram: int = 2, return_stats: bool = False,
-                               prefill_chunk: int = 0):
+                               prefill_chunk: int = 0, chunk_mode: str = "all",
+                               w8a8: bool = False, w8a8_prefill: bool = False):
     """Drop-in replacement for ``greedy_generate`` with n-gram speculation:
     the same tokens, ``num_generated`` and per-token hidden states. A window
     holds ``k = draft_len + 1 <= 8`` tokens; the caches get ``k`` slack slots
-    so a full window always fits. ``return_stats=True`` also returns
+    so a full window always fits. ``prefill_chunk > 0`` prefills in batch
+    chunks (``chunked_prefill_decode_state``, cut back to the true batch
+    before the verify loop). ``return_stats=True`` also returns
     ``{"iters": verify steps, "tokens_per_step": committed tokens per row
     and step}``."""
-    if prefill_chunk > 0:
-        raise NotImplementedError("chunked prefill is not ported yet (ROADMAP.md Queue 1)")
     k = draft_len + 1
     if not 2 <= k <= 8:
         raise ValueError(f"draft_len must be in [1, 7], got {draft_len}")
     b, s_prompt = input_ids.shape
     dev = input_ids.device
     smax = s_prompt + max_new_tokens + k
-    st, prefill_hidden, last_hidden = prefill_decode_state(
-        params, cfg, input_ids, token_type_ids, position_ids, prompt_len, smax=smax,
-        eos_token_id=eos_token_id, image=image, patch_size=patch_size, pool_size=pool_size,
-        vis_span=vis_span, kv_cache_dtype=kv_cache_dtype,
+    st, prefill_hidden, last_hidden = chunked_prefill_decode_state(
+        params, cfg, input_ids, token_type_ids, position_ids, prompt_len, chunk=prefill_chunk,
+        chunk_mode=chunk_mode, slice_to_batch=True, smax=smax, eos_token_id=eos_token_id,
+        image=image, patch_size=patch_size, pool_size=pool_size, vis_span=vis_span,
+        kv_cache_dtype=kv_cache_dtype, w8a8_prefill=w8a8_prefill,
     )
     llm = params["llm"]
     c = last_hidden.shape[-1]
@@ -116,7 +118,7 @@ def ngram_speculative_generate(params: dict, cfg: CogVLMConfig, input_ids, token
             pos_w = pos[:, None] + torch.cumsum(1 - keep.long(), dim=1)
             kv_len = write[:, None] + torch.arange(1, k + 1, dtype=torch.int32, device=dev)
             hidden_w, _ = llm_decode_step(llm, cfg, llm["embed_tokens"][window], pos_w,
-                                          st["caches"], write, kv_len)
+                                          st["caches"], write, kv_len, w8a8=w8a8)
             g = torch.argmax(qdot(hidden_w, llm["lm_head"]).float(), dim=-1).to(torch.int32)
 
             # accept the longest draft prefix matching the model's own argmax;

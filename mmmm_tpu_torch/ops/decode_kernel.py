@@ -7,12 +7,17 @@
   - K6 ``decode_attention_window`` (``decode_attention_pallas_window``);
   - K8 ``kv_append_q8`` (``kv_append_pallas_q8``): the int8 cache;
   - K9 ``decode_attention_q8`` (``decode_attention_pallas_q8``, full and
-    ragged).
+    ragged);
+  - K10 ``decode_attention_q8_mxu`` (``decode_attention_pallas_q8_mxu``):
+    the int8-cache read as exact split-int8 integer dots, which
+    ``decode_attention_q8(q8_mxu=True)`` takes under the reference's own
+    condition (its ``MMMM_Q8_MXU`` switch).
 
 Each wrapper takes its plain version for CPU tensors and launches the CUDA
 kernel (``csrc/decode_attn.cu``, ``csrc/decode_window.cu``,
-``csrc/decode_q8.cu``, ``csrc/kv_append.cu``) for CUDA tensors. The appends
-work in place with the reference's ``dynamic_update_slice`` edge rule.
+``csrc/decode_q8.cu``, ``csrc/decode_q8_mxu.cu``, ``csrc/kv_append.cu``) for
+CUDA tensors. The appends work in place with the reference's
+``dynamic_update_slice`` edge rule.
 """
 from __future__ import annotations
 
@@ -64,6 +69,17 @@ K9 = _cuda.register(_cuda.Kernel(
     replaces="mmmm_tpu/ops/decode_kernel.py:328 decode_attention_pallas_q8 "
              "(pallas_call :377 via :370; ragged :704 -> :733)",
 ))
+K10 = _cuda.register(_cuda.Kernel(
+    "K10", "mmmm_decode_attention_q8_mxu",
+    [_cuda.P] * 7 + [_cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.I, _cuda.P],
+    source="mmmm_tpu_torch/csrc/decode_q8_mxu.cu",
+    replaces="mmmm_tpu/ops/decode_kernel.py:604 decode_attention_pallas_q8_mxu "
+             "(pallas_call :624; _decode_kernel_q8_mxu :542, _q14_split :528)",
+))
+# the reference's VMEM budget for a full (head chunk, Smax) read
+# (decode_kernel.py:776); it also gates the split-int8 read (:356)
+FULL_READ_BUDGET = 12 * 1024 * 1024
+Q8_MXU_MAX_SMAX = 32768  # the kernel keeps 6 bytes a slot in shared memory
 
 
 def dus_rows(cache, new, write_index):
@@ -280,12 +296,24 @@ def decode_attention_q8_plain(q, kq, ks, vq, vs, kv_len, scale: float | None = N
     return out.transpose(1, 2).to(q.dtype)  # (B, 1, H, D)
 
 
-def decode_attention_q8(q, kq, ks, vq, vs, kv_len, scale: float | None = None):
+def _q8_mxu_eligible(h: int, smax: int, d: int) -> bool:
+    """The reference's condition for the split-int8 read: a head chunk's
+    fp32 image of the (Smax, D) int8 operands fits its VMEM budget
+    (``8 * chunk * Smax * D <= 12 MiB``, Smax <= 1536 at H=32, D=128)."""
+    chunk = 8 if h % 8 == 0 else (4 if h % 4 == 0 else 1)
+    return 8 * chunk * smax * d <= FULL_READ_BUDGET
+
+
+def decode_attention_q8(q, kq, ks, vq, vs, kv_len, scale: float | None = None, *,
+                        q8_mxu: bool = False):
     """One query token per sample against an int8 cache: q (B, 1, H, D) bf16
     or fp32, kq/vq (B, H, Smax, D) int8, ks/vs (B, H, Smax, 1) bf16, kv_len
-    (B,) -> (B, 1, H, D) in q's dtype."""
+    (B,) -> (B, 1, H, D) in q's dtype. ``q8_mxu=True`` asks for the
+    split-int8 read (K10), taken where the reference takes it; otherwise K9."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if q8_mxu and _q8_mxu_eligible(kq.shape[1], kq.shape[2], kq.shape[3]):
+        return decode_attention_q8_mxu(q, kq, ks, vq, vs, kv_len, scale)
     if _cuda.on_cpu("decode_attention_q8", q):
         return decode_attention_q8_plain(q, kq, ks, vq, vs, kv_len, scale)
     _cuda.check_cuda("decode_attention_q8", q, dtypes=(torch.bfloat16, torch.float32))
@@ -304,4 +332,81 @@ def decode_attention_q8(q, kq, ks, vq, vs, kv_len, scale: float | None = None):
     K9(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
        kv_len.data_ptr(), out.data_ptr(), b, h, smax, d, float(scale),
        int(q.dtype == torch.bfloat16), _cuda.stream_of(q))
+    return out
+
+
+def q14_split(x: torch.Tensor, amax_dims) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact 14-bit split-int8 encoding (``_q14_split``): ``x ~ (hi * 128 +
+    lo) * s`` with ``s = amax / 16256`` over ``amax_dims``, ``hi`` in
+    [-127, 127] and ``lo`` in [0, 127], both int8. Returns (hi, lo, s)."""
+    xf = x.float()
+    s = xf.abs().amax(dim=amax_dims, keepdim=True).clamp_min(1e-8) / 16256.0
+    x14 = torch.round(xf / s).to(torch.int32)
+    hi = x14 >> 7  # arithmetic shift = floor division by 128
+    return hi.to(torch.int8), (x14 - hi * 128).to(torch.int8), s
+
+
+def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 sums reduced modulo 2**32 into int32, as the reference's int32
+    arithmetic wraps."""
+    return ((x + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+
+
+def _split_dot(a8: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, eq: str) -> torch.Tensor:
+    """``128 * <a, hi> + <a, lo>`` of int8 operands in int32 arithmetic. The
+    dots run in float64, exact for these integers (|sum| < 2**53), since
+    CUDA has no integer batched matmul."""
+    a = a8.double()
+    dot = lambda b: torch.einsum(eq, a, b.double()).long()
+    return _wrap_int32(128 * dot(hi) + dot(lo))
+
+
+def decode_attention_q8_mxu_plain(q, kq, ks, vq, vs, kv_len, scale: float | None = None):
+    """Plain version of K10 (``_decode_kernel_q8_mxu``): q split per (b, h)
+    into int8 (hi, lo); logits ``s32 * k_s * (q_s * scale)`` from the exact
+    int32 dot ``s32``; the masked fp32 softmax folded with ``v_s``, split
+    again with ``w_s = max(w) / 16256``; output ``o32 * w_s`` from the int32
+    dot of ``v_q`` and the weights. Integer sums wrap modulo 2**32 as the
+    reference's int32 does (``|o32|`` passes 2**31 above kv_len ~1040 under
+    near-uniform attention). A sample with no valid slot gets zeros."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    smax = kq.shape[2]
+    qhi, qlo, qs = q14_split(q.transpose(1, 2), (-1, -2))  # (B, H, 1, D), s (B, H, 1, 1)
+    s32 = _split_dot(kq, qhi, qlo, "bhkd,bhqd->bhqk")  # (B, H, 1, Smax)
+    logits = s32.float() * ks.float().transpose(-1, -2) * (qs * scale)
+    valid = (torch.arange(smax, device=q.device)[None, :] < kv_len[:, None].long())
+    w = _masked_softmax(logits, valid[:, None, None, :]) * vs.float().transpose(-1, -2)
+    ws = w.amax(dim=-1, keepdim=True).clamp_min(1e-30) / 16256.0  # (B, H, 1, 1)
+    w14 = torch.round(w / ws).to(torch.int32)
+    whi = w14 >> 7
+    o32 = _split_dot(vq, whi, w14 - whi * 128, "bhkd,bhqk->bhqd")  # (B, H, 1, D)
+    return (o32.float() * ws).transpose(1, 2).to(q.dtype)  # (B, 1, H, D)
+
+
+def decode_attention_q8_mxu(q, kq, ks, vq, vs, kv_len, scale: float | None = None):
+    """K10: the int8-cache read as exact split-int8 integer dots; the
+    contract of ``decode_attention_q8``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _cuda.on_cpu("decode_attention_q8_mxu", q):
+        return decode_attention_q8_mxu_plain(q, kq, ks, vq, vs, kv_len, scale)
+    _cuda.check_cuda("decode_attention_q8_mxu", q, dtypes=(torch.bfloat16, torch.float32))
+    _cuda.check_cuda("decode_attention_q8_mxu", kq, vq, dtypes=(torch.int8,))
+    _cuda.check_cuda("decode_attention_q8_mxu", ks, vs, dtypes=(torch.bfloat16,), align=2)
+    _cuda.check_cuda("decode_attention_q8_mxu", kv_len, dtypes=(torch.int32,), align=4)
+    b, h, smax, d = kq.shape
+    if (q.shape != (b, 1, h, d) or vq.shape != kq.shape or ks.shape != (b, h, smax, 1)
+            or vs.shape != ks.shape):
+        raise ValueError(f"decode_attention_q8_mxu: q {q.shape} vs cache {kq.shape}")
+    if kv_len.shape != (b,):
+        raise ValueError(f"decode_attention_q8_mxu: kv_len must be ({b},), "
+                         f"got {tuple(kv_len.shape)}")
+    if d not in (16, 32, 64, 128) or smax > Q8_MXU_MAX_SMAX:
+        raise ValueError(f"decode_attention_q8_mxu: head dim {d} must be 16, 32, 64 or 128 "
+                         f"and Smax {smax} at most {Q8_MXU_MAX_SMAX}")
+    out = torch.empty_like(q)
+    K10(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
+        kv_len.data_ptr(), out.data_ptr(), b, h, smax, d, float(scale),
+        int(q.dtype == torch.bfloat16), _cuda.stream_of(q))
     return out

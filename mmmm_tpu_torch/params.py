@@ -19,7 +19,7 @@ import torch
 
 from .models.mmmm import MMMMConfig
 from .ops._cuda import resolve_device
-from .ops.quant import LLM_QUANT_KEYS, MLP_QUANT_KEYS
+from .ops.quant import INT4_GROUP, LLM_QUANT_KEYS, MLP_QUANT_KEYS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,7 +234,8 @@ def params_from_jax(tree: dict, device: str | torch.device = "cuda", *,
 
     The LLM weights that ``quantize_llm_for_serving`` converts may come as
     its ``{"q", "s"}`` int8 leaves instead (``q`` of the weight's shape,
-    ``s`` with dim -2 of size 1).
+    ``s`` with dim -2 of size 1) or, for ``bits=4``, as ``{"q4", "s4"}``
+    (``q4`` with dim -2 halved, ``s4`` with one row per group of 128).
 
     Raises on a leaf the port does not consume and on a port parameter the
     tree leaves unset (the set of names does not depend on the widths);
@@ -247,6 +248,10 @@ def params_from_jax(tree: dict, device: str | torch.device = "cuda", *,
         if path in _QUANTIZABLE and f"{path}/q" in flat:
             wanted[f"{path}/q"] = leaf.shape
             wanted[f"{path}/s"] = (*leaf.shape[:-2], 1, leaf.shape[-1])
+        elif path in _QUANTIZABLE and f"{path}/q4" in flat:
+            *lead, k, n = leaf.shape
+            wanted[f"{path}/q4"] = (*lead, k // 2, n)
+            wanted[f"{path}/s4"] = (*lead, k // INT4_GROUP, n)
         else:
             wanted[path] = leaf.shape
     unknown = sorted(set(flat) - set(wanted))

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1-K6, K8, K9) against their plain PyTorch versions on the
-card. Every test is marked ``cuda`` and skips without a GPU.
+"""The port's CUDA kernels (K1-K6, K8-K11, P1) against their plain PyTorch versions
+on the card. Every test is marked ``cuda`` and skips without a GPU.
 
 This file imports neither JAX nor ``mmmm_tpu``, so it also runs where only
 PyTorch is installed; tests/conftest.py imports JAX, so on such a machine
@@ -11,7 +11,8 @@ import torch
 from mmmm_tpu_torch.ops import decode_kernel as pdec
 from mmmm_tpu_torch.ops import dense_attn as pdense
 from mmmm_tpu_torch.ops import flash as pflash
-from mmmm_tpu_torch.ops.quant import quantize_kv
+from mmmm_tpu_torch.ops import w4_matmul as pw4
+from mmmm_tpu_torch.ops.quant import quantize_int4, quantize_kv
 
 
 @pytest.fixture
@@ -116,3 +117,74 @@ def test_q8_kernels(cuda, d, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=2e-2 if dtype == torch.bfloat16 else 1e-4)
     assert torch.all(got[0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(128, torch.bfloat16), (16, torch.float32),
+                                     (64, torch.float32)])
+def test_q8_mxu_kernel(cuda, d, dtype):
+    """K10 within 2e-2 (bf16 q) / 1e-4 (fp32 q) of its plain version: the
+    integer dots are exact, exp and the softmax sums may move one 14-bit
+    weight by a step. kv_len 0 gives zeros."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    b, h, smax = 4, 4, 57
+    kq, ks = quantize_kv(torch.randn(b, h, smax, d, generator=g, device=cuda))
+    vq, vs = quantize_kv(torch.randn(b, h, smax, d, generator=g, device=cuda))
+    q = torch.randn(b, 1, h, d, generator=g, device=cuda).to(dtype)
+    kv_len = torch.tensor([0, 1, 23, smax], dtype=torch.int32, device=cuda)
+    got = pdec.decode_attention_q8_mxu(q, kq, ks, vq, vs, kv_len)
+    want = pdec.decode_attention_q8_mxu_plain(q, kq, ks, vq, vs, kv_len)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2e-2 if dtype == torch.bfloat16 else 1e-4)
+    assert torch.all(got[0] == 0)
+
+
+@pytest.mark.cuda
+def test_q8_mxu_kernel_wraps_as_int32(cuda):
+    """Uniform attention over rows of 127 at kv_len 1100: the int32 sum
+    wraps, identically in the kernel and the plain version."""
+    b, h, smax, d = 1, 2, 1100, 16
+    kq = torch.full((b, h, smax, d), 127, dtype=torch.int8, device=cuda)
+    ks = torch.ones((b, h, smax, 1), dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros((b, 1, h, d), device=cuda)
+    kv_len = torch.tensor([smax], dtype=torch.int32, device=cuda)
+    got = pdec.decode_attention_q8_mxu(q, kq, ks, kq, ks, kv_len)
+    assert torch.equal(got, pdec.decode_attention_q8_mxu_plain(q, kq, ks, kq, ks, kv_len))
+    assert torch.all(got < 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,dtype", [(4, torch.bfloat16), (33, torch.bfloat16),
+                                     (290, torch.bfloat16), (7, torch.float32),
+                                     (70, torch.float32)])
+def test_w4_kernels(cuda, m, dtype):
+    """K11 (GEMV: fp32, or at most 16 rows) and K11mma (more bf16 rows)
+    against ``w4_matmul_plain``: fp32 within 1e-4 (sums in another order),
+    bf16 within 2e-2 at |y| ~ 1 (one bf16 step plus order)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    k, n = 1024, 768
+    w = quantize_int4(torch.randn(k, n, generator=g, device=cuda).mul_(0.05))
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    counts = (pw4.K11.launches, pw4.K11MMA.launches)
+    got = pw4.w4_matmul(x, w["q4"], w["s4"])
+    mma = dtype == torch.bfloat16 and m > pw4.GEMV_MAX_ROWS
+    assert (pw4.K11.launches - counts[0], pw4.K11MMA.launches - counts[1]) == (int(not mma),
+                                                                              int(mma))
+    want = pw4.w4_matmul_plain(x, w["q4"], w["s4"])
+    assert got.dtype == dtype and got.shape == (m, n)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.cuda
+def test_nosm_kernel(cuda):
+    """P1 within one bf16 step at its largest output of its plain version
+    (probabilities of ~1e-4 make outputs ~1e-3); 77 keys pad a partial
+    tile."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(2, 77, 4, 112, generator=g, device=cuda).bfloat16() for _ in range(3))
+    got = pdense.dense_attention_nosm(q, k, v, 112 ** -0.5)
+    want = pdense.dense_attention_nosm_plain(q, k, v, 112 ** -0.5)
+    top = want.abs().max().item()
+    assert top > 1e-4
+    torch.testing.assert_close(got.float(), want.float(), atol=2 ** -7 * top, rtol=0)

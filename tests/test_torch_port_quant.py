@@ -73,12 +73,17 @@ def test_qdot_matches_jax(trees, lead):
 
 
 def test_not_ported_modes_raise(trees):
+    """Every serving mode is ported; what the reference's kernels cannot
+    take is refused: other bit widths, int4 shapes off the kernel tiles,
+    quantization over another axis."""
     _, tree, _ = trees
     w = pquant.quantize_int8(torch.from_numpy(tree["cogvlm"]["llm"]["lm_head"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pquant.qdot(torch.zeros(2, w["q"].shape[0]), w, act_quant=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pquant.quantize_llm_for_serving({"llm": {}}, bits=4)
+    with pytest.raises(ValueError, match="bits"):
+        pquant.quantize_llm_for_serving({"llm": {}}, bits=3)
+    with pytest.raises(ValueError, match="2\\*group"):
+        pquant.quantize_int4(torch.zeros(128, 256))
+    with pytest.raises(ValueError, match="256 kernel tile"):
+        pquant.quantize_int4(torch.zeros(256, 128))
     with pytest.raises(ValueError, match="contraction"):
         pquant.quantize_int8(w["q"], axis=-1)
 

@@ -190,22 +190,31 @@ def _imports(tree):
 
 
 def test_port_imports_no_jax_and_no_library_kernels():
-    """No module of the port imports jax, jaxlib or mmmm_tpu (the
-    ``mmmm_tpu.`` pattern leaves ``mmmm_tpu_torch`` alone), and none calls
-    SDPA or torch.compile."""
+    """No module of the port, and not chip_smoke.py, imports jax, jaxlib or
+    mmmm_tpu (the ``mmmm_tpu.`` pattern leaves ``mmmm_tpu_torch`` alone),
+    and no module of the port calls SDPA or torch.compile (chip_smoke.py
+    times SDPA as a yardstick)."""
     files = sorted((ROOT / "mmmm_tpu_torch").rglob("*.py"))
     assert len(files) > 15
-    for f in files:
+    assert ROOT / "mmmm_tpu_torch" / "ops" / "w4_matmul.py" in files
+    for f in files + [ROOT / "chip_smoke.py"]:
         tree = ast.parse(f.read_text(), filename=str(f))
         for mod in _imports(tree):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "mmmm_tpu"), f"{f}: imports {mod}"
+        if f.name == "chip_smoke.py":
+            continue
         attrs = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
         assert not attrs & {"scaled_dot_product_attention", "compile"}, f
 
 
 def test_import_leaves_jax_out():
-    code = "import mmmm_tpu_torch, sys; assert 'jax' not in sys.modules, 'jax imported'"
+    """Importing every module of the port, and chip_smoke.py, loads no JAX."""
+    code = ("import importlib, pkgutil, sys, mmmm_tpu_torch, chip_smoke\n"
+            "for m in pkgutil.walk_packages(mmmm_tpu_torch.__path__, 'mmmm_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "assert 'mmmm_tpu_torch.ops.w4_matmul' in sys.modules")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode == 0, r.stderr

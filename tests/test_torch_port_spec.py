@@ -152,8 +152,8 @@ def test_speculative_refuses_what_is_not_ported(quantized):
     args = (params["cogvlm"], cfg.vlm, *(torch.from_numpy(x) for x in (ids, tt, pos, lens)))
     kw = dict(max_new_tokens=2, eos_token_id=tok.eos_token_id, bop_token_id=tok.bop_token_id,
               eop_token_id=tok.eop_token_id)
-    with pytest.raises(NotImplementedError, match="chunked prefill"):
-        ngram_speculative_generate(*args, prefill_chunk=2, **kw)
+    with pytest.raises(ValueError, match="chunk_mode"):
+        ngram_speculative_generate(*args, prefill_chunk=2, chunk_mode="llm", **kw)
     with pytest.raises(ValueError, match="draft_len"):
         ngram_speculative_generate(*args, draft_len=8, **kw)
     with pytest.raises(ValueError, match="kv_cache_dtype"):
