@@ -9,11 +9,12 @@ Phases, in order; any failure exits non-zero before the result lines:
 
  1. print the card's name and power limit (``nvidia-smi``);
  2. build the CUDA kernels from ``mmmm_tpu_torch/csrc`` (``nvcc``, sm_90a);
- 3. hold each kernel (K1-K6, K8-K11, K12 = K4's kernel, probe P1) against
-    its plain PyTorch version on the card, at the grounded path's shapes and
-    at edge cases, and time the kernel, the plain version and one PyTorch
-    library call (CUDA events, medians); time the W8A16, W8A8 and W4A16
-    ``qdot`` against a bf16 ``torch.matmul`` at decode rows;
+ 3. hold each kernel (K1-K11, K12 = K4's kernel, probe P1) against its
+    plain PyTorch version on the card, at the grounded path's and the
+    training step's shapes and at edge cases, and time the kernel, the
+    plain version and one PyTorch library call (CUDA events, medians); time
+    the W8A16, W8A8 and W4A16 ``qdot`` against a bf16 ``torch.matmul`` at
+    decode rows;
  4. run ``generate_grounded`` on the card and on the CPU (plain versions)
     and require the same tokens, masks, boxes and presence logits: at
     ``MMMMConfig.tiny()`` in fp32 greedy and n-gram speculative, bf16 and
@@ -32,7 +33,21 @@ Phases, in order; any failure exits non-zero before the result lines:
     Each is warmed up once, then run with every launch counter at 0 and
     checked for its outputs and its exact launch counts, then profiled
     (device time by kernel group and by stage, busy share);
- 6. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+ 6. the LoRA training step (``make_train_step``, ``attn_impl="pallas"``:
+    K3 forward, K7dq and K7dkv backward at every flash site) at the tiny
+    config in fp32, 3 steps in each grounding mode, on the card and on the
+    CPU, held to the CPU tests' tolerances; then at the flagship's full
+    width and depth (frozen bf16 CogVLM, LoRA r=64, ``remat=True``): B=4,
+    S=1024 with 146 vision tokens from an fp32 image (the ViT in fp32), 4
+    grounding targets, 3 steps in each ``vg_mode`` with exact launch
+    counts per step, the third profiled by stage (vit, llm_forward, ce,
+    sam_loss, backward, optimizer), peak memory; and one ``"xla"`` step
+    from the semantic state before step 3, whose loss and gradient norm
+    must agree; then, at full width and 8 LLM and ViT layers and
+    over four seeds, the gradients of the ``"pallas"`` and ``"xla"`` routes
+    held to each other in fp32, and each route's bf16 gradients measured
+    against fp32, the kernels' route held to the plain route's distance;
+ 7. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 ``--log-dir`` keeps the build log and the results as JSON there.
 No JAX and nothing of ``mmmm_tpu`` is imported.
@@ -41,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import gc
 import json
 import re
 import shutil
@@ -62,6 +78,14 @@ PEAKS = {
     "H100 NVL": (3.9e12, 835e12, 60e12, 1671e12),
 }
 B, PROMPT, N_VIS, NEW, TARGETS = 4, 192, 146, 128, 4
+# the training step's flash sites at the flagship: (B, S, H, D, dtype, causal);
+# the ViT runs in fp32 over an fp32 image (scripts/bench_train.py's batch, the
+# data loaders') and in bf16 over a bf16 one
+TRAIN_SITES = {"llm": (4, 1024, 32, 128, torch.bfloat16, True),
+               "vit": (4, 577, 16, 112, torch.bfloat16, False),
+               "vit_fp32": (4, 577, 16, 112, torch.float32, False),
+               "sam": (4, 512, 12, 64, torch.float32, False)}
+TRAIN_SEQ, TRAIN_STEPS, LMAX = 1024, 3, 6
 DRAFT = 7  # the reference bench's spec default: verify windows of 8
 WINDOW = DRAFT + 1
 LAYERS = 32
@@ -89,9 +113,11 @@ RUNS = {
                                         "K10": LAYERS * NEW, "K11": W4_GEMV, "K11mma": W4_MMA}),
 }
 # kernel -> (run whose launch count it reports, the counter it reads); K12 is
-# K4's kernel; P1 is a probe that no run launches
+# K4's kernel; P1 is a probe that no run launches; a train_* run is one
+# steady training step
 KERNEL_RUN = {"K1": "a_greedy_bf16", "K2": "a_greedy_bf16", "K3": "a_greedy_bf16",
               "K4": "a_greedy_bf16", "K5": "b_spec7_w8a16", "K6": "b_spec7_w8a16",
+              "K7dq": "train_semantic", "K7dkv": "train_semantic",
               "K8": "c_int8kv_w8a16", "K9": "c_int8kv_w8a16", "K10": "d_w4_q8mxu_chunk2",
               "K11": "d_w4_q8mxu_chunk2", "K11mma": "d_w4_q8mxu_chunk2",
               "K12": "d_w4_q8mxu_chunk2", "P1": "d_w4_q8mxu_chunk2"}
@@ -132,6 +158,15 @@ def time_ms(fn, reps: int = 7, inner: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def lib_check(name, lib, plain, caches, args):
+    """The library yardstick of an append must write what the plain version
+    writes (bit-equal) at the timed, in-range write indices."""
+    got = lib(tuple(c.clone() for c in caches))
+    ref = plain(*(c.clone() for c in caches), *args)
+    if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+        raise AssertionError(f"{name}: the library yardstick differs from the plain version")
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -312,18 +347,28 @@ def kernel_phase(peaks, gen):
         log(f"  K2 write_index {widx}: bit-equal")
     w = torch.tensor([PROMPT, PROMPT + 1, PROMPT + 2, PROMPT + 3], dtype=torch.int32, device=dev)
     bms, by = bound(4 * kn.numel() * 2, 0, bf16_rate, bw)
+    bi = torch.arange(b, device=dev)
+
+    def lib_k2(caches):  # the same in-range append, one index_put_ a cache
+        for cache, new in zip(caches, (kn, vn)):
+            cache[bi, :, w.long()] = new[:, :, 0]
+        return caches
+
+    lib_check("K2", lib_k2, dk.kv_append_plain, (kc, vc), (kn, vn, w))
     out["K2"] = {
         "shape": [b, h, smax, d], "dtype": "bfloat16", "max_abs_err": 0.0,
         "ms": time_ms(lambda: dk.kv_append(*rot.next(), kn, vn, w)),
         "plain_ms": time_ms(lambda: dk.kv_append_plain(*rot.next(), kn, vn, w)),
-        "library_ms": None,
+        "library_ms": time_ms(lambda: lib_k2(rot.next())),
+        "library_call": "Tensor.index_put_ (2 calls: K and V)",
         "bound_ms": bms, "bound_by": by,
     }
     spec_kernel_phase(peaks, gen, out)
     capacity_kernel_phase(peaks, gen, out)
+    train_kernel_phase(peaks, gen, out)
     torch.cuda.synchronize()
-    for name in ("K4", "K3", "K1", "K2", "K5", "K6", "K8", "K9", "K10", "K11", "K11mma",
-                 "K12", "P1"):
+    for name in ("K4", "K3", "K1", "K2", "K5", "K6", "K7dq", "K7dkv", "K8", "K9", "K10", "K11",
+                 "K11mma", "K12", "P1"):
         r = out[name]
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib}, "
@@ -391,11 +436,22 @@ def spec_kernel_phase(peaks, gen, out):
     n_read = B * (t_mid + WINDOW)  # slots read for all queries of a (b, h)
     pairs = int(lens.sum().item())  # (query, slot) pairs per head
     k5_bms, k5_by = bound(4 * kn.numel() * 2, 0, bf16_rate, bw)
+    bi = torch.arange(B, device=dev)[:, None]
+    si = w_mid.long()[:, None] + torch.arange(WINDOW, device=dev)
+
+    def lib_k5(caches):  # the same in-range window append, one index_put_ a cache
+        for cache, new in zip(caches, (kn, vn)):
+            cache[bi, :, si] = new.transpose(1, 2)
+        return caches
+
+    lib_check("K5", lib_k5, dk.kv_append_plain, (kc, vc), (kn, vn, w_mid))
     out["K5"] = {
         "shape": [B, h, smax, d], "window": WINDOW, "dtype": "bfloat16", "max_abs_err": 0.0,
         "ms": time_ms(lambda: dk.kv_append_multi(*rot.next(), kn, vn, w_mid)),
         "plain_ms": time_ms(lambda: dk.kv_append_plain(*rot.next(), kn, vn, w_mid)),
-        "library_ms": None, "bound_ms": k5_bms, "bound_by": k5_by,
+        "library_ms": time_ms(lambda: lib_k5(rot.next())),
+        "library_call": "Tensor.index_put_ (2 calls: K and V)",
+        "bound_ms": k5_bms, "bound_by": k5_by,
     }
     bms, by = bound(2 * n_read * h * d * 2 + 2 * q.numel() * 2, 4 * pairs * h * d, bf16_rate, bw)
     out["K6"] = {
@@ -446,11 +502,24 @@ def spec_kernel_phase(peaks, gen, out):
               dk.decode_attention_q8_plain(qq, kq, ks, vq, vs, ln)), 1e-4)
     n_read = int(mid.sum().item())
     k8_bms, k8_by = bound(2 * 2 * B * h * (d + 2), 0, bf16_rate, bw)
+    bi = torch.arange(B, device=dev)
+
+    def lib_k8(c):  # the same in-range append, one index_put_ a leaf
+        for key, t in zip(dk.Q8_LEAVES, new):
+            c[key][bi, :, mid.long()] = t[:, :, 0]
+        return c
+
+    got = lib_k8({k: v.clone() for k, v in cache.items()})
+    ref = dk.kv_append_q8_plain({k: v.clone() for k, v in cache.items()}, *new, mid)
+    if not all(torch.equal(got[k], ref[k]) for k in dk.Q8_LEAVES):
+        raise AssertionError("K8: the library yardstick differs from the plain version")
     out["K8"] = {
         "shape": [B, h, smax, d], "dtype": "int8", "max_abs_err": 0.0,
         "ms": time_ms(lambda: dk.kv_append_q8(rot.next(), *new, mid)),
         "plain_ms": time_ms(lambda: dk.kv_append_q8_plain(rot.next(), *new, mid)),
-        "library_ms": None, "bound_ms": k8_bms, "bound_by": k8_by,
+        "library_ms": time_ms(lambda: lib_k8(rot.next())),
+        "library_call": "Tensor.index_put_ (4 calls: kq, ks, vq, vs)",
+        "bound_ms": k8_bms, "bound_by": k8_by,
     }
     bms, by = bound(2 * n_read * h * (d + 2) + 2 * q.numel() * 2, 4 * n_read * h * d,
                     bf16_rate, bw)
@@ -567,6 +636,123 @@ def capacity_kernel_phase(peaks, gen, out):
             "library_ms": time_ms(lambda: x @ bts.next()),
             "bound_ms": bms, "bound_by": by,
         }
+
+
+def train_kernel_phase(peaks, gen, out):
+    """At each of the training step's flash sites: K3's forward against its
+    plain version (its output feeds K7, so a K3 fault would cancel out of
+    K7's comparison), timed with its plain version and SDPA's forward; then
+    K7dq and K7dkv (the flash backward) against the plain backward, and at a
+    masked small shape; timed per kernel (their operands prepared as the
+    wrapper prepares them), the whole backward through the wrapper (delta,
+    then both kernels), the plain backward and, as a yardstick, SDPA's
+    backward at the same shape."""
+    from mmmm_tpu_torch.ops import flash as fl
+    from mmmm_tpu_torch.ops.attention import build_mask
+
+    bw, bf16_rate, fp32_rate, _ = peaks
+    dev = torch.device("cuda")
+    log("K7 flash backward (K7dq, K7dkv)")
+    rows = {}
+    for label, (b, s, h, d, dt, causal) in TRAIN_SITES.items():
+        q, k, v, dout = (torch.randn(b, s, h, d, generator=gen, device=dev).to(dt)
+                         for _ in range(4))
+        seg = torch.ones(b, s, dtype=torch.int32, device=dev)
+        scale = d ** -0.5
+        frac = 2e-2 if dt == torch.bfloat16 else 1e-4
+        o, lse = fl.flash_segment_attention(q, k, v, seg, seg, causal=causal, scale=scale)
+        ro, rlse = fl.flash_segment_attention_plain(q, k, v, seg, seg, causal=causal, scale=scale)
+        err3 = max_err(o, ro)
+        check(f"K3 {label} {tuple(q.shape)} {dt} causal={causal} out (of largest "
+              f"{ro.float().abs().max().item():.3e})", err3, frac * ro.float().abs().max().item())
+        check(f"K3 {label} lse", max_err(lse, rlse), 1e-3)
+        del ro, rlse
+        got = fl.flash_segment_attention_bwd(q, k, v, seg, seg, o, lse, dout, causal=causal,
+                                             scale=scale)
+        ref = fl.flash_segment_attention_bwd_plain(q, k, v, seg, seg, o, lse, dout,
+                                                   causal=causal, scale=scale)
+        errs = {}
+        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            errs[name] = max_err(a, r)
+            check(f"K7 {label} {tuple(q.shape)} {dt} causal={causal} {name} (of largest "
+                  f"{r.float().abs().max().item():.3e})", errs[name],
+                  frac * r.float().abs().max().item())
+        pairs = int(build_mask(seg, seg, causal).sum().item())
+        esz = q.element_size()
+        rate = bf16_rate if dt == torch.bfloat16 else fp32_rate
+        n = q.numel() * esz  # one (B, S, H, D) operand
+        lse_bytes = 2 * lse.numel() * 4  # lse and delta
+        delta = fl._delta(o, dout)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        ptrs = [t.data_ptr() for t in (q, k, v, dout, seg, seg, lse, delta)]
+        tail = (b, s, s, h, d, float(scale), int(causal), int(dt == torch.bfloat16),
+                fl._cuda.stream_of(q))
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        # K3: q, k, v read, out and lse written; QK^T and PV on the valid pairs
+        bms, by = bound(4 * n + 2 * seg.numel() * 4 + lse.numel() * 4, 4 * pairs * h * d, rate,
+                        bw)
+        k3 = {"shape": [b, s, h, d], "dtype": str(dt).split(".")[-1], "causal": causal,
+              "valid_pairs": pairs, "max_abs_err": err3, "bound_ms": bms, "bound_by": by,
+              "ms": time_ms(lambda: fl.flash_segment_attention(q, k, v, seg, seg, causal=causal,
+                                                               scale=scale)),
+              "plain_ms": time_ms(lambda: fl.flash_segment_attention_plain(
+                  q, k, v, seg, seg, causal=causal, scale=scale), inner=2),
+              "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                  qt, kt, vt, is_causal=causal, scale=scale)), "site": f"train_{label}"}
+        out["K3"].setdefault("variants", []).append(k3)
+        log(f"  K3 {label}: kernel {k3['ms']:.4f} ms, plain {k3['plain_ms']:.4f} ms, SDPA "
+            f"{k3['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, scale=scale)
+        gt = dout.transpose(1, 2).contiguous()
+        common = {
+            "shape": [b, s, h, d], "dtype": str(dt).split(".")[-1], "causal": causal,
+            "valid_pairs": pairs,
+            "bwd_ms": time_ms(lambda: fl.flash_segment_attention_bwd(
+                q, k, v, seg, seg, o, lse, dout, causal=causal, scale=scale)),
+            "plain_ms": time_ms(lambda: fl.flash_segment_attention_bwd_plain(
+                q, k, v, seg, seg, o, lse, dout, causal=causal, scale=scale), inner=2),
+            "library_ms": time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), gt,
+                                                              retain_graph=True)),
+        }
+        # K7dq: S, dP, dQ (3 products); K7dkv: S^T, dP^T, dV, dK (4 products)
+        for kid, kern, outs, n_prod, write in (
+                ("K7dq", fl.K7DQ, (dq.data_ptr(),), 3, n),
+                ("K7dkv", fl.K7DKV, (dk.data_ptr(), dv.data_ptr()), 4, 2 * n)):
+            bms, by = bound(4 * n + lse_bytes + write, 2 * n_prod * pairs * h * d, rate, bw)
+            row = dict(common, max_abs_err=(max(errs["dk"], errs["dv"]) if kid == "K7dkv"
+                                            else errs["dq"]),
+                       ms=time_ms(lambda: kern(*ptrs, *outs, *tail)), bound_ms=bms, bound_by=by)
+            rows.setdefault(kid, {})[label] = row
+            log(f"  {kid} {label}: kernel {row['ms']:.4f} ms, bound {bms:.4f} ms ({by}); "
+                f"whole backward {common['bwd_ms']:.4f} ms, plain {common['plain_ms']:.4f} ms, "
+                f"SDPA backward {common['library_ms']:.4f} ms")
+        del q, k, v, dout, o, lse, got, ref, delta, dq, dk, dv, qt, kt, vt, lib_out, gt
+    # a masked small shape: packed segments, a padded tail, a query whose
+    # segment has no key
+    for dt, causal in ((torch.bfloat16, True), (torch.bfloat16, False), (torch.float32, True)):
+        b, s, h, d = 2, 150, 2, 88
+        q, k, v, dout = (torch.randn(b, s, h, d, generator=gen, device=dev).to(dt)
+                         for _ in range(4))
+        seg = torch.ones(b, s, dtype=torch.int32, device=dev)
+        seg[0, 75:] = 2
+        seg[1, 120:] = 0
+        kv_seg = seg.clone()
+        kv_seg[0, 75:78] = 3
+        o, lse = fl.flash_segment_attention(q, k, v, seg, kv_seg, causal=causal, scale=0.1)
+        got = fl.flash_segment_attention_bwd(q, k, v, seg, kv_seg, o, lse, dout, causal=causal,
+                                             scale=0.1)
+        ref = fl.flash_segment_attention_bwd_plain(q, k, v, seg, kv_seg, o, lse, dout,
+                                                   causal=causal, scale=0.1)
+        frac = 2e-2 if dt == torch.bfloat16 else 1e-4
+        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            check(f"K7 masked {(b, s, h, d)} {dt} causal={causal} {name}", max_err(a, r),
+                  frac * r.float().abs().max().item())
+        if causal and not (torch.all(got[0][0, 75] == 0) and torch.all(got[0][1, 120:] == 0)):
+            raise AssertionError("K7: a row with no valid key has a nonzero gradient")
+    for kid in ("K7dq", "K7dkv"):
+        first = rows[kid]["llm"]
+        out[kid] = dict(first, site="llm",
+                        variants=[dict(r, site=lb) for lb, r in rows[kid].items() if lb != "llm"])
 
 
 def qdot_phase(peaks, gen):
@@ -697,6 +883,131 @@ def tiny_reference_phase():
     return out
 
 
+def _tiny_train_batch(mode: str, b: int = 2, s: int = 32, n_vis: int = 18, targets: int = 2,
+                      lmax: int = 6) -> dict:
+    """The training batch of ``scripts/bench_train.py --config tiny``'s layout
+    at B=2, S=32: a (3, 4, 16, 16) image whose 18 vision tokens sit at
+    [1, 19), 2 grounding targets, instance boxes with Lmax 6."""
+    rng = np.random.default_rng(0)
+    tt = np.zeros((b, s), np.int32)
+    tt[:, 1:1 + n_vis] = 1
+    labels = np.full((b, s), -100, np.int32)
+    labels[:, n_vis + 2:] = rng.integers(4, 120, size=(b, s - n_vis - 2))
+    batch = {"input_ids": rng.integers(4, 120, size=(b, s)).astype(np.int32),
+             "token_type_ids": tt, "position_ids": np.tile(np.arange(s, dtype=np.int32), (b, 1)),
+             "attention_mask": np.ones((b, s), np.int32), "labels": labels,
+             "weight": rng.uniform(0.5, 1.5, size=(b, s)).astype(np.float32),
+             "image": rng.normal(size=(b, 3, 4, 16, 16)).astype(np.float32),
+             "patch_size": (4, 4, 4), "pool_size": (1, 1, 1)}
+    if mode != "none":
+        batch["grounding_image"] = rng.normal(size=(b, 3, 4, 16, 16)).astype(np.float32)
+        batch["vg_positions"] = rng.integers(n_vis + 2, s - 1, size=(b, targets)).astype(np.int32)
+        batch["vg_valid"] = np.ones((b, targets), bool)
+    if mode == "semantic":
+        batch["masks"] = rng.uniform(size=(b, targets, 4, 16, 16)) > 0.8
+    if mode == "instance":
+        batch["boxes_label"] = rng.uniform(0.2, 0.8, size=(b, lmax, 6)).astype(np.float32)
+        offs = np.zeros((b, targets, 2), np.int32)
+        offs[:, 0] = (0, 2)
+        offs[:, 1:] = (2, 2)
+        batch["index_offsets"] = offs
+    return batch
+
+
+def _state_to(state, device):
+    """A copy of a port TrainState on ``device``."""
+    from mmmm_tpu_torch.train import TrainState
+
+    copy = lambda tree: {k: copy(v) if isinstance(v, dict) else
+                         v.detach().to(device, copy=True) for k, v in tree.items()}
+    trainable = copy(state.trainable)
+    for t in _flat_values(trainable):
+        t.requires_grad_(True)
+    opt = {"count": state.opt_state["count"], "mu": copy(state.opt_state["mu"]),
+           "nu": copy(state.opt_state["nu"])}
+    return TrainState(state.step, trainable, opt)
+
+
+def tiny_train_phase():
+    """The LoRA training step at ``MMMMConfig.tiny()`` in fp32 under
+    ``attn_impl="pallas"`` (K3 forward, K7 backward on the card), 3 steps in
+    each ``vg_mode`` from one CPU-made state, on the card and on the CPU
+    (plain versions), with LoRA dropout and warmup 1. Along each trajectory
+    the loss within 1e-5 relative; one card step from the CPU state before
+    each step: every parameter within 2 * lr, the gradient norm within 1e-5
+    relative and every leaf of Adam's first moment within 1e-4 of its
+    largest magnitude plus 1e-6 of the largest over all leaves (the
+    tolerances of tests/test_torch_port_train.py)."""
+    from mmmm_tpu_torch import (LoraConfig, MMMMConfig, OptimizerConfig, init_params,
+                                init_train_state, make_optimizer, make_train_step)
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+    from mmmm_tpu_torch.peft.lora import flatten
+
+    log("tiny training step: card vs CPU")
+    cfg = MMMMConfig.tiny()
+    lr = 1e-3
+    opt = make_optimizer(OptimizerConfig(lr=lr, warmup_steps=1, max_steps=10))
+    lcfg = LoraConfig(r=4, alpha=8.0)
+    params = init_params(cfg, 0, torch.float32, "cpu")
+    out = {}
+    for mode in ("none", "semantic", "instance"):
+        batch = _tiny_train_batch(mode)
+        steps = {d: make_train_step(cfg, opt, lcfg, vg_mode=mode, attn_impl="pallas", remat=True,
+                                    vis_span="auto", device=d) for d in ("cpu", "cuda")}
+        cpu, _ = init_train_state(cfg, opt, lcfg, device="cpu", params=params)
+        frozen = {"cpu": init_train_state(cfg, opt, lcfg, device="cpu", params=params)[1]}
+        frozen["cuda"] = _tree_to(frozen["cpu"], "cuda")
+        card = _state_to(cpu, "cuda")
+        before = {n: k.launches for n, k in KERNELS.items()}
+        r = {"loss_rel_err": [], "grad_norm_rel_err": [], "param_max_abs_err": [],
+             "mu_err_over_tol": []}
+        for i in range(3):
+            start = _state_to(cpu, "cuda")
+            cpu, lc = steps["cpu"](cpu, frozen["cpu"], batch)
+            card, lg = steps["cuda"](card, frozen["cuda"], batch)
+            fresh, lf = steps["cuda"](start, frozen["cuda"], batch)
+            key = "loss" if "loss" in lc else "lm_loss"
+            rel = lambda a, b: abs(float(a) - float(b)) / abs(float(b))
+            r["loss_rel_err"].append(rel(lg[key], lc[key]))
+            r["grad_norm_rel_err"].append(rel(lf["grad_norm"], lc["grad_norm"]))
+            pc, pg = flatten(cpu.trainable), flatten(fresh.trainable)
+            r["param_max_abs_err"].append(max(max_err(pg[p].detach().cpu(), t.detach())
+                                              for p, t in pc.items()))
+            mu = cpu.opt_state["mu"]
+            floor = 1e-6 * max(t.abs().max().item() for t in mu.values())
+            err = {p: max_err(fresh.opt_state["mu"][p].cpu(), t) for p, t in mu.items()}
+            ratio = {p: err[p] / (1e-4 * t.abs().max().item() + floor) for p, t in mu.items()}
+            worst = max(ratio, key=ratio.get)
+            r["mu_err_over_tol"].append(ratio[worst])
+            r.setdefault("mu_worst_leaf", []).append(worst)
+            # the readings without the floor (none where the CPU leaf is all
+            # 0), and the leaves that pass only with it
+            bare = {p: err[p] / (1e-4 * t.abs().max().item()) for p, t in mu.items()
+                    if t.abs().max().item() > 0}
+            bare_worst = max(bare, key=bare.get)
+            r.setdefault("mu_worst_leaf_no_floor", []).append(bare.get(worst))
+            r.setdefault("mu_over_1_no_floor", []).append(
+                {p: bare.get(p) for p in mu if bare.get(p, 2.0) > 1})
+            log(f"  tiny train {mode} step {i + 1}: Adam mu without the floor, worst "
+                f"{bare_worst} at {bare[bare_worst]:.4e} of 1e-4 of its largest; {worst} at "
+                f"{bare.get(worst, float('nan')):.4e}")
+            check(f"tiny train {mode} step {i + 1} loss (relative)", r["loss_rel_err"][-1], 1e-5)
+            check(f"tiny train {mode} step {i + 1} grad_norm (relative)",
+                  r["grad_norm_rel_err"][-1], 1e-5)
+            check(f"tiny train {mode} step {i + 1} Adam mu (error over tolerance; worst "
+                  f"{worst})", r["mu_err_over_tol"][-1], 1.0)
+            check(f"tiny train {mode} step {i + 1} parameters", r["param_max_abs_err"][-1],
+                  2 * lr)
+        r["launches"] = {n: k.launches - before[n] for n, k in KERNELS.items()
+                         if k.launches != before[n]}
+        log(f"  tiny train {mode}: launches {r['launches']}")
+        for name in ("K3", "K7dq", "K7dkv"):
+            if not r["launches"].get(name):
+                raise AssertionError(f"tiny train {mode}: {name} was not launched")
+        out[mode] = r
+    return out
+
+
 def flagship_phase(gen):
     """Runs (a)-(d) at the flagship width; returns their results and each
     run's launch counts."""
@@ -815,6 +1126,7 @@ def flagship_phase(gen):
              "tokens_per_step": tps, "decode_steps": iters, "peak_mem_gib": peak / 2**30,
              "launches": launches, "num_generated": res.num_generated.tolist()}
         r["profile"] = profile_run(run)
+        r["profile"].pop("result")
         # device busy time over the profiled run's wall, and over the steady
         # (unprofiled) run's wall, which the profiler does not slow
         r["busy_share_profiled"] = r["profile"]["kernels_busy_s"] / r["profile"]["wall_s"]
@@ -824,6 +1136,295 @@ def flagship_phase(gen):
         out["runs"][label] = r
         all_launches[label] = launches
     return out, all_launches
+
+
+def flagship_train_batch(mode: str, gen) -> dict:
+    """``scripts/bench_train.py``'s batch at the flagship: B=4, S=1024, 146
+    vision tokens at [1, 147) from a constant (3, 16, 384, 384) fp32 image
+    (patch 16, pool (1, 2, 2)), so the ViT runs in fp32 over its bf16
+    weights as the reference promotes them, labels past the vision span;
+    grounding: a constant (3, 32, 256, 256) fp32 image, 4 targets, random
+    semantic masks or instance boxes with Lmax 6 (target 0 two boxes, the
+    rest none). Token ids and labels are random."""
+    dev = torch.device("cuda")
+    b, s, nv = B, TRAIN_SEQ, N_VIS
+    rng = np.random.default_rng(0)
+    tt = torch.zeros((b, s), dtype=torch.int32, device=dev)
+    tt[:, 1:1 + nv] = 1
+    labels = torch.full((b, s), -100, dtype=torch.int32, device=dev)
+    labels[:, nv + 2:] = torch.from_numpy(rng.integers(4, 32000, size=(b, s - nv - 2))
+                                          .astype(np.int32)).to(dev)
+    batch = {
+        "input_ids": torch.from_numpy(rng.integers(4, 32000, size=(b, s)).astype(np.int32)).to(dev),
+        "token_type_ids": tt,
+        "position_ids": torch.arange(s, dtype=torch.int32, device=dev).expand(b, s).contiguous(),
+        "attention_mask": torch.ones((b, s), dtype=torch.int32, device=dev),
+        "labels": labels, "weight": torch.ones((b, s), device=dev),
+        # bench_train.py's constant image: over a random image the random
+        # 63-layer post-norm ViT's gradients grow layer by layer and explode
+        "image": torch.ones((b, 3, 16, 384, 384), device=dev),
+        "patch_size": (16, 16, 16), "pool_size": (1, 2, 2),
+    }
+    if mode == "none":
+        return batch
+    batch["grounding_image"] = torch.ones((b, 3, 32, 256, 256), device=dev)
+    batch["vg_positions"] = torch.from_numpy(
+        rng.integers(nv + 2, s - 1, size=(b, TARGETS)).astype(np.int32)).to(dev)
+    batch["vg_valid"] = torch.ones((b, TARGETS), dtype=torch.bool, device=dev)
+    if mode == "semantic":
+        batch["masks"] = torch.rand((b, TARGETS, 32, 256, 256), generator=gen, device=dev) > 0.8
+    else:
+        batch["boxes_label"] = 0.2 + 0.6 * torch.rand((b, LMAX, 6), generator=gen, device=dev)
+        offs = torch.zeros((b, TARGETS, 2), dtype=torch.int32, device=dev)
+        offs[:, 0, 1] = 2
+        offs[:, 1:] = 2
+        batch["index_offsets"] = offs
+    return batch
+
+
+TRAIN_STAGES = ("vit", "llm_forward", "ce", "sam_loss", "backward", "optimizer")
+
+
+def flagship_train_phase(gen):
+    """The LoRA training step at the flagship's full width and depth (32 LLM,
+    63 ViT, 12 SAM encoder layers) from seed 0: frozen CogVLM in bf16,
+    ``bf16_vlm`` (the LLM in bf16; the ViT in fp32 over the batch's fp32
+    image), LoRA r=64 alpha 8 rsLoRA (dropout 0.05), AdamW lr 5e-5
+    with warmup 1, ``remat=True``, ``vis_span="auto"``,
+    ``attn_impl="pallas"``. Three steps in each ``vg_mode``, each with
+    exact launch counts (K3 twice and K7dq, K7dkv once a flash site: 32 +
+    63, plus 12 with grounding); the third profiled by stage. In semantic
+    mode one ``"xla"`` step from the state before step 3 must give its loss
+    within 1e-2 and its gradient norm within 5e-2, relative."""
+    from mmmm_tpu_torch import (LoraConfig, MMMMConfig, OptimizerConfig, init_train_state,
+                                make_optimizer, make_train_step)
+    from mmmm_tpu_torch.models.cogvlm import CogVLMConfig
+    from mmmm_tpu_torch.models.segvol import SamConfig
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+    from mmmm_tpu_torch.peft.lora import flatten
+
+    log("flagship LoRA training step")
+    cfg = MMMMConfig(vlm=CogVLMConfig.cogvlm17b(), sam=SamConfig())
+    opt = make_optimizer(OptimizerConfig(lr=5e-5, warmup_steps=1, max_steps=1000))
+    lcfg = LoraConfig(r=64, alpha=8.0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, frozen = init_train_state(cfg, opt, lcfg, seed=0, frozen_vlm_bf16=True, device="cuda")
+    torch.cuda.synchronize()
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    sizes = {"frozen_gib": nbytes(_flat_values(frozen)) / 2**30,
+             "trainable_gib": nbytes(_flat_values(state.trainable)) / 2**30,
+             "grads_gib": nbytes(_flat_values(state.trainable)) / 2**30,
+             "adam_gib": nbytes([*state.opt_state["mu"].values(),
+                                 *state.opt_state["nu"].values()]) / 2**30,
+             "trainable_params_m": sum(t.numel() for t in _flat_values(state.trainable)) / 1e6,
+             "lora_params_m": sum(t.numel() for t in _flat_values(state.trainable["lora"])) / 1e6}
+    out = {"init_s": time.perf_counter() - t0, "sizes": sizes, "modes": {}}
+    log(f"  init_train_state: {out['init_s']:.3f} s; {sizes}; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    launches_by_mode = {}
+    for mode in ("none", "semantic", "instance"):
+        batch = flagship_train_batch(mode, gen)
+        step = make_train_step(cfg, opt, lcfg, vg_mode=mode, bf16_vlm=True, attn_impl="pallas",
+                               remat=True, vis_span="auto", device="cuda")
+        sites = LAYERS + VIT_LAYERS + (SAM_LAYERS if mode != "none" else 0)
+        want = {name: 0 for name in KERNELS}
+        want.update({"K3": 2 * sites, "K7dq": sites, "K7dkv": sites})
+        r = {"steps": [], "sites": sites}
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(TRAIN_STEPS):
+            if mode == "semantic" and i == TRAIN_STEPS - 1:
+                snapshot = _state_to(state, "cuda")
+            for kern in KERNELS.values():
+                kern.launches = 0
+            run = lambda: _timed_step(step, state, frozen, batch)
+            if i < TRAIN_STEPS - 1:
+                logs, wall = run()
+                prof = None
+            else:
+                prof = profile_run(run, stages=TRAIN_STAGES)
+                logs, wall = prof.pop("result"), prof["wall_s"]
+            launches = {name: kern.launches for name, kern in KERNELS.items()}
+            for name, n in want.items():
+                if launches[name] != n:
+                    raise AssertionError(f"train {mode} step {i + 1}: {name} launched "
+                                         f"{launches[name]} times, expected {n}")
+            vals = {k: float(v) for k, v in logs.items()}
+            if not all(np.isfinite(list(vals.values()))) or vals["grad_norm"] <= 0:
+                raise AssertionError(f"train {mode} step {i + 1}: bad logs {vals}")
+            r["steps"].append({"wall_s": wall, "logs": vals, "launches": {
+                k: v for k, v in launches.items() if v}, "profiled": prof is not None})
+            log(f"  train {mode} step {i + 1}: {wall:.3f} s{' (profiled)' if prof else ''}, "
+                f"{vals}, launches {r['steps'][-1]['launches']}")
+        r["steady_step_s"] = r["steps"][1]["wall_s"]
+        r["tokens_per_s"] = B * TRAIN_SEQ / r["steady_step_s"]
+        r["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        # the autograd engine runs the backward on its own thread, outside the
+        # "backward" span on the device: its kernels are the rest of the busy time
+        st = prof["stages"]
+        prof["backward_kernels_ms"] = prof["kernels_busy_s"] * 1e3 - sum(
+            st[n]["kernels_ms"] or 0.0 for n in TRAIN_STAGES if n != "backward")
+        r["profile"] = prof
+        r["busy_share_steady"] = prof["kernels_busy_s"] / r["steady_step_s"]
+        r["busy_share_profiled"] = prof["kernels_busy_s"] / prof["wall_s"]
+        log(f"  train {mode}: steady step {r['steady_step_s']:.3f} s "
+            f"({r['tokens_per_s']:.1f} tokens/s), peak {r['peak_mem_gib']:.2f} GiB, busy share "
+            f"{r['busy_share_steady']:.4f} of the steady step, backward kernels "
+            f"{prof['backward_kernels_ms']:.1f} ms")
+        if mode == "semantic":
+            xla_step = make_train_step(cfg, opt, lcfg, vg_mode=mode, bf16_vlm=True,
+                                       attn_impl="xla", remat=True, vis_span="auto",
+                                       device="cuda")
+            for kern in KERNELS.values():
+                kern.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            xlogs, xwall = _timed_step(xla_step, snapshot, frozen, batch)
+            xlaunch = {k: v.launches for k, v in KERNELS.items() if v.launches}
+            ref = r["steps"][-1]["logs"]
+            xv = {k: float(v) for k, v in xlogs.items()}
+            r["xla_step"] = {"wall_s": xwall, "logs": xv, "launches": xlaunch,
+                             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                             "loss_rel_err": abs(xv["loss"] - ref["loss"]) / abs(ref["loss"]),
+                             "grad_norm_rel_err": abs(xv["grad_norm"] - ref["grad_norm"])
+                             / abs(ref["grad_norm"])}
+            log(f"  train semantic, one \"xla\" step from the state before step 3: "
+                f"{xwall:.3f} s, peak {r['xla_step']['peak_mem_gib']:.2f} GiB, {xv}, "
+                f"launches {xlaunch}")
+            check("xla vs pallas step loss (relative)", r["xla_step"]["loss_rel_err"], 1e-2)
+            check("xla vs pallas step gradient norm (relative)",
+                  r["xla_step"]["grad_norm_rel_err"], 5e-2)
+            del snapshot
+        out["modes"][mode] = r
+        launches_by_mode[f"train_{mode}"] = r["steps"][1]["launches"]
+        del batch
+        torch.cuda.empty_cache()
+    return out, launches_by_mode
+
+
+ROUTE_LAYERS = 8  # LLM and ViT layers of train_route_phase's cut-depth flagship
+# the seeds of the route phase's models and batches, and the most the kernels'
+# bf16 gradients may stand from fp32 over the plain route's distance: just
+# above the largest of these seeds' readings (PERF.md, PR 4)
+ROUTE_SEEDS, ROUTE_RATIO_LIMIT = (0, 1, 2, 3), 1.05
+
+
+def train_route_phase():
+    """``train_route_phase_seed`` over ``ROUTE_SEEDS``; the bf16 distance
+    ratio of each seed is recorded and held to ``ROUTE_RATIO_LIMIT``."""
+    out = {"seeds": {}}
+    for seed in ROUTE_SEEDS:
+        out["seeds"][seed] = train_route_phase_seed(seed)
+        torch.cuda.empty_cache()
+    out["ratios"] = [r["bf16_distance_ratio"] for r in out["seeds"].values()]
+    log(f"  bf16 distance ratios (pallas over xla) by seed: {out['ratios']}")
+    return out
+
+
+def train_route_phase_seed(seed: int):
+    """The attention routes held to each other in fp32, where rounding does
+    not hide a fault: the flagship at full width with its depth cut to 8 LLM
+    and 8 ViT layers (all 12 SAM encoder layers), the semantic training
+    batch of the flagship run, LoRA ``b`` set nonzero so every factor takes
+    a gradient, the frozen weights bf16 values. The loss and the gradients
+    of every trainable leaf are taken four ways: fp32 (frozen weights cast
+    up, fp32 image) and bf16 (``bf16_vlm``, a bf16 image, so the ViT sites
+    run the bf16 kernels that the flagship run's fp32 image does not), each
+    under ``"xla"`` (plain PyTorch) and ``"pallas"`` (K3 and K7 at every site),
+    ``remat=True``. fp32 ``"pallas"`` must give the fp32 ``"xla"`` loss
+    within 1e-5 and each group's gradient (LLM LoRA, ViT LoRA, GLU LoRA,
+    ``lm_head`` LoRA, ``embed_tokens``, SAM, ``vg_proj``) within 1e-3 of its
+    norm; each bf16 route's distance from the fp32 gradients is recorded,
+    and the kernels' route may stand at most ``ROUTE_RATIO_LIMIT`` times as
+    far as the plain route. Launches: exact, K3 twice and K7 once a site.
+    ``seed`` makes the model, the LoRA ``b`` and the masks."""
+    import dataclasses
+    from mmmm_tpu_torch import (LoraConfig, MMMMConfig, OptimizerConfig, init_train_state,
+                                make_optimizer)
+    from mmmm_tpu_torch.models.cogvlm import CogVLMConfig
+    from mmmm_tpu_torch.models.mmmm import training_step
+    from mmmm_tpu_torch.models.segvol import SamConfig
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+    from mmmm_tpu_torch.peft.lora import flatten, unflatten
+    from mmmm_tpu_torch.train.step import effective_params
+
+    log(f"attention routes in fp32 and bf16 (flagship width, {ROUTE_LAYERS} LLM and ViT layers, "
+        f"seed {seed})")
+    base = CogVLMConfig.cogvlm17b()
+    cfg = MMMMConfig(vlm=dataclasses.replace(
+        base, num_hidden_layers=ROUTE_LAYERS,
+        vision=dataclasses.replace(base.vision, num_hidden_layers=ROUTE_LAYERS)), sam=SamConfig())
+    lcfg = LoraConfig(r=64, alpha=8.0)
+    state, frozen = init_train_state(cfg, make_optimizer(OptimizerConfig()), lcfg, seed=seed,
+                                     frozen_vlm_bf16=True, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    with torch.no_grad():
+        for path, t in flatten(state.trainable["lora"]).items():
+            if path.endswith("/b"):
+                t.copy_(torch.randn(t.shape, generator=gen, device="cuda") * 1e-3)
+        emb = state.trainable["ft"]["cogvlm"]["llm"]["embed_tokens"]
+        emb.copy_(emb.to(torch.bfloat16).float())  # a bf16 value, as the frozen weights
+    frozen32 = dict(frozen, cogvlm=unflatten({p: t.float() if t.is_floating_point() else t
+                                              for p, t in flatten(frozen["cogvlm"]).items()}))
+    batch = flagship_train_batch("semantic", torch.Generator(device="cuda").manual_seed(seed))
+    flat = flatten(state.trainable)
+    sites = 2 * ROUTE_LAYERS + SAM_LAYERS
+    group = lambda p: "/".join(p.split("/")[:4 if p.startswith("lora/") else 3])
+
+    def grads(bf16: bool, impl: str):
+        params = effective_params(state.trainable, frozen if bf16 else frozen32, lcfg, bf16)
+        b = dict(batch, image=batch["image"].to(torch.bfloat16 if bf16 else torch.float32))
+        for kern in KERNELS.values():
+            kern.launches = 0
+        loss, _ = training_step(params, cfg, b, vg_mode="semantic", attn_impl=impl, remat=True,
+                                vis_span="auto")
+        g = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
+        launches = {n: k.launches for n, k in KERNELS.items() if k.launches}
+        want = {"K3": 2 * sites, "K7dq": sites, "K7dkv": sites} if impl == "pallas" else {}
+        if launches != want:
+            raise AssertionError(f"routes {impl}: launches {launches}, expected {want}")
+        return float(loss.detach()), {p: torch.zeros_like(t) if x is None else x.detach().float()
+                             for (p, t), x in zip(flat.items(), g)}
+
+    def distance(got, ref):
+        """Per group and over all leaves: |got - ref| / |ref|."""
+        acc = {}
+        for p, r in ref.items():
+            d = acc.setdefault(group(p), [0.0, 0.0])
+            d[0] += (got[p] - r).square().sum().item()
+            d[1] += r.square().sum().item()
+        out = {k: (d / n) ** 0.5 for k, (d, n) in acc.items() if n > 0}
+        out["all"] = (sum(d for d, _ in acc.values()) / sum(n for _, n in acc.values())) ** 0.5
+        return out
+
+    loss32, ref = grads(False, "xla")
+    r = {"layers": ROUTE_LAYERS, "sites": sites, "seed": seed, "loss": {"fp32_xla": loss32},
+         "grad_distance": {}}
+    for bf16, impl in ((False, "pallas"), (True, "xla"), (True, "pallas")):
+        key = f"{'bf16' if bf16 else 'fp32'}_{impl}"
+        r["loss"][key], g = grads(bf16, impl)
+        r["grad_distance"][key] = distance(g, ref)
+        del g
+        log(f"  {key}: loss {r['loss'][key]:.6f} (fp32 xla {loss32:.6f}); gradient distance "
+            f"from fp32 xla " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                          sorted(r["grad_distance"][key].items())))
+    check("routes fp32 pallas vs xla loss (relative)",
+          abs(r["loss"]["fp32_pallas"] - loss32) / abs(loss32), 1e-5)
+    check("routes fp32 pallas vs xla gradient (worst group, relative to its norm)",
+          max(r["grad_distance"]["fp32_pallas"].values()), 1e-3)
+    dist = r["grad_distance"]
+    r["bf16_distance_ratio"] = dist["bf16_pallas"]["all"] / dist["bf16_xla"]["all"]
+    check("routes bf16: pallas's gradient distance from fp32 over xla's",
+          r["bf16_distance_ratio"], ROUTE_RATIO_LIMIT)
+    return r
+
+
+def _timed_step(step, state, frozen, batch):
+    gc.collect()  # the serving phase's garbage is not the step's cost
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, logs = step(state, frozen, batch)
+    torch.cuda.synchronize()
+    return logs, time.perf_counter() - t
 
 
 def _flat_values(tree):
@@ -838,7 +1439,10 @@ def _flat_values(tree):
 STAGES = ("vit", "llm_prefill", "decode", "sam")
 KERNEL_GROUPS = (  # (label, substrings of a kernel name), first match wins
     ("K4 dense attention", ("attn_mma_kernel<112, false", "attn_tile_kernel<float, 8, false>")),
-    ("K3 flash forward", ("attn_mma_kernel<128, true",)),
+    ("K3 flash forward", ("attn_mma_kernel<128, true", "attn_mma_kernel<112, true",
+                          "attn_tile_kernel<float, 8, true>", "attn_tile_kernel<float, 14, true>")),
+    ("K7dq flash backward", ("flash_bwd_dq",)),
+    ("K7dkv flash backward", ("flash_bwd_dkv",)),
     ("K1 decode attention", ("decode_attn_kernel",)),
     ("K6 window attention", ("decode_window_kernel",)),
     ("K9 int8 decode attention", ("decode_q8_kernel",)),
@@ -853,23 +1457,24 @@ KERNEL_GROUPS = (  # (label, substrings of a kernel name), first match wins
 )
 
 
-def profile_run(run):
+def profile_run(run, stages=STAGES):
     """Device time by kernel group; host time, device span and kernel time by
-    stage; and the device's busy share of the run's wall time, over one more
-    flagship run. Reads the profiler's raw events: building its per-op
-    event tree takes about a minute a million events, the raw list a
-    second."""
+    stage (``record_function`` spans named ``stages``); and the device's
+    busy share of the run's wall time, over one more run (``run()`` returns
+    ``(result, wall seconds)``; the result is kept under ``"result"``).
+    Reads the profiler's raw events: building its per-op event tree takes
+    about a minute a million events, the raw list a second."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall_s = run()
+        result, wall_s = run()
     t0 = time.perf_counter()
     raw = prof.profiler.kineto_results.events()
     # (name, device type, start us, duration us) of every event
     events = [(e.name(), e.device_type(), e.start_ns() / 1e3, e.duration_ns() / 1e3)
               for e in raw]
-    kernels = [e for e in events if e[1] == DeviceType.CUDA and e[0] not in STAGES]
+    kernels = [e for e in events if e[1] == DeviceType.CUDA and e[0] not in stages]
     by_name: dict[str, list] = {}
     for name, _, _, us in kernels:
         acc = by_name.setdefault(name, [0.0, 0])
@@ -887,11 +1492,11 @@ def profile_run(run):
     # a stage's span is recorded on the host (its CPU time) and on the device
     # timeline (first to last of its kernels); the kernels that start inside
     # the device span give the stage's busy time
-    host_span = {e[0]: e for e in events if e[0] in STAGES and e[1] == DeviceType.CPU}
-    device_span = {e[0]: e for e in events if e[0] in STAGES and e[1] == DeviceType.CUDA}
+    host_span = {e[0]: e for e in events if e[0] in stages and e[1] == DeviceType.CPU}
+    device_span = {e[0]: e for e in events if e[0] in stages and e[1] == DeviceType.CUDA}
     starts = sorted((start, us) for _, _, start, us in kernels)
-    stages = {}
-    for name in STAGES:
+    stage_times = {}
+    for name in stages:
         h, d = host_span.get(name), device_span.get(name)
         stage = {"host_ms": None if h is None else h[3] / 1e3,
                  "device_span_ms": None, "kernels_ms": None}
@@ -900,7 +1505,7 @@ def profile_run(run):
             hi = bisect.bisect_left(starts, (d[2] + d[3], -1.0))
             stage["device_span_ms"] = d[3] / 1e3
             stage["kernels_ms"] = sum(us for _, us in starts[lo:hi]) / 1e3
-        stages[name] = stage
+        stage_times[name] = stage
         log(f"    stage {name:12s} " + ", ".join(
             f"{k} {'n/a' if v is None else f'{v:.3f}'}" for k, v in stage.items()))
     for label, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
@@ -909,7 +1514,8 @@ def profile_run(run):
     for name, (us, n) in top:
         log(f"    {us / 1e3:10.3f} ms  {n:7d}x  {name[:90]}")
     log(f"    (profile read in {time.perf_counter() - t0:.3f} s)")
-    return {"wall_s": wall_s, "kernels_busy_s": busy_us / 1e6, "stages": stages,
+    return {"result": result, "wall_s": wall_s, "kernels_busy_s": busy_us / 1e6,
+            "stages": stage_times,
             "groups": {k: {"ms": v[0] / 1e3, "launches": v[1]} for k, v in groups.items()},
             "top": [{"ms": us / 1e3, "count": n, "name": name[:160]} for name, (us, n) in top]}
 
@@ -973,6 +1579,13 @@ def main() -> int:
     # checks above do not change them
     results["flagship"], launches = phase("flagship", flagship_phase,
                                           torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.empty_cache()
+    results["tiny_train"] = phase("tiny_train", tiny_train_phase)
+    results["flagship_train"], train_launches = phase(
+        "flagship_train", flagship_train_phase, torch.Generator(device="cuda").manual_seed(0))
+    launches.update(train_launches)
+    torch.cuda.empty_cache()
+    results["train_routes"] = phase("train_routes", train_route_phase)
 
     kernels = []
     for kid, run in KERNEL_RUN.items():
@@ -980,7 +1593,7 @@ def main() -> int:
         kern, r = _cuda.KERNELS[counter], results["kernels"][kid]
         entry = {"name": kid, "route": "cuda", "source": kern.source,
                  "replaces": REPLACES.get(kid, kern.replaces),
-                 "launches": launches[run][counter], "launches_in_run": run,
+                 "launches": launches[run].get(counter, 0), "launches_in_run": run,
                  "kernel_ms": r["ms"]}
         entry.update({k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")})

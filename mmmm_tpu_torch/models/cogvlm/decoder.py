@@ -1,6 +1,6 @@
 """CogVLM visual-expert decoder, the port of
 ``mmmm_tpu/models/cogvlm/decoder.py`` (``vision_expert_mask``,
-``llm_prefill``, ``llm_decode_step``).
+``llm_forward``, ``llm_prefill``, ``llm_decode_step``).
 
 Each layer routes tokens to a vision or a language expert (QKV, dense and
 SwiGLU MLP weights). Three routings are kept from the reference:
@@ -18,6 +18,11 @@ switches of the reference are keywords here: ``w8a8`` (``MMMM_W8A8``) runs
 the decode projections as W8A8, ``w8a8_prefill`` (``MMMM_W8A8_PREFILL``)
 the prefill's static-span projections; the ``lm_head`` (applied by the
 callers) stays W8A16 in both.
+
+``llm_forward`` is the training forward over a full sequence: its causal
+attention goes through ``segment_attention(impl=attn_impl)`` (under
+``"pallas"`` K3 forward and K7 backward), each layer runs inside
+``remat_call`` and merges its LoRA leaves there (``peft/lora.py``).
 
 Prefill attention is kernel K3 (causal, segment ids). Caches are per-layer
 (B, H, Smax, D) pairs in the model's dtype, or int8 dicts
@@ -42,15 +47,17 @@ from functools import partial
 import torch
 import torch.nn.functional as F
 
-from ...ops.attention import decode_attention_bhsd
+from ...ops.attention import decode_attention_bhsd, segment_attention
 from ...ops.decode_kernel import (decode_attention, decode_attention_q8,
                                   decode_attention_window, dus_rows, kv_append,
                                   kv_append_multi, kv_append_q8)
 from ...ops.flash import flash_segment_attention
 from ...ops.norm import rms_norm
 from ...ops.quant import dequantize_kv, qdot, quantize_kv
+from ...ops.remat import remat_call
 from ...ops.rope import apply_rope, rope_cos_sin
 from ...params import layer
+from ...peft.lora import materialize
 from .config import CogVLMConfig
 
 VISION_TOKEN_TYPE = 1
@@ -106,6 +113,34 @@ def _decoder_layer(x, lp, cfg: CogVLMConfig, *, position_ids, cos, sin, attend, 
     ctx = attend(q.contiguous(), k.contiguous(), v.contiguous())
     x = residual + dual(ctx.reshape(b, s, c), lp["vis_dense"], lp["lang_dense"])
     return x + mlp(rms_norm(x, lp["post_ln"], cfg.rms_norm_eps))
+
+
+def llm_forward(params: dict, cfg: CogVLMConfig, inputs_embeds, token_type_ids, position_ids,
+                segments, *, attn_impl: str = "auto", remat=False,
+                vis_span: tuple[int, int] | None = None) -> torch.Tensor:
+    """Full-sequence forward, (B, S, C) -> final hidden states after the
+    norm. ``vis_span=(lo, hi)`` declares every row's vision tokens are
+    [lo, hi), so layers take the static span path over [lo, hi - 1) (the
+    off-by-one rule); otherwise the dual masked path."""
+    vis_mask = vision_expert_mask(token_type_ids)
+    cos, sin = rope_cos_sin(cfg.max_position_embeddings, cfg.head_dim,
+                            device=inputs_embeds.device)
+    expert_span = None if vis_span is None else (vis_span[0], vis_span[1] - 1)
+    seg = segments.to(torch.int32).contiguous()
+
+    def attend(q, k, v):
+        return segment_attention(q, k, v, seg, causal=True, impl=attn_impl)
+
+    def body(x, lp):
+        lp = materialize(lp)
+        return _decoder_layer(x, lp, cfg, position_ids=position_ids, cos=cos, sin=sin,
+                              attend=attend,
+                              routing=_routing(lp, vis_mask=vis_mask, expert_span=expert_span))
+
+    x = inputs_embeds
+    for li in range(cfg.num_hidden_layers):
+        x = remat_call(body, remat, x, layer(params["layers"], li))
+    return rms_norm(x, params["norm"], cfg.rms_norm_eps)
 
 
 def empty_cache(b: int, h: int, smax: int, d: int, dtype, device, kv_cache_dtype: str):

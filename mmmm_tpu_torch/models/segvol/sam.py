@@ -33,12 +33,16 @@ def _decode_all_targets(params, cfg: SamConfig, embeds, prompts, patch_size_z: i
 
 
 def sam_forward(params: dict, cfg: SamConfig, image: torch.Tensor,
-                patch_size: tuple[int, int, int], prompts: torch.Tensor):
+                patch_size: tuple[int, int, int], prompts: torch.Tensor, *,
+                upsample_to_image: bool = True, attn_impl: str = "auto", remat=False):
     """Semantic path: (B, N, D, H, W) mask logits of the semantic token,
-    upsampled to the image grid, and the low-res logits."""
-    embeds = encoder_forward(params["encoder"], cfg, image, patch_size)
+    upsampled to the image grid (or left low-res), and the low-res logits."""
+    embeds = encoder_forward(params["encoder"], cfg, image, patch_size, attn_impl=attn_impl,
+                             remat=remat)
     masks, _ = _decode_all_targets(params, cfg, embeds, prompts, patch_size[0])
     semantic_low = masks[:, :, 0]
+    if not upsample_to_image:
+        return semantic_low, semantic_low
     return trilinear_resize(semantic_low, tuple(image.shape[2:])), semantic_low
 
 
@@ -54,11 +58,13 @@ class InstanceSamOutput:
 
 def instance_sam_forward(params: dict, cfg: SamConfig, image: torch.Tensor,
                          patch_size: tuple[int, int, int], prompts: torch.Tensor, *,
-                         upsample_to_image: bool = True) -> InstanceSamOutput:
+                         upsample_to_image: bool = True, attn_impl: str = "auto",
+                         remat=False) -> InstanceSamOutput:
     """Instance path: the mask decoder's tokens through the DETR-style box
     head (``relu(relu(t w1 + b1) w2 + b2) w3 + b3`` -> sigmoid) and the
     presence head over tokens ``1:`` (``relu(t w1 + b1) w2 + b2``)."""
-    embeds = encoder_forward(params["encoder"], cfg, image, patch_size)
+    embeds = encoder_forward(params["encoder"], cfg, image, patch_size, attn_impl=attn_impl,
+                             remat=remat)
     masks_low, tokens = _decode_all_targets(params, cfg, embeds, prompts, patch_size[0])
     bh, dh = params["box_head"], params["disc_head"]
     x = F.relu(tokens @ bh["w1"] + bh["b1"])

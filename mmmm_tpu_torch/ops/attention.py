@@ -1,19 +1,27 @@
-"""Segment-id attention semantics in plain PyTorch, the port of
+"""Segment-id attention in plain PyTorch and its dispatch, the port of
 ``mmmm_tpu/ops/attention.py`` (``_build_mask``, ``_xla_attention``,
 ``segment_attention`` and ``decode_attention_bhsd``).
 
 Tokens attend to each other iff they carry the same nonzero segment id
 (0 marks padding); ``causal`` adds the lower-triangular constraint by
-absolute position. Softmax is fp32 and a query row with no valid key gives
-exactly zero. These functions are the references the kernels' plain
-versions follow; the model code calls the kernel wrappers
-(``dense_attn``, ``flash``, ``decode_kernel``) directly.
+absolute position. Softmax is fp32 (float64 for float64 operands) and a
+query row with no valid key gives exactly zero. ``segment_attention``
+dispatches as the reference does: ``"pallas"`` to the flash site (K3
+forward, K7 backward), ``"xla"`` to the plain masked attention, ``"auto"``
+on the card to the dense kernel K4 for all-valid encoder sites and to flash
+for causal sites or 128-multiple head dims, and to the plain attention on
+the CPU (the reference's ``"auto"`` off the TPU).
 """
 from __future__ import annotations
 
 import torch
 
 NEG_INF = -1e30
+
+
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """fp32 for bf16/fp32 operands, float64 for float64 ones."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def build_mask(q_segments: torch.Tensor, kv_segments: torch.Tensor, causal: bool,
@@ -33,11 +41,13 @@ def build_mask(q_segments: torch.Tensor, kv_segments: torch.Tensor, causal: bool
 def masked_attention(q, k, v, mask, scale: float):
     """(B, Sq, H, D) attention under a (B, Sq, Skv) mask; returns
     ``(out in v's dtype, lse (B, H, Sq) fp32)`` with zero rows (and lse 0)
-    where no key is valid."""
+    where no key is valid. The row max is detached, as the reference's
+    ``stop_gradient``: the gradient through it cancels."""
+    ct = compute_dtype(q.dtype)
     mask = mask[:, None]
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(ct), k.to(ct)) * scale
     logits = torch.where(mask, logits, NEG_INF)
-    m = logits.amax(dim=-1, keepdim=True)
+    m = logits.amax(dim=-1, keepdim=True).detach()
     unnorm = torch.where(mask, torch.exp(logits - m), 0.0)
     denom = unnorm.sum(dim=-1, keepdim=True)
     probs = unnorm / denom.clamp_min(1e-30)
@@ -47,16 +57,44 @@ def masked_attention(q, k, v, mask, scale: float):
 
 
 def segment_attention(q, k, v, q_segments, kv_segments=None, *, causal: bool = False,
-                      scale: float | None = None) -> torch.Tensor:
+                      scale: float | None = None, impl: str = "auto",
+                      all_valid: bool = False) -> torch.Tensor:
     """Block-diagonal (optionally causal) attention with segment-id masking.
 
     q: (B, Sq, H, D); k, v: (B, Skv, H, D); segments (B, Sq) / (B, Skv),
-    ``kv_segments`` defaulting to ``q_segments``. Returns (B, Sq, H, D) in
-    v's dtype; masked rows are zero."""
+    ``kv_segments`` defaulting to ``q_segments``. ``impl`` is ``"auto"``,
+    ``"xla"`` or ``"pallas"`` (``"ring"`` waits for the parallel slice);
+    ``all_valid`` declares every position a real token of one segment (the
+    encoders), which lets ``"xla"`` skip the mask and ``"auto"`` take K4.
+    Returns (B, Sq, H, D) in v's dtype; masked rows are zero. Every route
+    is differentiable."""
     if kv_segments is None:
         kv_segments = q_segments
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if impl == "ring":
+        raise NotImplementedError("impl='ring' (sequence-parallel ring attention) waits for "
+                                  "the parallel slice of the port (ROADMAP Queue 1)")
+    if impl == "auto":
+        if q.is_cuda and all_valid and not causal:
+            from .dense_attn import dense_attention_site, fits_dense_kernel
+
+            if fits_dense_kernel(q.shape[1], q.shape[-1]):
+                return dense_attention_site(q, k, v, scale)
+        impl = "pallas" if q.is_cuda and (causal or q.shape[-1] % 128 == 0) else "xla"
+    if impl == "pallas":
+        from .flash import flash_attention
+
+        seg = q_segments.to(torch.int32).contiguous()
+        kseg = seg if kv_segments is q_segments else kv_segments.to(torch.int32).contiguous()
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), seg, kseg,
+                               causal=causal, scale=scale)
+    if impl != "xla":
+        raise ValueError(f"unknown attention impl {impl!r}")
+    if all_valid and not causal:
+        from .dense_attn import dense_attention_plain
+
+        return dense_attention_plain(q, k, v, scale)
     return masked_attention(q, k, v, build_mask(q_segments, kv_segments, causal), scale)[0]
 
 

@@ -8,6 +8,11 @@ ViT, fp32 for the SAM encoder). The kernel reads that layout natively, so it
 is also the counterpart of the reference's layout-native variant K12
 (``_dense_fwd_bshd``), which computes the same function.
 
+``dense_attention_site`` is the differentiable encoder site of the training
+step (the reference's ``jax.custom_vjp``): K4 forward, and a backward that
+recomputes through the plain dense attention (``_vjp_bwd``), which adds no
+kernel. ``fits_dense_kernel`` is the reference's gate for ``"auto"``.
+
 ``dense_attention_nosm`` is probe P1 (``scripts/tpu_probes.py nosm_fwd``):
 K4 with the softmax replaced by one multiply, a floor for K4's time that
 only ``chip_smoke.py`` runs.
@@ -17,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+from .attention import compute_dtype
 
 K4 = _cuda.register(_cuda.Kernel(
     "K4", "mmmm_dense_attention",
@@ -33,11 +39,23 @@ P1 = _cuda.register(_cuda.Kernel(
 ))
 
 
+_VMEM_BUDGET = 12 * 1024 * 1024  # the reference's gate, kept for "auto"
+
+
+def fits_dense_kernel(s: int, d: int) -> bool:
+    """``dense_attn.py fits_dense_kernel``: some q tile of the padded
+    sequence fits the reference kernel's VMEM budget."""
+    s_pad = -(-s // 128) * 128
+    return any(s_pad % bq == 0 and 2 * s_pad * d * 2 + bq * d * 2 + bq * s_pad * 6
+               + bq * d * 4 <= _VMEM_BUDGET for bq in (640, 512, 384, 256, 128))
+
+
 def dense_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: float) -> torch.Tensor:
     """Plain version: fp32 logits, full-row softmax, probabilities cast to
     the value dtype for the PV product (``attention.py _xla_attention_dense``)."""
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    ct = compute_dtype(q.dtype)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(ct), k.to(ct))
     probs = torch.softmax(logits * scale, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
@@ -57,6 +75,29 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     K4(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d,
        float(scale), int(q.dtype == torch.bfloat16), _cuda.stream_of(q))
     return out
+
+
+class DenseAttention(torch.autograd.Function):
+    """K4 forward; the backward recomputes through the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return dense_attention(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = dense_attention_plain(q, k, v, ctx.scale)
+        return (*torch.autograd.grad(out, (q, k, v), g), None)
+
+
+def dense_attention_site(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float) -> torch.Tensor:
+    """Differentiable :func:`dense_attention` (K4 forward)."""
+    return DenseAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), scale)
 
 
 def dense_attention_nosm_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -4,7 +4,9 @@
 The resizes keep the JAX package's matrix form: a dense (new, old)
 half-pixel linear-interpolation matrix per axis, which is exactly
 ``interpolate(align_corners=False)`` without anti-aliasing. The strided
-patch conv and the stride-2 transposed conv stay reshape + one matmul.
+patch conv and the stride-2 transposed conv stay reshape + one matmul;
+``nearest_resize`` downsamples instance labels. All are differentiable
+(SAM's patch embedding trains).
 """
 from __future__ import annotations
 
@@ -99,3 +101,18 @@ def variable_upsample_3d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tens
 def trilinear_resize(x: torch.Tensor, shape: tuple[int, int, int]) -> torch.Tensor:
     """Trilinear resize of (..., D, H, W) mask logits to the image grid."""
     return resample_nd(x, shape)
+
+
+def nearest_resize(x: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """Nearest-neighbour resize of the trailing ``len(shape)`` dims (label
+    downsampling), ``jax.image.resize(method="nearest")``: output index i
+    reads ``floor((i + 0.5) * old / new)``, computed in fp32."""
+    lead = x.dim() - len(shape)
+    for i, new in enumerate(shape):
+        old = x.shape[lead + i]
+        if old == new:
+            continue
+        idx = torch.floor((torch.arange(new, dtype=torch.float32, device=x.device) + 0.5)
+                          * old / new).long()
+        x = x.index_select(lead + i, idx)
+    return x

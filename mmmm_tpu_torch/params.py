@@ -6,6 +6,8 @@ layers of each tower stacked on a leading ``(L, ...)`` axis, the same keys.
 precision class per leaf); ``init_params`` fills it from a seeded
 ``torch.Generator`` and ``params_from_jax`` fills it from a JAX tree, leaf by
 leaf, refusing any leaf it does not know and any it leaves unset.
+``train_state_from_jax`` carries a JAX training state (step, trainable
+tree, optax AdamW moments) and its frozen tree over the same way.
 
 Precision follows the reference policy: the CogVLM tower takes the caller's
 dtype, SAM, instance SAM and ``vg_proj`` stay fp32.
@@ -13,13 +15,16 @@ dtype, SAM, instance SAM and ``vg_proj`` stay fp32.
 from __future__ import annotations
 
 import dataclasses
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
 
-from .models.mmmm import MMMMConfig
 from .ops._cuda import resolve_device
 from .ops.quant import INT4_GROUP, LLM_QUANT_KEYS, MLP_QUANT_KEYS
+
+if TYPE_CHECKING:  # models.mmmm imports the model functions, which import layer()
+    from .models.mmmm import MMMMConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,6 +247,8 @@ def params_from_jax(tree: dict, device: str | torch.device = "cuda", *,
     with ``cfg`` it also checks every shape."""
     dev = resolve_device(device)
     flat = _flatten(tree)
+    from .models.mmmm import MMMMConfig
+
     spec = _flatten(param_spec(cfg or MMMMConfig.tiny()))
     wanted = {}  # tree path -> expected shape
     for path, leaf in spec.items():
@@ -267,3 +274,66 @@ def params_from_jax(tree: dict, device: str | torch.device = "cuda", *,
                              f"expected {shape}")
         out[path] = t
     return _unflatten(out)
+
+
+def _optax_nodes(tree, attrs):
+    """Every node of an optax state tree (nested tuples of named tuples)
+    that has all of ``attrs`` as fields (a tuple's ``count`` method is none)."""
+    if all(hasattr(tree, a) and not callable(getattr(tree, a)) for a in attrs):
+        yield tree
+    if isinstance(tree, (tuple, list)):
+        for child in tree:
+            yield from _optax_nodes(child, attrs)
+
+
+def train_state_from_jax(state, frozen: dict, device: str | torch.device = "cuda", *,
+                         cfg: MMMMConfig | None = None):
+    """Map a JAX ``TrainState`` of ``mmmm_tpu.train.step`` (its optimizer
+    ``optax.chain(clip_by_global_norm, adamw)``) and its frozen tree onto the
+    port's ``(TrainState, frozen)`` on ``device``, keeping dtypes.
+
+    The model's leaves (finetuned and frozen together) are checked as
+    :func:`params_from_jax` checks them; the LoRA factors must be exactly
+    ``default_lora_targets`` with ``a`` (.., in, r) and ``b`` (.., r, out);
+    Adam's ``mu`` and ``nu`` must match the trainable tree leaf for leaf,
+    and every ``count`` of the optimizer state must equal the step."""
+    from .peft.lora import default_lora_targets, split_trainable
+    from .train.step import TrainState
+
+    dev = resolve_device(device)
+    ft_paths = set(_flatten(state.trainable["ft"]))
+    full = params_from_jax(_unflatten({**_flatten(frozen), **_flatten(state.trainable["ft"])}),
+                           dev, cfg=cfg)
+    ft, frozen_t = split_trainable(full)
+    if set(_flatten(ft)) != ft_paths:
+        raise ValueError("train_state_from_jax: the finetuned leaves are not "
+                         "FINETUNE_PATH_PREFIXES' subset")
+    shapes = {p: tuple(t.shape) for p, t in _flatten(full).items()}
+    lora = {p: _to_tensor(a, dev) for p, a in _flatten(state.trainable["lora"]).items()}
+    targets = default_lora_targets(full)
+    if set(lora) != {f"{t}/{n}" for t in targets for n in ("a", "b")}:
+        raise ValueError(f"train_state_from_jax: LoRA leaves {sorted(lora)} are not the "
+                         f"factors of {targets}")
+    for t in targets:
+        *lead, fan_in, fan_out = shapes[t]
+        a, b = lora[f"{t}/a"].shape, lora[f"{t}/b"].shape
+        if a[:-1] != (*lead, fan_in) or b != (*lead, a[-1], fan_out):
+            raise ValueError(f"train_state_from_jax: {t} factors {tuple(a)} {tuple(b)} do not "
+                             f"fit its shape {shapes[t]}")
+    trainable = {"lora": _unflatten(lora), "ft": ft}
+    flat = _flatten(trainable)
+    (adam,) = list(_optax_nodes(state.opt_state, ("mu", "nu", "count")))
+    moments = {}
+    for name in ("mu", "nu"):
+        m = {p: _to_tensor(a, dev) for p, a in _flatten(getattr(adam, name)).items()}
+        if set(m) != set(flat) or any(m[p].shape != t.shape for p, t in flat.items()):
+            raise ValueError(f"train_state_from_jax: Adam's {name} does not match the "
+                             "trainable tree")
+        moments[name] = m
+    step = int(np.asarray(state.step))
+    counts = {int(np.asarray(n.count)) for n in _optax_nodes(state.opt_state, ("count",))}
+    if counts != {step}:
+        raise ValueError(f"train_state_from_jax: optimizer counts {counts} != step {step}")
+    for t in flat.values():
+        t.requires_grad_(True)
+    return TrainState(step, trainable, {"count": step, **moments}), frozen_t

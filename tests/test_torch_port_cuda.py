@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K6, K8-K11, P1) against their plain PyTorch versions
+"""The port's CUDA kernels (K1-K11, P1) against their plain PyTorch versions
 on the card. Every test is marked ``cuda`` and skips without a GPU.
 
 This file imports neither JAX nor ``mmmm_tpu``, so it also runs where only
@@ -188,3 +188,56 @@ def test_nosm_kernel(cuda):
     top = want.abs().max().item()
     assert top > 1e-4
     torch.testing.assert_close(got.float(), want.float(), atol=2 ** -7 * top, rtol=0)
+
+
+def _flash_bwd_case(cuda, b, s, h, d, dtype, causal, masked):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, dout = (torch.randn(b, s, h, d, generator=g, device=cuda).to(dtype)
+                     for _ in range(4))
+    seg = torch.ones(b, s, dtype=torch.int32, device=cuda)
+    kv_seg = seg
+    if masked:  # packed segments, a padded tail, a query whose segment has no key
+        seg = seg.clone()
+        seg[0, s // 2:] = 2
+        seg[-1, s - s // 5:] = 0
+        kv_seg = seg.clone()
+        kv_seg[0, s // 2:s // 2 + 3] = 3
+    scale = d ** -0.5
+    out, lse = pflash.flash_segment_attention(q, k, v, seg, kv_seg, causal=causal, scale=scale)
+    # K3's forward at the same shape feeds K7: held first, so a K3 fault
+    # cannot cancel out of the comparison below
+    rout, rlse = pflash.flash_segment_attention_plain(q, k, v, seg, kv_seg, causal=causal,
+                                                      scale=scale)
+    frac = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    err = (out.float() - rout.float()).abs().max().item()
+    assert err <= frac * rout.float().abs().max().item(), f"K3 out: max_abs_err {err}"
+    assert (lse - rlse).abs().max().item() <= 1e-3
+    got = pflash.flash_segment_attention_bwd(q, k, v, seg, kv_seg, out, lse, dout,
+                                             causal=causal, scale=scale)
+    ref = pflash.flash_segment_attention_bwd_plain(q, k, v, seg, kv_seg, out, lse, dout,
+                                                   causal=causal, scale=scale)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == dtype and a.shape == r.shape
+        tol = frac * r.float().abs().max().item()
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= tol, f"{name}: max_abs_err {err} > {tol}"
+    if masked and causal:
+        assert torch.all(got[0][0, s // 2] == 0) and torch.all(got[0][-1, s - s // 5:] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,dtype,causal,masked", [
+    (4, 1024, 32, 128, torch.bfloat16, True, False),  # the LLM site
+    (4, 577, 16, 112, torch.bfloat16, False, False),  # the flagship ViT, bf16 image
+    (4, 577, 16, 112, torch.float32, False, False),  # the flagship ViT, fp32 image
+    (4, 512, 12, 64, torch.float32, False, False),  # the SAM encoder
+    (2, 150, 2, 88, torch.bfloat16, True, True),
+    (2, 150, 2, 88, torch.bfloat16, False, True),
+    (2, 99, 3, 16, torch.float32, True, True),
+    (2, 70, 2, 120, torch.float32, False, True),
+])
+def test_flash_bwd_kernels(cuda, b, s, h, d, dtype, causal, masked):
+    """K3's forward, then K7dq and K7dkv, against the plain versions: within
+    2e-2 (bf16) or 1e-4 (fp32) of each output's largest magnitude, lse
+    within 1e-3."""
+    _flash_bwd_case(cuda, b, s, h, d, dtype, causal, masked)

@@ -24,7 +24,9 @@ from mmmm_tpu.models import MMMMModel
 from mmmm_tpu.models import inference as jinf
 from mmmm_tpu.models.cogvlm import CogVLMConfig as JaxCogVLMConfig
 from mmmm_tpu.models.segvol import SamConfig as JaxSamConfig
-from mmmm_tpu_torch import MMMMConfig, generate_grounded, init_params, params_from_jax
+from mmmm_tpu_torch import (LoraConfig, MMMMConfig, OptimizerConfig, generate_grounded,
+                            init_params, init_train_state, make_optimizer, make_train_step,
+                            params_from_jax)
 from mmmm_tpu_torch.data.tokenizer import MMMMTokenizer
 from mmmm_tpu_torch.models.cogvlm import CogVLMConfig
 from mmmm_tpu_torch.models.segvol import SamConfig
@@ -179,6 +181,11 @@ def test_default_device_is_the_card():
                           max_new_tokens=2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         params_from_jax({}, "cuda")
+    opt, lcfg = make_optimizer(OptimizerConfig()), LoraConfig()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_train_state(cfg, opt, lcfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_train_step(cfg, opt, lcfg)
 
 
 def _imports(tree):
@@ -196,7 +203,9 @@ def test_port_imports_no_jax_and_no_library_kernels():
     times SDPA as a yardstick)."""
     files = sorted((ROOT / "mmmm_tpu_torch").rglob("*.py"))
     assert len(files) > 15
-    assert ROOT / "mmmm_tpu_torch" / "ops" / "w4_matmul.py" in files
+    for rel in (("ops", "w4_matmul.py"), ("ops", "flash.py"), ("peft", "lora.py"),
+                ("train", "step.py"), ("train", "optim.py")):
+        assert ROOT.joinpath("mmmm_tpu_torch", *rel) in files
     for f in files + [ROOT / "chip_smoke.py"]:
         tree = ast.parse(f.read_text(), filename=str(f))
         for mod in _imports(tree):
@@ -214,7 +223,8 @@ def test_import_leaves_jax_out():
             "for m in pkgutil.walk_packages(mmmm_tpu_torch.__path__, 'mmmm_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
-            "assert 'mmmm_tpu_torch.ops.w4_matmul' in sys.modules")
+            "for m in ('ops.w4_matmul', 'peft.lora', 'train.step', 'train.optim'):\n"
+            "    assert 'mmmm_tpu_torch.' + m in sys.modules, m")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode == 0, r.stderr
