@@ -8,11 +8,16 @@ Run from the repository root on a machine with a card:
 Phases, in order; any failure exits non-zero before the result lines:
 
  1. print the card's name and power limit (``nvidia-smi``);
- 2. build the CUDA kernels from ``mmmm_tpu_torch/csrc`` (``nvcc``, sm_90a);
- 3. hold each kernel (K1-K11, K12 = K4's kernel, probe P1) against its
-    plain PyTorch version on the card, at the grounded path's and the
-    training step's shapes and at edge cases, and time the kernel, the
-    plain version and one PyTorch library call (CUDA events, medians); time
+ 2. build the CUDA kernels from ``mmmm_tpu_torch/csrc`` (``nvcc``, sm_90a)
+    and print the registers, shared memory and spill bytes of every K11mma
+    and K7 kernel (failing if one spills);
+ 3. hold each kernel (K1-K11, K7delta, K12 = K4's kernel, probe P1) against
+    its plain PyTorch version on the card, at the grounded path's and the
+    training step's shapes and at edge cases (K11mma at every row count
+    W4A16 serving passes, and both of its tile widths timed at the
+    prefill's shapes; K7 at every head dim it serves over a ragged S, and
+    twice at the LLM site, bit for bit), and time the kernel, the plain
+    version and one PyTorch library call (CUDA events, medians); time
     the W8A16, W8A8 and W4A16 ``qdot`` against a bf16 ``torch.matmul`` at
     decode rows;
  4. run ``generate_grounded`` on the card and on the CPU (plain versions)
@@ -34,8 +39,8 @@ Phases, in order; any failure exits non-zero before the result lines:
     checked for its outputs and its exact launch counts, then profiled
     (device time by kernel group and by stage, busy share);
  6. the LoRA training step (``make_train_step``, ``attn_impl="pallas"``:
-    K3 forward, K7dq and K7dkv backward at every flash site) at the tiny
-    config in fp32, 3 steps in each grounding mode, on the card and on the
+    K3 forward, K7delta, K7dq and K7dkv backward at every flash site) at the
+    tiny config in fp32, 3 steps in each grounding mode, on the card and the
     CPU, held to the CPU tests' tolerances; then at the flagship's full
     width and depth (frozen bf16 CogVLM, LoRA r=64, ``remat=True``): B=4,
     S=1024 with 146 vision tokens from an fp32 image (the ViT in fp32), 4
@@ -117,7 +122,7 @@ RUNS = {
 # steady training step
 KERNEL_RUN = {"K1": "a_greedy_bf16", "K2": "a_greedy_bf16", "K3": "a_greedy_bf16",
               "K4": "a_greedy_bf16", "K5": "b_spec7_w8a16", "K6": "b_spec7_w8a16",
-              "K7dq": "train_semantic", "K7dkv": "train_semantic",
+              "K7dq": "train_semantic", "K7dkv": "train_semantic", "K7delta": "train_semantic",
               "K8": "c_int8kv_w8a16", "K9": "c_int8kv_w8a16", "K10": "d_w4_q8mxu_chunk2",
               "K11": "d_w4_q8mxu_chunk2", "K11mma": "d_w4_q8mxu_chunk2",
               "K12": "d_w4_q8mxu_chunk2", "P1": "d_w4_q8mxu_chunk2"}
@@ -367,8 +372,8 @@ def kernel_phase(peaks, gen):
     capacity_kernel_phase(peaks, gen, out)
     train_kernel_phase(peaks, gen, out)
     torch.cuda.synchronize()
-    for name in ("K4", "K3", "K1", "K2", "K5", "K6", "K7dq", "K7dkv", "K8", "K9", "K10", "K11",
-                 "K11mma", "K12", "P1"):
+    for name in ("K4", "K3", "K1", "K2", "K5", "K6", "K7dq", "K7dkv", "K7delta", "K8", "K9",
+                 "K10", "K11", "K11mma", "K12", "P1"):
         r = out[name]
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib}, "
@@ -608,11 +613,48 @@ def capacity_kernel_phase(peaks, gen, out):
         check(label, e, tol)
         return e
 
+    # the GEMV at decode rows; K11mma at the row counts W4A16 serving passes
+    # (text rows 4 x 46 and vision rows 4 x 145, whole and in chunks of 2),
+    # at 4 x 146 and 2 x 146, and at tile edges
     for kk, nn in ((4096, 12288), (4096, 4096), (11008, 4096)):
         w = quantize_int4(rnd(kk, nn, dt=torch.float32).mul_(0.02))
-        for m, dt in ((4, torch.bfloat16), (4, torch.float32), (290, torch.bfloat16),
-                      (92, torch.bfloat16)):
-            w4_check(f"K11 ({m}, {kk}) x {kk}x{nn} {dt}", rnd(m, kk, dt=dt), w)
+        for m, dt in ((4, torch.bfloat16), (4, torch.float32), (17, torch.bfloat16),
+                      (64, torch.bfloat16), (65, torch.bfloat16), (92, torch.bfloat16),
+                      (184, torch.bfloat16), (290, torch.bfloat16), (292, torch.bfloat16),
+                      (580, torch.bfloat16), (584, torch.bfloat16)):
+            w4_check(f"K11 ({m}, {kk}) x {kk}x{nn} {dt} -> {w4.route(m, kk, nn, 128, dt)}",
+                     rnd(m, kk, dt=dt), w)
+    # K11mma's two tile widths at the W4A16 prefill's shapes (4 x 145 vision
+    # and 4 x 46 text rows, in run (d)'s chunks of 2 and whole, on each of
+    # the five products' weights): each checked, then timed against the
+    # other; mma_tpw picks one
+    log("K11mma tile widths at the prefill's shapes (TPW 64-column tiles a warpgroup)")
+    tpw_rows = []
+    for kk, nn in ((4096, 12288), (4096, 4096), (4096, 11008), (11008, 4096)):
+        wset = Rotating([quantize_int4(rnd(kk, nn, dt=torch.float32).mul_(0.02))
+                         for _ in range(4)])
+        for m in (B * (N_VIS - 1) // CHUNK, B * (PROMPT - N_VIS) // CHUNK, B * (N_VIS - 1),
+                  B * (PROMPT - N_VIS)):
+            x = rnd(m, kk)
+            stream = w4._cuda.stream_of(x)
+
+            def forced(tpw, w):
+                y = torch.empty((m, nn), dtype=torch.bfloat16, device=dev)
+                w4.K11MMA(x.data_ptr(), w["q4"].data_ptr(), w["s4"].data_ptr(), y.data_ptr(),
+                          m, kk, nn, 128, tpw, stream)
+                return y
+
+            ref = w4.w4_matmul_plain(x, wset.copies[0]["q4"], wset.copies[0]["s4"])
+            row = {"shape": [m, kk, nn], "picked": w4.mma_tpw(m, nn)}
+            for tpw in (1, 2):
+                check(f"K11mma TPW={tpw} ({m}, {kk}) x {kk}x{nn}",
+                      max_err(forced(tpw, wset.copies[0]), ref),
+                      2 ** -7 * max(1.0, ref.abs().max().item()))
+                row[f"tpw{tpw}_ms"] = time_ms(lambda: forced(tpw, wset.next()))
+            tpw_rows.append(row)
+            log(f"  K11mma ({m}, {kk}) x {kk}x{nn}: TPW=1 {row['tpw1_ms']:.4f} ms, TPW=2 "
+                f"{row['tpw2_ms']:.4f} ms, mma_tpw picks {row['picked']}")
+        del wset
     k, n = 4096, 11008
     wts = [quantize_int4(rnd(k, n, dt=torch.float32).mul_(0.02)) for _ in range(4)]
     wrot = Rotating(wts)  # 4 x 23 MB: each timed call reads its weight from memory
@@ -623,19 +665,29 @@ def capacity_kernel_phase(peaks, gen, out):
         w = wrot.next()
         return w["q4"], w["s4"]
 
-    for name, m in (("K11", 4), ("K11mma", B * N_VIS)):
+    # 4 x 146 and 2 x 146 rows, then run (d)'s chunk of vision and of text rows
+    for name, m in (("K11", 4), ("K11mma", B * N_VIS), ("K11mma", B * N_VIS // 2),
+                    ("K11mma", B * (N_VIS - 1) // CHUNK),
+                    ("K11mma", B * (PROMPT - N_VIS) // CHUNK)):
         x = rnd(m, k)
         err = w4_check(f"{name} ({m}, {k}) x {k}x{n} bf16", x, wts[0])
         if name == "K11":
             w4_check(f"{name} ({m}, {k}) x {k}x{n} fp32", x.float(), wts[0])
         bms, by = bound(w4_bytes(m), 2 * m * k * n, bf16_rate, bw)
-        out[name] = {
+        row = {
             "shape": [m, k, n], "dtype": "bf16 x, int4 W (group 128)", "max_abs_err": err,
             "ms": time_ms(lambda: w4.w4_matmul(x, *w4_next())),
             "plain_ms": time_ms(lambda: w4.w4_matmul_plain(x, *w4_next())),
             "library_ms": time_ms(lambda: x @ bts.next()),
             "bound_ms": bms, "bound_by": by,
         }
+        log(f"  {name} M={m}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"bf16 matmul {row['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+        if name in out:
+            out[name].setdefault("variants", []).append(row)
+        else:
+            out[name] = row
+    out["K11mma"]["tile_widths"] = tpw_rows
 
 
 def train_kernel_phase(peaks, gen, out):
@@ -652,8 +704,10 @@ def train_kernel_phase(peaks, gen, out):
 
     bw, bf16_rate, fp32_rate, _ = peaks
     dev = torch.device("cuda")
-    log("K7 flash backward (K7dq, K7dkv)")
+    log("K7 flash backward (K7dq, K7dkv, K7delta)")
     rows = {}
+    n_bytes = lambda t: t.numel() * t.element_size()
+    rate_of = lambda dt: bf16_rate if dt == torch.bfloat16 else fp32_rate
     for label, (b, s, h, d, dt, causal) in TRAIN_SITES.items():
         q, k, v, dout = (torch.randn(b, s, h, d, generator=gen, device=dev).to(dt)
                          for _ in range(4))
@@ -683,10 +737,45 @@ def train_kernel_phase(peaks, gen, out):
         n = q.numel() * esz  # one (B, S, H, D) operand
         lse_bytes = 2 * lse.numel() * 4  # lse and delta
         delta = fl._delta(o, dout)
+        bf16 = int(dt == torch.bfloat16)
+        stream = fl._cuda.stream_of(q)
+        kdelta = torch.empty_like(delta)
+        fl.K7DELTA(o.data_ptr(), dout.data_ptr(), kdelta.data_ptr(), b, s, h, d, bf16, stream)
+        err_delta = max_err(kdelta, delta)
+        check(f"K7delta {label} (relative to the largest |delta| "
+              f"{delta.abs().max().item():.3e})", err_delta / delta.abs().max().item(), 1e-5)
+        bms, by = bound(2 * n_bytes(o) + delta.numel() * 4, 2 * o.numel(), rate_of(dt), bw)
+        # one PyTorch call of the same rowsum: exact in fp32; in bf16 its
+        # output is rounded to bf16, so there it is a yardstick of time only
+        lib_delta = lambda: torch.einsum("bshd,bshd->bhs", o, dout)
+        lib_err = max_err(lib_delta(), delta) / delta.abs().max().item()
+        if dt == torch.float32:
+            check(f"K7delta library call {label} (einsum, relative)", lib_err, 1e-5)
+        rows.setdefault("K7delta", {})[label] = {
+            "shape": [b, s, h, d], "dtype": str(dt).split(".")[-1], "max_abs_err": err_delta,
+            "ms": time_ms(lambda: fl.K7DELTA(o.data_ptr(), dout.data_ptr(), kdelta.data_ptr(), b,
+                                             s, h, d, bf16, stream)),
+            "plain_ms": time_ms(lambda: fl._delta(o, dout)), "library_ms": time_ms(lib_delta),
+            "library_call": "torch.einsum('bshd,bshd->bhs', out, dout)" + (
+                ", output rounded to bf16" if bf16 else ""),
+            "library_rel_err": lib_err, "bound_ms": bms, "bound_by": by}
+        r = rows["K7delta"][label]
+        log(f"  K7delta {label}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, einsum "
+            f"{r['library_ms']:.4f} ms (relative difference {lib_err:.2e}), bound {bms:.4f} ms "
+            f"({by})")
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         ptrs = [t.data_ptr() for t in (q, k, v, dout, seg, seg, lse, delta)]
-        tail = (b, s, s, h, d, float(scale), int(causal), int(dt == torch.bfloat16),
-                fl._cuda.stream_of(q))
+        tail = (b, s, s, h, d, float(scale), int(causal), bf16, stream)
+        if label == "llm":  # no atomics: two runs give the same bits
+            again = [torch.empty_like(t) for t in (q, k, k)]
+            fl.K7DQ(*ptrs, dq.data_ptr(), *tail)
+            fl.K7DQ(*ptrs, again[0].data_ptr(), *tail)
+            fl.K7DKV(*ptrs, dk.data_ptr(), dv.data_ptr(), *tail)
+            fl.K7DKV(*ptrs, again[1].data_ptr(), again[2].data_ptr(), *tail)
+            if not all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again)):
+                raise AssertionError("K7: two runs at the LLM site differ")
+            log("  K7dq, K7dkv llm: two runs bit-equal")
+            del again
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
         # K3: q, k, v read, out and lse written; QK^T and PV on the valid pairs
         bms, by = bound(4 * n + 2 * seg.numel() * 4 + lse.numel() * 4, 4 * pairs * h * d, rate,
@@ -749,7 +838,32 @@ def train_kernel_phase(peaks, gen, out):
                   frac * r.float().abs().max().item())
         if causal and not (torch.all(got[0][0, 75] == 0) and torch.all(got[0][1, 120:] == 0)):
             raise AssertionError("K7: a row with no valid key has a nonzero gradient")
-    for kid in ("K7dq", "K7dkv"):
+    # every head dim K7 serves, over a ragged S, masked and causal
+    for dt in (torch.bfloat16, torch.float32):
+        for d in (64, 88, 112, 128):
+            for s in (150, 577):
+                b, h = 1, 2
+                q, k, v, dout = (torch.randn(b, s, h, d, generator=gen, device=dev).to(dt)
+                                 for _ in range(4))
+                seg = torch.ones(b, s, dtype=torch.int32, device=dev)
+                seg[0, s // 2:] = 2
+                seg[0, s - s // 5:] = 0
+                kv_seg = seg.clone()
+                kv_seg[0, s // 2:s // 2 + 3] = 3
+                o, lse = fl.flash_segment_attention(q, k, v, seg, kv_seg, causal=True,
+                                                    scale=d ** -0.5)
+                got = fl.flash_segment_attention_bwd(q, k, v, seg, kv_seg, o, lse, dout,
+                                                     causal=True, scale=d ** -0.5)
+                ref = fl.flash_segment_attention_bwd_plain(q, k, v, seg, kv_seg, o, lse, dout,
+                                                           causal=True, scale=d ** -0.5)
+                frac = 2e-2 if dt == torch.bfloat16 else 1e-4
+                worst = max(max_err(a, r) / r.float().abs().max().item()
+                            for a, r in zip(got, ref))
+                check(f"K7 {(b, s, h, d)} {dt} masked causal, worst of dq/dk/dv (relative)",
+                      worst, frac)
+                if not (torch.all(got[0][0, s // 2] == 0) and torch.all(got[0][0, s - s // 5:] == 0)):
+                    raise AssertionError("K7: a row with no valid key has a nonzero gradient")
+    for kid in ("K7dq", "K7dkv", "K7delta"):
         first = rows[kid]["llm"]
         out[kid] = dict(first, site="llm",
                         variants=[dict(r, site=lb) for lb, r in rows[kid].items() if lb != "llm"])
@@ -1001,7 +1115,7 @@ def tiny_train_phase():
         r["launches"] = {n: k.launches - before[n] for n, k in KERNELS.items()
                          if k.launches != before[n]}
         log(f"  tiny train {mode}: launches {r['launches']}")
-        for name in ("K3", "K7dq", "K7dkv"):
+        for name in ("K3", "K7dq", "K7dkv", "K7delta"):
             if not r["launches"].get(name):
                 raise AssertionError(f"tiny train {mode}: {name} was not launched")
         out[mode] = r
@@ -1229,7 +1343,7 @@ def flagship_train_phase(gen):
                                remat=True, vis_span="auto", device="cuda")
         sites = LAYERS + VIT_LAYERS + (SAM_LAYERS if mode != "none" else 0)
         want = {name: 0 for name in KERNELS}
-        want.update({"K3": 2 * sites, "K7dq": sites, "K7dkv": sites})
+        want.update({"K3": 2 * sites, "K7dq": sites, "K7dkv": sites, "K7delta": sites})
         r = {"steps": [], "sites": sites}
         torch.cuda.reset_peak_memory_stats()
         for i in range(TRAIN_STEPS):
@@ -1379,7 +1493,8 @@ def train_route_phase_seed(seed: int):
                                 vis_span="auto")
         g = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
         launches = {n: k.launches for n, k in KERNELS.items() if k.launches}
-        want = {"K3": 2 * sites, "K7dq": sites, "K7dkv": sites} if impl == "pallas" else {}
+        want = ({"K3": 2 * sites, "K7dq": sites, "K7dkv": sites, "K7delta": sites}
+                if impl == "pallas" else {})
         if launches != want:
             raise AssertionError(f"routes {impl}: launches {launches}, expected {want}")
         return float(loss.detach()), {p: torch.zeros_like(t) if x is None else x.detach().float()
@@ -1441,6 +1556,7 @@ KERNEL_GROUPS = (  # (label, substrings of a kernel name), first match wins
     ("K4 dense attention", ("attn_mma_kernel<112, false", "attn_tile_kernel<float, 8, false>")),
     ("K3 flash forward", ("attn_mma_kernel<128, true", "attn_mma_kernel<112, true",
                           "attn_tile_kernel<float, 8, true>", "attn_tile_kernel<float, 14, true>")),
+    ("K7delta rowsum", ("flash_bwd_delta",)),
     ("K7dq flash backward", ("flash_bwd_dq",)),
     ("K7dkv flash backward", ("flash_bwd_dkv",)),
     ("K1 decode attention", ("decode_attn_kernel",)),
@@ -1520,6 +1636,67 @@ def profile_run(run, stages=STAGES):
             "top": [{"ms": us / 1e3, "count": n, "name": name[:160]} for name, (us, n) in top]}
 
 
+def ptxas_entries(build_log: str) -> list:
+    """Registers, static shared memory and spill bytes of every kernel, from
+    ``nvcc -Xptxas -v``'s output."""
+    rows, cur = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"symbol": m.group(1)}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["static_smem"] = int(m.group(1))
+    return rows
+
+
+def redesigned_kernel_resources(build_log: str, lib) -> list:
+    """Registers, shared memory (static, and the dynamic bytes the launcher
+    asks for) and spill bytes of every K11mma and K7 kernel; fails if one
+    spills."""
+    rows = []
+    for e in ptxas_entries(build_log):
+        m = re.search(r"(flash_bwd_(?:dq|dkv)_(?:wgmma|f32)|flash_bwd_delta|w4_mma_kernel)",
+                      e["symbol"])
+        if not m:
+            continue
+        kname = m.group(1)
+        t = re.search(r"ILi(\d+)E", e["symbol"])
+        targ = int(t.group(1)) if t else None
+        if kname == "w4_mma_kernel":
+            dyn = lib.mmmm_w4_mma_smem(targ)
+        elif kname.endswith("_wgmma"):
+            dyn = lib.mmmm_flash_bwd_smem(1, targ, int("dkv" in kname))
+        elif kname.endswith("_f32"):
+            dyn = lib.mmmm_flash_bwd_smem(0, 16 * targ, int("dkv" in kname))
+        else:
+            dyn = 0
+        label = kname if targ is None else f"{kname}<{targ}>"
+        if kname == "flash_bwd_delta":
+            label += "<bf16>" if "bfloat16" in e["symbol"] else "<fp32>"
+        row = {"kernel": label, "registers": e.get("registers"),
+               "static_smem": e.get("static_smem", 0), "dynamic_smem": dyn,
+               "spill_stores": e.get("spill_stores", 0), "spill_loads": e.get("spill_loads", 0)}
+        rows.append(row)
+        log(f"  {label}: {row['registers']} registers, shared {row['static_smem']} + "
+            f"{dyn} bytes, spill stores {row['spill_stores']}, loads {row['spill_loads']}")
+        if row["spill_stores"] or row["spill_loads"]:
+            raise AssertionError(f"{label} spills to local memory")
+    if not rows:
+        raise AssertionError("no K11mma or K7 kernel in the build log")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log-dir", type=Path, default=None)
@@ -1559,10 +1736,11 @@ def main() -> int:
     if args.log_dir is not None:
         args.log_dir.mkdir(parents=True, exist_ok=True)
         shutil.copy(so.with_suffix(".log"), args.log_dir / "kernel_build.log")
+    redesigned = redesigned_kernel_resources(build_log, _cuda.library())
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {"card": card, "device": name, "bounds_from": peak_key, "build_s": build_s,
-               "phase_s": {}}
+               "redesigned_kernels": redesigned, "phase_s": {}}
 
     def phase(label, fn, *a):
         t = time.perf_counter()

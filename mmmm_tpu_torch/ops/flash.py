@@ -9,10 +9,12 @@ logsumexp 0. The forward returns ``(out (B, Sq, H, D) in the value dtype,
 lse (B, H, Sq) fp32)``; lse is of the scaled logits.
 
 The backward recomputes the probabilities from lse (``p = exp(s - lse)``
-on valid pairs), with ``delta = rowsum(dO * O)`` in fp32 computed here in
-PyTorch, as the reference computes it in XLA; ``p`` and ``ds = p (dO v^T -
-delta)`` are rounded to the operand dtype before their products. It runs as
-two kernels, ``K7dq`` (dq) and ``K7dkv`` (dk, dv), the reference's split.
+on valid pairs), with ``delta = rowsum(dO * O)`` in fp32 (the reference
+computes it in XLA; here kernel ``K7delta`` on the card, ``_delta`` on the
+CPU); ``p`` and ``ds = p (dO v^T - delta)`` are rounded to the operand dtype
+before their products. It runs as two kernels, ``K7dq`` (dq) and ``K7dkv``
+(dk, dv), the reference's split: ``wgmma`` with a TMA ring in bf16,
+register-blocked CUDA-core tiles with a ``cp.async`` ring in fp32.
 
 ``flash_segment_attention`` and ``flash_segment_attention_bwd`` take the
 plain version for CPU tensors and launch ``csrc/flash_fwd.cu`` and
@@ -49,6 +51,21 @@ K7DKV = _cuda.register(_cuda.Kernel(
     source="mmmm_tpu_torch/csrc/flash_bwd.cu",
     replaces="mmmm_tpu/ops/flash.py:280 _flash_bwd_impl (pallas_call :329, _dkv_kernel :161)",
 ))
+
+K7DELTA = _cuda.register(_cuda.Kernel(
+    "K7delta", "mmmm_flash_bwd_delta",
+    [_cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.P],
+    source="mmmm_tpu_torch/csrc/flash_bwd.cu",
+    replaces="mmmm_tpu/ops/flash.py:292 delta in _flash_bwd_impl (XLA, before pallas_call :305)",
+))
+BWD_MAX_HEAD_DIM = 128
+
+
+def bwd_takes(d: int, dtype: torch.dtype) -> bool:
+    """Whether K7 (and K7delta) take head dim ``d`` in ``dtype``: rows are
+    copied in 16-byte pieces (8 bf16 or 4 fp32 lanes), up to 128 lanes."""
+    lanes = {torch.bfloat16: 8, torch.float32: 4}.get(dtype)
+    return lanes is not None and 0 < d <= BWD_MAX_HEAD_DIM and d % lanes == 0
 
 
 def flash_segment_attention_plain(q, k, v, q_segments, kv_segments, *, causal: bool,
@@ -90,7 +107,8 @@ def flash_segment_attention(q, k, v, q_segments, kv_segments, *, causal: bool,
 
 
 def _delta(out, g):
-    """rowsum(dO * O) in fp32 (float64 for float64 operands), (B, H, Sq)."""
+    """rowsum(dO * O) in fp32 (float64 for float64 operands), (B, H, Sq):
+    the plain version of K7delta."""
     ct = compute_dtype(out.dtype)
     return (g.to(ct) * out.to(ct)).sum(-1).transpose(1, 2).contiguous()
 
@@ -124,11 +142,16 @@ def flash_segment_attention_bwd(q, k, v, q_segments, kv_segments, out, lse, g, *
     _cuda.check_cuda("flash_segment_attention_bwd", lse, dtypes=(torch.float32,), align=4)
     if lse.shape != (b, h, sq):
         raise ValueError(f"flash_segment_attention_bwd: lse must be (B, H, Sq), got {lse.shape}")
-    delta = _delta(out, g)
+    if not bwd_takes(d, q.dtype):
+        raise ValueError(f"flash_segment_attention_bwd: K7 does not take head dim {d} in "
+                         f"{q.dtype}")
+    bf16 = int(q.dtype == torch.bfloat16)
+    stream = _cuda.stream_of(q)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    K7DELTA(out.data_ptr(), g.data_ptr(), delta.data_ptr(), b, sq, h, d, bf16, stream)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     ptrs = [t.data_ptr() for t in (q, k, v, g, q_segments, kv_segments, lse, delta)]
-    tail = (b, sq, skv, h, d, float(scale), int(causal), int(q.dtype == torch.bfloat16),
-            _cuda.stream_of(q))
+    tail = (b, sq, skv, h, d, float(scale), int(causal), bf16, stream)
     K7DQ(*ptrs, dq.data_ptr(), *tail)
     K7DKV(*ptrs, dk.data_ptr(), dv.data_ptr(), *tail)
     return dq, dk, dv
@@ -140,6 +163,11 @@ class FlashSegmentAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, q_segments, kv_segments, causal: bool, scale: float):
+        # a head dim K7 cannot take raises here, before any work of the step
+        if (not _cuda.on_cpu("flash_attention", q) and any(ctx.needs_input_grad[:3])
+                and not bwd_takes(q.shape[-1], q.dtype)):
+            raise ValueError(f"flash_attention: K7 does not take head dim {q.shape[-1]} in "
+                             f"{q.dtype}, so this site cannot be differentiated on the card")
         out, lse = flash_segment_attention(q, k, v, q_segments, kv_segments, causal=causal,
                                            scale=scale)
         ctx.save_for_backward(q, k, v, q_segments, kv_segments, out, lse)

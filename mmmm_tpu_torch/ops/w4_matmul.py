@@ -13,7 +13,8 @@ s4[k // group, n]`` rounded to x's dtype, ``y = x @ W`` with fp32 sums,
 the result in x's dtype. It takes the plain version for CPU tensors and
 launches a kernel of ``csrc/w4_matmul.cu`` for CUDA tensors: the CUDA-core
 GEMV kernel (``K11``) for fp32 x and for at most 16 rows, the tensor-core
-tile kernel (``K11mma``) for more bf16 rows.
+kernel (``K11mma``: wgmma fed by a TMA ring) for more bf16 rows; ``route``
+says which, and raises for a shape the kernel cannot take.
 """
 from __future__ import annotations
 
@@ -29,10 +30,56 @@ K11 = _cuda.register(_cuda.Kernel(
 ))
 K11MMA = _cuda.register(_cuda.Kernel(
     "K11mma", "mmmm_w4_mma",
-    [_cuda.P] * 4 + [_cuda.I] * 4 + [_cuda.P],
+    [_cuda.P] * 4 + [_cuda.I] * 5 + [_cuda.P],
     source="mmmm_tpu_torch/csrc/w4_matmul.cu", replaces=_REPLACES,
 ))
 GEMV_MAX_ROWS = 16  # bf16 products with more rows take the tensor-core kernel
+MMA_BM, MMA_BK, MMA_BN = 128, 64, 128  # K11mma's rows, packed rows a step, columns a tile
+H100_SMS = 132
+
+
+def gemv_takes(k: int, n: int, group: int) -> bool:
+    """Whether the GEMV kernel (K11) takes x (M, k) over a (k/2, n) packed
+    weight with ``group`` rows a scale."""
+    return group > 0 and group % 32 == 0 and group <= 512 and (k // 2) % group == 0 and \
+        n % 16 == 0
+
+
+def mma_takes(m: int, k: int, n: int, group: int) -> bool:
+    """Whether the tensor-core kernel (K11mma) takes bf16 x (m, k) over a
+    (k/2, n) packed weight with ``group`` rows a scale: a k-step of
+    ``MMA_BK`` packed rows lies in one scale group of each half, and the
+    output tiles are ``MMA_BN`` columns wide."""
+    return (m > 0 and k % (2 * MMA_BK) == 0 and n % MMA_BN == 0 and group > 0
+            and group % MMA_BK == 0 and (k // 2) % group == 0)
+
+
+def mma_tpw(m: int, n: int) -> int:
+    """K11mma's 64-column tiles a consumer warpgroup for an (m, n) output,
+    1 or 2. A 2-tile block does a 1-tile block's work twice over in about
+    0.89 of twice its time (each x tile is read once for 256 columns, not
+    twice), so 2 wins only where its blocks take half as many waves over
+    the H100's SMs: M = 290 on N = 11008 makes 129 blocks (1 wave) against
+    258 (2), but M = 290 on N = 12288 makes 144 (2 waves) against 288 (3),
+    and M = 92 on N = 11008 43 (1 wave) against 86 (1)."""
+    if n % (2 * MMA_BN):
+        return 1
+    blocks2 = -(-m // MMA_BM) * (n // (2 * MMA_BN))
+    waves = lambda blocks: -(-blocks // H100_SMS)
+    return 2 if waves(2 * blocks2) == 2 * waves(blocks2) else 1
+
+
+def route(m: int, k: int, n: int, group: int, dtype: torch.dtype) -> str:
+    """The kernel a CUDA product of this shape launches, ``"K11"`` or
+    ``"K11mma"``; raises for a shape neither takes."""
+    if dtype == torch.bfloat16 and m > GEMV_MAX_ROWS:
+        if not mma_takes(m, k, n, group):
+            raise ValueError(f"w4_matmul: K11mma does not take M={m}, K={k}, N={n}, "
+                             f"group={group}")
+        return "K11mma"
+    if not gemv_takes(k, n, group):
+        raise ValueError(f"w4_matmul: K11 does not take K={k}, N={n}, group={group}")
+    return "K11"
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
@@ -75,21 +122,19 @@ def w4_matmul(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor) -> torch.Tens
         raise ValueError(f"w4_matmul: x {tuple(x.shape)}, q4 {tuple(q4.shape)}, "
                          f"s4 {tuple(s4.shape)}")
     group = k // s4.shape[0]
-    if group * s4.shape[0] != k or group % 32 or group > 512:
-        raise ValueError(f"w4_matmul: group {k}/{s4.shape[0]} must be a multiple of 32, <= 512")
-    if n % 16:
-        raise ValueError(f"w4_matmul: N={n} must be a multiple of 16")
-    bf16 = x.dtype == torch.bfloat16
+    if group * s4.shape[0] != k:
+        raise ValueError(f"w4_matmul: {s4.shape[0]} scale rows do not divide K={k}")
+    kernel = route(m, k, n, group, x.dtype)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     stream = _cuda.stream_of(x)
-    if bf16 and m > GEMV_MAX_ROWS and n % 64 == 0:
+    if kernel == "K11mma":
         if x.data_ptr() % 16:
             raise ValueError("w4_matmul: x must be 16-byte aligned")
         K11MMA(x.data_ptr(), q4.data_ptr(), s4.data_ptr(), out.data_ptr(), m, k, n, group,
-               stream)
+               mma_tpw(m, n), stream)
         return out
     # one fp32 partial product per scale group of packed rows, summed in order
     part = torch.empty((k2 // group, m, n), dtype=torch.float32, device=x.device)
     K11(x.data_ptr(), q4.data_ptr(), s4.data_ptr(), out.data_ptr(), part.data_ptr(), m, k, n,
-        group, int(bf16), stream)
+        group, int(x.dtype == torch.bfloat16), stream)
     return out

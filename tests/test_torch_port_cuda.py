@@ -241,3 +241,100 @@ def test_flash_bwd_kernels(cuda, b, s, h, d, dtype, causal, masked):
     2e-2 (bf16) or 1e-4 (fp32) of each output's largest magnitude, lse
     within 1e-3."""
     _flash_bwd_case(cuda, b, s, h, d, dtype, causal, masked)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [17, 64, 65, 92, 184, 290, 292, 580, 584])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (11008, 4096), (4096, 11008)])
+def test_w4_mma_kernel_shapes(cuda, m, k, n):
+    """K11mma (wgmma over a TMA ring) at the row counts W4A16 serving passes
+    (vision and text rows, whole and in chunks of 2, and tile edges) on the
+    flagship's weight shapes, through the tile width ``mma_tpw`` picks and
+    through the other one: within one bf16 step (2**-7) of the largest
+    output of ``w4_matmul_plain``, the same weight rounding."""
+    g = torch.Generator(device=cuda).manual_seed(m)
+    w = quantize_int4(torch.randn(k, n, generator=g, device=cuda).mul_(0.02))
+    x = torch.randn(m, k, generator=g, device=cuda).bfloat16()
+    assert pw4.route(m, k, n, 128, x.dtype) == "K11mma"
+    before = pw4.K11MMA.launches
+    got = pw4.w4_matmul(x, w["q4"], w["s4"])
+    assert pw4.K11MMA.launches == before + 1
+    want = pw4.w4_matmul_plain(x, w["q4"], w["s4"])
+    top = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2 ** -7 * top)
+    other = torch.empty_like(got)
+    pw4.K11MMA(x.data_ptr(), w["q4"].data_ptr(), w["s4"].data_ptr(), other.data_ptr(), m, k, n,
+               128, 3 - pw4.mma_tpw(m, n), pw4._cuda.stream_of(x))
+    torch.testing.assert_close(other.float(), want.float(), rtol=0, atol=2 ** -7 * top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 88, 112, 128])
+@pytest.mark.parametrize("s", [150, 577])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_head_dims(cuda, d, s, dtype):
+    """K7 at every head dim it serves, over a ragged S (partial tiles at
+    both kernels' edges), masked and causal."""
+    _flash_bwd_case(cuda, 1, s, 2, d, dtype, True, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_repeats_bit_for_bit(cuda, dtype):
+    """No atomics: two runs of K7dq and K7dkv at the LLM site's widths give
+    equal bits."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v, dout = (torch.randn(2, 1024, 8, 128, generator=g, device=cuda).to(dtype)
+                     for _ in range(4))
+    seg = torch.ones(2, 1024, dtype=torch.int32, device=cuda)
+    out, lse = pflash.flash_segment_attention(q, k, v, seg, seg, causal=True, scale=0.088)
+    runs = [pflash.flash_segment_attention_bwd(q, k, v, seg, seg, out, lse, dout, causal=True,
+                                               scale=0.088) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(128, torch.bfloat16), (112, torch.float32),
+                                     (8, torch.float32)])
+def test_flash_bwd_delta_kernel(cuda, d, dtype):
+    """K7delta against ``_delta`` within 1e-5 of the largest |delta|."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    out, dout = (torch.randn(2, 77, 3, d, generator=g, device=cuda).to(dtype) for _ in range(2))
+    seg = torch.ones(2, 77, dtype=torch.int32, device=cuda)
+    lse = torch.zeros(2, 3, 77, device=cuda)
+    before = pflash.K7DELTA.launches
+    pflash.flash_segment_attention_bwd(out, out, out, seg, seg, out, lse, dout, causal=False,
+                                       scale=1.0)
+    assert pflash.K7DELTA.launches == before + 1
+    got = torch.empty(2, 3, 77, device=cuda)
+    pflash.K7DELTA(out.data_ptr(), dout.data_ptr(), got.data_ptr(), 2, 77, 3, d,
+                   int(dtype == torch.bfloat16), pflash._cuda.stream_of(out))
+    want = pflash._delta(out, dout)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_shapes_they_cannot_take(cuda):
+    """A CUDA tensor of a shape the kernel cannot take raises; it never
+    falls back to the plain version."""
+    q = torch.zeros(1, 16, 2, 20, device=cuda).bfloat16()
+    seg = torch.ones(1, 16, dtype=torch.int32, device=cuda)
+    lse = torch.zeros(1, 2, 16, device=cuda)
+    with pytest.raises(ValueError):
+        pflash.flash_segment_attention_bwd(q, q, q, seg, seg, q, lse, q, causal=False, scale=1.0)
+    w = quantize_int4(torch.randn(256, 256, device=cuda))
+    x = torch.zeros(32, 256, device=cuda).bfloat16()
+    with pytest.raises(ValueError):
+        pw4.w4_matmul(x, w["q4"][:, :192].contiguous(), w["s4"][:, :192].contiguous())
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_a_head_dim_k7_cannot_take_before_the_forward(cuda):
+    """A differentiable site whose head dim K7 cannot take (bf16 D = 100)
+    raises in the forward, before K3 runs, not in the backward."""
+    q = torch.zeros(1, 16, 2, 100, device=cuda).bfloat16().requires_grad_()
+    seg = torch.ones(1, 16, dtype=torch.int32, device=cuda)
+    before = pflash.K3.launches
+    with pytest.raises(ValueError, match="K7 does not take"):
+        pflash.flash_attention(q, q, q, seg, seg, causal=False, scale=0.1)
+    assert pflash.K3.launches == before
