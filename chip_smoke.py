@@ -9,17 +9,20 @@ Phases, in order; any failure exits non-zero before the result lines:
 
  1. print the card's name and power limit (``nvidia-smi``);
  2. build the CUDA kernels from ``mmmm_tpu_torch/csrc`` (``nvcc``, sm_90a)
-    and print the registers, shared memory and spill bytes of every K11mma
-    and K7 kernel (failing if one spills);
+    and print the registers, shared memory and spill bytes of every K3/K4
+    (``attn_fwd_*``, with P1's form), K11mma and K7 kernel (failing if one
+    spills);
  3. hold each kernel (K1-K11, K7delta, K12 = K4's kernel, probe P1) against
     its plain PyTorch version on the card, at the grounded path's and the
     training step's shapes and at edge cases (K11mma at every row count
     W4A16 serving passes, and both of its tile widths timed at the
-    prefill's shapes; K7 at every head dim it serves over a ragged S, and
-    twice at the LLM site, bit for bit), and time the kernel, the plain
-    version and one PyTorch library call (CUDA events, medians); time
-    the W8A16, W8A8 and W4A16 ``qdot`` against a bf16 ``torch.matmul`` at
-    decode rows;
+    prefill's shapes; K3 and K7 at every head dim they serve over a ragged
+    S, K3 over packed segments with fully masked rows, both twice at the
+    LLM site, bit for bit; K3, K4 and K7 at head dims 100 in bf16 and 90 in
+    fp32, which they take through zero lanes, and K1, K6 and K9 at 90), and
+    time the kernel, the plain version and one PyTorch library call (CUDA
+    events, medians); time the W8A16, W8A8 and W4A16 ``qdot`` against a
+    bf16 ``torch.matmul`` at decode rows;
  4. run ``generate_grounded`` on the card and on the CPU (plain versions)
     and require the same tokens, masks, boxes and presence logits: at
     ``MMMMConfig.tiny()`` in fp32 greedy and n-gram speculative, bf16 and
@@ -200,7 +203,7 @@ def kernel_phase(peaks, gen):
     from mmmm_tpu_torch.ops import decode_kernel as dk
     from mmmm_tpu_torch.ops import dense_attn as da
     from mmmm_tpu_torch.ops import flash as fl
-    from mmmm_tpu_torch.ops.attention import build_mask
+    from mmmm_tpu_torch.ops.attention import build_mask, kernel_head_dim
 
     bw, bf16_rate, fp32_rate, _ = peaks
     dev = torch.device("cuda")
@@ -237,10 +240,34 @@ def kernel_phase(peaks, gen):
             entry["variants"].append(row)
     for b, s, h, d, dt, tol in [(1, 1153, 16, 88, torch.bfloat16, 2e-2),
                                 (2, 77, 4, 64, torch.float32, 1e-4),
-                                (2, 33, 2, 8, torch.float32, 1e-4)]:
+                                (2, 75, 12, 64, torch.float32, 1e-4),
+                                (2, 577, 16, 112, torch.float32, 1e-4),
+                                (2, 33, 2, 8, torch.float32, 1e-4),
+                                (2, 33, 2, 8, torch.bfloat16, 2e-2)]:
         q, k, v = (rnd(b, s, h, d, dt=dt) for _ in range(3))
         check(f"K4 edge {tuple(q.shape)} {dt}", max_err(da.dense_attention(q, k, v, d ** -0.5),
               da.dense_attention_plain(q, k, v, d ** -0.5)), tol)
+    # head dims the kernel takes only through zero lanes (ops/attention.py
+    # kernel_head_dim): one padded copy, the kernel, a slice; timed whole
+    for b, s, h, d, dt, tol in [(B, 1153, 16, 100, torch.bfloat16, 2e-2),
+                                (B, 512, 12, 90, torch.float32, 1e-4)]:
+        q, k, v = (rnd(b, s, h, d, dt=dt) for _ in range(3))
+        scale = d ** -0.5
+        err = max_err(da.dense_attention(q, k, v, scale), da.dense_attention_plain(q, k, v, scale))
+        dp = kernel_head_dim(d, dt)
+        check(f"K4 padded {tuple(q.shape)} {dt} (the kernel at D = {dp})", err, tol)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        bms, by = bound(4 * q.numel() * q.element_size(), 4 * b * h * s * s * d,
+                        bf16_rate if dt == torch.bfloat16 else fp32_rate, bw)
+        row = {"shape": [b, s, h, d], "dtype": str(dt).split(".")[-1], "padded_to": dp,
+               "max_abs_err": err, "ms": time_ms(lambda: da.dense_attention(q, k, v, scale)),
+               "plain_ms": time_ms(lambda: da.dense_attention_plain(q, k, v, scale), inner=2),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                            scale=scale)),
+               "bound_ms": bms, "bound_by": by}
+        log(f"  K4 padded D={d}: kernel {row['ms']:.4f} ms (pad and slice included), plain "
+            f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound {bms:.4f} ms")
+        entry["variants"].append(row)
     out["K4"] = entry
     # K12 computes K4's function on (B, S, H, D) blocks, H % 8 == 0: the same
     # kernel; its row is K4's ViT row plus a check at another such shape
@@ -310,6 +337,23 @@ def kernel_phase(peaks, gen):
         check(f"K3 edge (masked rows) {dt}", max(max_err(o, ro), max_err(lse, rlse)), tol)
         if not (torch.all(o[0, :3] == 0) and torch.all(lse[0, :, :3] == 0)):
             raise AssertionError("K3: a fully masked row is not zero")
+    # causal over two packed segments, a padded tail and query rows whose
+    # segment has no key, at the sites' head dims and dtypes
+    for d, dt, tol in [(128, torch.bfloat16, 2e-2), (112, torch.bfloat16, 2e-2),
+                       (112, torch.float32, 1e-4), (64, torch.float32, 1e-4)]:
+        q, k, v = (rnd(2, 600, 3, d, dt=dt) for _ in range(3))
+        qs = torch.ones(2, 600, dtype=torch.int32, device=dev)
+        qs[0, 130:] = 2
+        qs[1, 550:] = 0
+        ks = qs.clone()
+        ks[0, 130:140] = 3
+        o, lse = fl.flash_segment_attention(q, k, v, qs, ks, causal=True, scale=d ** -0.5)
+        ro, rlse = fl.flash_segment_attention_plain(q, k, v, qs, ks, causal=True, scale=d ** -0.5)
+        check(f"K3 masked rows, two segments (2, 600, 3, {d}) {dt}",
+              max(max_err(o, ro), max_err(lse, rlse)), tol)
+        if not (torch.all(o[0, 130:140] == 0) and torch.all(lse[0, :, 130:140] == 0)
+                and torch.all(o[1, 550:] == 0) and torch.all(lse[1, :, 550:] == 0)):
+            raise AssertionError("K3: a fully masked row is not zero")
 
     # ---- K1 decode attention and K2 KV append --------------------------------------
     log("K1 decode attention, K2 KV append")
@@ -341,6 +385,9 @@ def kernel_phase(peaks, gen):
         "library_ms": time_ms(lib_k1),
         "bound_ms": bms, "bound_by": by,
     }
+    out["K1"]["variants"] = [decode_d90_row(
+        "K1", peaks, gen, lambda q, kc, vc, n: dk.decode_attention(q, kc, vc, n),
+        lambda q, kc, vc, n: dk.decode_attention_plain(q, kc, vc, n), sdpa=True)]
 
     kn, vn = rnd(b, h, 1, d), rnd(b, h, 1, d)
     for widx in ([PROMPT, 0, smax - 1, smax + 7], [-1, 5, 300, -400]):
@@ -466,6 +513,9 @@ def spec_kernel_phase(peaks, gen, out):
         "plain_ms": time_ms(lambda: dk.decode_attention_window_plain(q, *rot.next(), w_mid)),
         "library_ms": time_ms(lib_k6), "bound_ms": bms, "bound_by": by,
     }
+    out["K6"]["variants"] = [decode_d90_row(
+        "K6", peaks, gen, lambda q, kc, vc, w: dk.decode_attention_window(q, kc, vc, w),
+        lambda q, kc, vc, w: dk.decode_attention_window_plain(q, kc, vc, w), window=WINDOW)]
     del copies, rot, kc, vc
 
     # ---- K8 int8 append, K9 int8 decode attention ------------------------------------
@@ -535,6 +585,63 @@ def spec_kernel_phase(peaks, gen, out):
         "plain_ms": time_ms(lambda: dk.decode_attention_q8_plain(q, *leaves(rot.next()), mid)),
         "library_ms": None, "bound_ms": bms, "bound_by": by,
     }
+
+    def q8_read(q, kc, vc, n, plain=False):
+        kq, ks = quantize_kv(kc)
+        vq, vs = quantize_kv(vc)
+        fn = dk.decode_attention_q8_plain if plain else dk.decode_attention_q8
+        return fn(q, kq, ks, vq, vs, n)
+
+    out["K9"]["variants"] = [decode_d90_row(
+        "K9", peaks, gen, q8_read, lambda *a: q8_read(*a, plain=True), int8=True)]
+
+
+def decode_d90_row(kid, peaks, gen, kernel, plain, *, window=0, sdpa=False, int8=False):
+    """K1, K6 or K9 at the flagship's decode shape but head dim 90 (rows
+    that are not a whole number of the kernels' vector loads: their scalar
+    tail) in bf16, checked against the plain version (2e-2) and in fp32
+    (1e-4) at a small shape, then timed in bf16 with the plain version and,
+    for K1, SDPA. K9 reads an int8 cache quantized from the same rows (its
+    quantization is outside the timed call)."""
+    from mmmm_tpu_torch.ops.quant import quantize_kv
+
+    bw, bf16_rate, _, _ = peaks
+    dev = torch.device("cuda")
+    rnd = lambda *s, dt=torch.bfloat16: torch.randn(*s, generator=gen, device=dev).to(dt)
+    h, d, smax = 32, 90, PROMPT + NEW + window
+    nq = window or 1
+    for b, s_, dt, tol in ((3, 50, torch.float32, 1e-4), (B, smax, torch.bfloat16, 2e-2)):
+        q, kc, vc = rnd(b, nq, h, d, dt=dt), rnd(b, h, s_, d, dt=dt), rnd(b, h, s_, d, dt=dt)
+        n = torch.tensor([0, s_ // 2, s_ - nq, s_ - nq][:b], dtype=torch.int32, device=dev)
+        if window == 0:
+            n[-1] = s_
+        err = max_err(kernel(q, kc, vc, n), plain(q, kc, vc, n))
+        check(f"{kid} D=90 {(b, h, s_, d)} {dt}" + (f" window {nq}" if window else ""), err, tol)
+    mid = torch.full((B,), (PROMPT + 1 + PROMPT + NEW) // 2, dtype=torch.int32, device=dev)
+    if int8:
+        kq, ks = quantize_kv(kc)
+        vq, vs = quantize_kv(vc)
+        from mmmm_tpu_torch.ops import decode_kernel as dk
+
+        fn = lambda: dk.decode_attention_q8(q, kq, ks, vq, vs, mid)
+        pfn = lambda: dk.decode_attention_q8_plain(q, kq, ks, vq, vs, mid)
+    else:
+        fn, pfn = (lambda: kernel(q, kc, vc, mid)), (lambda: plain(q, kc, vc, mid))
+    n_read = int(mid.sum().item()) + (B * nq if window else 0)  # slots read
+    elem = 1 if int8 else 2
+    bms, by = bound(2 * n_read * h * (d * elem + (2 if int8 else 0)) + 2 * q.numel() * 2,
+                    4 * n_read * h * d * nq, bf16_rate, bw)
+    row = {"shape": [B, h, smax, d], "dtype": "int8 KV, bf16 q" if int8 else "bfloat16",
+           "max_abs_err": err, "ms": time_ms(fn), "plain_ms": time_ms(pfn), "library_ms": None,
+           "bound_ms": bms, "bound_by": by}
+    if sdpa:
+        qh = q.transpose(1, 2).contiguous()
+        valid = (torch.arange(smax, device=dev)[None] < mid[:, None])[:, None, None, :]
+        row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qh, kc, vc,
+                                                                           attn_mask=valid))
+    log(f"  {kid} D=90: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+        f"{bms:.4f} ms")
+    return row
 
 
 def capacity_kernel_phase(peaks, gen, out):
@@ -700,7 +807,7 @@ def train_kernel_phase(peaks, gen, out):
     then both kernels), the plain backward and, as a yardstick, SDPA's
     backward at the same shape."""
     from mmmm_tpu_torch.ops import flash as fl
-    from mmmm_tpu_torch.ops.attention import build_mask
+    from mmmm_tpu_torch.ops.attention import build_mask, kernel_head_dim
 
     bw, bf16_rate, fp32_rate, _ = peaks
     dev = torch.device("cuda")
@@ -766,6 +873,12 @@ def train_kernel_phase(peaks, gen, out):
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         ptrs = [t.data_ptr() for t in (q, k, v, dout, seg, seg, lse, delta)]
         tail = (b, s, s, h, d, float(scale), int(causal), bf16, stream)
+        if label == "llm":  # no atomics: two runs of K3 give the same bits
+            again = fl.flash_segment_attention(q, k, v, seg, seg, causal=causal, scale=scale)
+            if not (torch.equal(again[0], o) and torch.equal(again[1], lse)):
+                raise AssertionError("K3: two runs at the LLM site differ")
+            log("  K3 llm: two runs bit-equal")
+            del again
         if label == "llm":  # no atomics: two runs give the same bits
             again = [torch.empty_like(t) for t in (q, k, k)]
             fl.K7DQ(*ptrs, dq.data_ptr(), *tail)
@@ -863,10 +976,66 @@ def train_kernel_phase(peaks, gen, out):
                       worst, frac)
                 if not (torch.all(got[0][0, s // 2] == 0) and torch.all(got[0][0, s - s // 5:] == 0)):
                     raise AssertionError("K7: a row with no valid key has a nonzero gradient")
+    # head dims K3 and K7 take only through zero lanes: the wrappers pad one
+    # copy of each operand, run the kernels at kernel_head_dim, and slice;
+    # timed whole, at the ViT training site's other widths
+    padded = []
+    for d, dt in ((100, torch.bfloat16), (90, torch.float32)):
+        b, s, h = 4, 577, 16
+        q, k, v, dout = (torch.randn(b, s, h, d, generator=gen, device=dev).to(dt)
+                         for _ in range(4))
+        seg = torch.ones(b, s, dtype=torch.int32, device=dev)
+        scale = d ** -0.5
+        frac = 2e-2 if dt == torch.bfloat16 else 1e-4
+        o, lse = fl.flash_segment_attention(q, k, v, seg, seg, causal=False, scale=scale)
+        ro, rlse = fl.flash_segment_attention_plain(q, k, v, seg, seg, causal=False, scale=scale)
+        err3 = max_err(o, ro)
+        dp = kernel_head_dim(d, dt)
+        check(f"K3 padded {(b, s, h, d)} {dt} (the kernel at D = {dp}) out", err3,
+              frac * ro.float().abs().max().item())
+        check(f"K3 padded {(b, s, h, d)} lse", max_err(lse, rlse), 1e-3)
+        got = fl.flash_segment_attention_bwd(q, k, v, seg, seg, o, lse, dout, causal=False,
+                                             scale=scale)
+        ref = fl.flash_segment_attention_bwd_plain(q, k, v, seg, seg, o, lse, dout, causal=False,
+                                                   scale=scale)
+        err7 = max(max_err(a, r_) / r_.float().abs().max().item() for a, r_ in zip(got, ref))
+        check(f"K7 padded {(b, s, h, d)} {dt}, worst of dq/dk/dv (relative)", err7, frac)
+        rate = bf16_rate if dt == torch.bfloat16 else fp32_rate
+        n = q.numel() * q.element_size()
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        bms, by = bound(4 * n + lse.numel() * 4, 4 * b * h * s * s * d, rate, bw)
+        k3 = {"shape": [b, s, h, d], "dtype": str(dt).split(".")[-1], "causal": False,
+              "padded_to": dp, "max_abs_err": err3, "bound_ms": bms, "bound_by": by,
+              "ms": time_ms(lambda: fl.flash_segment_attention(q, k, v, seg, seg, causal=False,
+                                                               scale=scale)),
+              "plain_ms": time_ms(lambda: fl.flash_segment_attention_plain(
+                  q, k, v, seg, seg, causal=False, scale=scale), inner=2),
+              "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                           scale=scale)),
+              "site": "train_vit_padded"}
+        out["K3"]["variants"].append(k3)
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+        gt = dout.transpose(1, 2).contiguous()
+        bms7, by7 = bound(6 * n + 2 * lse.numel() * 4 + 3 * n, 2 * 7 * b * h * s * s * d, rate, bw)
+        row = {"shape": [b, s, h, d], "dtype": str(dt).split(".")[-1], "padded_to": dp,
+               "max_rel_err": err7, "bound_ms": bms7, "bound_by": by7,
+               "bwd_ms": time_ms(lambda: fl.flash_segment_attention_bwd(
+                   q, k, v, seg, seg, o, lse, dout, causal=False, scale=scale)),
+               "plain_ms": time_ms(lambda: fl.flash_segment_attention_bwd_plain(
+                   q, k, v, seg, seg, o, lse, dout, causal=False, scale=scale), inner=2),
+               "library_ms": time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), gt,
+                                                                 retain_graph=True))}
+        padded.append(row)
+        log(f"  K3 padded D={d}: kernel {k3['ms']:.4f} ms (pad and slice included), plain "
+            f"{k3['plain_ms']:.4f}, SDPA {k3['library_ms']:.4f}; K7 whole backward "
+            f"{row['bwd_ms']:.4f} ms, plain {row['plain_ms']:.4f}, SDPA backward "
+            f"{row['library_ms']:.4f}")
+        del q, k, v, dout, o, lse, got, ref, qt, kt, vt, lib_out, gt
     for kid in ("K7dq", "K7dkv", "K7delta"):
         first = rows[kid]["llm"]
         out[kid] = dict(first, site="llm",
                         variants=[dict(r, site=lb) for lb, r in rows[kid].items() if lb != "llm"])
+    out["K7dq"]["padded_whole_backward"] = padded
 
 
 def qdot_phase(peaks, gen):
@@ -1553,9 +1722,8 @@ def _flat_values(tree):
 # profiler spans of generate_grounded's stages (record_function names)
 STAGES = ("vit", "llm_prefill", "decode", "sam")
 KERNEL_GROUPS = (  # (label, substrings of a kernel name), first match wins
-    ("K4 dense attention", ("attn_mma_kernel<112, false", "attn_tile_kernel<float, 8, false>")),
-    ("K3 flash forward", ("attn_mma_kernel<128, true", "attn_mma_kernel<112, true",
-                          "attn_tile_kernel<float, 8, true>", "attn_tile_kernel<float, 14, true>")),
+    ("K4 dense attention", ("attn_fwd_wgmma<false", "attn_fwd_f32<false")),
+    ("K3 flash forward", ("attn_fwd_wgmma<true", "attn_fwd_f32<true")),
     ("K7delta rowsum", ("flash_bwd_delta",)),
     ("K7dq flash backward", ("flash_bwd_dq",)),
     ("K7dkv flash backward", ("flash_bwd_dkv",)),
@@ -1662,15 +1830,29 @@ def ptxas_entries(build_log: str) -> list:
 
 def redesigned_kernel_resources(build_log: str, lib) -> list:
     """Registers, shared memory (static, and the dynamic bytes the launcher
-    asks for) and spill bytes of every K11mma and K7 kernel; fails if one
-    spills."""
+    asks for) and spill bytes of every K3/K4 (``attn_fwd_*``, with P1's
+    NOSM form), K11mma and K7 kernel; fails if one spills."""
     rows = []
     for e in ptxas_entries(build_log):
-        m = re.search(r"(flash_bwd_(?:dq|dkv)_(?:wgmma|f32)|flash_bwd_delta|w4_mma_kernel)",
-                      e["symbol"])
+        m = re.search(r"(attn_fwd_(?:wgmma|f32)|flash_bwd_(?:dq|dkv)_(?:wgmma|f32)|flash_bwd_delta"
+                      r"|w4_mma_kernel)", e["symbol"])
         if not m:
             continue
         kname = m.group(1)
+        if kname.startswith("attn_fwd"):
+            # bf16 <MASKED, DP, KT (keys a tile), NOSM>, fp32 <MASKED, NJ, stages>: K3
+            # is the masked form, K4 (and P1) the other
+            t = re.search(r"ILb([01])ELi(\d+)ELi(\d+)E(?:Lb([01])E)?", e["symbol"])
+            targ, kt = int(t.group(2)), int(t.group(3))
+            bf16 = kname.endswith("_wgmma")
+            # the smem query takes a key count that selects the tile of kt keys
+            dyn = (lib.mmmm_attn_fwd_smem(1, targ, 512 if kt == 128 else 64) if bf16
+                   else lib.mmmm_attn_fwd_smem(0, 16 * targ, 64))
+            label = (f"{kname}<{'K3' if t.group(1) == '1' else 'K4'}, "
+                     + (f"DP={targ}, KT={kt}{', NOSM' if t.group(4) == '1' else ''}>" if bf16
+                        else f"NJ={targ}, stages={kt}>"))
+            rows.append(_resource_row(label, e, dyn))
+            continue
         t = re.search(r"ILi(\d+)E", e["symbol"])
         targ = int(t.group(1)) if t else None
         if kname == "w4_mma_kernel":
@@ -1684,17 +1866,23 @@ def redesigned_kernel_resources(build_log: str, lib) -> list:
         label = kname if targ is None else f"{kname}<{targ}>"
         if kname == "flash_bwd_delta":
             label += "<bf16>" if "bfloat16" in e["symbol"] else "<fp32>"
-        row = {"kernel": label, "registers": e.get("registers"),
-               "static_smem": e.get("static_smem", 0), "dynamic_smem": dyn,
-               "spill_stores": e.get("spill_stores", 0), "spill_loads": e.get("spill_loads", 0)}
-        rows.append(row)
-        log(f"  {label}: {row['registers']} registers, shared {row['static_smem']} + "
-            f"{dyn} bytes, spill stores {row['spill_stores']}, loads {row['spill_loads']}")
-        if row["spill_stores"] or row["spill_loads"]:
-            raise AssertionError(f"{label} spills to local memory")
-    if not rows:
+        rows.append(_resource_row(label, e, dyn))
+    if not any(r["kernel"].startswith("attn_fwd") for r in rows):
+        raise AssertionError("no K3/K4 kernel in the build log")
+    if not any(r["kernel"].startswith(("flash_bwd", "w4_mma")) for r in rows):
         raise AssertionError("no K11mma or K7 kernel in the build log")
     return rows
+
+
+def _resource_row(label: str, e: dict, dyn: int) -> dict:
+    row = {"kernel": label, "registers": e.get("registers"),
+           "static_smem": e.get("static_smem", 0), "dynamic_smem": dyn,
+           "spill_stores": e.get("spill_stores", 0), "spill_loads": e.get("spill_loads", 0)}
+    log(f"  {label}: {row['registers']} registers, shared {row['static_smem']} + "
+        f"{dyn} bytes, spill stores {row['spill_stores']}, loads {row['spill_loads']}")
+    if row["spill_stores"] or row["spill_loads"]:
+        raise AssertionError(f"{label} spills to local memory")
+    return row
 
 
 def main() -> int:

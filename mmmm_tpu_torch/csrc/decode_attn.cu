@@ -13,8 +13,8 @@
 // Design: one block per (sample, head), 8 warps. The block reads only the
 // slots below kv_len[b]; warp w takes keys in groups of 4 so that 4 rows of
 // K and V are in flight per warp before the first shuffle reduction. A lane
-// holds 4 consecutive head-dim values (8-byte bf16 loads, D <= 128, D % 4 ==
-// 0). Each warp keeps its own online-softmax state (fp32); the 8 partial
+// holds 4 consecutive head-dim values (8-byte bf16 loads; scalar loads when
+// D % 4 != 0; D <= 128). Each warp keeps its own online-softmax state (fp32); the 8 partial
 // states are merged through shared memory. Output is (B, 1, H, D) in the
 // input dtype; kv_len = 0 gives zeros, as the TPU kernel does.
 #include "decode_common.cuh"
@@ -24,7 +24,8 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kUnroll = 4;
 
-template <typename T>
+// VEC: D % 4 == 0, the rows are read with vector loads.
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                    const T* __restrict__ vc, const int* __restrict__ kv_len,
@@ -43,7 +44,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   len = len < 0 ? 0 : (len > Smax ? Smax : len);
 
   float qv[4] = {0.f, 0.f, 0.f, 0.f};
-  if (lane_ok) mmmm::load4(q + (size_t)bh * D + d0, qv);  // q: (B, 1, H, D)
+  if (lane_ok) mmmm::load4(q + (size_t)bh * D + d0, D - d0, VEC, qv);  // q: (B, 1, H, D)
   const T* kb = kc + (size_t)bh * Smax * D;
   const T* vb = vc + (size_t)bh * Smax * D;
 
@@ -57,8 +58,8 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     for (int u = 0; u < kUnroll; ++u) {
       const int j = j0 + u;
       if (lane_ok && j < len) {
-        mmmm::load4(kb + (size_t)j * D + d0, kr[u]);
-        mmmm::load4(vb + (size_t)j * D + d0, vr[u]);
+        mmmm::load4(kb + (size_t)j * D + d0, D - d0, VEC, kr[u]);
+        mmmm::load4(vb + (size_t)j * D + d0, D - d0, VEC, vr[u]);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e) kr[u][e] = vr[u][e] = 0.f;
@@ -120,26 +121,34 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
 }
 
+template <typename T>
+void launch(const void* q, const void* k_cache, const void* v_cache, const int* lens, void* out,
+            int B, int H, int Smax, int D, float scale, cudaStream_t st) {
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k_cache);
+  const T* vp = static_cast<const T*>(v_cache);
+  T* op = static_cast<T*>(out);
+  if (D % 4 == 0)
+    decode_attn_kernel<T, true><<<B * H, kWarps * 32, 0, st>>>(qp, kp, vp, lens, op, H, Smax, D,
+                                                               scale);
+  else
+    decode_attn_kernel<T, false><<<B * H, kWarps * 32, 0, st>>>(qp, kp, vp, lens, op, H, Smax, D,
+                                                                scale);
+}
+
 }  // namespace
 
 extern "C" int mmmm_decode_attention(const void* q, const void* k_cache,
                                      const void* v_cache, const void* kv_len,
                                      void* out, int B, int H, int Smax, int D,
                                      float scale, int is_bf16, void* stream) {
-  if (B <= 0 || H <= 0 || Smax <= 0 || D <= 0 || D > 128 || D % 4)
+  if (B <= 0 || H <= 0 || Smax <= 0 || D <= 0 || D > 128)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(kv_len);
-  if (is_bf16) {
-    decode_attn_kernel<__nv_bfloat16><<<B * H, kWarps * 32, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_cache),
-        static_cast<const __nv_bfloat16*>(v_cache), lens,
-        static_cast<__nv_bfloat16*>(out), H, Smax, D, scale);
-  } else {
-    decode_attn_kernel<float><<<B * H, kWarps * 32, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k_cache),
-        static_cast<const float*>(v_cache), lens, static_cast<float*>(out), H, Smax, D,
-        scale);
-  }
+  if (is_bf16)
+    launch<__nv_bfloat16>(q, k_cache, v_cache, lens, out, B, H, Smax, D, scale, st);
+  else
+    launch<float>(q, k_cache, v_cache, lens, out, B, H, Smax, D, scale, st);
   return static_cast<int>(cudaGetLastError());
 }

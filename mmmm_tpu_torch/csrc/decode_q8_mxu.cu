@@ -28,7 +28,7 @@
 // dims) and a share of the slots; four slots' words are transposed with
 // __byte_perm so that one __dp4a multiplies 4 slots of one head dim by the
 // packed w_hi (or w_lo) of those slots. int8 mma.sync m16n8k32 is later work.
-#include "attn_tile.cuh"
+#include "common.cuh"
 
 namespace {
 

@@ -15,9 +15,9 @@
 //
 // Design: one block per (sample, head), 8 warps; warp w walks the slots
 // w, w + 8, ... two at a time, below write_index + NQ. A lane holds 4
-// head-dim values of every query and of the K/V row, so each K row feeds all
-// NQ dot products (NQ butterfly reductions per slot) and each V row all NQ
-// accumulators. Each warp keeps NQ online-softmax states in fp32; the 8
+// head-dim values of every query and of the K/V row (scalar loads when D %
+// 4 != 0), so each K row feeds all NQ dot products (NQ butterfly
+// reductions per slot) and each V row all NQ accumulators. Each warp keeps NQ online-softmax states in fp32; the 8
 // partial states of each query are merged through shared memory. Masked
 // slots never enter a sum, so a query with no valid slot gives zeros, as
 // the TPU kernel does.
@@ -28,7 +28,8 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kUnroll = 2;
 
-template <typename T, int NQ>
+// VEC: D % 4 == 0, the rows are read with vector loads.
+template <typename T, int NQ, bool VEC>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_window_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                      const T* __restrict__ vc, const int* __restrict__ write_index,
@@ -53,7 +54,7 @@ decode_window_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
   for (int j = 0; j < NQ; ++j) {
     if (lane_ok) {
-      mmmm::load4(q + (((size_t)b * NQ + j) * H + h) * D + d0, qv[j]);  // q: (B, NQ, H, D)
+      mmmm::load4(q + (((size_t)b * NQ + j) * H + h) * D + d0, D - d0, VEC, qv[j]);  // q: (B, NQ, H, D)
     } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e) qv[j][e] = 0.f;
@@ -78,8 +79,8 @@ decode_window_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     for (int u = 0; u < kUnroll; ++u) {
       const int s = s0 + u * kWarps;
       if (lane_ok && s < len_end) {
-        mmmm::load4(kb + (size_t)s * D + d0, kr[u]);
-        mmmm::load4(vb + (size_t)s * D + d0, vr[u]);
+        mmmm::load4(kb + (size_t)s * D + d0, D - d0, VEC, kr[u]);
+        mmmm::load4(vb + (size_t)s * D + d0, D - d0, VEC, vr[u]);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e) kr[u][e] = vr[u][e] = 0.f;
@@ -155,10 +156,14 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const int* w
   T* op = static_cast<T*>(out);
   const dim3 grid(B * H), block(kWarps * 32);
   switch (NQ) {
-#define MMMM_WINDOW_CASE(N)                                                              \
-  case N:                                                                                \
-    decode_window_kernel<T, N><<<grid, block, 0, st>>>(qp, kp, vp, widx, op, H, Smax, D, \
-                                                        scale);                          \
+#define MMMM_WINDOW_CASE(N)                                                                 \
+  case N:                                                                                   \
+    if (D % 4 == 0)                                                                         \
+      decode_window_kernel<T, N, true><<<grid, block, 0, st>>>(qp, kp, vp, widx, op, H, Smax, \
+                                                               D, scale);                   \
+    else                                                                                    \
+      decode_window_kernel<T, N, false><<<grid, block, 0, st>>>(qp, kp, vp, widx, op, H,     \
+                                                                Smax, D, scale);            \
     break;
     MMMM_WINDOW_CASE(1)
     MMMM_WINDOW_CASE(2)
@@ -178,12 +183,12 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const int* w
 }  // namespace
 
 // q, out: (B, NQ, H, D); k_cache, v_cache: (B, H, Smax, D); write_index (B,)
-// int32. 1 <= NQ <= 8, D <= 128 and a multiple of 4.
+// int32. 1 <= NQ <= 8, D <= 128.
 extern "C" int mmmm_decode_attention_window(const void* q, const void* k_cache,
                                             const void* v_cache, const void* write_index,
                                             void* out, int B, int NQ, int H, int Smax, int D,
                                             float scale, int is_bf16, void* stream) {
-  if (B <= 0 || H <= 0 || Smax <= 0 || D <= 0 || D > 128 || D % 4 || NQ < 1 || NQ > 8)
+  if (B <= 0 || H <= 0 || Smax <= 0 || D <= 0 || D > 128 || NQ < 1 || NQ > 8)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* widx = static_cast<const int*>(write_index);

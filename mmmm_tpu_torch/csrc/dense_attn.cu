@@ -12,11 +12,9 @@
 // Design: the TPU kernel held a sample-head's whole K/V in 16 MB of VMEM and
 // took one full-row softmax. At S=1153, D=112 that K/V is ~516 KB in bf16,
 // more than a block's 227 KB of shared memory, so this kernel streams K/V
-// tiles with an online softmax instead, one block per (sample, head,
-// 64-query tile); the padded tail past S is masked by index. bf16 runs both
-// products on the tensor cores with warp-level mma.sync (attn_mma.cuh); fp32
-// stays full fp32 on CUDA cores (attn_tile.cuh). The wgmma/TMA form is later
-// work.
+// tiles with an online softmax (attn_fwd.cuh: bf16 on wgmma with a TMA ring,
+// fp32 register-blocked CUDA-core tiles over a cp.async ring); only the
+// ragged last tile past S is masked.
 //
 // K12 (mmmm_tpu/ops/dense_attn.py _dense_fwd_bshd, Pallas body
 // `_kernel_bshd`) computes K4's function on (B, S, H, D) blocks; this
@@ -24,9 +22,8 @@
 //
 // P1 (scripts/tpu_probes.py nosm_fwd, Pallas body `_kernel_nosm`) is K4 with
 // the softmax replaced by one multiply, a floor for K4's time:
-// mmmm_dense_attention_nosm runs the same tensor-core kernel with NOSM.
-#include "attn_mma.cuh"
-#include "attn_tile.cuh"
+// mmmm_dense_attention_nosm runs the same bf16 kernel with NOSM.
+#include "attn_fwd.cuh"
 
 extern "C" int mmmm_dense_attention(const void* q, const void* k, const void* v,
                                     void* out, int B, int S, int H, int D,
@@ -34,11 +31,11 @@ extern "C" int mmmm_dense_attention(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (is_bf16) {
-    err = mmmm::launch_attn_mma<false>(q, k, v, out, nullptr, nullptr, nullptr, B, S, S, H,
-                                       D, scale, 0, st);
+    err = mmmm::launch_fwd_wgmma<false>(q, k, v, out, nullptr, nullptr, nullptr, B, S, S, H, D,
+                                        scale, 0, st);
   } else {
-    err = mmmm::launch_attn_tile<float, false>(q, k, v, out, nullptr, nullptr, nullptr,
-                                               B, S, S, H, D, scale, 0, st);
+    err = mmmm::launch_fwd_f32<false>(q, k, v, out, nullptr, nullptr, nullptr, B, S, S, H, D,
+                                      scale, 0, st);
   }
   return static_cast<int>(err);
 }
@@ -48,7 +45,7 @@ extern "C" int mmmm_dense_attention(const void* q, const void* k, const void* v,
 extern "C" int mmmm_dense_attention_nosm(const void* q, const void* k, const void* v,
                                          void* out, int B, int S, int H, int D, float scale,
                                          void* stream) {
-  return static_cast<int>(mmmm::launch_attn_mma<false, true>(
+  return static_cast<int>(mmmm::launch_fwd_wgmma<false, true>(
       q, k, v, out, nullptr, nullptr, nullptr, B, S, S, H, D, scale, 0,
       static_cast<cudaStream_t>(stream)));
 }

@@ -29,7 +29,7 @@
 //    A operand (weight columns as rows), run wgmma m64n128k16 against the
 //    x tile in shared memory, and store bf16 with 16-byte stores. Scales
 //    are read once per scale group.
-#include "attn_tile.cuh"
+#include "common.cuh"
 #include "hopper.cuh"
 
 namespace hop = mmmm::hop;

@@ -11,12 +11,42 @@ forward, K7 backward), ``"xla"`` to the plain masked attention, ``"auto"``
 on the card to the dense kernel K4 for all-valid encoder sites and to flash
 for causal sites or 128-multiple head dims, and to the plain attention on
 the CPU (the reference's ``"auto"`` off the TPU).
+
+``kernel_head_dim`` and ``with_padded_head`` are the head-dim rule that the
+attention kernels' wrappers (K3, K4, P1, K7) share.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
+HEAD_DIM_MAX = 128
+_HEAD_LANES = {torch.bfloat16: 8, torch.float32: 4}  # lanes of one 16-byte piece
+
+
+def kernel_head_dim(d: int, dtype: torch.dtype) -> int | None:
+    """The head dim at which the attention kernels (K3, K4, P1, K7) run a
+    head dim ``d`` of ``dtype``. Their rows are copied in 16-byte pieces (8
+    bf16 or 4 fp32 lanes): ``d`` itself where it is a whole number of
+    pieces, else ``d`` padded with zero lanes up to the next one
+    (:func:`with_padded_head`); None where no kernel takes it (``d > 128``,
+    or another dtype)."""
+    lanes = _HEAD_LANES.get(dtype)
+    if lanes is None or not 0 < d <= HEAD_DIM_MAX:
+        return None
+    return -(-d // lanes) * lanes
+
+
+def with_padded_head(dp: int, fn, *tensors):
+    """``fn(*tensors)`` run at head dim ``dp``: each (..., D) operand padded
+    with zero lanes to ``dp`` (one copy), and each output of the operands'
+    rank cut back to its first D lanes. Zero lanes change no score, no row
+    sum of products and no kept lane, so the result is ``fn``'s at D."""
+    d, rank = tensors[0].shape[-1], tensors[0].dim()
+    outs = fn(*(F.pad(t, (0, dp - d)) for t in tensors))
+    cut = lambda o: o[..., :d].contiguous() if o.dim() == rank else o
+    return tuple(map(cut, outs)) if isinstance(outs, tuple) else cut(outs)
 
 
 def compute_dtype(dtype: torch.dtype) -> torch.dtype:

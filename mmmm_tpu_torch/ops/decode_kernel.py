@@ -163,8 +163,8 @@ def decode_attention(q, k_cache, v_cache, kv_len, scale: float | None = None):
         raise ValueError("decode_attention: q and caches must share one dtype")
     if kv_len.shape != (b,):
         raise ValueError(f"decode_attention: kv_len must be ({b},), got {tuple(kv_len.shape)}")
-    if d > 128 or d % 4:
-        raise ValueError(f"decode_attention: head dim {d} must be <= 128 and a multiple of 4")
+    if not 0 < d <= 128:
+        raise ValueError(f"decode_attention: head dim {d} must be in 1..128")
     out = torch.empty_like(q)
     K1(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr(),
        out.data_ptr(), b, h, smax, d, float(scale), int(q.dtype == torch.bfloat16),
@@ -234,9 +234,8 @@ def decode_attention_window(q, k_cache, v_cache, write_index, scale: float | Non
     if write_index.shape != (b,):
         raise ValueError(f"decode_attention_window: write_index must be ({b},), "
                          f"got {tuple(write_index.shape)}")
-    if d > 128 or d % 4:
-        raise ValueError(f"decode_attention_window: head dim {d} must be <= 128 and a "
-                         "multiple of 4")
+    if not 0 < d <= 128:
+        raise ValueError(f"decode_attention_window: head dim {d} must be in 1..128")
     out = torch.empty_like(q)
     K6(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), write_index.data_ptr(),
        out.data_ptr(), b, nq, h, smax, d, float(scale), int(q.dtype == torch.bfloat16),
@@ -326,8 +325,8 @@ def decode_attention_q8(q, kq, ks, vq, vs, kv_len, scale: float | None = None, *
         raise ValueError(f"decode_attention_q8: q {q.shape} vs cache {kq.shape}")
     if kv_len.shape != (b,):
         raise ValueError(f"decode_attention_q8: kv_len must be ({b},), got {tuple(kv_len.shape)}")
-    if d not in (16, 32, 64, 128):
-        raise ValueError(f"decode_attention_q8: head dim {d} must be 16, 32, 64 or 128")
+    if not 0 < d <= 128:
+        raise ValueError(f"decode_attention_q8: head dim {d} must be in 1..128")
     out = torch.empty_like(q)
     K9(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
        kv_len.data_ptr(), out.data_ptr(), b, h, smax, d, float(scale),

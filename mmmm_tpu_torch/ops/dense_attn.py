@@ -4,7 +4,9 @@ encoder), the port of ``mmmm_tpu/ops/dense_attn.py dense_attention``.
 ``dense_attention`` takes the plain version for CPU tensors and launches the
 CUDA kernel (``csrc/dense_attn.cu``) for CUDA tensors; there is no other
 route. Layout is (B, S, H, D) in and out, in the input's dtype (bf16 for the
-ViT, fp32 for the SAM encoder). The kernel reads that layout natively, so it
+ViT, fp32 for the SAM encoder); a head dim the kernel cannot take directly
+is padded with zero lanes and the output sliced back
+(``attention.kernel_head_dim``). The kernel reads that layout natively, so it
 is also the counterpart of the reference's layout-native variant K12
 (``_dense_fwd_bshd``), which computes the same function.
 
@@ -22,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .attention import compute_dtype
+from .attention import compute_dtype, kernel_head_dim, with_padded_head
 
 K4 = _cuda.register(_cuda.Kernel(
     "K4", "mmmm_dense_attention",
@@ -69,8 +71,11 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.shape == k.shape == v.shape and q.dtype == k.dtype == v.dtype and q.dim() == 4):
         raise ValueError(f"dense_attention: mismatched q/k/v {q.shape} {k.shape} {v.shape}")
     b, s, h, d = q.shape
-    if d > 128:
-        raise ValueError(f"dense_attention: head dim {d} > 128")
+    dp = kernel_head_dim(d, q.dtype)
+    if dp is None:
+        raise ValueError(f"dense_attention: no kernel takes head dim {d} in {q.dtype}")
+    if dp != d:
+        return with_padded_head(dp, lambda *t: dense_attention(*t, scale), q, k, v)
     out = torch.empty_like(q)
     K4(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d,
        float(scale), int(q.dtype == torch.bfloat16), _cuda.stream_of(q))
@@ -117,8 +122,11 @@ def dense_attention_nosm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.shape == k.shape == v.shape and q.dim() == 4):
         raise ValueError(f"dense_attention_nosm: mismatched q/k/v {q.shape} {k.shape} {v.shape}")
     b, s, h, d = q.shape
-    if d > 128:
-        raise ValueError(f"dense_attention_nosm: head dim {d} > 128")
+    dp = kernel_head_dim(d, q.dtype)
+    if dp is None:
+        raise ValueError(f"dense_attention_nosm: no kernel takes head dim {d}")
+    if dp != d:
+        return with_padded_head(dp, lambda *t: dense_attention_nosm(*t, scale), q, k, v)
     out = torch.empty_like(q)
     P1(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d, float(scale),
        _cuda.stream_of(q))

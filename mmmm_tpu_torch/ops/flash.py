@@ -18,16 +18,19 @@ register-blocked CUDA-core tiles with a ``cp.async`` ring in fp32.
 
 ``flash_segment_attention`` and ``flash_segment_attention_bwd`` take the
 plain version for CPU tensors and launch ``csrc/flash_fwd.cu`` and
-``csrc/flash_bwd.cu`` for CUDA tensors. ``flash_attention`` is the
-differentiable site (:class:`FlashSegmentAttention`): K3 forward, K7
-backward.
+``csrc/flash_bwd.cu`` for CUDA tensors, at the head dim
+``attention.kernel_head_dim`` gives (a head dim the kernels cannot take
+directly is padded with zero lanes, and the outputs sliced back; above 128
+they raise). ``flash_attention`` is the differentiable site
+(:class:`FlashSegmentAttention`): K3 forward, K7 backward.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _cuda
-from .attention import build_mask, compute_dtype, masked_attention
+from .attention import (build_mask, compute_dtype, kernel_head_dim, masked_attention,
+                        with_padded_head)
 
 K3 = _cuda.register(_cuda.Kernel(
     "K3", "mmmm_flash_fwd",
@@ -58,14 +61,6 @@ K7DELTA = _cuda.register(_cuda.Kernel(
     source="mmmm_tpu_torch/csrc/flash_bwd.cu",
     replaces="mmmm_tpu/ops/flash.py:292 delta in _flash_bwd_impl (XLA, before pallas_call :305)",
 ))
-BWD_MAX_HEAD_DIM = 128
-
-
-def bwd_takes(d: int, dtype: torch.dtype) -> bool:
-    """Whether K7 (and K7delta) take head dim ``d`` in ``dtype``: rows are
-    copied in 16-byte pieces (8 bf16 or 4 fp32 lanes), up to 128 lanes."""
-    lanes = {torch.bfloat16: 8, torch.float32: 4}.get(dtype)
-    return lanes is not None and 0 < d <= BWD_MAX_HEAD_DIM and d % lanes == 0
 
 
 def flash_segment_attention_plain(q, k, v, q_segments, kv_segments, *, causal: bool,
@@ -86,8 +81,8 @@ def _check(name, q, k, v, q_segments, kv_segments, *more):
         raise ValueError(f"{name}: out and its gradient must match q")
     if q_segments.shape != (b, sq) or kv_segments.shape != (b, skv):
         raise ValueError(f"{name}: segment ids must be (B, Sq) and (B, Skv)")
-    if d > 128:
-        raise ValueError(f"{name}: head dim {d} > 128")
+    if kernel_head_dim(d, q.dtype) is None:
+        raise ValueError(f"{name}: no kernel takes head dim {d} in {q.dtype}")
     return b, sq, skv, h, d
 
 
@@ -98,6 +93,10 @@ def flash_segment_attention(q, k, v, q_segments, kv_segments, *, causal: bool,
         return flash_segment_attention_plain(
             q, k, v, q_segments, kv_segments, causal=causal, scale=scale)
     b, sq, skv, h, d = _check("flash_segment_attention", q, k, v, q_segments, kv_segments)
+    dp = kernel_head_dim(d, q.dtype)
+    if dp != d:
+        return with_padded_head(dp, lambda *t: flash_segment_attention(
+            *t, q_segments, kv_segments, causal=causal, scale=scale), q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     K3(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_segments.data_ptr(),
@@ -142,9 +141,11 @@ def flash_segment_attention_bwd(q, k, v, q_segments, kv_segments, out, lse, g, *
     _cuda.check_cuda("flash_segment_attention_bwd", lse, dtypes=(torch.float32,), align=4)
     if lse.shape != (b, h, sq):
         raise ValueError(f"flash_segment_attention_bwd: lse must be (B, H, Sq), got {lse.shape}")
-    if not bwd_takes(d, q.dtype):
-        raise ValueError(f"flash_segment_attention_bwd: K7 does not take head dim {d} in "
-                         f"{q.dtype}")
+    dp = kernel_head_dim(d, q.dtype)
+    if dp != d:
+        return with_padded_head(dp, lambda q_, k_, v_, o_, g_: flash_segment_attention_bwd(
+            q_, k_, v_, q_segments, kv_segments, o_, lse, g_, causal=causal, scale=scale),
+            q, k, v, out, g)
     bf16 = int(q.dtype == torch.bfloat16)
     stream = _cuda.stream_of(q)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -165,7 +166,7 @@ class FlashSegmentAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, q_segments, kv_segments, causal: bool, scale: float):
         # a head dim K7 cannot take raises here, before any work of the step
         if (not _cuda.on_cpu("flash_attention", q) and any(ctx.needs_input_grad[:3])
-                and not bwd_takes(q.shape[-1], q.dtype)):
+                and kernel_head_dim(q.shape[-1], q.dtype) is None):
             raise ValueError(f"flash_attention: K7 does not take head dim {q.shape[-1]} in "
                              f"{q.dtype}, so this site cannot be differentiated on the card")
         out, lse = flash_segment_attention(q, k, v, q_segments, kv_segments, causal=causal,

@@ -8,6 +8,7 @@ run it as ``python3 -m pytest --noconftest tests/test_torch_port_cuda.py``.
 import pytest
 import torch
 
+from mmmm_tpu_torch.ops import attention as pattn
 from mmmm_tpu_torch.ops import decode_kernel as pdec
 from mmmm_tpu_torch.ops import dense_attn as pdense
 from mmmm_tpu_torch.ops import flash as pflash
@@ -317,7 +318,7 @@ def test_flash_bwd_delta_kernel(cuda, d, dtype):
 def test_kernels_refuse_shapes_they_cannot_take(cuda):
     """A CUDA tensor of a shape the kernel cannot take raises; it never
     falls back to the plain version."""
-    q = torch.zeros(1, 16, 2, 20, device=cuda).bfloat16()
+    q = torch.zeros(1, 16, 2, 136, device=cuda).bfloat16()
     seg = torch.ones(1, 16, dtype=torch.int32, device=cuda)
     lse = torch.zeros(1, 2, 16, device=cuda)
     with pytest.raises(ValueError):
@@ -330,11 +331,158 @@ def test_kernels_refuse_shapes_they_cannot_take(cuda):
 
 @pytest.mark.cuda
 def test_flash_attention_refuses_a_head_dim_k7_cannot_take_before_the_forward(cuda):
-    """A differentiable site whose head dim K7 cannot take (bf16 D = 100)
+    """A differentiable site whose head dim K7 cannot take (bf16 D = 136)
     raises in the forward, before K3 runs, not in the backward."""
-    q = torch.zeros(1, 16, 2, 100, device=cuda).bfloat16().requires_grad_()
+    q = torch.zeros(1, 16, 2, 136, device=cuda).bfloat16().requires_grad_()
     seg = torch.ones(1, 16, dtype=torch.int32, device=cuda)
     before = pflash.K3.launches
     with pytest.raises(ValueError, match="K7 does not take"):
         pflash.flash_attention(q, q, q, seg, seg, causal=False, scale=0.1)
     assert pflash.K3.launches == before
+
+
+# ---- the forward attention kernels (K3, K4; K12 and P1 run K4's) -------------------
+
+def _fwd_tol(dtype):
+    return 2e-2 if dtype == torch.bfloat16 else 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,b,s,h,d,dtype,causal", [
+    ("K4", 2, 1153, 16, 112, torch.bfloat16, False),  # the ViT (bf16) at its S
+    ("K4", 2, 75, 12, 64, torch.float32, False),  # the SAM encoder's widths
+    ("K3", 2, 577, 32, 128, torch.bfloat16, True),  # the LLM's widths, causal
+    ("K3", 2, 577, 16, 112, torch.bfloat16, False),  # the training ViT, bf16 image
+    ("K3", 2, 577, 16, 112, torch.float32, False),  # the training ViT, fp32 image
+    ("K3", 2, 75, 12, 64, torch.float32, False),  # the SAM encoder in training
+    ("K4", 2, 33, 2, 8, torch.bfloat16, False),  # tiny head dims
+    ("K3", 2, 40, 2, 16, torch.bfloat16, True),
+    ("K3", 2, 40, 2, 8, torch.float32, True),
+])
+def test_forward_attention_sites(cuda, kernel, b, s, h, d, dtype, causal):
+    """K3 (out and lse) and K4 against their plain versions at each site's
+    widths over a ragged S: within 2e-2 (bf16) or 1e-4 (fp32) of the
+    largest output, lse within 1e-3; each call one launch."""
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=cuda).to(dtype) for _ in range(3))
+    scale = d ** -0.5
+    if kernel == "K4":
+        before = pdense.K4.launches
+        got = pdense.dense_attention(q, k, v, scale)
+        assert pdense.K4.launches == before + 1
+        ref = pdense.dense_attention_plain(q, k, v, scale)
+    else:
+        seg = torch.ones(b, s, dtype=torch.int32, device=cuda)
+        before = pflash.K3.launches
+        got, lse = pflash.flash_segment_attention(q, k, v, seg, seg, causal=causal, scale=scale)
+        assert pflash.K3.launches == before + 1
+        ref, rlse = pflash.flash_segment_attention_plain(q, k, v, seg, seg, causal=causal,
+                                                         scale=scale)
+        assert (lse - rlse).abs().max().item() <= 1e-3
+    assert got.dtype == dtype and got.shape == q.shape
+    top = max(1.0, ref.float().abs().max().item())
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=_fwd_tol(dtype) * top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(128, torch.bfloat16), (112, torch.bfloat16),
+                                     (112, torch.float32), (64, torch.float32)])
+def test_flash_forward_masked_rows_and_segments(cuda, d, dtype):
+    """K3, causal over two packed segments, a padded tail and query rows
+    whose segment has no key: those rows give out and lse exactly 0, the
+    rest match the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    b, s, h = 2, 300, 3
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=cuda).to(dtype) for _ in range(3))
+    seg = torch.ones(b, s, dtype=torch.int32, device=cuda)
+    seg[0, 130:] = 2  # the second segment starts inside a tile
+    seg[1, 250:] = 0  # padded tail
+    kv_seg = seg.clone()
+    kv_seg[0, 130:140] = 3  # queries 130..139 of sample 0 see no key when causal
+    out, lse = pflash.flash_segment_attention(q, k, v, seg, kv_seg, causal=True, scale=0.1)
+    ref, rlse = pflash.flash_segment_attention_plain(q, k, v, seg, kv_seg, causal=True,
+                                                     scale=0.1)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=_fwd_tol(dtype))
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-3)
+    assert torch.all(out[0, 130:140] == 0) and torch.all(lse[0, :, 130:140] == 0)
+    assert torch.all(out[1, 250:] == 0) and torch.all(lse[1, :, 250:] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_forward_attention_repeats_bit_for_bit(cuda, dtype):
+    """No atomics: two runs of K3 (causal, the LLM's widths) and of K4 (the
+    ViT's) give equal bits."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(2, 1024, 8, 128, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    seg = torch.ones(2, 1024, dtype=torch.int32, device=cuda)
+    runs = [pflash.flash_segment_attention(q, k, v, seg, seg, causal=True, scale=0.088)
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    q, k, v = (t[:, :577, :, :112].contiguous() for t in (q, k, v))
+    assert torch.equal(pdense.dense_attention(q, k, v, 0.09), pdense.dense_attention(q, k, v, 0.09))
+
+
+@pytest.mark.cuda
+def test_nosm_kernel_at_the_vit_shape(cuda):
+    """P1 at the flagship ViT's shape, within one bf16 step at its largest
+    output of its plain version."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn(4, 1153, 16, 112, generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    got = pdense.dense_attention_nosm(q, k, v, 112 ** -0.5)
+    want = pdense.dense_attention_nosm_plain(q, k, v, 112 ** -0.5)
+    top = want.abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), atol=2 ** -7 * top, rtol=0)
+
+
+# ---- head dims the kernels take only through zero lanes, or by a scalar tail ------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(100, torch.bfloat16), (90, torch.float32)])
+def test_padded_head_dims_forward_and_backward(cuda, d, dtype):
+    """K4, K3 and K7 at a head dim they take through the zero-lane pad
+    (``kernel_head_dim``): one launch a call, equal to the plain versions
+    at D (K3's and K7's checks of ``_flash_bwd_case``, masked and causal)."""
+    assert pattn.kernel_head_dim(d, dtype) not in (None, d)
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn(2, 150, 3, d, generator=g, device=cuda).to(dtype) for _ in range(3))
+    before = pdense.K4.launches
+    got = pdense.dense_attention(q, k, v, d ** -0.5)
+    assert pdense.K4.launches == before + 1 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), pdense.dense_attention_plain(q, k, v, d ** -0.5).float(),
+                               rtol=0, atol=_fwd_tol(dtype))
+    before = (pflash.K3.launches, pflash.K7DQ.launches, pflash.K7DKV.launches)
+    _flash_bwd_case(cuda, 2, 150, 3, d, dtype, True, True)
+    assert (pflash.K3.launches, pflash.K7DQ.launches, pflash.K7DKV.launches) == tuple(
+        n + 1 for n in before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_reads_at_head_dim_90(cuda, dtype):
+    """K1, K6 and K9 at D = 90 (rows not a whole number of their vector
+    loads: the scalar tail), against their plain versions: kv_len 0 and
+    Smax, windows at either end."""
+    g = torch.Generator(device=cuda).manual_seed(90)
+    b, h, smax, d = 3, 4, 50, 90
+    kc, vc = (torch.randn(b, h, smax, d, generator=g, device=cuda).to(dtype) for _ in range(2))
+    tol = dict(rtol=0, atol=2e-2 if dtype == torch.bfloat16 else 1e-4)
+    q = torch.randn(b, 1, h, d, generator=g, device=cuda).to(dtype)
+    kv_len = torch.tensor([0, 23, smax], dtype=torch.int32, device=cuda)
+    got = pdec.decode_attention(q, kc, vc, kv_len)
+    torch.testing.assert_close(got.float(), pdec.decode_attention_plain(q, kc, vc, kv_len).float(),
+                               **tol)
+    assert torch.all(got[0] == 0)
+    qw = torch.randn(b, 5, h, d, generator=g, device=cuda).to(dtype)
+    w = torch.tensor([0, 20, smax - 5], dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(pdec.decode_attention_window(qw, kc, vc, w).float(),
+                               pdec.decode_attention_window_plain(qw, kc, vc, w).float(), **tol)
+    kq, ks = quantize_kv(kc.float())
+    vq, vs = quantize_kv(vc.float())
+    got = pdec.decode_attention_q8(q, kq, ks, vq, vs, kv_len)
+    torch.testing.assert_close(got.float(),
+                               pdec.decode_attention_q8_plain(q, kq, ks, vq, vs, kv_len).float(),
+                               **tol)
+    assert torch.all(got[0] == 0)

@@ -2,32 +2,42 @@
 
 Each wrapper decides with a plain function whether its CUDA kernel takes a
 shape (``ops/w4_matmul.py route``, ``mma_takes``, ``gemv_takes``;
-``ops/flash.py bwd_takes``) and raises on a CUDA tensor of any other shape.
-These tests enumerate the shapes the flagship's main paths hand them, so
-the card never raises there:
+``ops/attention.py kernel_head_dim`` for the attention kernels K3, K4, P1
+and K7) and raises on a CUDA tensor of any other shape. These tests
+enumerate the shapes the flagship's main paths hand them, so the card never
+raises there:
 
   - every int4 product of the W4A16 prefill (``quantize_llm_for_serving(
     bits=4)`` weights) at B = 4, whole and in chunks of 2 samples, with the
     static expert span the serving path passes and with the masked dual
     path, recorded from the port's own ``llm_prefill`` over a one-layer
     flagship-width LLM whose int4 leaves are meta tensors;
-  - every flash site of the training step (LLM, ViT over an fp32 and a bf16
-    image, SAM encoder) at the flagship and the tiny config;
+  - every attention site of serving and of the training step (LLM, ViT over
+    an fp32 and a bf16 image, SAM encoder) at the flagship and the tiny
+    config, which the attention kernels take at their own head dim;
 
-and check that the predicates refuse shapes the kernels cannot take. The
-plain ``_delta`` (K7delta's plain version) is held against the JAX
-package's delta expression in ``_flash_bwd_impl``.
+and check that the predicates refuse shapes the kernels cannot take. A head
+dim the attention kernels take only through zero lanes (D = 100 in bf16, 90
+in fp32) runs the plain versions through the same pad and slice as the
+card (``with_padded_head``), held against the JAX package's Pallas kernels
+in interpret mode. The plain ``_delta`` (K7delta's plain version) is held
+against the JAX package's delta expression in ``_flash_bwd_impl``.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from mmmm_tpu.ops import dense_attn as jdense
+from mmmm_tpu.ops import flash as jflash
 from mmmm_tpu_torch.models.cogvlm import decoder as pdec
 from mmmm_tpu_torch.models.cogvlm.config import CogVLMConfig
 from mmmm_tpu_torch.models.segvol import SamConfig
+from mmmm_tpu_torch.ops import attention as pattn
+from mmmm_tpu_torch.ops import dense_attn as pdense
 from mmmm_tpu_torch.ops import flash as pflash
 from mmmm_tpu_torch.ops import quant as pquant
 from mmmm_tpu_torch.ops import w4_matmul as pw4
@@ -149,9 +159,10 @@ def test_w4_gemv_refuses():
 
 
 def _training_sites(vlm: CogVLMConfig, sam: SamConfig):
-    """(name, head dim, dtypes) of the training step's flash sites: the LLM
-    in bf16, the ViT in fp32 (an fp32 image, as the data loaders pass) and
-    in bf16 (a bf16 image), the SAM encoder in fp32."""
+    """(name, head dim, dtypes) of the training step's flash sites, which
+    serving's K3 (LLM prefill) and K4 (ViT, SAM encoder) sites share: the
+    LLM in bf16, the ViT in fp32 (an fp32 image, as the data loaders pass)
+    and in bf16 (a bf16 image), the SAM encoder in fp32."""
     return [("llm", vlm.head_dim, (torch.bfloat16,)),
             ("vit", vlm.vision.hidden_size // vlm.vision.num_heads,
              (torch.float32, torch.bfloat16)),
@@ -160,24 +171,53 @@ def _training_sites(vlm: CogVLMConfig, sam: SamConfig):
 
 @pytest.mark.parametrize("which", ["flagship", "tiny"])
 def test_training_flash_sites_take_k7(which):
+    """The attention kernels (K3, K4, K7) take every site at its own head
+    dim, with no pad."""
     if which == "flagship":
         vlm, sam = CogVLMConfig.cogvlm17b(), SamConfig()
         assert [d for _, d, _ in _training_sites(vlm, sam)] == [128, 112, 64]
     else:
         vlm, sam = CogVLMConfig.tiny(), SamConfig.tiny()
+        assert [d for _, d, _ in _training_sites(vlm, sam)] == [16, 8, 8]
     for name, d, dtypes in _training_sites(vlm, sam):
         for dt in dtypes:
-            assert pflash.bwd_takes(d, dt), (name, d, dt)
+            assert pattn.kernel_head_dim(d, dt) == d, (name, d, dt)
 
 
-@pytest.mark.parametrize("d,dtype", [(20, torch.bfloat16), (136, torch.bfloat16),
-                                     (130, torch.float32), (6, torch.float32),
+@pytest.mark.parametrize("d,dtype", [(144, torch.bfloat16), (136, torch.bfloat16),
+                                     (130, torch.float32), (129, torch.float32),
                                      (64, torch.float16), (0, torch.float32)])
 def test_k7_refuses(d, dtype):
-    assert not pflash.bwd_takes(d, dtype)
+    """No attention kernel takes a head dim above 128 or another dtype."""
+    assert pattn.kernel_head_dim(d, dtype) is None
 
 
-@pytest.mark.parametrize("d,dtype", [(100, torch.bfloat16), (6, torch.float32)])
+@pytest.mark.parametrize("d,dtype,dp", [(100, torch.bfloat16, 104), (90, torch.float32, 92),
+                                        (20, torch.bfloat16, 24), (6, torch.float32, 8),
+                                        (1, torch.bfloat16, 8), (127, torch.float32, 128)])
+def test_attention_kernels_take_other_head_dims_through_the_pad(d, dtype, dp):
+    """A head dim that is not a whole number of 16-byte pieces runs at the
+    next one, padded with zero lanes."""
+    assert pattn.kernel_head_dim(d, dtype) == dp
+
+
+def test_with_padded_head_pads_and_slices():
+    """One zero-padded copy in, outputs of the operands' rank cut back to D;
+    other outputs (lse) pass as they are."""
+    x = torch.arange(2 * 3 * 4 * 6, dtype=torch.float32).reshape(2, 3, 4, 6)
+    seen = []
+
+    def fn(a):
+        seen.append(a)
+        return a * 2, a.sum(-1)
+
+    out, other = pattn.with_padded_head(8, fn, x)
+    assert seen[0].shape == (2, 3, 4, 8) and torch.all(seen[0][..., 6:] == 0)
+    torch.testing.assert_close(out, x * 2, rtol=0, atol=0)
+    assert out.is_contiguous() and other.shape == (2, 3, 4)
+
+
+@pytest.mark.parametrize("d,dtype", [(136, torch.bfloat16), (130, torch.float32)])
 def test_flash_attention_refuses_k7_head_dims_before_the_forward(monkeypatch, d, dtype):
     """On the card, a differentiable site whose head dim K7 cannot take
     raises in the forward (before K3), not in the backward; the card is
@@ -191,7 +231,83 @@ def test_flash_attention_refuses_k7_head_dims_before_the_forward(monkeypatch, d,
 
 @pytest.mark.parametrize("d,dtype", [(88, torch.bfloat16), (8, torch.float32)])
 def test_k7_takes_the_test_head_dims(d, dtype):
-    assert pflash.bwd_takes(d, dtype)
+    assert pattn.kernel_head_dim(d, dtype) == d
+
+
+# ---- the pad-and-slice route against the JAX package's kernels -----------------------
+
+def _padded_inputs(d: int, dtype: str, seed: int):
+    """B=2, S=150 (a partial last block), H=2; two packed segments in sample
+    0, a padded tail in sample 1, and queries 80..84 of sample 0 whose
+    segment has no key when causal. Values rounded to bf16 where bf16."""
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (rng.standard_normal((2, 150, 2, d)).astype(np.float32) for _ in range(4))
+    if dtype == "bfloat16":
+        q, k, v, g = (np.asarray(jnp.asarray(t, jnp.bfloat16).astype(jnp.float32))
+                      for t in (q, k, v, g))
+    seg = np.ones((2, 150), np.int32)
+    seg[0, 80:] = 2
+    seg[1, 120:] = 0
+    kv_seg = seg.copy()
+    kv_seg[0, 80:85] = 3
+    return q, k, v, g, seg, kv_seg
+
+
+def _pair(x, dtype):
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    return jnp.asarray(x).astype(jdt), torch.from_numpy(x).to(tdt)
+
+
+def _close(got, ref, frac):
+    ref = np.asarray(jnp.asarray(ref).astype(jnp.float32))
+    np.testing.assert_allclose(got.detach().float().numpy(), ref, rtol=0,
+                               atol=frac * max(1.0, np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("d,dtype", [(100, "bfloat16"), (90, "float32")])
+def test_padded_route_matches_pallas(d, dtype):
+    """K4, K3 (out, lse) and K7 at a head dim they take only through the
+    pad: the plain versions run at ``kernel_head_dim`` through
+    ``with_padded_head`` (the card's route) against ``dense_attention``,
+    ``_flash_fwd_impl`` and ``_flash_bwd_impl`` (interpret mode) at D.
+    Tolerances: 2e-5 absolute in fp32 and 5e-2 in bf16 for the forward (the
+    repo's attention tolerances), 1e-4 / 2e-2 of the largest gradient."""
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    dp = pattn.kernel_head_dim(d, tdt)
+    assert dp not in (None, d)
+    q, k, v, g, seg, kv_seg = _padded_inputs(d, dtype, seed=d)
+    (jq, pq), (jk, pk), (jv, pv), (jg, pg) = (_pair(t, dtype) for t in (q, k, v, g))
+    fwd = 5e-2 if dtype == "bfloat16" else 2e-5
+    scale = d ** -0.5
+
+    got = pattn.with_padded_head(dp, lambda *t: pdense.dense_attention(*t, scale), pq, pk, pv)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(jdense.dense_attention(jq, jk, jv, scale), np.float32),
+                               rtol=0, atol=fwd)
+
+    jseg, jkv, tseg, tkv = jnp.asarray(seg), jnp.asarray(kv_seg), torch.from_numpy(seg), \
+        torch.from_numpy(kv_seg)
+    for causal in (True, False):
+        out, lse = pattn.with_padded_head(dp, lambda *t: pflash.flash_segment_attention(
+            *t, tseg, tkv, causal=causal, scale=scale), pq, pk, pv)
+        jout, jlse = jflash._flash_fwd_impl(jq, jk, jv, jseg, jkv, causal, scale, 128, 128)
+        np.testing.assert_allclose(out.float().numpy(), np.asarray(jout, np.float32), rtol=0,
+                                   atol=fwd)
+        np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:, :, 0, :150], rtol=0,
+                                   atol=1e-3 if dtype == "bfloat16" else 2e-5)
+        grads = pattn.with_padded_head(dp, lambda q_, k_, v_, o_, g_: (
+            pflash.flash_segment_attention_bwd_plain(q_, k_, v_, tseg, tkv, o_, lse, g_,
+                                                     causal=causal, scale=scale)),
+            pq, pk, pv, out, pg)
+        ref = jflash._flash_bwd_impl(jq, jk, jv, jseg, jkv, jout, jlse, jg, causal, scale, 128,
+                                     128)
+        for a, r in zip(grads, ref):
+            assert a.shape == pq.shape and a.dtype == tdt
+            _close(a, r, 2e-2 if dtype == "bfloat16" else 1e-4)
+        if causal:  # query 80 of sample 0 and the padded tail see no key
+            assert torch.all(out[0, 80] == 0) and torch.all(grads[0][0, 80] == 0)
+            assert torch.all(out[1, 120:] == 0) and torch.all(grads[0][1, 120:] == 0)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
