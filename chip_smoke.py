@@ -10,19 +10,26 @@ Phases, in order; any failure exits non-zero before the result lines:
  1. print the card's name and power limit (``nvidia-smi``);
  2. build the CUDA kernels from ``mmmm_tpu_torch/csrc`` (``nvcc``, sm_90a)
     and print the registers, shared memory and spill bytes of every K3/K4
-    (``attn_fwd_*``, with P1's form), K11mma and K7 kernel (failing if one
-    spills);
+    (``attn_fwd_*``, with P1's form), K6 tensor-core, K11 decode-row,
+    K11mma and K7 kernel (failing if one spills);
  3. hold each kernel (K1-K11, K7delta, K12 = K4's kernel, probe P1) against
     its plain PyTorch version on the card, at the grounded path's and the
-    training step's shapes and at edge cases (K11mma at every row count
+    training step's shapes and at edge cases (K6 for windows of 1 to 8 at
+    write indices from 0, mid-cache, at the end and negative, with warps'
+    tiles that hold no valid slot, at D = 128, 64 and 90 in bf16 and in
+    fp32, over a long cache, and twice bit for bit, timed at run (b)'s first,
+    middle and last verify steps; K10 at D = 8, 16, 48, 64, 90 and 100 and
+    over a cache past its shared memory; K11 at 1, 4 and 16 bf16 rows and
+    4 fp32 rows on run (d)'s four weight shapes, twice bit for bit, timed
+    at 4 rows on each with its launches a batch; K11mma at every row count
     W4A16 serving passes, and both of its tile widths timed at the
     prefill's shapes; K3 and K7 at every head dim they serve over a ragged
     S, K3 over packed segments with fully masked rows, both twice at the
     LLM site, bit for bit; K3, K4 and K7 at head dims 100 in bf16 and 90 in
-    fp32, which they take through zero lanes, and K1, K6 and K9 at 90), and
-    time the kernel, the plain version and one PyTorch library call (CUDA
-    events, medians); time the W8A16, W8A8 and W4A16 ``qdot`` against a
-    bf16 ``torch.matmul`` at decode rows;
+    fp32, which they take through zero lanes, and K1, K6, K9 and K10 at
+    90), and time the kernel, the plain version and one PyTorch library
+    call (CUDA events, medians); time the W8A16, W8A8 and W4A16 ``qdot``
+    against a bf16 ``torch.matmul`` at decode rows;
  4. run ``generate_grounded`` on the card and on the CPU (plain versions)
     and require the same tokens, masks, boxes and presence logits: at
     ``MMMMConfig.tiny()`` in fp32 greedy and n-gram speculative, bf16 and
@@ -104,6 +111,11 @@ CHUNK = 2  # run (d)'s prefill chunk: 2 chunks of 2 samples
 # 2 x 145 vision and 2 x 46 language rows (tensor-core tiles); decode: 4 rows
 W4_GEMV = LAYERS * 5 * (B // CHUNK) + LAYERS * 5 * NEW
 W4_MMA = LAYERS * 10 * (B // CHUNK)
+# run (d)'s int4 weight shapes (K, N): qkv, dense, gate and up, down; the K11
+# launches a batch should count on each (gate and up share a shape)
+W4_SHAPES = ((4096, 12288), (4096, 4096), (4096, 11008), (11008, 4096))
+W4_DECODE_CALLS = {s: (2 if s == (4096, 11008) else 1) * LAYERS * ((B // CHUNK) + NEW)
+                   for s in W4_SHAPES}
 # flagship launches per run; "iters" is scaled by the run's verify steps
 RUNS = {
     "a_greedy_bf16": dict(kw={}, launches={"K4": 63 + 12, "K3": LAYERS, "K2": LAYERS * NEW,
@@ -463,19 +475,7 @@ def spec_kernel_phase(peaks, gen, out):
     t_mid = (PROMPT + smax - WINDOW) // 2
     w_mid = torch.full((B,), t_mid, dtype=torch.int32, device=dev)
     q = rnd(B, WINDOW, h, d)
-    err = 0.0
-    for widx in ([t_mid] * B, [0, 150, smax - WINDOW, smax - 1]):
-        w = torch.tensor(widx, dtype=torch.int32, device=dev)
-        e = max_err(dk.decode_attention_window(q, kc, vc, w),
-                    dk.decode_attention_window_plain(q, kc, vc, w))
-        check(f"K6 {tuple(q.shape)} over {tuple(kc.shape)} bf16 write_index {widx}", e, 2e-2)
-        err = max(err, e)
-    for nq, dt, tol in [(2, torch.bfloat16, 2e-2), (5, torch.float32, 1e-4),
-                        (8, torch.float32, 1e-4)]:
-        qq, ka, va = rnd(3, nq, 4, 64, dt=dt), rnd(3, 4, 50, 64, dt=dt), rnd(3, 4, 50, 64, dt=dt)
-        w = torch.tensor([0, 20, 50 - nq], dtype=torch.int32, device=dev)
-        check(f"K6 edge window {nq} {dt}", max_err(dk.decode_attention_window(qq, ka, va, w),
-              dk.decode_attention_window_plain(qq, ka, va, w)), tol)
+    err = k6_checks(gen, kc, vc, q, t_mid)
     slot = torch.arange(smax, device=dev)
     lens = w_mid[:, None] + torch.arange(1, WINDOW + 1, device=dev)  # (B, K)
     amask = (slot[None, None] < lens[..., None])[:, None]  # (B, 1, K, Smax)
@@ -513,9 +513,34 @@ def spec_kernel_phase(peaks, gen, out):
         "plain_ms": time_ms(lambda: dk.decode_attention_window_plain(q, *rot.next(), w_mid)),
         "library_ms": time_ms(lib_k6), "bound_ms": bms, "bound_by": by,
     }
-    out["K6"]["variants"] = [decode_d90_row(
+    log(f"  K6 write_index {t_mid}: kernel {out['K6']['ms']:.4f} ms, plain "
+        f"{out['K6']['plain_ms']:.4f} ms, SDPA {out['K6']['library_ms']:.4f} ms, bound "
+        f"{bms:.5f} ms ({dk.window_warps(smax)} warps, tiles a warp)")
+    # run (b)'s first and last verify steps
+    variants = []
+    for t0 in (PROMPT, PROMPT + NEW):
+        wt = torch.full((B,), t0, dtype=torch.int32, device=dev)
+        lens_t = wt[:, None] + torch.arange(1, WINDOW + 1, device=dev)
+        mask_t = (slot[None, None] < lens_t[..., None])[:, None]
+        b_t, by_t = bound(2 * B * (t0 + WINDOW) * h * d * 2 + 2 * q.numel() * 2,
+                          4 * int(lens_t.sum().item()) * h * d, bf16_rate, bw)
+        row = {"shape": [B, h, smax, d], "window": WINDOW, "write_index": t0,
+               "dtype": "bfloat16",
+               "max_abs_err": max_err(dk.decode_attention_window(q, kc, vc, wt),
+                                      dk.decode_attention_window_plain(q, kc, vc, wt)),
+               "ms": time_ms(lambda: dk.decode_attention_window(q, *rot.next(), wt)),
+               "plain_ms": time_ms(lambda: dk.decode_attention_window_plain(q, *rot.next(), wt)),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   qh, *rot.next(), attn_mask=mask_t)),
+               "bound_ms": b_t, "bound_by": by_t}
+        check(f"K6 write_index {t0} (timed row)", row["max_abs_err"], 2e-2)
+        log(f"  K6 write_index {t0}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"SDPA {row['library_ms']:.4f} ms, bound {b_t:.5f} ms")
+        variants.append(row)
+    variants.append(decode_d90_row(
         "K6", peaks, gen, lambda q, kc, vc, w: dk.decode_attention_window(q, kc, vc, w),
-        lambda q, kc, vc, w: dk.decode_attention_window_plain(q, kc, vc, w), window=WINDOW)]
+        lambda q, kc, vc, w: dk.decode_attention_window_plain(q, kc, vc, w), window=WINDOW))
+    out["K6"]["variants"] = variants
     del copies, rot, kc, vc
 
     # ---- K8 int8 append, K9 int8 decode attention ------------------------------------
@@ -596,13 +621,58 @@ def spec_kernel_phase(peaks, gen, out):
         "K9", peaks, gen, q8_read, lambda *a: q8_read(*a, plain=True), int8=True)]
 
 
-def decode_d90_row(kid, peaks, gen, kernel, plain, *, window=0, sdpa=False, int8=False):
-    """K1, K6 or K9 at the flagship's decode shape but head dim 90 (rows
+def k6_checks(gen, kc, vc, q, t_mid) -> float:
+    """K6 against its plain version: at the flagship's shape (bf16, D = 128,
+    the tensor-core form, a warp for each 32-slot tile) for windows of 1
+    to 8 at write indices from 0, mid-cache, at Smax - NQ and Smax - 1, and
+    negative, across the warps' 32-slot tiles and with tiles (warps) that
+    hold no valid slot; at D = 64 in bf16 and at D = 128 and 64 in fp32 (the
+    CUDA-core form); over a cache long enough for several tiles a warp; and
+    twice, bit for bit. Returns the largest error at the flagship's shape."""
+    from mmmm_tpu_torch.ops import decode_kernel as dk
+
+    dev = torch.device("cuda")
+    rnd = lambda *s, dt=torch.bfloat16: torch.randn(*s, generator=gen, device=dev).to(dt)
+    smax = kc.shape[2]
+    err = 0.0
+    for nq in range(1, WINDOW + 1):
+        qq = q[:, :nq].contiguous()
+        for widx in ([t_mid] * B, [0, 150, smax - nq, smax - 1], [-1, -nq - 3, 127, 128 - nq],
+                     [128, 256 - nq, 251, 5]):
+            w = torch.tensor(widx, dtype=torch.int32, device=dev)
+            e = max_err(dk.decode_attention_window(qq, kc, vc, w),
+                        dk.decode_attention_window_plain(qq, kc, vc, w))
+            check(f"K6 window {nq} over {tuple(kc.shape)} bf16 write_index {widx}", e, 2e-2)
+            err = max(err, e)
+    w_mid = torch.full((B,), t_mid, dtype=torch.int32, device=dev)
+    if not torch.equal(dk.decode_attention_window(q, kc, vc, w_mid),
+                       dk.decode_attention_window(q, kc, vc, w_mid)):
+        raise AssertionError("K6: two runs at the flagship's shape differ")
+    log("  K6 twice at the flagship's shape: bit-equal")
+    for dd, dt, tol in [(64, torch.bfloat16, 2e-2), (128, torch.float32, 1e-4),
+                        (64, torch.float32, 1e-4)]:
+        for nq in (1, 5, 8):
+            qq, ka, va = rnd(3, nq, 4, dd, dt=dt), rnd(3, 4, 300, dd, dt=dt), rnd(3, 4, 300, dd, dt=dt)
+            w = torch.tensor([0, 130, 300 - nq], dtype=torch.int32, device=dev)
+            check(f"K6 D={dd} {dt} window {nq} over Smax 300",
+                  max_err(dk.decode_attention_window(qq, ka, va, w),
+                          dk.decode_attention_window_plain(qq, ka, va, w)), tol)
+    qq, ka, va = rnd(2, WINDOW, 2, 128), rnd(2, 2, 2100, 128), rnd(2, 2, 2100, 128)
+    w = torch.tensor([2100 - WINDOW, 700], dtype=torch.int32, device=dev)
+    check(f"K6 over Smax 2100 ({dk.window_warps(2100)} warps, tiles a warp)",
+          max_err(dk.decode_attention_window(qq, ka, va, w),
+                  dk.decode_attention_window_plain(qq, ka, va, w)), 2e-2)
+    return err
+
+
+def decode_d90_row(kid, peaks, gen, kernel, plain, *, window=0, sdpa=False, int8=False,
+                   mxu=False):
+    """K1, K6, K9 or K10 at the flagship's decode shape but head dim 90 (rows
     that are not a whole number of the kernels' vector loads: their scalar
-    tail) in bf16, checked against the plain version (2e-2) and in fp32
-    (1e-4) at a small shape, then timed in bf16 with the plain version and,
-    for K1, SDPA. K9 reads an int8 cache quantized from the same rows (its
-    quantization is outside the timed call)."""
+    or byte tail) in bf16, checked against the plain version (2e-2) and in
+    fp32 (1e-4) at a small shape, then timed in bf16 with the plain version
+    and, for K1, SDPA. K9 and K10 (``mxu``) read an int8 cache quantized
+    from the same rows (its quantization is outside the timed call)."""
     from mmmm_tpu_torch.ops.quant import quantize_kv
 
     bw, bf16_rate, _, _ = peaks
@@ -623,8 +693,12 @@ def decode_d90_row(kid, peaks, gen, kernel, plain, *, window=0, sdpa=False, int8
         vq, vs = quantize_kv(vc)
         from mmmm_tpu_torch.ops import decode_kernel as dk
 
-        fn = lambda: dk.decode_attention_q8(q, kq, ks, vq, vs, mid)
-        pfn = lambda: dk.decode_attention_q8_plain(q, kq, ks, vq, vs, mid)
+        if mxu:
+            fn = lambda: dk.decode_attention_q8_mxu(q, kq, ks, vq, vs, mid)
+            pfn = lambda: dk.decode_attention_q8_mxu_plain(q, kq, ks, vq, vs, mid)
+        else:
+            fn = lambda: dk.decode_attention_q8(q, kq, ks, vq, vs, mid)
+            pfn = lambda: dk.decode_attention_q8_plain(q, kq, ks, vq, vs, mid)
     else:
         fn, pfn = (lambda: kernel(q, kc, vc, mid)), (lambda: plain(q, kc, vc, mid))
     n_read = int(mid.sum().item()) + (B * nq if window else 0)  # slots read
@@ -645,9 +719,11 @@ def decode_d90_row(kid, peaks, gen, kernel, plain, *, window=0, sdpa=False, int8
 
 
 def capacity_kernel_phase(peaks, gen, out):
-    """K10 (the split-int8 read, at K9's shape) and K11 (W4A16: the GEMV at
-    greedy decode rows, the tensor-core tile at a batch's 4 x 146 vision
-    rows) at the flagship's shapes."""
+    """K10 (the split-int8 read, at K9's shape, at head dims off its 16-byte
+    lanes and past its shared memory) and K11 (W4A16: the decode-row kernel
+    at greedy decode rows on each of run (d)'s weight shapes, the
+    tensor-core tile K11mma at a batch's 4 x 146 vision rows) at the
+    flagship's shapes."""
     from mmmm_tpu_torch.ops import decode_kernel as dk
     from mmmm_tpu_torch.ops import w4_matmul as w4
     from mmmm_tpu_torch.ops.quant import quantize_int4, quantize_kv
@@ -678,13 +754,28 @@ def capacity_kernel_phase(peaks, gen, out):
     err = max_err(dk.decode_attention_q8_mxu(q, *leaves(cache), mid),
                   dk.decode_attention_q8_mxu_plain(q, *leaves(cache), mid))
     check(f"K10 {tuple(cache['kq'].shape)} int8, q bf16, kv_len {int(mid[0])}", err, 2e-2)
-    for dd in (16, 64):
+    # every head dim up to 128: whole 16-byte lanes (16, 64), lanes rounded
+    # up (48), and rows read a byte at a time (90, 100, 8)
+    for dd in (16, 64, 48, 90, 100, 8):
         kq, ks = quantize_kv(rnd(3, 4, 40, dd))
         vq, vs = quantize_kv(rnd(3, 4, 40, dd))
-        qq = rnd(3, 1, 4, dd, dt=torch.float32)
         ln = torch.tensor([0, 17, 40], dtype=torch.int32, device=dev)
-        check(f"K10 edge D={dd} q fp32", max_err(dk.decode_attention_q8_mxu(qq, kq, ks, vq, vs, ln),
-              dk.decode_attention_q8_mxu_plain(qq, kq, ks, vq, vs, ln)), 1e-4)
+        for qdt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            qq = rnd(3, 1, 4, dd, dt=qdt)
+            check(f"K10 edge D={dd} q {qdt}",
+                  max_err(dk.decode_attention_q8_mxu(qq, kq, ks, vq, vs, ln),
+                          dk.decode_attention_q8_mxu_plain(qq, kq, ks, vq, vs, ln)), tol)
+    # Smax past what shared memory holds (the logits in a workspace), where the
+    # reference's gate admits it: H % 4 != 0 (head chunk 1), D = 16
+    big = dk.Q8_MXU_SHARED_SLOTS + 7232
+    assert dk._q8_mxu_eligible(3, big, 16) and not dk.q8_mxu_in_shared(big)
+    kq, ks = quantize_kv(rnd(1, 3, big, 16))
+    vq, vs = quantize_kv(rnd(1, 3, big, 16))
+    qq = rnd(1, 1, 3, 16, dt=torch.float32)
+    ln = torch.tensor([big - 5], dtype=torch.int32, device=dev)
+    check(f"K10 Smax {big} (workspace) q fp32",
+          max_err(dk.decode_attention_q8(qq, kq, ks, vq, vs, ln, q8_mxu=True),
+                  dk.decode_attention_q8_mxu_plain(qq, kq, ks, vq, vs, ln)), 1e-4)
     # the int32 band: uniform attention over rows of 127 at kv_len 1100 wraps
     k127 = torch.full((1, 2, 1100, 16), 127, dtype=torch.int8, device=dev)
     s1 = torch.ones((1, 2, 1100, 1), dtype=torch.bfloat16, device=dev)
@@ -706,6 +797,17 @@ def capacity_kernel_phase(peaks, gen, out):
         "library_ms": None, "k9_ms_same_shape": out["K9"]["ms"],
         "bound_ms": bms, "bound_by": by,
     }
+
+    def mxu_read(q, kc, vc, n, plain=False):
+        kq, ks = quantize_kv(kc)
+        vq, vs = quantize_kv(vc)
+        fn = dk.decode_attention_q8_mxu_plain if plain else dk.decode_attention_q8_mxu
+        return fn(q, kq, ks, vq, vs, n)
+
+    row = decode_d90_row("K10", peaks, gen, mxu_read, lambda *a: mxu_read(*a, plain=True),
+                         int8=True, mxu=True)
+    row["k9_ms_same_shape"] = out["K9"]["variants"][0]["ms"]
+    out["K10"]["variants"] = [row]
     del caches, rot, cache
 
     # ---- K11 W4A16 product -------------------------------------------------------
@@ -720,17 +822,24 @@ def capacity_kernel_phase(peaks, gen, out):
         check(label, e, tol)
         return e
 
-    # the GEMV at decode rows; K11mma at the row counts W4A16 serving passes
-    # (text rows 4 x 46 and vision rows 4 x 145, whole and in chunks of 2),
-    # at 4 x 146 and 2 x 146, and at tile edges
-    for kk, nn in ((4096, 12288), (4096, 4096), (11008, 4096)):
+    # K11 at decode rows (1, 4, 16 in bf16, 4 in fp32), twice bit for bit;
+    # K11mma at the row counts W4A16 serving passes (text rows 4 x 46 and
+    # vision rows 4 x 145, whole and in chunks of 2), at 4 x 146 and 2 x 146,
+    # and at tile edges; on each of run (d)'s four weight shapes
+    for kk, nn in W4_SHAPES:
         w = quantize_int4(rnd(kk, nn, dt=torch.float32).mul_(0.02))
-        for m, dt in ((4, torch.bfloat16), (4, torch.float32), (17, torch.bfloat16),
+        for m, dt in ((1, torch.bfloat16), (4, torch.bfloat16), (16, torch.bfloat16),
+                      (4, torch.float32), (17, torch.bfloat16),
                       (64, torch.bfloat16), (65, torch.bfloat16), (92, torch.bfloat16),
                       (184, torch.bfloat16), (290, torch.bfloat16), (292, torch.bfloat16),
                       (580, torch.bfloat16), (584, torch.bfloat16)):
-            w4_check(f"K11 ({m}, {kk}) x {kk}x{nn} {dt} -> {w4.route(m, kk, nn, 128, dt)}",
-                     rnd(m, kk, dt=dt), w)
+            x = rnd(m, kk, dt=dt)
+            kern = w4.route(m, kk, nn, 128, dt)
+            w4_check(f"K11 ({m}, {kk}) x {kk}x{nn} {dt} -> {kern}", x, w)
+            if kern == "K11" and not torch.equal(w4.w4_matmul(x, w["q4"], w["s4"]),
+                                                 w4.w4_matmul(x, w["q4"], w["s4"])):
+                raise AssertionError(f"K11: two runs at ({m}, {kk}) x {kk}x{nn} {dt} differ")
+        log(f"  K11 {kk}x{nn}: two runs bit-equal at every decode row count")
     # K11mma's two tile widths at the W4A16 prefill's shapes (4 x 145 vision
     # and 4 x 46 text rows, in run (d)'s chunks of 2 and whole, on each of
     # the five products' weights): each checked, then timed against the
@@ -773,13 +882,11 @@ def capacity_kernel_phase(peaks, gen, out):
         return w["q4"], w["s4"]
 
     # 4 x 146 and 2 x 146 rows, then run (d)'s chunk of vision and of text rows
-    for name, m in (("K11", 4), ("K11mma", B * N_VIS), ("K11mma", B * N_VIS // 2),
+    for name, m in (("K11mma", B * N_VIS), ("K11mma", B * N_VIS // 2),
                     ("K11mma", B * (N_VIS - 1) // CHUNK),
                     ("K11mma", B * (PROMPT - N_VIS) // CHUNK)):
         x = rnd(m, k)
         err = w4_check(f"{name} ({m}, {k}) x {k}x{n} bf16", x, wts[0])
-        if name == "K11":
-            w4_check(f"{name} ({m}, {k}) x {k}x{n} fp32", x.float(), wts[0])
         bms, by = bound(w4_bytes(m), 2 * m * k * n, bf16_rate, bw)
         row = {
             "shape": [m, k, n], "dtype": "bf16 x, int4 W (group 128)", "max_abs_err": err,
@@ -795,6 +902,72 @@ def capacity_kernel_phase(peaks, gen, out):
         else:
             out[name] = row
     out["K11mma"]["tile_widths"] = tpw_rows
+    k11_decode_rows(peaks, gen, out)
+
+
+def k11_decode_rows(peaks, gen, out):
+    """K11 at run (d)'s decode rows (M = 4) on each of its four weight
+    shapes, each with its bound, bf16 ``torch.matmul`` time and launches a
+    run-(d) batch; and, as a data point, K11mma called directly at M = 4
+    (the router sends it only more than 16 rows)."""
+    from mmmm_tpu_torch.ops import w4_matmul as w4
+    from mmmm_tpu_torch.ops.quant import quantize_int4
+
+    bw, bf16_rate, _, _ = peaks
+    dev = torch.device("cuda")
+    rnd = lambda *s, dt=torch.bfloat16: torch.randn(*s, generator=gen, device=dev).to(dt)
+    m = B
+    rows = []
+    for kk, nn in W4_SHAPES:
+        wset = Rotating([quantize_int4(rnd(kk, nn, dt=torch.float32).mul_(0.02))
+                         for _ in range(4)])
+        bts = Rotating([rnd(kk, nn).mul_(0.02) for _ in range(2)])
+        x = rnd(m, kk)
+        w0 = wset.copies[0]
+        ref = w4.w4_matmul_plain(x, w0["q4"], w0["s4"])
+        err = max_err(w4.w4_matmul(x, w0["q4"], w0["s4"]), ref)
+        check(f"K11 ({m}, {kk}) x {kk}x{nn} bf16 (timed row)", err,
+              2 ** -7 * max(1.0, ref.abs().max().item()))
+        stream = w4._cuda.stream_of(x)
+        call = lambda w: w4.w4_matmul(x, w["q4"], w["s4"])
+
+        def mma_m4(w):
+            y = torch.empty((m, nn), dtype=torch.bfloat16, device=dev)
+            w4.K11MMA(x.data_ptr(), w["q4"].data_ptr(), w["s4"].data_ptr(), y.data_ptr(), m, kk,
+                      nn, 128, w4.mma_tpw(m, nn), stream)
+            return y
+
+        check(f"K11mma called at M={m} on {kk}x{nn}", max_err(mma_m4(w0), ref),
+              2 ** -7 * max(1.0, ref.abs().max().item()))
+
+        def gemv(w, cluster):  # the decode-row kernel at a given cluster size
+            y = torch.empty((m, nn), dtype=torch.bfloat16, device=dev)
+            w4.K11(x.data_ptr(), w["q4"].data_ptr(), w["s4"].data_ptr(), y.data_ptr(), None, m,
+                   kk, nn, 128, 1, cluster, stream)
+            return y
+
+        for c in (1, 2):
+            check(f"K11 with clusters of {c} on {kk}x{nn}", max_err(gemv(w0, c), ref),
+                  2 ** -7 * max(1.0, ref.abs().max().item()))
+        nbytes = kk // 2 * nn + kk // 128 * nn * 4 + m * kk * 2 + m * nn * 2
+        bms, by = bound(nbytes, 2 * m * kk * nn, bf16_rate, bw)
+        row = {"shape": [m, kk, nn], "dtype": "bf16 x, int4 W (group 128)", "max_abs_err": err,
+               "ms": time_ms(lambda: call(wset.next())),
+               "plain_ms": time_ms(lambda: w4.w4_matmul_plain(x, w0["q4"], w0["s4"]), inner=2),
+               "library_ms": time_ms(lambda: x @ bts.next()),
+               "k11mma_ms": time_ms(lambda: mma_m4(wset.next())),
+               "cluster1_ms": time_ms(lambda: gemv(wset.next(), 1)),
+               "cluster2_ms": time_ms(lambda: gemv(wset.next(), 2)),
+               "bound_ms": bms, "bound_by": by}
+        log(f"  K11 M={m} on {kk}x{nn}: kernel {row['ms']:.4f} ms (clusters of "
+            f"{w4.gemv_cluster(kk, nn)}; of 1 {row['cluster1_ms']:.4f} ms, of 2 "
+            f"{row['cluster2_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, bf16 matmul "
+            f"{row['library_ms']:.4f} ms, K11mma {row['k11mma_ms']:.4f} ms, bound {bms:.5f} ms "
+            f"({by})")
+        rows.append(row)
+        del wset, bts
+    main = next(r for r in rows if r["shape"][1:] == [4096, 11008])
+    out["K11"] = dict(main, variants=[r for r in rows if r is not main])
 
 
 def train_kernel_phase(peaks, gen, out):
@@ -1298,6 +1471,7 @@ def flagship_phase(gen):
     from mmmm_tpu_torch.data.tokenizer import SPECIAL_TOKENS, MMMMTokenizer, _ByteBackend
     from mmmm_tpu_torch.models.cogvlm import CogVLMConfig
     from mmmm_tpu_torch.models.segvol import SamConfig
+    from mmmm_tpu_torch.ops import w4_matmul as w4
     from mmmm_tpu_torch.ops._cuda import KERNELS
     from mmmm_tpu_torch.ops.quant import quantize_llm_for_serving
 
@@ -1373,8 +1547,10 @@ def flagship_phase(gen):
         torch.cuda.reset_peak_memory_stats()
         for kern in KERNELS.values():
             kern.launches = 0
+        w4.K11_BY_SHAPE.clear()
         res, steady_s = run()
         launches = {name: kern.launches for name, kern in KERNELS.items()}
+        by_shape = {f"{k}x{n}": c for (k, n), c in sorted(w4.K11_BY_SHAPE.items())}
         peak = torch.cuda.max_memory_allocated()
         iters = res.spec_stats["iters"] if res.spec_stats else NEW
         tps = res.spec_stats["tokens_per_step"] if res.spec_stats else 1.0
@@ -1388,6 +1564,11 @@ def flagship_phase(gen):
             if launches[name] != n:
                 raise AssertionError(f"{label}: {name} launched {launches[name]} times, "
                                      f"expected {n}")
+        want_shapes = ({f"{k}x{n}": c for (k, n), c in sorted(W4_DECODE_CALLS.items())}
+                       if launches["K11"] else {})
+        if by_shape != want_shapes or sum(by_shape.values()) != launches["K11"]:
+            raise AssertionError(f"{label}: K11 launches by weight shape {by_shape}, "
+                                 f"expected {want_shapes}")
         if spec["kw"].get("instance"):
             k = cfg.sam.num_mask_tokens - 1
             bx, dl = res.boxes, res.disc_logit
@@ -1407,7 +1588,8 @@ def flagship_phase(gen):
             f"{[None if t is None else len(t) for t in res.targets]}")
         r = {"first_run_s": first_s, "steady_run_s": steady_s, "reports_per_s": B / steady_s,
              "tokens_per_step": tps, "decode_steps": iters, "peak_mem_gib": peak / 2**30,
-             "launches": launches, "num_generated": res.num_generated.tolist()}
+             "launches": launches, "k11_launches_by_shape": by_shape,
+             "num_generated": res.num_generated.tolist()}
         r["profile"] = profile_run(run)
         r["profile"].pop("result")
         # device busy time over the profiled run's wall, and over the steady
@@ -1728,10 +1910,10 @@ KERNEL_GROUPS = (  # (label, substrings of a kernel name), first match wins
     ("K7dq flash backward", ("flash_bwd_dq",)),
     ("K7dkv flash backward", ("flash_bwd_dkv",)),
     ("K1 decode attention", ("decode_attn_kernel",)),
-    ("K6 window attention", ("decode_window_kernel",)),
+    ("K6 window attention", ("decode_window_mma_kernel", "decode_window_kernel")),
     ("K9 int8 decode attention", ("decode_q8_kernel",)),
     ("K10 split-int8 decode attention", ("decode_q8_mxu_kernel",)),
-    ("K11 W4A16 GEMV", ("w4_gemv_kernel", "w4_sum_groups_kernel")),
+    ("K11 W4A16 decode rows", ("w4_gemv_mma_kernel", "w4_gemv_kernel", "w4_sum_groups_kernel")),
     ("K11mma W4A16 tiles", ("w4_mma_kernel",)),
     ("K5 window append", ("kv_append_multi_kernel",)),
     ("K8 int8 append", ("kv_append_q8_kernel",)),
@@ -1831,11 +2013,12 @@ def ptxas_entries(build_log: str) -> list:
 def redesigned_kernel_resources(build_log: str, lib) -> list:
     """Registers, shared memory (static, and the dynamic bytes the launcher
     asks for) and spill bytes of every K3/K4 (``attn_fwd_*``, with P1's
-    NOSM form), K11mma and K7 kernel; fails if one spills."""
+    NOSM form), K6 tensor-core, K11 decode-row, K11mma and K7 kernel; fails
+    if one spills."""
     rows = []
     for e in ptxas_entries(build_log):
         m = re.search(r"(attn_fwd_(?:wgmma|f32)|flash_bwd_(?:dq|dkv)_(?:wgmma|f32)|flash_bwd_delta"
-                      r"|w4_mma_kernel)", e["symbol"])
+                      r"|w4_mma_kernel|w4_gemv_mma_kernel|decode_window_mma_kernel)", e["symbol"])
         if not m:
             continue
         kname = m.group(1)
@@ -1857,6 +2040,12 @@ def redesigned_kernel_resources(build_log: str, lib) -> list:
         targ = int(t.group(1)) if t else None
         if kname == "w4_mma_kernel":
             dyn = lib.mmmm_w4_mma_smem(targ)
+        elif kname == "w4_gemv_mma_kernel":  # <MT>: M <= 8 MT
+            dyn = lib.mmmm_w4_gemv_smem(8 * targ)
+        elif kname == "decode_window_mma_kernel":  # <DP>, at run (b)'s cache
+            from mmmm_tpu_torch.ops.decode_kernel import window_warps
+
+            dyn = lib.mmmm_decode_window_smem(targ, *window_warps(PROMPT + NEW + WINDOW))
         elif kname.endswith("_wgmma"):
             dyn = lib.mmmm_flash_bwd_smem(1, targ, int("dkv" in kname))
         elif kname.endswith("_f32"):
@@ -1869,8 +2058,9 @@ def redesigned_kernel_resources(build_log: str, lib) -> list:
         rows.append(_resource_row(label, e, dyn))
     if not any(r["kernel"].startswith("attn_fwd") for r in rows):
         raise AssertionError("no K3/K4 kernel in the build log")
-    if not any(r["kernel"].startswith(("flash_bwd", "w4_mma")) for r in rows):
-        raise AssertionError("no K11mma or K7 kernel in the build log")
+    for prefix in ("flash_bwd", "w4_mma", "w4_gemv_mma", "decode_window_mma"):
+        if not any(r["kernel"].startswith(prefix) for r in rows):
+            raise AssertionError(f"no {prefix} kernel in the build log")
     return rows
 
 
@@ -1953,6 +2143,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     results["train_routes"] = phase("train_routes", train_route_phase)
 
+    # each K11 row's launches on its own weight shape, read from the counter
+    by_shape = results["flagship"]["runs"][KERNEL_RUN["K11"]]["k11_launches_by_shape"]
+    k11 = results["kernels"]["K11"]
+    for row in (k11, *k11["variants"]):
+        row["launches_of_shape"] = by_shape.get("{}x{}".format(*row["shape"][1:]), 0)
     kernels = []
     for kid, run in KERNEL_RUN.items():
         counter = COUNTER.get(kid, kid)

@@ -21,13 +21,17 @@
 //
 // Design: one block per (sample, head), 8 warps. The q split happens in the
 // block (a block-wide max, IEEE division, round-half-even). Logits: a slot's
-// int8 K row is read by D/16 lanes, 16 bytes each, and dotted with the
-// packed q_hi and q_lo by __dp4a; the Smax logits stay in shared memory
-// for the full-row softmax (the weights' maximum is needed before they are
+// int8 K row is read by LPS lanes, 16 bytes each (LPS the power of two with
+// 16 LPS >= D, lanes past D hold zeros), and dotted with the packed q_hi and
+// q_lo by __dp4a; the Smax logits stay in shared memory (in a global fp32
+// workspace the wrapper allocates where 6 bytes a slot would not fit) for
+// the full-row softmax (the weights' maximum is needed before they are
 // split). Values: each thread owns one 4-byte word column of V (4 head
 // dims) and a share of the slots; four slots' words are transposed with
 // __byte_perm so that one __dp4a multiplies 4 slots of one head dim by the
-// packed w_hi (or w_lo) of those slots. int8 mma.sync m16n8k32 is later work.
+// packed w_hi (or w_lo) of those slots. Rows of a head dim that is not a
+// multiple of 16 are not 16-byte aligned: they are read a byte at a time,
+// zero past D (VEC = false). int8 mma.sync m16n8k32 is later work.
 #include "common.cuh"
 
 namespace {
@@ -59,25 +63,54 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return r;
 }
 
-// LPS = lanes per K row = D / 16. Dynamic shared memory: 6 * roundup(Smax, 4)
-// bytes (fp32 logits, then the int8 w_hi and w_lo of every slot).
-template <typename T, int LPS>
+// 16 bytes of an int8 row from head dim d0, zero past D: one 16-byte load
+// where rows are 16-byte aligned (VEC: D % 16 == 0), else byte loads.
+template <bool VEC>
+__device__ __forceinline__ int4 load_row16(const int8_t* row, int d0, int D) {
+  if (d0 >= D) return make_int4(0, 0, 0, 0);
+  if (VEC) return *reinterpret_cast<const int4*>(row + d0);
+  unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+    if (d0 + e < D) w[e >> 2] |= static_cast<unsigned>(static_cast<uint8_t>(row[d0 + e])) << (8 * (e & 3));
+  return make_int4(static_cast<int>(w[0]), static_cast<int>(w[1]), static_cast<int>(w[2]),
+                   static_cast<int>(w[3]));
+}
+
+// The 4 bytes of an int8 row from head dim d0 (a multiple of 4), zero past D.
+template <bool VEC>
+__device__ __forceinline__ unsigned load_row4(const int8_t* row, int d0, int D) {
+  if (d0 >= D) return 0u;
+  if (VEC) return *reinterpret_cast<const unsigned*>(row + d0);
+  unsigned w = 0u;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (d0 + e < D) w |= static_cast<unsigned>(static_cast<uint8_t>(row[d0 + e])) << (8 * e);
+  return w;
+}
+
+// LPS = lanes per K row (16 LPS >= D). 6 * roundup(Smax, 4) bytes a block
+// (fp32 logits, then the int8 w_hi and w_lo of every slot): dynamic shared
+// memory, or the block's slice of `scratch` where the wrapper passes one.
+template <typename T, int LPS, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 decode_q8_mxu_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
                      const __nv_bfloat16* __restrict__ ks, const int8_t* __restrict__ vq,
                      const __nv_bfloat16* __restrict__ vs, const int* __restrict__ kv_len,
-                     T* __restrict__ out, int H, int Smax, float scale) {
-  constexpr int D = 16 * LPS;
+                     T* __restrict__ out, unsigned char* __restrict__ scratch, int H, int Smax,
+                     int D, float scale) {
+  constexpr int DP = 16 * LPS;         // D rounded up to the lanes' 16-byte pieces
   constexpr int G = 32 / LPS;          // K rows a warp reads at once
-  constexpr int WC = D / 4;            // 4-byte word columns of a V row
+  constexpr int WC = DP / 4;           // 4-byte word columns of a V row
   constexpr int NSG = kThreads / WC;   // slot groups of the value pass
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[kWarps];
-  __shared__ __align__(16) int8_t qsplit[2][D];
-  __shared__ unsigned osum[NSG][D];
+  __shared__ __align__(16) int8_t qsplit[2][DP];
+  __shared__ unsigned osum[NSG][DP];
 
   const int smax4 = (Smax + 3) & ~3;
-  float* logit = reinterpret_cast<float*>(smem);
+  float* logit = reinterpret_cast<float*>(
+      scratch == nullptr ? smem : scratch + (size_t)blockIdx.x * 6 * smax4);
   int8_t* whi = reinterpret_cast<int8_t*>(logit + smax4);
   int8_t* wlo = whi + smax4;
 
@@ -93,7 +126,7 @@ decode_q8_mxu_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
   // ---- q -> (q_hi, q_lo, q_s) -------------------------------------------------------
   const float qv = tid < D ? mmmm::to_f(q[(size_t)bh * D + tid]) : 0.f;
   const float qs = fmaxf(block_max(fabsf(qv), red), 1e-8f) / 16256.f;
-  if (tid < D) {
+  if (tid < DP) {  // lanes past D hold zeros
     const int x14 = __float2int_rn(qv / qs);
     const int hi = x14 >> 7;
     qsplit[0][tid] = static_cast<int8_t>(hi);
@@ -112,7 +145,7 @@ decode_q8_mxu_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
       const int j = base + g;
       int a = 0, c = 0;
       if (j < len) {
-        const int4 kr = *reinterpret_cast<const int4*>(kq + (row0 + j) * D + d0);
+        const int4 kr = load_row16<VEC>(kq + (row0 + j) * D, d0, D);
         a = __dp4a(kr.x, qh.x, a);
         a = __dp4a(kr.y, qh.y, a);
         a = __dp4a(kr.z, qh.z, a);
@@ -174,9 +207,7 @@ decode_q8_mxu_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
       unsigned r[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        r[i] = j0 + i < Smax
-                   ? *reinterpret_cast<const unsigned*>(vq + (row0 + j0 + i) * D + 4 * c)
-                   : 0u;
+        r[i] = j0 + i < Smax ? load_row4<VEC>(vq + (row0 + j0 + i) * D, 4 * c, D) : 0u;
       // t[d] = byte d of r[0..3]: head dim 4c + d of the four slots
       const unsigned lo01 = __byte_perm(r[0], r[1], 0x5140);
       const unsigned lo23 = __byte_perm(r[2], r[3], 0x5140);
@@ -206,53 +237,67 @@ decode_q8_mxu_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
   }
 }
 
+template <typename T, int LPS, bool VEC>
+int launch_lps(const T* q, const int8_t* kq, const __nv_bfloat16* ks, const int8_t* vq,
+               const __nv_bfloat16* vs, const int* lens, T* out, unsigned char* scratch, int B,
+               int H, int Smax, int D, float scale, cudaStream_t st) {
+  auto* kern = decode_q8_mxu_kernel<T, LPS, VEC>;
+  const size_t smem = scratch == nullptr ? 6 * (size_t)((Smax + 3) & ~3) : 0;
+  if (smem > 40 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kern<<<B * H, kThreads, smem, st>>>(q, kq, ks, vq, vs, lens, out, scratch, H, Smax, D, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int LPS>
+int launch_vec(const T* q, const int8_t* kq, const __nv_bfloat16* ks, const int8_t* vq,
+               const __nv_bfloat16* vs, const int* lens, T* out, unsigned char* scratch, int B,
+               int H, int Smax, int D, float scale, cudaStream_t st) {
+  if (D % 16 == 0)
+    return launch_lps<T, LPS, true>(q, kq, ks, vq, vs, lens, out, scratch, B, H, Smax, D, scale,
+                                    st);
+  return launch_lps<T, LPS, false>(q, kq, ks, vq, vs, lens, out, scratch, B, H, Smax, D, scale,
+                                   st);
+}
+
 template <typename T>
 int launch(const void* q, const void* kq, const void* ks, const void* vq, const void* vs,
-           const int* lens, void* out, int B, int H, int Smax, int D, float scale,
+           const int* lens, void* out, void* scratch, int B, int H, int Smax, int D, float scale,
            cudaStream_t st) {
-  const size_t smem = 6 * (size_t)((Smax + 3) & ~3);
   const T* qp = static_cast<const T*>(q);
   const int8_t* kqp = static_cast<const int8_t*>(kq);
   const int8_t* vqp = static_cast<const int8_t*>(vq);
   const __nv_bfloat16* ksp = static_cast<const __nv_bfloat16*>(ks);
   const __nv_bfloat16* vsp = static_cast<const __nv_bfloat16*>(vs);
   T* op = static_cast<T*>(out);
-  switch (D) {
-#define MMMM_MXU_CASE(DIM)                                                                \
-  case DIM: {                                                                             \
-    auto* kern = decode_q8_mxu_kernel<T, DIM / 16>;                                       \
-    if (smem > 40 * 1024) {                                                               \
-      const cudaError_t err = cudaFuncSetAttribute(                                       \
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));      \
-      if (err != cudaSuccess) return static_cast<int>(err);                               \
-    }                                                                                     \
-    kern<<<B * H, kThreads, smem, st>>>(qp, kqp, ksp, vqp, vsp, lens, op, H, Smax, scale); \
-    break;                                                                                \
-  }
-    MMMM_MXU_CASE(16)
-    MMMM_MXU_CASE(32)
-    MMMM_MXU_CASE(64)
-    MMMM_MXU_CASE(128)
-#undef MMMM_MXU_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  unsigned char* w = static_cast<unsigned char*>(scratch);
+  if (D <= 16) return launch_vec<T, 1>(qp, kqp, ksp, vqp, vsp, lens, op, w, B, H, Smax, D, scale, st);
+  if (D <= 32) return launch_vec<T, 2>(qp, kqp, ksp, vqp, vsp, lens, op, w, B, H, Smax, D, scale, st);
+  if (D <= 64) return launch_vec<T, 4>(qp, kqp, ksp, vqp, vsp, lens, op, w, B, H, Smax, D, scale, st);
+  return launch_vec<T, 8>(qp, kqp, ksp, vqp, vsp, lens, op, w, B, H, Smax, D, scale, st);
 }
 
 }  // namespace
 
 // q, out: (B, 1, H, D) bf16 or fp32; kq, vq: (B, H, Smax, D) int8; ks, vs:
-// (B, H, Smax, 1) bf16; kv_len (B,) int32. D is 16, 32, 64 or 128.
+// (B, H, Smax, 1) bf16; kv_len (B,) int32; 1 <= D <= 128. scratch: null, or
+// B * H * 6 * roundup(Smax, 4) bytes of scratch for the logits and split
+// weights where they do not fit in shared memory (ops/decode_kernel.py
+// q8_mxu_in_shared).
 extern "C" int mmmm_decode_attention_q8_mxu(const void* q, const void* kq, const void* ks,
                                             const void* vq, const void* vs,
-                                            const void* kv_len, void* out, int B, int H,
-                                            int Smax, int D, float scale, int is_bf16,
+                                            const void* kv_len, void* out, void* scratch, int B,
+                                            int H, int Smax, int D, float scale, int is_bf16,
                                             void* stream) {
-  if (B <= 0 || H <= 0 || Smax <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || H <= 0 || Smax <= 0 || D <= 0 || D > 128)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(kv_len);
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, kq, ks, vq, vs, lens, out, B, H, Smax, D, scale, st);
-  return launch<float>(q, kq, ks, vq, vs, lens, out, B, H, Smax, D, scale, st);
+    return launch<__nv_bfloat16>(q, kq, ks, vq, vs, lens, out, scratch, B, H, Smax, D, scale,
+                                 st);
+  return launch<float>(q, kq, ks, vq, vs, lens, out, scratch, B, H, Smax, D, scale, st);
 }

@@ -13,15 +13,44 @@
 // single-token step. That is the point of verifying a window: NQ tokens for
 // one pass over the cache.
 //
-// Design: one block per (sample, head), 8 warps; warp w walks the slots
-// w, w + 8, ... two at a time, below write_index + NQ. A lane holds 4
+// Two forms, picked by the wrapper (ops/decode_kernel.py window_mma_takes)
+// by dtype and head dim alone:
+//
+// decode_window_mma_kernel (bf16, D % 8 == 0; the serving path). The
+// products run on the tensor cores (mma.sync m16n8k16), transposed so that
+// the window's (up to) 8 queries are the n8 of the product: S^T = K Q^T
+// over a warp's tile of 32 keys, then O^T += V^T P^T, with P, rounded to
+// bf16 where the reference rounds its probabilities, turned into the B
+// operand in registers by movmatrix. The online softmax runs once per tile
+// on the accumulator fragment (exp2 domain, a query's 8 lanes reduce by
+// three shuffles). Bytes in flight: one block per (sample, head) with a
+// warp for each 32-slot tile of the cache (11 warps over run (b)'s 328
+// slots; 6 warps with a cp.async double buffer each where 12 tiles would
+// not cover the cache), every warp copying its whole tile of K and V (16 KB
+// at D = 128) with cp.async before it waits: at B = 4, H = 32 the 128
+// blocks ask for the whole window's cache at once. Rows past the window's
+// end and lanes past D are zero-filled. The warps' partial (m, l, O)
+// states merge in shared memory in warp order (two runs give the same
+// bits); a warp with no valid slot has m = -1e30 and l = 0 and adds
+// nothing. (A form that split each (sample, head) over the blocks of a
+// thread-block cluster, merged through distributed shared memory, was
+// slower at run (b)'s shape.)
+//
+// decode_window_kernel (fp32, and bf16 at D % 8 != 0, whose rows are not
+// 16-byte aligned): one block per (sample, head), 8 warps; warp w walks the
+// slots w, w + 8, ... two at a time, below write_index + NQ. A lane holds 4
 // head-dim values of every query and of the K/V row (scalar loads when D %
 // 4 != 0), so each K row feeds all NQ dot products (NQ butterfly
-// reductions per slot) and each V row all NQ accumulators. Each warp keeps NQ online-softmax states in fp32; the 8
-// partial states of each query are merged through shared memory. Masked
-// slots never enter a sum, so a query with no valid slot gives zeros, as
-// the TPU kernel does.
+// reductions per slot) and each V row all NQ accumulators. Each warp keeps
+// NQ online-softmax states in fp32; the 8 partial states of each query are
+// merged through shared memory.
+//
+// In both, masked slots never enter a sum, so a query with no valid slot
+// gives zeros, as the TPU kernel does.
 #include "decode_common.cuh"
+#include "hopper.cuh"
+
+namespace hop = mmmm::hop;
 
 namespace {
 
@@ -180,19 +209,293 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const int* w
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the tensor-core form ----------------------------------------------------------
+constexpr int kTileKeys = 32;  // keys a warp's tile
+constexpr int kMaxWarps = 16;
+
+// DP: D rounded up to the mma's k16. A tile row holds DP + 8 bf16, so that
+// ldmatrix's 8 rows fall in distinct banks.
+template <int DP>
+struct WinCfg {
+  static constexpr int kRow = DP + 8;
+  static constexpr int kTile = kTileKeys * kRow;   // K or V, elements
+  static constexpr int kWarpStage = 2 * kTile * 2;  // bytes of a warp's K and V tiles
+};
+
+// grid (B * H), W = blockDim.x / 32 warps, min(per, 2) * W *
+// WinCfg<DP>::kWarpStage bytes of dynamic shared memory. Warp w reads the
+// 32-key tiles w, w + W, ..., `per` of them. scale2 = scale * log2(e).
+//
+// The products run transposed, so that the window's 8 queries are the n8
+// of m16n8k16 and no lane is padding: S^T = K Q^T (K by ldmatrix as A, Q^T
+// as B straight from global memory), then O^T += V^T P^T (V by
+// ldmatrix.trans as A; P^T as B, the S^T fragment rounded to bf16 and
+// turned by movmatrix.trans). A lane holds the online-softmax state of
+// queries 2q and 2q + 1; a query's 32 keys lie over the 8 lanes of one q.
+template <int DP>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+decode_window_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ kc,
+                         const __nv_bfloat16* __restrict__ vc,
+                         const int* __restrict__ write_index, __nv_bfloat16* __restrict__ out,
+                         int NQ, int H, int Smax, int D, int per, float scale2) {
+  using C = WinCfg<DP>;
+  constexpr int KS = DP / 16;   // k16 steps of K Q^T; m16 tiles of O^T
+  constexpr int CH = DP / 8;    // 16-byte chunks of a tile row
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float fac[kMaxWarps][8];
+
+  const int nwarps = blockDim.x >> 5;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int qd = lane & 3;
+  const int t = write_index[b];
+  int len_end = t + NQ;  // query j sees slots < min(t + j + 1, Smax)
+  len_end = len_end < 0 ? 0 : (len_end > Smax ? Smax : len_end);
+  const __nv_bfloat16* kb = kc + (size_t)bh * Smax * D;
+  const __nv_bfloat16* vb = vc + (size_t)bh * Smax * D;
+  auto ktile = [&](int stage, int w) {
+    return reinterpret_cast<__nv_bfloat16*>(smem + (size_t)(stage * nwarps + w) * C::kWarpStage);
+  };
+
+  // this warp's tiles below the window's end
+  const int key_step = nwarps * kTileKeys;
+  const int key_base = warp * kTileKeys;
+  int ntiles = 0;
+  while (ntiles < per && key_base + ntiles * key_step < len_end) ++ntiles;
+
+  auto load_tile = [&](int i) {
+    const int key0 = key_base + i * key_step;
+    __nv_bfloat16* kt = ktile(i & 1, warp);
+    __nv_bfloat16* vt = kt + C::kTile;
+#pragma unroll
+    for (int c = lane; c < kTileKeys * CH; c += 32) {
+      const int r = c / CH;
+      const int d = 8 * (c - r * CH);
+      const bool ok = key0 + r < len_end && d < D;
+      const size_t off = ok ? (size_t)(key0 + r) * D + d : 0;
+      hop::cp_async16(kt + r * C::kRow + d, kb + off, ok ? 16 : 0);
+      hop::cp_async16(vt + r * C::kRow + d, vb + off, ok ? 16 : 0);
+    }
+    hop::cp_async_commit();
+  };
+  if (ntiles > 0) load_tile(0);
+
+  // Q^T as B fragments: (head dims 16 kk + 2 qd, + 1 (+ 8), query g)
+  uint32_t qb[KS][2];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int d = 16 * kk + 8 * hf + 2 * qd;
+      qb[kk][hf] = g < NQ && d < D ? *reinterpret_cast<const uint32_t*>(
+                                         q + (((size_t)b * NQ + g) * H + h) * D + d)
+                                   : 0u;
+    }
+  }
+
+  // queries 2 qd + e: running max, sum; O^T (head dims 16 md + g (+ 8), those queries)
+  float m[2] = {mmmm::kNegInf, mmmm::kNegInf}, l[2] = {0.f, 0.f};
+  float o[KS][4];
+#pragma unroll
+  for (int md = 0; md < KS; ++md) o[md][0] = o[md][1] = o[md][2] = o[md][3] = 0.f;
+
+  for (int i = 0; i < ntiles; ++i) {
+    if (i + 1 < ntiles) {
+      load_tile(i + 1);
+      hop::cp_async_wait<1>();
+    } else {
+      hop::cp_async_wait<0>();
+    }
+    __syncwarp();
+    const __nv_bfloat16* kt = ktile(i & 1, warp);
+    const uint32_t kaddr = hop::smem_u32(kt);
+    const uint32_t vaddr = hop::smem_u32(kt + C::kTile);
+    const int key0 = key_base + i * key_step;
+    const int mi = lane >> 3;
+
+    // S^T = K Q^T: 2 m16 tiles of keys
+    float s[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      s[mt][0] = s[mt][1] = s[mt][2] = s[mt][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t a[4];
+        const int key = 16 * mt + 8 * (mi & 1) + (lane & 7);
+        hop::ldsm_x4(a, kaddr + 2 * (key * C::kRow + 16 * kk + 8 * (mi >> 1)));
+        hop::mma_16816(s[mt], a[0], a[1], a[2], a[3], qb[kk][0], qb[kk][1]);
+      }
+    }
+
+    // online softmax of queries 2 qd, 2 qd + 1 over the tile (exp2 domain)
+    float mx[2] = {mmmm::kNegInf, mmmm::kNegInf};
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + 16 * mt + g + 8 * (e >> 1);
+        const int j = 2 * qd + (e & 1);
+        const bool ok = j < NQ && key < len_end && key < t + j + 1;
+        s[mt][e] = ok ? s[mt][e] * scale2 : mmmm::kNegInf;
+        mx[e & 1] = fmaxf(mx[e & 1], s[mt][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], off));
+      const float m_new = fmaxf(m[e], mx[e]);
+      alpha[e] = exp2f(m[e] - m_new);
+      m[e] = m_new;
+      l[e] *= alpha[e];
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[mt][e] = s[mt][e] > 0.5f * mmmm::kNegInf ? exp2f(s[mt][e] - m[e & 1]) : 0.f;
+        l[e & 1] += s[mt][e];
+      }
+#pragma unroll
+    for (int md = 0; md < KS; ++md)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[md][e] *= alpha[e & 1];
+
+    // O^T += V^T P^T over the tile's 2 k16 steps of keys
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const uint32_t b0 = hop::movmatrix_trans(hop::pack2(s[ks][0], s[ks][1]));
+      const uint32_t b1 = hop::movmatrix_trans(hop::pack2(s[ks][2], s[ks][3]));
+      const int key = 16 * ks + 8 * (mi >> 1) + (lane & 7);
+#pragma unroll
+      for (int md = 0; md < KS; ++md) {
+        uint32_t a[4];
+        hop::ldsm_x4_trans(a, vaddr + 2 * (key * C::kRow + 16 * md + 8 * (mi & 1)));
+        hop::mma_16816(o[md], a[0], a[1], a[2], a[3], b0, b1);
+      }
+    }
+    __syncwarp();  // the next load may overwrite this stage
+  }
+
+  // the warp's partial over its own stage-0 K tile: m[8], l[8], O[8][DP]
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) l[e] += __shfl_xor_sync(0xffffffffu, l[e], off);
+  float* part = reinterpret_cast<float*>(ktile(0, warp));
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int j = 2 * qd + e;
+    if (j < NQ) {
+      if (g == 0) {
+        part[j] = m[e];
+        part[8 + j] = l[e];
+      }
+#pragma unroll
+      for (int md = 0; md < KS; ++md) {
+        part[16 + j * DP + 16 * md + g] = o[md][e];
+        part[16 + j * DP + 16 * md + g + 8] = o[md][2 + e];
+      }
+    }
+  }
+  __syncthreads();
+
+  // the warps' partials merged in warp order
+  auto wpart = [&](int w) { return reinterpret_cast<const float*>(ktile(0, w)); };
+  if (threadIdx.x < NQ) {
+    const int j = threadIdx.x;
+    float mall = mmmm::kNegInf;
+    for (int w = 0; w < nwarps; ++w) mall = fmaxf(mall, wpart(w)[j]);
+    float lall = 0.f;
+    for (int w = 0; w < nwarps; ++w) {
+      fac[w][j] = exp2f(wpart(w)[j] - mall);
+      lall += wpart(w)[8 + j] * fac[w][j];
+    }
+    for (int w = 0; w < nwarps; ++w) fac[w][j] = lall > 0.f ? fac[w][j] / lall : 0.f;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < NQ * D; e += blockDim.x) {
+    const int j = e / D;
+    const int d = e - j * D;
+    float acc = 0.f;
+    for (int w = 0; w < nwarps; ++w) acc += fac[w][j] * wpart(w)[16 + j * DP + d];
+    out[(((size_t)b * NQ + j) * H + h) * D + d] = __float2bfloat16(acc);
+  }
+}
+
+template <int DP>
+int launch_mma(const void* q, const void* kc, const void* vc, const int* widx, void* out,
+               int B, int NQ, int H, int Smax, int D, float scale, int warps, int per,
+               cudaStream_t st) {
+  const size_t smem = (size_t)(per > 1 ? 2 : 1) * warps * WinCfg<DP>::kWarpStage;
+  auto* kern = decode_window_mma_kernel<DP>;
+  const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<B * H, warps * 32, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kc),
+      static_cast<const __nv_bfloat16*>(vc), widx, static_cast<__nv_bfloat16*>(out), NQ, H, Smax,
+      D, per, scale * mmmm::kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_window_mma(const void* q, const void* kc, const void* vc, const int* widx, void* out,
+                      int B, int NQ, int H, int Smax, int D, float scale, int warps, int per,
+                      cudaStream_t st) {
+  if (D % 8 || warps < 1 || warps > kMaxWarps || per < 1 ||
+      (long long)warps * per * kTileKeys < Smax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch ((D + 15) / 16) {
+#define MMMM_WINDOW_MMA(KS)                                                                  \
+  case KS:                                                                                   \
+    return launch_mma<16 * KS>(q, kc, vc, widx, out, B, NQ, H, Smax, D, scale, warps, per, st);
+    MMMM_WINDOW_MMA(1)
+    MMMM_WINDOW_MMA(2)
+    MMMM_WINDOW_MMA(3)
+    MMMM_WINDOW_MMA(4)
+    MMMM_WINDOW_MMA(5)
+    MMMM_WINDOW_MMA(6)
+    MMMM_WINDOW_MMA(7)
+    MMMM_WINDOW_MMA(8)
+#undef MMMM_WINDOW_MMA
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // q, out: (B, NQ, H, D); k_cache, v_cache: (B, H, Smax, D); write_index (B,)
-// int32. 1 <= NQ <= 8, D <= 128.
+// int32. 1 <= NQ <= 8, D <= 128. warps > 0 takes the tensor-core form (bf16,
+// D % 8 == 0) with blocks of `warps` warps that read `per` 32-slot tiles
+// each (ops/decode_kernel.py window_warps); warps = 0 the CUDA-core form.
 extern "C" int mmmm_decode_attention_window(const void* q, const void* k_cache,
                                             const void* v_cache, const void* write_index,
                                             void* out, int B, int NQ, int H, int Smax, int D,
-                                            float scale, int is_bf16, void* stream) {
+                                            float scale, int is_bf16, int warps, int per,
+                                            void* stream) {
   if (B <= 0 || H <= 0 || Smax <= 0 || D <= 0 || D > 128 || NQ < 1 || NQ > 8)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* widx = static_cast<const int*>(write_index);
+  if (warps > 0) {
+    if (!is_bf16) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_window_mma(q, k_cache, v_cache, widx, out, B, NQ, H, Smax, D, scale, warps,
+                             per, st);
+  }
   if (is_bf16)
     return launch<__nv_bfloat16>(q, k_cache, v_cache, widx, out, B, NQ, H, Smax, D, scale, st);
   return launch<float>(q, k_cache, v_cache, widx, out, B, NQ, H, Smax, D, scale, st);
+}
+
+// Dynamic shared memory (bytes) of a K6 tensor-core launch at head dim DP (a
+// multiple of 16) with `warps` warps of `per` tiles each.
+extern "C" int mmmm_decode_window_smem(int dp, int warps, int per) {
+  return (per > 1 ? 2 : 1) * warps * 2 * kTileKeys * (dp + 8) * 2;
 }

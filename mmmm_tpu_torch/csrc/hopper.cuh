@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of the redesigned kernels (K3, K4, K7,
-// K11mma): mbarriers, TMA tensor copies, the cp.async zero-filling copy,
-// and the warpgroup product `wgmma.mma_async`, all as inline PTX (CuTe's
-// headers would make every build take minutes).
+// Hopper (sm_90a) building blocks of the redesigned kernels (K3, K4, K6,
+// K7, K11, K11mma): mbarriers, TMA tensor copies, the cp.async zero-filling
+// copy, ldmatrix and `mma.sync`, the warpgroup product `wgmma.mma_async`,
+// all as inline PTX (CuTe's headers would make every build take minutes),
+// and the launch of a kernel in thread-block clusters.
 //
 // Shared-memory operand layouts that `wgmma` reads through a descriptor, in
 // bf16 with the 128-byte swizzle (the layout a TMA copy with
@@ -91,6 +92,48 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "r"(c3)
       : "memory");
 }
+// ---- ldmatrix and mma.sync (the decode kernels K6 and K11's GEMV) --------------------
+// Four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 give the row
+// addresses of matrix i. Thread t receives, of each matrix, row t / 4 and
+// columns 2 (t % 4), + 1 (.trans: of the transposed matrix).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// d += A B over m16n8k16 in bf16 with fp32 sums. Thread t, g = t / 4, q = t
+// % 4: a = {(g, 2q..2q+1), (g + 8, 2q..), (g, 2q + 8..), (g + 8, 2q + 8..)}
+// (row, k); b0 = (k 2q..2q+1, column g), b1 = (k 2q + 8.., g); d = {(g, 2q),
+// (g, 2q + 1), (g + 8, 2q), (g + 8, 2q + 1)}. A pair's lower k sits in the
+// low 16 bits.
+__device__ __forceinline__ void mma_16816(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+// The transpose of an 8x8 b16 matrix held one register a thread in the
+// fragment layout above (thread t: row t / 4, columns 2 (t % 4), + 1).
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t r;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(r) : "r"(x));
+  return r;
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---- wgmma ---------------------------------------------------------------------
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -249,6 +292,27 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
   if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, db, acc);
   else wgmma_rs_n128<TB>(d, a, db, acc);
+}
+
+// ---- cluster launch (host) -------------------------------------------------------
+// Launches `kernel` over `grid` with thread-block clusters of `cluster` blocks
+// along x (gridDim.x a multiple of it; at most 8, the portable size).
+template <typename... KArgs, typename... Args>
+inline cudaError_t launch_cluster(void (*kernel)(KArgs...), dim3 grid, dim3 block, size_t smem,
+                                  cudaStream_t st, int cluster, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
 }
 
 // ---- tensor maps (host) -------------------------------------------------------

@@ -14,14 +14,36 @@
 //
 // Design. The dequantization happens after the read, in registers, which
 // is the point of the TPU kernel too.
-//  - mmmm_w4_gemv (CUDA cores, any M, bf16 or fp32 x): a block of 8 warps
-//    owns 512 columns and one scale group of packed rows; each lane reads
-//    16 packed bytes (16 columns) of a row with one 16-byte load,
+//  - mmmm_w4_gemv, bf16 x, M <= 16 (the decode rows; w4_gemv_mma_kernel):
+//    the transposed product y^T = W^T x^T on the tensor cores (mma.sync
+//    m16n8k16), one launch. Each warp stages an iteration's packed bytes
+//    (32 packed rows x 64 columns) and the matching columns of x in shared
+//    memory with cp.async, the next iteration's in flight while this one
+//    computes. A lane reads 8 packed bytes (8 weight columns) of two
+//    consecutive packed rows for each of the iteration's 4 k-steps (8
+//    packed rows each); a byte_perm pairs the two rows' bytes of 2
+//    columns, so each of the 4 n-tiles of a k-step gets its A fragment (2
+//    columns x 4 k: both rows' low and high nibbles) with no shuffle. The
+//    weight is dequantized exactly as w4_matmul_xla does (nibble * scale
+//    in fp32, rounded to bf16 by the pair convert: dequant_pair, which
+//    K11mma shares); x rows
+//    are the mma's columns (B). The dequantization's issue, not the bytes,
+//    sets the pace, so the kernel is built for many warps: at most 80
+//    registers, three blocks of 8 warps an SM. A warp owns 64 columns and a
+//    balanced share of the K steps; the 8 warps of a block and the 2
+//    blocks of a thread-block cluster (ops/w4_matmul.py gemv_cluster)
+//    split K, and their fp32 partials are summed in a fixed order, the
+//    warps' in shared memory, the two blocks' through distributed shared
+//    memory, and written in bf16. No workspace; two runs give the same
+//    bits.
+//  - mmmm_w4_gemv, fp32 x (w4_gemv_kernel, CUDA cores, any M): a block of 8
+//    warps owns 512 columns and one scale group of packed rows; each lane
+//    reads 16 packed bytes (16 columns) of a row with one 16-byte load,
 //    sign-extends both nibbles, scales them with the two scales it loaded
 //    once and feeds every x row of the block (kRows) from shared memory.
-//    The 8
-//    warps' sums meet in shared memory; each group's partial product goes
-//    to a workspace and a second kernel sums the groups in a fixed order.
+//    The 8 warps' sums meet in shared memory; each group's partial product
+//    goes to a workspace and a second kernel sums the groups in a fixed
+//    order (two launches).
 //  - mmmm_w4_mma (K11mma; bf16 x, M > 16): warp-specialized wgmma on
 //    the transposed product. A producer warp keeps a TMA ring of the x
 //    tiles and the packed tiles in flight; two consumer warpgroups load
@@ -29,9 +51,12 @@
 //    A operand (weight columns as rows), run wgmma m64n128k16 against the
 //    x tile in shared memory, and store bf16 with 16-byte stores. Scales
 //    are read once per scale group.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
+namespace cg = cooperative_groups;
 namespace hop = mmmm::hop;
 
 namespace {
@@ -40,11 +65,6 @@ constexpr int kRows = 4;      // x rows per GEMV block
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kCols = 512;    // columns per GEMV block (32 lanes x 16)
-
-__device__ __forceinline__ float weight_as(float w, float) { return w; }
-__device__ __forceinline__ float weight_as(float w, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(w));
-}
 
 // the signed low and high nibbles of byte e (0..15) of a 16-byte load
 __device__ __forceinline__ void nibbles(const uint4& raw, int e, int& lo, int& hi) {
@@ -68,9 +88,8 @@ __device__ __forceinline__ void load16f(const float* p, float out[16]) {
 // grid (ceil(N / kCols), K / 2 / group, ceil(M / kRows)); dynamic shared
 // memory (kRows * 2 * group + kWarps * kCols) floats.
 // part: (K / 2 / group, M, N) fp32, the partial product of each group.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-w4_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q4,
+w4_gemv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ q4,
                const float* __restrict__ s4, float* __restrict__ part, int M, int K, int N,
                int group) {
   extern __shared__ __align__(16) float smem[];
@@ -88,7 +107,7 @@ w4_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q4,
     const int m = i / (2 * group);
     const int r = i - m * 2 * group;
     const int col = r < group ? p0 + r : half + p0 + (r - group);
-    xs[i] = m0 + m < M ? mmmm::to_f(x[(size_t)(m0 + m) * K + col]) : 0.f;
+    xs[i] = m0 + m < M ? x[(size_t)(m0 + m) * K + col] : 0.f;
   }
   __syncthreads();
 
@@ -113,8 +132,8 @@ w4_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q4,
       for (int e = 0; e < 16; ++e) {
         int lo, hi;
         nibbles(raw, e, lo, hi);
-        const float wl = weight_as(static_cast<float>(lo) * slo[e], T());
-        const float wh = weight_as(static_cast<float>(hi) * shi[e], T());
+        const float wl = static_cast<float>(lo) * slo[e];
+        const float wh = static_cast<float>(hi) * shi[e];
 #pragma unroll
         for (int m = 0; m < kRows; ++m) acc[m][e] = fmaf(xh[m], wh, fmaf(xl[m], wl, acc[m][e]));
       }
@@ -142,36 +161,238 @@ w4_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q4,
   }
 }
 
-template <typename T>
-__global__ void w4_sum_groups_kernel(const float* __restrict__ part, T* __restrict__ out,
+__global__ void w4_sum_groups_kernel(const float* __restrict__ part, float* __restrict__ out,
                                      int groups, int MN) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= MN) return;
   float s = 0.f;
   for (int g = 0; g < groups; ++g) s += part[(size_t)g * MN + i];
-  out[i] = mmmm::from_f<T>(s);
+  out[i] = s;
 }
 
-template <typename T>
-int launch_gemv(const void* x, const void* q4, const void* s4, void* out, void* part, int M,
-                int K, int N, int group, cudaStream_t st) {
+int launch_gemv_f32(const void* x, const void* q4, const void* s4, void* out, void* part, int M,
+                    int K, int N, int group, cudaStream_t st) {
   const int groups = K / 2 / group;
   const size_t smem = sizeof(float) * (kRows * 2 * group + kWarps * kCols);
   const dim3 grid((N + kCols - 1) / kCols, groups, (M + kRows - 1) / kRows);
-  auto* kern = w4_gemv_kernel<T>;
+  auto* kern = w4_gemv_kernel;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kern<<<grid, kThreads, smem, st>>>(static_cast<const T*>(x), static_cast<const uint8_t*>(q4),
+  kern<<<grid, kThreads, smem, st>>>(static_cast<const float*>(x), static_cast<const uint8_t*>(q4),
                                      static_cast<const float*>(s4), static_cast<float*>(part),
                                      M, K, N, group);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int mn = M * N;
-  w4_sum_groups_kernel<T><<<(mn + 255) / 256, 256, 0, st>>>(static_cast<const float*>(part),
-                                                            static_cast<T*>(out), groups, mn);
+  w4_sum_groups_kernel<<<(mn + 255) / 256, 256, 0, st>>>(static_cast<const float*>(part),
+                                                         static_cast<float*>(out), groups, mn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- K11's decode rows: mma.sync over weights dequantized in registers ------------
+constexpr int kGvWarps = 8;
+constexpr int kGvThreads = kGvWarps * 32;
+constexpr int kGvIter = 32;    // packed rows an iteration: 4 k-steps of 8
+
+constexpr int kGvLane = 8;     // weight columns of a lane (8 bytes of a packed row)
+constexpr int kGvCols = 8 * kGvLane;  // weight columns of a warp and of a block
+
+// A register of packed bytes (k, n), (k, n + 1), (k + 1, n), (k + 1, n + 1)
+// -> the A fragment's two registers (rows n and n + 1, k and k + 1) of half
+// hf: W = nibble * scale in fp32, rounded to bf16 once. A nibble becomes a
+// float exactly through its bits: 0x4B0000xx is 2^23 + xx.
+__device__ __forceinline__ void dequant_pair(uint32_t r, int hf, float se, float so, uint32_t& a_e,
+                                             uint32_t& a_o) {
+  const uint32_t nib = ((r >> (4 * hf)) & 0x0F0F0F0Fu) ^ 0x08080808u;  // nibble + 8, a byte each
+  float f[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    f[b] = (__uint_as_float(__byte_perm(nib, 0x4B000000u, 0x7540u | b)) - 8388616.f) *
+           ((b & 1) ? so : se);
+  a_e = hop::pack2(f[0], f[2]);
+  a_o = hop::pack2(f[1], f[3]);
+}
+
+// Each warp stages its iterations' packed bytes (32 rows x 64 columns) and
+// x's matching columns in shared memory with cp.async, two iterations in
+// flight, so that the next iteration's loads overlap this one's
+// dequantization. Staged rows are padded to 80 bytes, so that the lanes'
+// 8-byte (and x's 4-byte) reads fall in distinct banks. After the loop a
+// warp's fp32 partial takes the place of its ring.
+constexpr int kRgRow = 80;                  // bytes of a staged row (64 used)
+constexpr int kRgW = kGvIter * kRgRow;      // the packed tile of an iteration
+template <int MT>
+struct RingCfg {
+  static constexpr int kSlot = kRgW + 2 * 8 * MT * kRgRow;  // + x rows (2 halves each)
+  static constexpr int kStages = 2;
+  static constexpr size_t kSmem =
+      (size_t)kGvWarps * kStages * kSlot + sizeof(float) * 8 * MT * kGvCols;  // + block sum
+};
+
+// grid (cluster, ceil(N / 64)), clusters of `cluster` blocks along x, 256
+// threads, RingCfg<MT>::kSmem bytes. MT n8 blocks of x rows: M <= 8 MT. At
+// M <= 8 at most 80 registers: three blocks (24 warps) an SM.
+template <int MT>
+__global__ void __launch_bounds__(kGvThreads, MT == 1 ? 3 : 2)
+w4_gemv_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q4,
+                    const float* __restrict__ s4, __nv_bfloat16* __restrict__ out, int M, int K,
+                    int N, int group) {
+  using C = RingCfg<MT>;
+  constexpr int LC = kGvLane;
+  constexpr int COLS = kGvCols;
+  constexpr int TT = LC / 2;
+  static_assert(8 * MT * COLS * sizeof(float) <= C::kStages * C::kSlot, "partial fits the ring");
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char rsm[];
+  const int rank = blockIdx.x;
+  const int nclu = gridDim.x;
+  const int n0 = blockIdx.y * COLS;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int qd = lane & 3;
+  unsigned char* ring = rsm + (size_t)warp * C::kStages * C::kSlot;
+  float* bsum = reinterpret_cast<float*>(rsm + (size_t)kGvWarps * C::kStages * C::kSlot);
+  const int half = K / 2;
+  const int iters = half / kGvIter;
+  const int wi = rank * kGvWarps + warp;
+  const int nw = nclu * kGvWarps;
+  const int it0 = (int)((long long)iters * wi / nw);
+  const int nit = (int)((long long)iters * (wi + 1) / nw) - it0;
+  const int col = n0 + LC * g;
+  const bool col_ok = col < N;
+
+  // iteration i into slot i % 2: 128 16-byte pieces of packed rows (4 a lane),
+  // then 8 pieces of each x row m < M (both halves' 32 columns)
+  auto prefetch = [&](int i) {
+    if (i < nit) {
+      const int p = (it0 + i) * kGvIter;
+      unsigned char* slot = ring + (i % C::kStages) * C::kSlot;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = lane + 32 * j;  // piece c: row c / 4, 16-byte chunk c % 4
+        const int r = c >> 2, ch = c & 3;
+        const bool ok = n0 + 16 * ch < N;
+        hop::cp_async16(slot + r * kRgRow + 16 * ch,
+                        ok ? q4 + (size_t)(p + r) * N + n0 + 16 * ch : q4, ok ? 16 : 0);
+      }
+      for (int c = lane; c < 8 * M; c += 32) {
+        const int m = c >> 3, hf = (c >> 2) & 1, ch = c & 3;
+        hop::cp_async16(slot + kRgW + (2 * m + hf) * kRgRow + 16 * ch,
+                        x + (size_t)m * K + hf * half + p + 8 * ch, 16);
+      }
+    }
+    hop::cp_async_commit();  // an empty group past the end keeps the count
+  };
+  prefetch(0);
+  prefetch(1);
+
+  float acc[MT][TT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int tt = 0; tt < TT; ++tt)
+      acc[mt][tt][0] = acc[mt][tt][1] = acc[mt][tt][2] = acc[mt][tt][3] = 0.f;
+  float sl[LC], sh[LC];
+  int cur_grp = -1;
+
+  for (int i = 0; i < nit; ++i) {
+    const int p = (it0 + i) * kGvIter;
+    const int grp = p / group;  // group % 32 == 0: an iteration lies in one group
+    if (grp != cur_grp) {       // issued before the wait, so the two overlap
+      cur_grp = grp;
+#pragma unroll
+      for (int c = 0; c < LC / 4; ++c) {
+        const float4 a = col_ok ? *reinterpret_cast<const float4*>(s4 + (size_t)grp * N + col + 4 * c)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 z = col_ok ? *reinterpret_cast<const float4*>(
+                                      s4 + (size_t)(half / group + grp) * N + col + 4 * c)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+        sl[4 * c] = a.x; sl[4 * c + 1] = a.y; sl[4 * c + 2] = a.z; sl[4 * c + 3] = a.w;
+        sh[4 * c] = z.x; sh[4 * c + 1] = z.y; sh[4 * c + 2] = z.z; sh[4 * c + 3] = z.w;
+      }
+    }
+    hop::cp_async_wait<C::kStages - 1>();
+    __syncwarp();  // the pieces other lanes copied
+    const unsigned char* slot = ring + (i % C::kStages) * C::kSlot;
+#pragma unroll
+    for (int st = 0; st < 4; ++st) {
+      const int r = 8 * st + 2 * qd;  // row of the slot
+      uint32_t xb[MT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int m = 8 * mt + g;
+        const unsigned char* xr = slot + kRgW + 2 * m * kRgRow + 2 * r;
+        xb[mt][0] = m < M ? *reinterpret_cast<const uint32_t*>(xr) : 0u;
+        xb[mt][1] = m < M ? *reinterpret_cast<const uint32_t*>(xr + kRgRow) : 0u;
+      }
+      const uint2 r0 = *reinterpret_cast<const uint2*>(slot + r * kRgRow + 8 * g);
+      const uint2 r1 = *reinterpret_cast<const uint2*>(slot + (r + 1) * kRgRow + 8 * g);
+      const uint32_t w0[2] = {r0.x, r0.y};
+      const uint32_t w1[2] = {r1.x, r1.y};
+#pragma unroll
+      for (int tt = 0; tt < TT; ++tt) {
+        // bytes (k, n), (k, n + 1), (k + 1, n), (k + 1, n + 1), n = 2 tt of the lane's 8
+        const uint32_t v = __byte_perm(w0[tt >> 1], w1[tt >> 1], (tt & 1) ? 0x7632u : 0x5410u);
+        uint32_t a0, a1, a2, a3;
+        dequant_pair(v, 0, sl[2 * tt], sl[2 * tt + 1], a0, a1);
+        dequant_pair(v, 1, sh[2 * tt], sh[2 * tt + 1], a2, a3);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          hop::mma_16816(acc[mt][tt], a0, a1, a2, a3, xb[mt][0], xb[mt][1]);
+      }
+    }
+    __syncwarp();  // every lane has read the slot before it is refilled
+    prefetch(i + C::kStages);
+  }
+  hop::cp_async_wait<0>();
+  __syncwarp();
+
+  float* red = reinterpret_cast<float*>(ring);  // this warp's [8 MT][64] partial
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int tt = 0; tt < TT; ++tt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[(8 * mt + 2 * qd + (e & 1)) * COLS + LC * g + 2 * tt + (e >> 1)] = acc[mt][tt][e];
+  __syncthreads();
+  for (int i = threadIdx.x; i < 8 * MT * COLS; i += kGvThreads) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kGvWarps; ++w)
+      sum += reinterpret_cast<const float*>(rsm + (size_t)w * C::kStages * C::kSlot)[i];
+    bsum[i] = sum;
+  }
+  cluster.sync();
+  for (int i = rank * kGvThreads + threadIdx.x; i < M * COLS; i += nclu * kGvThreads) {
+    const int m = i / COLS;
+    const int c = i - m * COLS;
+    float sum = 0.f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (r < nclu) sum += cluster.map_shared_rank(bsum, r)[i];
+    if (n0 + c < N) out[(size_t)m * N + n0 + c] = __float2bfloat16(sum);
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+template <int MT>
+int launch_gemv_mma(const void* x, const void* q4, const void* s4, void* out, int M, int K,
+                    int N, int group, int cluster, cudaStream_t st) {
+  constexpr size_t smem = RingCfg<MT>::kSmem;
+  auto* kern = w4_gemv_mma_kernel<MT>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = hop::launch_cluster(kern, dim3(cluster, (N + kGvCols - 1) / kGvCols), dim3(kGvThreads),
+                            smem, st, cluster, static_cast<const __nv_bfloat16*>(x),
+                            static_cast<const uint8_t*>(q4), static_cast<const float*>(s4),
+                            static_cast<__nv_bfloat16*>(out), M, K, N, group);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -215,28 +436,6 @@ struct MmaCfg {
   static constexpr uint32_t kTx = 2 * kXHalfBytes + kQBytes;
   static constexpr size_t kSmem = kStages * kTx + 2 * kStages * sizeof(uint64_t) + 1024;
 };
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// A register of packed bytes (k, n), (k, n + 1), (k + 1, n), (k + 1, n + 1)
-// -> the A fragment's two registers (rows n and n + 1, k and k + 1) of half
-// hf: W = nibble * scale in fp32, rounded to bf16 once. A nibble becomes a
-// float exactly through its bits: 0x4B0000xx is 2^23 + xx.
-__device__ __forceinline__ void dequant_pair(uint32_t r, int hf, float se, float so, uint32_t& a_e,
-                                             uint32_t& a_o) {
-  const uint32_t nib = ((r >> (4 * hf)) & 0x0F0F0F0Fu) ^ 0x08080808u;  // nibble + 8, a byte each
-  float f[4];
-#pragma unroll
-  for (int b = 0; b < 4; ++b)
-    f[b] = (__uint_as_float(__byte_perm(nib, 0x4B000000u, 0x7540u | b)) - 8388616.f) *
-           ((b & 1) ? so : se);
-  a_e = hop::pack2(f[0], f[2]);
-  a_o = hop::pack2(f[1], f[3]);
-}
 
 __device__ __forceinline__ uint32_t pick4(uint32_t v0, uint32_t v1, uint32_t v2, uint32_t v3,
                                           int i) {
@@ -344,7 +543,7 @@ w4_mma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ 
         for (int pass = 0; pass < 2; ++pass) {  // packed rows 32 pass .. + 31
           const int k = 32 * pass + 8 * (lane >> 3) + (lane & 7);
           uint32_t r[4];  // r[j]: rows 32 pass + 8 j + 2 qd, + 1; columns 2g, 2g + 1
-          ldsm_x4_trans(r, qbase + hop::sw128(k, chunk));
+          hop::ldsm_x4_trans(r, qbase + hop::sw128(k, chunk));
 #pragma unroll
           for (int sp = 0; sp < 2; ++sp) {
             const int kk = 2 * pass + sp;
@@ -441,16 +640,25 @@ int launch_mma(const void* x, const void* q4, const void* s4, void* out, int M, 
 }  // namespace
 
 // x (M, K) bf16 or fp32; q4 (K/2, N) int8; s4 (K/group, N) fp32; out (M, N)
-// in x's dtype; part (K/2/group, M, N) fp32 scratch. group % 32 == 0,
-// group <= 512, N % 16 == 0.
+// in x's dtype. group % 32 == 0, group <= 512, N % 16 == 0. bf16: M <= 16,
+// `cluster` (1 or 2: ops/w4_matmul.py gemv_cluster) blocks split K,
+// part unused; fp32: part is (K/2/group, M, N) fp32 scratch.
 extern "C" int mmmm_w4_gemv(const void* x, const void* q4, const void* s4, void* out,
                             void* part, int M, int K, int N, int group, int is_bf16,
-                            void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || group <= 0 || (K / 2) % group || N % 16)
+                            int cluster, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || group <= 0 || group % 32 || (K / 2) % group || N % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return launch_gemv<__nv_bfloat16>(x, q4, s4, out, part, M, K, N, group, st);
-  return launch_gemv<float>(x, q4, s4, out, part, M, K, N, group, st);
+  if (!is_bf16) return launch_gemv_f32(x, q4, s4, out, part, M, K, N, group, st);
+  if (M > 16 || (cluster != 1 && cluster != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return M <= 8 ? launch_gemv_mma<1>(x, q4, s4, out, M, K, N, group, cluster, st)
+                : launch_gemv_mma<2>(x, q4, s4, out, M, K, N, group, cluster, st);
+}
+
+// Dynamic shared memory (bytes) of a K11 decode-row launch at M rows.
+extern "C" int mmmm_w4_gemv_smem(int m) {
+  return static_cast<int>(m <= 8 ? RingCfg<1>::kSmem : RingCfg<2>::kSmem);
 }
 
 // x (M, K) bf16; q4 (K/2, N) int8; s4 (K/group, N) fp32; out (M, N) bf16.

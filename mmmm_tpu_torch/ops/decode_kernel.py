@@ -4,7 +4,9 @@
   - K1 ``decode_attention`` (``decode_attention_pallas``, full and ragged);
   - K2 ``kv_append`` (``kv_append_pallas``);
   - K5 ``kv_append_multi`` (``kv_append_pallas_multi``): a verify window;
-  - K6 ``decode_attention_window`` (``decode_attention_pallas_window``);
+  - K6 ``decode_attention_window`` (``decode_attention_pallas_window``):
+    tensor cores in bf16 (``window_mma_takes``, ``window_warps``), CUDA
+    cores in fp32;
   - K8 ``kv_append_q8`` (``kv_append_pallas_q8``): the int8 cache;
   - K9 ``decode_attention_q8`` (``decode_attention_pallas_q8``, full and
     ragged);
@@ -51,7 +53,7 @@ K5 = _cuda.register(_cuda.Kernel(
 K6 = _cuda.register(_cuda.Kernel(
     "K6", "mmmm_decode_attention_window",
     [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.I, _cuda.I,
-     _cuda.I, _cuda.F, _cuda.I, _cuda.P],
+     _cuda.I, _cuda.F, _cuda.I, _cuda.I, _cuda.I, _cuda.P],
     source="mmmm_tpu_torch/csrc/decode_window.cu",
     replaces="mmmm_tpu/ops/decode_kernel.py:437 decode_attention_pallas_window "
              "(pallas_call :459)",
@@ -71,7 +73,7 @@ K9 = _cuda.register(_cuda.Kernel(
 ))
 K10 = _cuda.register(_cuda.Kernel(
     "K10", "mmmm_decode_attention_q8_mxu",
-    [_cuda.P] * 7 + [_cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.I, _cuda.P],
+    [_cuda.P] * 8 + [_cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.I, _cuda.P],
     source="mmmm_tpu_torch/csrc/decode_q8_mxu.cu",
     replaces="mmmm_tpu/ops/decode_kernel.py:604 decode_attention_pallas_q8_mxu "
              "(pallas_call :624; _decode_kernel_q8_mxu :542, _q14_split :528)",
@@ -79,7 +81,9 @@ K10 = _cuda.register(_cuda.Kernel(
 # the reference's VMEM budget for a full (head chunk, Smax) read
 # (decode_kernel.py:776); it also gates the split-int8 read (:356)
 FULL_READ_BUDGET = 12 * 1024 * 1024
-Q8_MXU_MAX_SMAX = 32768  # the kernel keeps 6 bytes a slot in shared memory
+# K10 keeps 6 bytes a slot (fp32 logit, int8 w_hi and w_lo) in shared memory
+# up to this many slots, in a global workspace above
+Q8_MXU_SHARED_SLOTS = 32768
 
 
 def dus_rows(cache, new, write_index):
@@ -214,6 +218,30 @@ def decode_attention_window_plain(q, k_cache, v_cache, write_index,
     return out.transpose(1, 2).to(q.dtype)  # (B, K, H, D)
 
 
+WINDOW_TILE_KEYS = 32  # K6's tensor-core form: the slots of a warp's tile
+WINDOW_ONE_PASS_TILES = 12  # up to this many tiles, a warp each, all copied at once
+WINDOW_RING_WARPS = 6  # above: 6 warps, each with a double buffer of tiles
+
+
+def window_mma_takes(dtype: torch.dtype, d: int) -> bool:
+    """Whether K6 runs its tensor-core form (bf16 rows that are whole 16-byte
+    pieces); otherwise its CUDA-core form (fp32, or D % 8 != 0)."""
+    return dtype == torch.bfloat16 and d % 8 == 0 and 0 < d <= 128
+
+
+def window_warps(smax: int) -> tuple[int, int]:
+    """(warps of a block, 32-slot tiles a warp) of K6's tensor-core form over
+    a cache of ``smax`` slots, one block per (sample, head): a warp for each
+    tile while 12 tiles cover the cache (at D = 128 their K and V fill 204
+    KiB of shared memory), else 6 warps that walk the tiles with a double
+    buffer. Run (b) at the flagship (Smax = 192 + 128 + 8 = 328): 11 warps
+    of one tile."""
+    tiles = -(-smax // WINDOW_TILE_KEYS)
+    if tiles <= WINDOW_ONE_PASS_TILES:
+        return tiles, 1
+    return WINDOW_RING_WARPS, -(-tiles // WINDOW_RING_WARPS)
+
+
 def decode_attention_window(q, k_cache, v_cache, write_index, scale: float | None = None):
     """Verify-window attention: q (B, K, H, D) with 1 <= K <= 8, caches
     (B, H, Smax, D) that already hold the window, write_index (B,) the
@@ -236,10 +264,11 @@ def decode_attention_window(q, k_cache, v_cache, write_index, scale: float | Non
                          f"got {tuple(write_index.shape)}")
     if not 0 < d <= 128:
         raise ValueError(f"decode_attention_window: head dim {d} must be in 1..128")
+    warps, per = window_warps(smax) if window_mma_takes(q.dtype, d) else (0, 0)
     out = torch.empty_like(q)
     K6(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), write_index.data_ptr(),
        out.data_ptr(), b, nq, h, smax, d, float(scale), int(q.dtype == torch.bfloat16),
-       _cuda.stream_of(q))
+       warps, per, _cuda.stream_of(q))
     return out
 
 
@@ -301,6 +330,12 @@ def _q8_mxu_eligible(h: int, smax: int, d: int) -> bool:
     (``8 * chunk * Smax * D <= 12 MiB``, Smax <= 1536 at H=32, D=128)."""
     chunk = 8 if h % 8 == 0 else (4 if h % 4 == 0 else 1)
     return 8 * chunk * smax * d <= FULL_READ_BUDGET
+
+
+def q8_mxu_in_shared(smax: int) -> bool:
+    """Whether K10 keeps a block's logits and split weights in shared memory
+    (else in a workspace the wrapper allocates)."""
+    return smax <= Q8_MXU_SHARED_SLOTS
 
 
 def decode_attention_q8(q, kq, ks, vq, vs, kv_len, scale: float | None = None, *,
@@ -401,11 +436,12 @@ def decode_attention_q8_mxu(q, kq, ks, vq, vs, kv_len, scale: float | None = Non
     if kv_len.shape != (b,):
         raise ValueError(f"decode_attention_q8_mxu: kv_len must be ({b},), "
                          f"got {tuple(kv_len.shape)}")
-    if d not in (16, 32, 64, 128) or smax > Q8_MXU_MAX_SMAX:
-        raise ValueError(f"decode_attention_q8_mxu: head dim {d} must be 16, 32, 64 or 128 "
-                         f"and Smax {smax} at most {Q8_MXU_MAX_SMAX}")
+    if not 0 < d <= 128:
+        raise ValueError(f"decode_attention_q8_mxu: head dim {d} must be in 1..128")
     out = torch.empty_like(q)
+    ws = None if q8_mxu_in_shared(smax) else torch.empty(
+        b * h * 6 * (-(-smax // 4) * 4), dtype=torch.uint8, device=q.device)
     K10(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
-        kv_len.data_ptr(), out.data_ptr(), b, h, smax, d, float(scale),
-        int(q.dtype == torch.bfloat16), _cuda.stream_of(q))
+        kv_len.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(), b, h, smax,
+        d, float(scale), int(q.dtype == torch.bfloat16), _cuda.stream_of(q))
     return out

@@ -11,12 +11,15 @@ rows covers one scale group in each half. Scales are one fp32 value per
 reference runs off the TPU: the weight ``W[k, n] = nibble(k, n) *
 s4[k // group, n]`` rounded to x's dtype, ``y = x @ W`` with fp32 sums,
 the result in x's dtype. It takes the plain version for CPU tensors and
-launches a kernel of ``csrc/w4_matmul.cu`` for CUDA tensors: the CUDA-core
-GEMV kernel (``K11``) for fp32 x and for at most 16 rows, the tensor-core
-kernel (``K11mma``: wgmma fed by a TMA ring) for more bf16 rows; ``route``
-says which, and raises for a shape the kernel cannot take.
+launches a kernel of ``csrc/w4_matmul.cu`` for CUDA tensors: ``K11`` for
+fp32 x (CUDA cores, a group sum in a second launch) and for at most 16 bf16
+rows (mma.sync over a thread-block cluster that splits K, one launch), the
+tensor-core kernel (``K11mma``: wgmma fed by a TMA ring) for more bf16 rows;
+``route`` says which, and raises for a shape the kernel cannot take.
 """
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -25,7 +28,7 @@ from . import _cuda
 _REPLACES = "mmmm_tpu/ops/w4_matmul.py:83 w4_matmul (pallas_call :105, _w4_kernel :59)"
 K11 = _cuda.register(_cuda.Kernel(
     "K11", "mmmm_w4_gemv",
-    [_cuda.P] * 5 + [_cuda.I] * 5 + [_cuda.P],
+    [_cuda.P] * 5 + [_cuda.I] * 6 + [_cuda.P],
     source="mmmm_tpu_torch/csrc/w4_matmul.cu", replaces=_REPLACES,
 ))
 K11MMA = _cuda.register(_cuda.Kernel(
@@ -36,6 +39,9 @@ K11MMA = _cuda.register(_cuda.Kernel(
 GEMV_MAX_ROWS = 16  # bf16 products with more rows take the tensor-core kernel
 MMA_BM, MMA_BK, MMA_BN = 128, 64, 128  # K11mma's rows, packed rows a step, columns a tile
 H100_SMS = 132
+# K11's launches by weight shape (K, N), counted where K11 launches
+K11_BY_SHAPE: collections.Counter = collections.Counter()
+GEMV_COLS, GEMV_WARPS, GEMV_ITER = 64, 8, 32  # K11 bf16: columns a block, warps, packed rows
 
 
 def gemv_takes(k: int, n: int, group: int) -> bool:
@@ -67,6 +73,16 @@ def mma_tpw(m: int, n: int) -> int:
     blocks2 = -(-m // MMA_BM) * (n // (2 * MMA_BN))
     waves = lambda blocks: -(-blocks // H100_SMS)
     return 2 if waves(2 * blocks2) == 2 * waves(blocks2) else 1
+
+
+def gemv_cluster(k: int, n: int) -> int:
+    """Blocks of a thread-block cluster that split K in K11's bf16 decode-row
+    kernel over a (k/2, n) packed weight, 1 or 2: 2 wherever each of the
+    pair's 16 warps gets a 32-row iteration, else 1. At the flagship's four
+    decode shapes that makes 128, 344, 384 and 128 blocks (4096x4096,
+    4096x11008, 4096x12288, 11008x4096), three an SM; ``chip_smoke.py``
+    times K11 with clusters of 1 and of 2 at each (PERF.md section 6)."""
+    return 2 if (k // 2) // GEMV_ITER >= 2 * GEMV_WARPS else 1
 
 
 def route(m: int, k: int, n: int, group: int, dtype: torch.dtype) -> str:
@@ -133,8 +149,16 @@ def w4_matmul(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor) -> torch.Tens
         K11MMA(x.data_ptr(), q4.data_ptr(), s4.data_ptr(), out.data_ptr(), m, k, n, group,
                mma_tpw(m, n), stream)
         return out
-    # one fp32 partial product per scale group of packed rows, summed in order
+    if x.dtype == torch.bfloat16:
+        if x.data_ptr() % 16:
+            raise ValueError("w4_matmul: x must be 16-byte aligned")
+        K11(x.data_ptr(), q4.data_ptr(), s4.data_ptr(), out.data_ptr(), None, m, k, n, group, 1,
+            gemv_cluster(k, n), stream)
+        K11_BY_SHAPE[(k, n)] += 1
+        return out
+    # fp32: one partial product per scale group of packed rows, summed in order
     part = torch.empty((k2 // group, m, n), dtype=torch.float32, device=x.device)
     K11(x.data_ptr(), q4.data_ptr(), s4.data_ptr(), out.data_ptr(), part.data_ptr(), m, k, n,
-        group, int(x.dtype == torch.bfloat16), stream)
+        group, 0, 1, stream)
+    K11_BY_SHAPE[(k, n)] += 1
     return out

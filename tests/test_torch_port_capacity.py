@@ -79,10 +79,13 @@ def _q8_cache(rng, b, h, smax, d):
     return kq, ks, vq, vs
 
 
-@pytest.mark.parametrize("d,lens,bf16", [(16, [40, 64, 0], False), (64, [1, 33, 64], True)])
+@pytest.mark.parametrize("d,lens,bf16", [(16, [40, 64, 0], False), (64, [1, 33, 64], True),
+                                         (48, [7, 64, 0], False), (80, [64, 2, 31], True),
+                                         (100, [50, 0, 64], False)])
 def test_decode_attention_q8_mxu_plain_matches_pallas(d, lens, bf16):
     """fp32 queries within 1e-5; bf16 queries give bf16 outputs within one
-    bf16 step."""
+    bf16 step. Head dims 48, 80 and 100 are not a whole number of K10's
+    16-byte lanes: the reference takes any D as one block."""
     rng = np.random.default_rng(d)
     b, h, smax = 3, 8, 64
     q = rng.normal(size=(b, 1, h, d)).astype(np.float32)

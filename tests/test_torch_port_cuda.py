@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K11, P1) against their plain PyTorch versions
+"""The port's CUDA kernels (K1-K12, P1) against their plain PyTorch versions
 on the card. Every test is marked ``cuda`` and skips without a GPU.
 
 This file imports neither JAX nor ``mmmm_tpu``, so it also runs where only
@@ -95,6 +95,49 @@ def test_window_kernels(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nq", [1, 3, 8])
+@pytest.mark.parametrize("d", [128, 64])
+def test_window_kernel_flagship(cuda, nq, d):
+    """K6's tensor-core form at run (b)'s cache (4, 32, 328, D) in bf16, 11
+    warps of a 32-slot tile: write indices from 0, mid-cache, at Smax - NQ
+    and Smax - 1, negative, at tile edges and with warps that hold no valid
+    slot, within 2e-2 of the plain version; one launch a call; two runs
+    equal bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(nq + d)
+    b, h, smax = 4, 32, 328
+    assert pdec.window_mma_takes(torch.bfloat16, d) and pdec.window_warps(smax) == (11, 1)
+    kc, vc = (torch.randn(b, h, smax, d, generator=g, device=cuda).bfloat16() for _ in range(2))
+    q = torch.randn(b, nq, h, d, generator=g, device=cuda).bfloat16()
+    for widx in ([256] * 4, [0, 150, smax - nq, smax - 1], [-1, -nq - 3, 127, 128 - nq],
+                 [128, 256 - nq, 251, 5]):
+        w = torch.tensor(widx, dtype=torch.int32, device=cuda)
+        before = pdec.K6.launches
+        got = pdec.decode_attention_window(q, kc, vc, w)
+        assert pdec.K6.launches == before + 1
+        torch.testing.assert_close(got.float(),
+                                   pdec.decode_attention_window_plain(q, kc, vc, w).float(),
+                                   rtol=0, atol=2e-2)
+        assert torch.equal(got, pdec.decode_attention_window(q, kc, vc, w))
+    w = torch.tensor([-1, -nq - 3, 0, 0], dtype=torch.int32, device=cuda)
+    got = pdec.decode_attention_window(q, kc, vc, w)
+    assert torch.all(got[:2, 0] == 0)  # query 0 of those samples sees no slot
+
+
+@pytest.mark.cuda
+def test_window_kernel_several_steps_a_block(cuda):
+    """K6 over Smax 2100: 6 warps of 11 tiles of 32 slots (the cp.async
+    double buffer of each warp), within 2e-2 of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    assert pdec.window_warps(2100) == (6, 11)
+    kc, vc = (torch.randn(2, 2, 2100, 128, generator=g, device=cuda).bfloat16() for _ in range(2))
+    q = torch.randn(2, 8, 2, 128, generator=g, device=cuda).bfloat16()
+    w = torch.tensor([2092, 700], dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(pdec.decode_attention_window(q, kc, vc, w).float(),
+                               pdec.decode_attention_window_plain(q, kc, vc, w).float(),
+                               rtol=0, atol=2e-2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d,dtype", [(128, torch.bfloat16), (16, torch.float32)])
 def test_q8_kernels(cuda, d, dtype):
     """K8 bit-equal to its plain version; K9 within 2e-2 (bf16) / 1e-4
@@ -122,7 +165,9 @@ def test_q8_kernels(cuda, d, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,dtype", [(128, torch.bfloat16), (16, torch.float32),
-                                     (64, torch.float32)])
+                                     (64, torch.float32), (48, torch.bfloat16),
+                                     (80, torch.float32), (100, torch.bfloat16),
+                                     (90, torch.float32), (8, torch.bfloat16)])
 def test_q8_mxu_kernel(cuda, d, dtype):
     """K10 within 2e-2 (bf16 q) / 1e-4 (fp32 q) of its plain version: the
     integer dots are exact, exp and the softmax sums may move one 14-bit
@@ -138,6 +183,26 @@ def test_q8_mxu_kernel(cuda, d, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=2e-2 if dtype == torch.bfloat16 else 1e-4)
     assert torch.all(got[0] == 0)
+
+
+@pytest.mark.cuda
+def test_q8_mxu_kernel_past_shared_memory(cuda):
+    """K10 over more slots than its logits' shared memory holds (they go to
+    a workspace), where the reference's gate admits it (H % 4 != 0, D =
+    16): within 1e-4 of its plain version."""
+    b, h, d = 1, 3, 16
+    smax = pdec.Q8_MXU_SHARED_SLOTS + 7232
+    assert pdec._q8_mxu_eligible(h, smax, d) and not pdec.q8_mxu_in_shared(smax)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    kq, ks = quantize_kv(torch.randn(b, h, smax, d, generator=g, device=cuda))
+    vq, vs = quantize_kv(torch.randn(b, h, smax, d, generator=g, device=cuda))
+    q = torch.randn(b, 1, h, d, generator=g, device=cuda)
+    kv_len = torch.tensor([smax - 3], dtype=torch.int32, device=cuda)
+    before = pdec.K10.launches
+    got = pdec.decode_attention_q8(q, kq, ks, vq, vs, kv_len, q8_mxu=True)
+    assert pdec.K10.launches == before + 1
+    torch.testing.assert_close(got, pdec.decode_attention_q8_mxu_plain(q, kq, ks, vq, vs, kv_len),
+                               rtol=0, atol=1e-4)
 
 
 @pytest.mark.cuda
@@ -175,6 +240,33 @@ def test_w4_kernels(cuda, m, dtype):
     assert got.dtype == dtype and got.shape == (m, n)
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=2e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("k,n", [(4096, 12288), (4096, 4096), (4096, 11008), (11008, 4096)])
+def test_w4_gemv_decode_shapes(cuda, m, k, n):
+    """K11 at decode rows on run (d)'s four weight shapes (bf16: the
+    tensor-core form over a cluster that splits K): one launch a call,
+    within one bf16 step (2**-7) of the largest output of
+    ``w4_matmul_plain``, two runs equal bit for bit; fp32 x at M = 4 within
+    1e-5 of the largest output."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    w = quantize_int4(torch.randn(k, n, generator=g, device=cuda).mul_(0.02))
+    x = torch.randn(m, k, generator=g, device=cuda).bfloat16()
+    assert pw4.route(m, k, n, 128, x.dtype) == "K11"
+    before = pw4.K11.launches
+    got = pw4.w4_matmul(x, w["q4"], w["s4"])
+    assert pw4.K11.launches == before + 1
+    want = pw4.w4_matmul_plain(x, w["q4"], w["s4"])
+    top = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2 ** -7 * top)
+    assert torch.equal(got, pw4.w4_matmul(x, w["q4"], w["s4"]))
+    if m == 4:
+        xf = x.float()
+        want = pw4.w4_matmul_plain(xf, w["q4"], w["s4"])
+        torch.testing.assert_close(pw4.w4_matmul(xf, w["q4"], w["s4"]), want, rtol=0,
+                                   atol=1e-5 * want.abs().max().item())
 
 
 @pytest.mark.cuda

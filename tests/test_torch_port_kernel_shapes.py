@@ -16,6 +16,13 @@ raises there:
     an fp32 and a bf16 image, SAM encoder) at the flagship and the tiny
     config, which the attention kernels take at their own head dim;
 
+  - the launch shapes of the decode kernels: K6's form and warps a block
+    (``ops/decode_kernel.py window_mma_takes``, ``window_warps``), K11's
+    cluster over K at decode rows (``ops/w4_matmul.py gemv_cluster``) and
+    K10's workspace (``q8_mxu_in_shared``), at run (b)'s and run (d)'s
+    flagship shapes and the tiny and W4 test widths, and what each card
+    wrapper passes its kernel there (the launch recorded, not run);
+
 and check that the predicates refuse shapes the kernels cannot take. A head
 dim the attention kernels take only through zero lanes (D = 100 in bf16, 90
 in fp32) runs the plain versions through the same pad and slice as the
@@ -36,7 +43,9 @@ from mmmm_tpu.ops import flash as jflash
 from mmmm_tpu_torch.models.cogvlm import decoder as pdec
 from mmmm_tpu_torch.models.cogvlm.config import CogVLMConfig
 from mmmm_tpu_torch.models.segvol import SamConfig
+from mmmm_tpu_torch.ops import _cuda
 from mmmm_tpu_torch.ops import attention as pattn
+from mmmm_tpu_torch.ops import decode_kernel as pdk
 from mmmm_tpu_torch.ops import dense_attn as pdense
 from mmmm_tpu_torch.ops import flash as pflash
 from mmmm_tpu_torch.ops import quant as pquant
@@ -325,3 +334,123 @@ def test_delta_matches_the_jax_expression(dtype):
     got = pflash._delta(torch.from_numpy(o_np).to(tdt), torch.from_numpy(g_np).to(tdt))
     assert got.dtype == torch.float32 and got.shape == (2, 3, 37)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+# ---- the decode kernels' launch shapes (K6, K10, K11's decode rows) ----------------
+
+WINDOW = 8  # run (b)'s verify window (7 drafts)
+SMAX_SPEC = PROMPT + 128 + WINDOW  # run (b)'s cache: prompt, 128 new tokens, a window
+
+
+@pytest.mark.parametrize("smax,warps", [
+    (SMAX_SPEC, (11, 1)),  # run (b) at the flagship: a warp for each of 11 tiles
+    (40, (2, 1)),          # the tiny config's spec cache
+    (384, (12, 1)),
+    (385, (6, 3)),         # past 12 tiles: 6 warps walk them with a double buffer
+    (2100, (6, 11)),
+])
+def test_window_warps(smax, warps):
+    got = pdk.window_warps(smax)
+    assert got == warps
+    n, per = got
+    assert n * per * pdk.WINDOW_TILE_KEYS >= smax > (n * per - n) * pdk.WINDOW_TILE_KEYS
+    # the tiles' K and V at D = 128 (rows of 136 bf16) fit in a block's shared memory
+    assert min(per, 2) * n * 2 * 32 * 136 * 2 <= 227 * 1024
+
+
+def test_window_form_by_dtype_and_head_dim():
+    """The tensor-core form in bf16 at every head dim that is whole 16-byte
+    rows (the flagship's 128, the W4 widths' 64, the tiny config's 16); the
+    CUDA-core form in fp32 and at D = 90."""
+    for d in (CogVLMConfig.cogvlm17b().head_dim, 64, 16, 8, 120):
+        assert pdk.window_mma_takes(torch.bfloat16, d)
+        assert not pdk.window_mma_takes(torch.float32, d)
+    assert CogVLMConfig.cogvlm17b().head_dim == 128 and CogVLMConfig.tiny().head_dim == 16
+    assert not pdk.window_mma_takes(torch.bfloat16, 90)
+    assert not pdk.window_mma_takes(torch.bfloat16, 136)
+
+
+@pytest.mark.parametrize("k,n,cluster", [
+    (4096, 12288, 2), (4096, 4096, 2), (4096, 11008, 2), (11008, 4096, 2),  # the flagship
+    (256, 768, 1), (256, 256, 1), (256, 512, 1), (512, 256, 1),  # the W4 test widths
+])
+def test_gemv_cluster(k, n, cluster):
+    """K11's decode rows: a cluster of 2 blocks a 64-column tile wherever
+    each of its 16 warps gets a 32-row iteration."""
+    assert pw4.gemv_cluster(k, n) == cluster
+    assert pw4.gemv_takes(k, n, pquant.INT4_GROUP)
+    iters = (k // 2) // pw4.GEMV_ITER
+    assert iters >= pw4.GEMV_WARPS * cluster or cluster == 1
+    if k >= 4096:  # the flagship's tiles fill the H100's 132 SMs at least once
+        assert -(-n // pw4.GEMV_COLS) * cluster >= pw4.H100_SMS - 4
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """The card path of the decode wrappers on meta or CPU tensors: every
+    tensor counts as a CUDA tensor and each kernel call is recorded, not
+    run."""
+    calls = {}
+    monkeypatch.setattr(_cuda, "on_cpu", lambda name, t: False)
+    monkeypatch.setattr(_cuda, "check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(_cuda, "stream_of", lambda t: 0)
+    for mod, name in ((pdk, "K6"), (pdk, "K10"), (pw4, "K11")):
+        monkeypatch.setattr(mod, name, lambda *a, _n=name: calls.setdefault(_n, []).append(a))
+    return calls
+
+
+def test_window_wrapper_launch(recorded):
+    meta = dict(device="meta")
+    q = torch.empty(B, WINDOW, 32, 128, dtype=torch.bfloat16, **meta)
+    kc = torch.empty(B, 32, SMAX_SPEC, 128, dtype=torch.bfloat16, **meta)
+    w = torch.empty(B, dtype=torch.int32, **meta)
+    pdk.decode_attention_window(q, kc, kc, w)
+    assert recorded["K6"][-1][11:14] == (1, 11, 1)  # bf16, 11 warps of one tile
+    pdk.decode_attention_window(q.float(), kc.float(), kc.float(), w)
+    assert recorded["K6"][-1][11:14] == (0, 0, 0)  # the CUDA-core form
+    q90, k90 = (torch.empty(*t.shape[:-1], 90, dtype=torch.bfloat16, **meta) for t in (q, kc))
+    pdk.decode_attention_window(q90, k90, k90, w)
+    assert recorded["K6"][-1][11:14] == (1, 0, 0)
+
+
+@pytest.mark.parametrize("h,smax,d,shared", [
+    (32, PROMPT + 128, 128, True),  # run (d) at the flagship
+    (4, 64, 48, True), (4, 64, 80, True), (4, 64, 100, True),  # head dims off the 16-byte lanes
+    (3, 40000, 16, False),  # Smax past shared memory, where the reference's gate admits it
+])
+def test_q8_mxu_takes_what_the_reference_takes(recorded, h, smax, d, shared):
+    """K10 no longer refuses a head dim outside {16, 32, 64, 128} or an
+    Smax above 32768: ``decode_attention_q8(q8_mxu=True)`` launches it
+    wherever ``_q8_mxu_eligible`` holds, with a workspace where the logits
+    do not fit in shared memory."""
+    assert pdk._q8_mxu_eligible(h, smax, d)
+    assert pdk.q8_mxu_in_shared(smax) == shared
+    meta = dict(device="meta")
+    q = torch.empty(1, 1, h, d, dtype=torch.bfloat16, **meta)
+    kq = torch.empty(1, h, smax, d, dtype=torch.int8, **meta)
+    ks = torch.empty(1, h, smax, 1, dtype=torch.bfloat16, **meta)
+    n = torch.empty(1, dtype=torch.int32, **meta)
+    pdk.decode_attention_q8(q, kq, ks, kq, ks, n, q8_mxu=True)
+    args = recorded["K10"][-1]
+    assert args[8:12] == (1, h, smax, d)
+    assert (args[7] is None) == shared
+
+
+@pytest.mark.parametrize("k,n", [(4096, 12288), (4096, 4096), (4096, 11008), (11008, 4096)])
+def test_w4_decode_rows_launch(recorded, k, n):
+    """Run (d)'s decode products (M = 4): bf16 x takes K11 in one launch
+    with no workspace and the cluster ``gemv_cluster`` picks; fp32 x keeps
+    the group-sum workspace."""
+    meta = dict(device="meta")
+    q4 = torch.empty(k // 2, n, dtype=torch.int8, **meta)
+    s4 = torch.empty(k // pquant.INT4_GROUP, n, **meta)
+    before = pw4.K11_BY_SHAPE[(k, n)]
+    for m in (1, 4, 16):
+        pw4.w4_matmul(torch.empty(m, k, dtype=torch.bfloat16, **meta), q4, s4)
+        args = recorded["K11"][-1]
+        assert args[4] is None and args[5:12] == (m, k, n, pquant.INT4_GROUP, 1,
+                                                   pw4.gemv_cluster(k, n), 0)
+    pw4.w4_matmul(torch.empty(4, k, **meta), q4, s4)
+    args = recorded["K11"][-1]
+    assert args[4] is not None and args[9:11] == (0, 1)
+    assert pw4.K11_BY_SHAPE[(k, n)] - before == 4  # each launch counted on its shape
