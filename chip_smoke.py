@@ -11,15 +11,18 @@ Phases, in order; any failure exits non-zero before the result lines:
  2. build the CUDA kernels from ``mmmm_tpu_torch/csrc`` (``nvcc``, sm_90a)
     and print the registers, shared memory and spill bytes of every K3/K4
     (``attn_fwd_*``, with P1's form), K6 tensor-core, K11 decode-row,
-    K11mma and K7 kernel (failing if one spills);
+    K11mma, K7, K9 and K10 kernel (failing if one spills);
  3. hold each kernel (K1-K11, K7delta, K12 = K4's kernel, probe P1) against
     its plain PyTorch version on the card, at the grounded path's and the
     training step's shapes and at edge cases (K6 for windows of 1 to 8 at
     write indices from 0, mid-cache, at the end and negative, with warps'
     tiles that hold no valid slot, at D = 128, 64 and 90 in bf16 and in
     fp32, over a long cache, and twice bit for bit, timed at run (b)'s first,
-    middle and last verify steps; K10 at D = 8, 16, 48, 64, 90 and 100 and
-    over a cache past its shared memory; K11 at 1, 4 and 16 bf16 rows and
+    middle and last verify steps; K9 and K10 at the flagship's H and D for
+    kv_len 1, 193, 256, 320 and 0 over Smax 320 and 321, through their
+    staged read's ring twice bit for bit, and timed at kv_len 193, 256 and
+    320 and at B = 1; K10 at D = 8, 16, 48, 64, 90 and 100 and over a cache
+    past its shared memory; K11 at 1, 4 and 16 bf16 rows and
     4 fp32 rows on run (d)'s four weight shapes, twice bit for bit, timed
     at 4 rows on each with its launches a batch; K11mma at every row count
     W4A16 serving passes, and both of its tile widths timed at the
@@ -27,9 +30,9 @@ Phases, in order; any failure exits non-zero before the result lines:
     S, K3 over packed segments with fully masked rows, both twice at the
     LLM site, bit for bit; K3, K4 and K7 at head dims 100 in bf16 and 90 in
     fp32, which they take through zero lanes, and K1, K6, K9 and K10 at
-    90), and time the kernel, the plain version and one PyTorch library
-    call (CUDA events, medians); time the W8A16, W8A8 and W4A16 ``qdot``
-    against a bf16 ``torch.matmul`` at decode rows;
+    90, K1 and K6 there beside SDPA), and time the kernel, the plain version
+    and one PyTorch library call (CUDA events, medians); time the W8A16,
+    W8A8 and W4A16 ``qdot`` against a bf16 ``torch.matmul`` at decode rows;
  4. run ``generate_grounded`` on the card and on the CPU (plain versions)
     and require the same tokens, masks, boxes and presence logits: at
     ``MMMMConfig.tiny()`` in fp32 greedy and n-gram speculative, bf16 and
@@ -539,7 +542,8 @@ def spec_kernel_phase(peaks, gen, out):
         variants.append(row)
     variants.append(decode_d90_row(
         "K6", peaks, gen, lambda q, kc, vc, w: dk.decode_attention_window(q, kc, vc, w),
-        lambda q, kc, vc, w: dk.decode_attention_window_plain(q, kc, vc, w), window=WINDOW))
+        lambda q, kc, vc, w: dk.decode_attention_window_plain(q, kc, vc, w), window=WINDOW,
+        sdpa=True))
     out["K6"]["variants"] = variants
     del copies, rot, kc, vc
 
@@ -617,7 +621,7 @@ def spec_kernel_phase(peaks, gen, out):
         fn = dk.decode_attention_q8_plain if plain else dk.decode_attention_q8
         return fn(q, kq, ks, vq, vs, n)
 
-    out["K9"]["variants"] = [decode_d90_row(
+    out["K9"]["variants"] = q8_read_rows("K9", peaks, gen) + [decode_d90_row(
         "K9", peaks, gen, q8_read, lambda *a: q8_read(*a, plain=True), int8=True)]
 
 
@@ -665,14 +669,83 @@ def k6_checks(gen, kc, vc, q, t_mid) -> float:
     return err
 
 
+def q8_read_rows(kid, peaks, gen) -> list:
+    """K9 or K10 (``kid``) beyond its main row (B = 4, Smax 320, kv_len 256),
+    at the flagship's H = 32 and D = 128: checked against its plain version
+    for kv_len 1, 193, 256, 320 and 0 over Smax 320 and 321 (the staged
+    read's slabs all aligned, then scales off 16-byte boundaries), in bf16
+    (2e-2) and fp32 (1e-4); over a cache long enough for the staged read's
+    ring (K9: Smax 4096; K10: 1536, the reference's longest at this width),
+    twice bit for bit; then timed at kv_len 193 and 320 and at B = 1
+    (kv_len 256) beside its plain version and bound. Returns the timed rows."""
+    from mmmm_tpu_torch.ops import decode_kernel as dk
+    from mmmm_tpu_torch.ops.quant import quantize_kv
+
+    bw, bf16_rate, _, int8_rate = peaks
+    dev = torch.device("cuda")
+    rnd = lambda *s, dt=torch.bfloat16: torch.randn(*s, generator=gen, device=dev).to(dt)
+    mxu = kid == "K10"
+    fn = dk.decode_attention_q8_mxu if mxu else dk.decode_attention_q8
+    plain = dk.decode_attention_q8_mxu_plain if mxu else dk.decode_attention_q8_plain
+    h, d = 32, 128
+
+    def cache(b, smax):
+        kq, ks = quantize_kv(rnd(b, h, smax, d))
+        vq, vs = quantize_kv(rnd(b, h, smax, d))
+        return [kq, ks, vq, vs]
+
+    for smax in (PROMPT + NEW, PROMPT + NEW + 1):
+        leaves = cache(5, smax)
+        lens = torch.tensor([1, PROMPT + 1, 256, PROMPT + NEW, 0], dtype=torch.int32, device=dev)
+        for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+            q = rnd(5, 1, h, d, dt=dt)
+            got = fn(q, *leaves, lens)
+            check(f"{kid} (5, {h}, {smax}, {d}) q {dt} kv_len {lens.tolist()}",
+                  max_err(got, plain(q, *leaves, lens)), tol)
+            if not torch.all(got[4] == 0):
+                raise AssertionError(f"{kid}: kv_len 0 does not give zeros")
+    smax = 1536 if mxu else 4096
+    chunk, stages = dk.q8_stage_plan(smax, d, mxu=mxu)
+    leaves = [t[:, :8].contiguous() for t in cache(2, smax)]
+    lens = torch.tensor([chunk - 5, smax], dtype=torch.int32, device=dev)
+    q = rnd(2, 1, 8, d, dt=torch.float32)
+    got = fn(q, *leaves, lens)
+    check(f"{kid} Smax {smax} (a ring of {stages} stages of {chunk} slots) q fp32",
+          max_err(got, plain(q, *leaves, lens)), 1e-4)
+    if not torch.equal(got, fn(q, *leaves, lens)):
+        raise AssertionError(f"{kid}: two runs through the ring differ")
+    log(f"  {kid} through the ring twice: bit-equal")
+
+    rows = []
+    for b, n in ((B, PROMPT + 1), (B, PROMPT + NEW), (1, 256)):
+        smax = PROMPT + NEW
+        rot = Rotating([cache(b, smax) for _ in range(8)])
+        lens = torch.full((b,), n, dtype=torch.int32, device=dev)
+        q = rnd(b, 1, h, d)
+        err = max_err(fn(q, *rot.copies[0], lens), plain(q, *rot.copies[0], lens))
+        check(f"{kid} timed row B={b} kv_len {n}", err, 2e-2)
+        bms, by = bound(2 * b * n * h * (d + 2) + 2 * q.numel() * 2,
+                        (8 if mxu else 4) * b * n * h * d, int8_rate if mxu else bf16_rate, bw)
+        row = {"shape": [b, h, smax, d], "kv_len": n, "dtype": "int8 KV, bf16 q",
+               "max_abs_err": err, "ms": time_ms(lambda: fn(q, *rot.next(), lens)),
+               "plain_ms": time_ms(lambda: plain(q, *rot.next(), lens)), "library_ms": None,
+               "bound_ms": bms, "bound_by": by}
+        log(f"  {kid} B={b} kv_len {n}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+            f"ms, bound {bms:.5f} ms ({by})")
+        rows.append(row)
+        del rot
+    return rows
+
+
 def decode_d90_row(kid, peaks, gen, kernel, plain, *, window=0, sdpa=False, int8=False,
                    mxu=False):
     """K1, K6, K9 or K10 at the flagship's decode shape but head dim 90 (rows
     that are not a whole number of the kernels' vector loads: their scalar
     or byte tail) in bf16, checked against the plain version (2e-2) and in
     fp32 (1e-4) at a small shape, then timed in bf16 with the plain version
-    and, for K1, SDPA. K9 and K10 (``mxu``) read an int8 cache quantized
-    from the same rows (its quantization is outside the timed call)."""
+    and, for K1 and K6, SDPA with a boolean mask. K9 and K10 (``mxu``) read
+    an int8 cache quantized from the same rows (its quantization is outside
+    the timed call)."""
     from mmmm_tpu_torch.ops.quant import quantize_kv
 
     bw, bf16_rate, _, _ = peaks
@@ -708,12 +781,14 @@ def decode_d90_row(kid, peaks, gen, kernel, plain, *, window=0, sdpa=False, int8
     row = {"shape": [B, h, smax, d], "dtype": "int8 KV, bf16 q" if int8 else "bfloat16",
            "max_abs_err": err, "ms": time_ms(fn), "plain_ms": time_ms(pfn), "library_ms": None,
            "bound_ms": bms, "bound_by": by}
-    if sdpa:
+    if sdpa:  # a boolean mask: query j of a window sees the slots < mid + j + 1
         qh = q.transpose(1, 2).contiguous()
-        valid = (torch.arange(smax, device=dev)[None] < mid[:, None])[:, None, None, :]
+        lens = mid[:, None] + (torch.arange(1, nq + 1, device=dev) if window else 0)
+        valid = (torch.arange(smax, device=dev)[None, None] < lens[..., None])[:, None]
         row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qh, kc, vc,
                                                                            attn_mask=valid))
-    log(f"  {kid} D=90: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+    lib = "" if row["library_ms"] is None else f", SDPA {row['library_ms']:.4f} ms"
+    log(f"  {kid} D=90: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms{lib}, bound "
         f"{bms:.4f} ms")
     return row
 
@@ -806,8 +881,8 @@ def capacity_kernel_phase(peaks, gen, out):
 
     row = decode_d90_row("K10", peaks, gen, mxu_read, lambda *a: mxu_read(*a, plain=True),
                          int8=True, mxu=True)
-    row["k9_ms_same_shape"] = out["K9"]["variants"][0]["ms"]
-    out["K10"]["variants"] = [row]
+    row["k9_ms_same_shape"] = out["K9"]["variants"][-1]["ms"]
+    out["K10"]["variants"] = q8_read_rows("K10", peaks, gen) + [row]
     del caches, rot, cache
 
     # ---- K11 W4A16 product -------------------------------------------------------
@@ -2018,10 +2093,14 @@ def redesigned_kernel_resources(build_log: str, lib) -> list:
     rows = []
     for e in ptxas_entries(build_log):
         m = re.search(r"(attn_fwd_(?:wgmma|f32)|flash_bwd_(?:dq|dkv)_(?:wgmma|f32)|flash_bwd_delta"
-                      r"|w4_mma_kernel|w4_gemv_mma_kernel|decode_window_mma_kernel)", e["symbol"])
+                      r"|w4_mma_kernel|w4_gemv_mma_kernel|decode_window_mma_kernel"
+                      r"|decode_q8_mxu_kernel|decode_q8_kernel)", e["symbol"])
         if not m:
             continue
         kname = m.group(1)
+        if kname.startswith("decode_q8"):  # <T, LPS, VEC> at D = 16 LPS over run (c)'s cache
+            rows.append(_q8_resource_row(kname, e, lib))
+            continue
         if kname.startswith("attn_fwd"):
             # bf16 <MASKED, DP, KT (keys a tile), NOSM>, fp32 <MASKED, NJ, stages>: K3
             # is the masked form, K4 (and P1) the other
@@ -2058,10 +2137,31 @@ def redesigned_kernel_resources(build_log: str, lib) -> list:
         rows.append(_resource_row(label, e, dyn))
     if not any(r["kernel"].startswith("attn_fwd") for r in rows):
         raise AssertionError("no K3/K4 kernel in the build log")
-    for prefix in ("flash_bwd", "w4_mma", "w4_gemv_mma", "decode_window_mma"):
+    for prefix in ("flash_bwd", "w4_mma", "w4_gemv_mma", "decode_window_mma", "decode_q8_kernel",
+                   "decode_q8_mxu_kernel"):
         if not any(r["kernel"].startswith(prefix) for r in rows):
             raise AssertionError(f"no {prefix} kernel in the build log")
     return rows
+
+
+def _q8_resource_row(kname: str, e: dict, lib) -> dict:
+    """A K9 or K10 instance's resources, its dynamic shared memory that of
+    the staged read's plan at D = 16 LPS over Smax 320 (run (c)'s and run
+    (d)'s cache), which the kernel's own query must give as the wrapper's
+    plan counts it."""
+    from mmmm_tpu_torch.ops import decode_kernel as dk
+
+    t = re.search(r"I(13__nv_bfloat16|f)Li(\d+)ELb([01])E", e["symbol"])
+    lps, vec = int(t.group(2)), t.group(3) == "1"
+    d, smax, mxu = 16 * lps, PROMPT + NEW, kname == "decode_q8_mxu_kernel"
+    chunk, stages = dk.q8_stage_plan(smax, d, mxu=mxu)
+    dyn = (lib.mmmm_decode_q8_mxu_smem(chunk, stages, d, smax, 1) if mxu
+           else lib.mmmm_decode_q8_smem(chunk, stages, d))
+    if dyn != stages * dk.q8_stage_bytes(chunk, d) + dk.q8_math_smem(smax, chunk, mxu):
+        raise AssertionError(f"{kname}: the kernel's shared memory differs from the plan's")
+    label = (f"{kname}<{'bf16' if t.group(1) != 'f' else 'fp32'}, LPS={lps}, VEC={int(vec)}; "
+             f"{stages} stages of {chunk} slots>")
+    return _resource_row(label, e, dyn)
 
 
 def _resource_row(label: str, e: dict, dyn: int) -> dict:

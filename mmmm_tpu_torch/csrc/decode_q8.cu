@@ -6,182 +6,215 @@
 // `_decode_kernel_q8`) and decode_attention_pallas_q8_ragged
 // (`_decode_kernel_q8_ragged`, its fp32 cast). As for K1, the two existed
 // because a full read overflowed VMEM; one length-aware kernel covers both.
-// It computes what the TPU kernel does, in fp32:
+// It computes what the TPU kernel does, in fp32, as its two-pass softmax:
 //   logits = (q . k_q) * k_s * scale;  out = sum_j p_j * v_s[j] * v_q[j] / l.
 //
 // What bounds it on an H100: bytes. A call reads the valid int8 K and V rows
-// and their scales once (about 8.5 MB at B=4, H=32, D=128, kv_len ~260),
+// and their scales once (about 8.5 MB at B=4, H=32, D=128, kv_len 256),
 // half the bytes of K1 on a bf16 cache: ~2.6 us at 3.35 TB/s.
 //
-// Design: one block per (sample, head), 8 warps. A slot's int8 row of D
-// bytes is read by LPS lanes (D/16 rounded up to a power of two), 16 bytes
-// each, with one 16-byte load where D % 16 == 0 and byte loads that stop at
-// D otherwise; so a warp reads 32 / LPS slots at once (4 at D = 128), two
-// such groups per iteration;
-// the slot's two scales are read once, by the first lane of its group, and
-// broadcast with a shuffle. Each lane group keeps its own online-softmax
-// state in fp32 over 16 head-dim values; all group states are merged through
-// shared memory. Only slots below kv_len[b] are read; kv_len = 0 gives zeros.
-#include "common.cuh"
+// Design: one block per (sample, head), 8 warps, on the staged read of
+// decode_q8_stage.cuh: where the head's rows fit in shared memory (the
+// flagship) all of its K and V bytes are requested as the block starts, on
+// two barriers; else they stream through a ring of chunks. For each chunk
+// of slots, as the reference kernel does:
+//   1. logits from shared memory: LPS lanes a slot (D/16 rounded up to a
+//      power of two), 16 head dims each, so a warp takes 2 x 32 / LPS slots
+//      at once; the chunk's max rides along (one block max);
+//   2. the chunk's exps, p = exp(logit - m) with m the running max, kept in
+//      shared memory, and their sum (per thread);
+//   3. the weighted rows, p * v_s * v_q, each lane group over its share of
+//      the chunk's slots, into 16 fp32 sums a lane.
+// Over several chunks the state (m, sums) is rescaled once a chunk, never a
+// slot. The lane groups' sums merge in a fixed order (shuffles in a warp,
+// then the 8 warps through shared memory), so repeats are bit-equal. The
+// int8 values become floats through a byte permute into 2^23's mantissa and
+// one subtraction (i8x16_to_f32), not the slower conversion unit. Rows with
+// D % 16 != 0 are read a byte at a time (VEC = false). kv_len = 0 gives zeros.
+#include "decode_q8_stage.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kUnroll = 2;
+using mmmm::q8::kThreads;
+using mmmm::q8::kWarps;
 
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float out[16]) {
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p + 8 * c);
-    const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-      out[8 * c + 2 * i] = f.x;
-      out[8 * c + 2 * i + 1] = f.y;
-    }
-  }
-}
-
-__device__ __forceinline__ void load16(const float* p, float out[16]) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const float4 raw = *reinterpret_cast<const float4*>(p + 4 * c);
-    out[4 * c] = raw.x;
-    out[4 * c + 1] = raw.y;
-    out[4 * c + 2] = raw.z;
-    out[4 * c + 3] = raw.w;
-  }
-}
-
-// The 16 int8 values at p of which the first n lie in the row (byte loads,
-// zero past the row), packed as one 16-byte load would give them.
-__device__ __forceinline__ int4 load_i8x16(const int8_t* p, int n) {
-  int w[4] = {0, 0, 0, 0};
-#pragma unroll
-  for (int e = 0; e < 16; ++e)
-    if (e < n) w[e >> 2] |= static_cast<int>(static_cast<uint8_t>(p[e])) << (8 * (e & 3));
-  return make_int4(w[0], w[1], w[2], w[3]);
-}
-
-template <typename T>
-__device__ __forceinline__ void load16_tail(const T* p, int n, float out[16]) {
-#pragma unroll
-  for (int e = 0; e < 16; ++e) out[e] = e < n ? mmmm::to_f(p[e]) : 0.f;
-}
-
-__device__ __forceinline__ float int8_at(const int4& r, int i) {
-  const int w = i < 4 ? r.x : (i < 8 ? r.y : (i < 12 ? r.z : r.w));
-  return static_cast<float>(static_cast<signed char>(w >> (8 * (i & 3))));
-}
-
-// LPS = lanes per slot, D <= 16 LPS; VEC: D % 16 == 0 (16-byte loads).
 template <typename T, int LPS, bool VEC>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads)
 decode_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
                  const __nv_bfloat16* __restrict__ ks, const int8_t* __restrict__ vq,
                  const __nv_bfloat16* __restrict__ vs, const int* __restrict__ kv_len,
-                 T* __restrict__ out, int H, int Smax, int D, float scale) {
+                 T* __restrict__ out, int H, int Smax, int D, float scale, int C, int NS) {
   constexpr int DP = 16 * LPS;
-  constexpr int G = 32 / LPS;  // slots a warp reads at once
-  __shared__ float m_s[kWarps * G];
-  __shared__ float l_s[kWarps * G];
-  __shared__ float acc_s[kWarps * G * DP];
+  constexpr int G = 32 / LPS;  // slots a warp takes at once
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ uint64_t bar[mmmm::q8::kMaxStages];
+  __shared__ float red_m[kWarps];
+  __shared__ float red_l[kWarps];
+  __shared__ float acc_s[kWarps][DP];
 
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane / LPS;          // slot group of this lane
+  const int d0 = 16 * (lane % LPS);  // its 16 head-dim values
+  const int n = D - d0;              // of its values, those in the row
   const int bh = blockIdx.x;
   const int b = bh / H;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane / LPS;           // slot group of this lane
-  const int d0 = 16 * (lane % LPS);   // its 16 head-dim values
-  const int leader = g * LPS;         // first lane of the group
-  const int n = D - d0;               // of its values, those in the row
+  float qv[16];
+  mmmm::q8::load_q16<VEC>(q + (size_t)bh * D + d0, n, qv);  // q: (B, 1, H, D)
   int len = kv_len[b];
   len = len < 0 ? 0 : (len > Smax ? Smax : len);
-
-  float qv[16];
-  if (VEC && n > 0) load16(q + (size_t)bh * D + d0, qv);  // q: (B, 1, H, D)
-  else load16_tail(q + (size_t)bh * D + d0, n, qv);
   const size_t row0 = (size_t)bh * Smax;
 
+  const mmmm::q8::Ring ring{smem, bar, kq + row0 * D, vq + row0 * D, ks + row0, vs + row0,
+                            C, NS, D, len, (len + C - 1) / C, true};
+  float* lg = reinterpret_cast<float*>(smem + (size_t)NS * mmmm::q8::stage_bytes(C, D));
+  float* pw = lg + C;
+  ring.start();
+
   float m = mmmm::kNegInf;
-  float l = 0.f;
+  float l = 0.f;  // this thread's share of the exps' sum
   float acc[16];
 #pragma unroll
   for (int e = 0; e < 16; ++e) acc[e] = 0.f;
 
-  for (int base = warp * G * kUnroll; base < len; base += kWarps * G * kUnroll) {
-    int4 kr[kUnroll], vr[kUnroll];
-    float ksc[kUnroll], vsc[kUnroll];
+  for (int c = 0; c < ring.n_chunks; ++c) {
+    const int ik = 2 * c, iv = ik + 1;
+    const int cnt = ring.count(ik);
+    // ---- 1. logits of the chunk, and its max ---------------------------------------
+    ring.wait(ik);
+    {
+      const int8_t* rows = ring.rows(ik);
+      const __nv_bfloat16* sc = ring.scales(ik);
+      float mx = mmmm::kNegInf;
+      for (int base = warp * G; base < cnt; base += 2 * kWarps * G) {
+        const int j[2] = {base + g, base + kWarps * G + g};
+        float s[2] = {0.f, 0.f};
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = base + u * G + g;
-      kr[u] = vr[u] = make_int4(0, 0, 0, 0);
-      ksc[u] = vsc[u] = 0.f;
-      if (j < len) {
-        if (VEC) {
-          if (n > 0) {
-            kr[u] = *reinterpret_cast<const int4*>(kq + (row0 + j) * D + d0);
-            vr[u] = *reinterpret_cast<const int4*>(vq + (row0 + j) * D + d0);
+        for (int u = 0; u < 2; ++u)
+          if (j[u] < cnt && n > 0) {
+            float kf[16];
+            mmmm::q8::i8x16_to_f32(
+                mmmm::q8::load_row16<VEC>(rows + (size_t)j[u] * D, d0, D), kf);
+            float x0 = 0.f, x1 = 0.f;
+#pragma unroll
+            for (int e = 0; e < 16; e += 2) {
+              x0 = fmaf(qv[e], kf[e], x0);
+              x1 = fmaf(qv[e + 1], kf[e + 1], x1);
+            }
+            s[u] = x0 + x1;
           }
-        } else {
-          kr[u] = load_i8x16(kq + (row0 + j) * D + d0, n);
-          vr[u] = load_i8x16(vq + (row0 + j) * D + d0, n);
-        }
-        if (lane == leader) {
-          ksc[u] = __bfloat162float(ks[row0 + j]);
-          vsc[u] = __bfloat162float(vs[row0 + j]);
-        }
+#pragma unroll
+        for (int off = LPS / 2; off > 0; off >>= 1)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) s[u] += __shfl_xor_sync(0xffffffffu, s[u], off);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          if (j[u] < cnt) {
+            const float x = s[u] * __bfloat162float(sc[j[u]]) * scale;
+            mx = fmaxf(mx, x);
+            if (lane % LPS == 0) lg[j[u]] = x;
+          }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      if (lane == 0) red_m[warp] = mx;
+    }
+    __syncthreads();
+    ring.release(ik);
+    // ---- 2. exps against the running max; one rescale a chunk ------------------------
+    float mc = red_m[0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) mc = fmaxf(mc, red_m[w]);
+    const float m_new = fmaxf(m, mc);
+    const float alpha = expf(m - m_new);
+    float ls = 0.f;
+    for (int jj = tid; jj < cnt; jj += kThreads) {
+      const float p = expf(lg[jj] - m_new);
+      pw[jj] = p;
+      ls += p;
+    }
+    l = l * alpha + ls;
+    m = m_new;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[e] *= alpha;
+    __syncthreads();
+    // ---- 3. the weighted value rows -------------------------------------------------
+    ring.wait(iv);
+    {
+      const int8_t* rows = ring.rows(iv);
+      const __nv_bfloat16* sc = ring.scales(iv);
+      for (int jj = warp * G + g; jj < cnt; jj += kWarps * G) {
+        if (n <= 0) break;
+        const float w = pw[jj] * __bfloat162float(sc[jj]);
+        float vf[16];
+        mmmm::q8::i8x16_to_f32(mmmm::q8::load_row16<VEC>(rows + (size_t)jj * D, d0, D), vf);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) acc[e] = fmaf(w, vf[e], acc[e]);
       }
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = base + u * G + g;
-      float s = 0.f;
-#pragma unroll
-      for (int e = 0; e < 16; ++e) s += qv[e] * int8_at(kr[u], e);
-#pragma unroll
-      for (int off = LPS / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      const float k_s = __shfl_sync(0xffffffffu, ksc[u], leader);
-      const float v_s = __shfl_sync(0xffffffffu, vsc[u], leader);
-      if (j < len) {
-        const float x = s * k_s * scale;
-        const float m_new = fmaxf(m, x);
-        const float alpha = expf(m - m_new);
-        const float p = expf(x - m_new);
-        l = l * alpha + p;
-        const float w = p * v_s;
-#pragma unroll
-        for (int e = 0; e < 16; ++e) acc[e] = acc[e] * alpha + w * int8_at(vr[u], e);
-        m = m_new;
-      }
-    }
+    __syncthreads();
+    ring.release(iv);
   }
 
-  const int grp = warp * G + g;
-  if (lane == leader) {
-    m_s[grp] = m;
-    l_s[grp] = l;
-  }
+  // ---- merge: the G lane groups of a warp (same head dims), then the warps -----------
 #pragma unroll
-  for (int e = 0; e < 16; ++e) acc_s[grp * DP + d0 + e] = acc[e];
-  __syncthreads();
-  for (int d = threadIdx.x; d < D; d += kWarps * 32) {
-    float m_all = mmmm::kNegInf;
-    for (int i = 0; i < kWarps * G; ++i) m_all = fmaxf(m_all, m_s[i]);
-    float l_all = 0.f, o = 0.f;
-    for (int i = 0; i < kWarps * G; ++i) {
-      const float c = expf(m_s[i] - m_all);
-      l_all += l_s[i] * c;
-      o += acc_s[i * DP + d] * c;
-    }
-    out[(size_t)bh * D + d] = mmmm::from_f<T>(l_all > 0.f ? o / l_all : 0.f);
+  for (int off = LPS; off < 32; off <<= 1)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+  if (g == 0) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc_s[warp][d0 + e] = acc[e];
   }
+  if (lane == 0) red_l[warp] = l;
+  __syncthreads();
+  for (int d = tid; d < D; d += kThreads) {
+    float o = 0.f, lt = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      o += acc_s[w][d];
+      lt += red_l[w];
+    }
+    out[(size_t)bh * D + d] = mmmm::from_f<T>(lt > 0.f ? o / lt : 0.f);
+  }
+}
+
+// Dynamic shared memory of a launch: the stages, then the chunk's logits
+// and exps (fp32).
+size_t k9_smem(int C, int NS, int D) {
+  return (size_t)NS * mmmm::q8::stage_bytes(C, D) + (size_t)8 * C;
+}
+
+template <typename T, int LPS, bool VEC>
+int launch_lps(const T* q, const int8_t* kq, const __nv_bfloat16* ks, const int8_t* vq,
+               const __nv_bfloat16* vs, const int* lens, T* out, int B, int H, int Smax, int D,
+               float scale, int C, int NS, cudaStream_t st) {
+  auto* kern = decode_q8_kernel<T, LPS, VEC>;
+  const size_t smem = k9_smem(C, NS, D);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kern<<<B * H, kThreads, smem, st>>>(q, kq, ks, vq, vs, lens, out, H, Smax, D, scale, C, NS);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int LPS>
+int launch_vec(bool vec, const T* q, const int8_t* kq, const __nv_bfloat16* ks,
+               const int8_t* vq, const __nv_bfloat16* vs, const int* lens, T* out, int B, int H,
+               int Smax, int D, float scale, int C, int NS, cudaStream_t st) {
+  if (vec)
+    return launch_lps<T, LPS, true>(q, kq, ks, vq, vs, lens, out, B, H, Smax, D, scale, C, NS,
+                                    st);
+  return launch_lps<T, LPS, false>(q, kq, ks, vq, vs, lens, out, B, H, Smax, D, scale, C, NS, st);
 }
 
 template <typename T>
 int launch(const void* q, const void* kq, const void* ks, const void* vq, const void* vs,
-           const int* lens, void* out, int B, int H, int Smax, int D, float scale,
+           const int* lens, void* out, int B, int H, int Smax, int D, float scale, int C, int NS,
            cudaStream_t st) {
   const T* qp = static_cast<const T*>(q);
   const int8_t* kqp = static_cast<const int8_t*>(kq);
@@ -189,41 +222,41 @@ int launch(const void* q, const void* kq, const void* ks, const void* vq, const 
   const __nv_bfloat16* ksp = static_cast<const __nv_bfloat16*>(ks);
   const __nv_bfloat16* vsp = static_cast<const __nv_bfloat16*>(vs);
   T* op = static_cast<T*>(out);
-  const dim3 grid(B * H), block(kWarps * 32);
-  const int lps = D <= 16 ? 1 : (D <= 32 ? 2 : (D <= 64 ? 4 : 8));
-  const bool vec = D % 16 == 0;
-#define MMMM_Q8_CASE(LPS_)                                                                \
-  case LPS_:                                                                              \
-    if (vec)                                                                              \
-      decode_q8_kernel<T, LPS_, true><<<grid, block, 0, st>>>(qp, kqp, ksp, vqp, vsp, lens, \
-                                                              op, H, Smax, D, scale);     \
-    else                                                                                  \
-      decode_q8_kernel<T, LPS_, false><<<grid, block, 0, st>>>(qp, kqp, ksp, vqp, vsp,     \
-                                                               lens, op, H, Smax, D, scale); \
-    break;
-  switch (lps) {
-    MMMM_Q8_CASE(1)
-    MMMM_Q8_CASE(2)
-    MMMM_Q8_CASE(4)
-    MMMM_Q8_CASE(8)
-  }
-#undef MMMM_Q8_CASE
-  return static_cast<int>(cudaGetLastError());
+  // 16-byte row and q loads: whole 16-byte pieces from 16-byte-aligned bases
+  const bool vec = D % 16 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(kq) |
+                     reinterpret_cast<uintptr_t>(vq)) & 15) == 0;
+  if (D <= 16)
+    return launch_vec<T, 1>(vec, qp, kqp, ksp, vqp, vsp, lens, op, B, H, Smax, D, scale, C, NS, st);
+  if (D <= 32)
+    return launch_vec<T, 2>(vec, qp, kqp, ksp, vqp, vsp, lens, op, B, H, Smax, D, scale, C, NS, st);
+  if (D <= 64)
+    return launch_vec<T, 4>(vec, qp, kqp, ksp, vqp, vsp, lens, op, B, H, Smax, D, scale, C, NS, st);
+  return launch_vec<T, 8>(vec, qp, kqp, ksp, vqp, vsp, lens, op, B, H, Smax, D, scale, C, NS, st);
 }
 
 }  // namespace
 
 // q, out: (B, 1, H, D) bf16 or fp32; kq, vq: (B, H, Smax, D) int8; ks, vs:
-// (B, H, Smax, 1) bf16; kv_len (B,) int32. 0 < D <= 128.
+// (B, H, Smax, 1) bf16; kv_len (B,) int32. 0 < D <= 128. chunk, stages: the
+// staged read's plan (ops/decode_kernel.py q8_stage_plan): stages of chunk
+// slots (a multiple of 16), 2 to 4 of them.
 extern "C" int mmmm_decode_attention_q8(const void* q, const void* kq, const void* ks,
                                         const void* vq, const void* vs, const void* kv_len,
                                         void* out, int B, int H, int Smax, int D, float scale,
-                                        int is_bf16, void* stream) {
-  if (B <= 0 || H <= 0 || Smax <= 0 || D <= 0 || D > 128)
+                                        int is_bf16, int chunk, int stages, void* stream) {
+  if (B <= 0 || H <= 0 || Smax <= 0 || D <= 0 || D > 128 || chunk < 16 || chunk % 16 ||
+      stages < 2 || stages > mmmm::q8::kMaxStages)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(kv_len);
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, kq, ks, vq, vs, lens, out, B, H, Smax, D, scale, st);
-  return launch<float>(q, kq, ks, vq, vs, lens, out, B, H, Smax, D, scale, st);
+    return launch<__nv_bfloat16>(q, kq, ks, vq, vs, lens, out, B, H, Smax, D, scale, chunk,
+                                 stages, st);
+  return launch<float>(q, kq, ks, vq, vs, lens, out, B, H, Smax, D, scale, chunk, stages, st);
+}
+
+// The dynamic shared memory K9 asks for under a plan.
+extern "C" int mmmm_decode_q8_smem(int chunk, int stages, int D) {
+  return static_cast<int>(k9_smem(chunk, stages, D));
 }

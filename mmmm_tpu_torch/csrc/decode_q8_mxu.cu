@@ -19,174 +19,211 @@
 // What bounds it on an H100: bytes, as K9 (the valid int8 K and V rows and
 // their scales, read once).
 //
-// Design: one block per (sample, head), 8 warps. The q split happens in the
-// block (a block-wide max, IEEE division, round-half-even). Logits: a slot's
-// int8 K row is read by LPS lanes, 16 bytes each (LPS the power of two with
-// 16 LPS >= D, lanes past D hold zeros), and dotted with the packed q_hi and
-// q_lo by __dp4a; the Smax logits stay in shared memory (in a global fp32
-// workspace the wrapper allocates where 6 bytes a slot would not fit) for
-// the full-row softmax (the weights' maximum is needed before they are
-// split). Values: each thread owns one 4-byte word column of V (4 head
-// dims) and a share of the slots; four slots' words are transposed with
-// __byte_perm so that one __dp4a multiplies 4 slots of one head dim by the
-// packed w_hi (or w_lo) of those slots. Rows of a head dim that is not a
-// multiple of 16 are not 16-byte aligned: they are read a byte at a time,
-// zero past D (VEC = false). int8 mma.sync m16n8k32 is later work.
-#include "common.cuh"
+// Design: one block per (sample, head), 8 warps, on the staged read of
+// decode_q8_stage.cuh: where the head's rows fit in shared memory (the
+// flagship) all of its K and V bytes are requested as the block starts, K
+// and V on barriers of their own; else K and then V stream through a ring.
+//   1. The q split in registers while K arrives (q is requested with
+//      kv_len, before the copies): each group of LPS lanes
+//      (16 LPS >= D, lanes past D hold zeros) holds the whole row, 16 head
+//      dims a lane, so the max is a shuffle among them; IEEE division and
+//      round-half-even as the reference.
+//   2. Logits from shared memory: a slot's K row by LPS lanes, two slots a
+//      lane group at once, dotted with the packed q_hi and q_lo by __dp4a;
+//      the max rides along. The logits
+//      stay in shared memory (in a global fp32 workspace the wrapper
+//      allocates where 6 bytes a slot would not fit) for the full-row
+//      softmax, since the weights' maximum is needed before they are split.
+//   3. exp and the sum in one pass; w = (p / denom) * v_s and its max in
+//      one pass (v_s from the V stage; from global memory on the ring); the
+//      split to (w_hi, w_lo).
+//   4. Values from shared memory: each thread owns one 4-byte word column
+//      of V (4 head dims) and a share of the slots; four slots' words are
+//      transposed with __byte_perm so that one __dp4a multiplies 4 slots of
+//      one head dim by the packed w_hi (or w_lo) of those slots; the slot
+//      groups' sums merge in a fixed order.
+// Three block reductions (the max, the sum, the max of w), each one
+// __syncthreads. Rows of a head dim that is not a multiple of 16 are read a
+// byte at a time, zero past D (VEC = false). int8 mma.sync m16n8k32 on these
+// stages measured slower (decode_q8_stage.cuh).
+#include "decode_q8_stage.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
+using mmmm::q8::kThreads;
+using mmmm::q8::kWarps;
 
-__device__ __forceinline__ float block_max(float v, float* red) {
+__device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int i = 1; i < kWarps; ++i) r = fmaxf(r, red[i]);
-  __syncthreads();
-  return r;
+  return v;
 }
 
-__device__ __forceinline__ float block_sum(float v, float* red) {
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int i = 1; i < kWarps; ++i) r += red[i];
-  __syncthreads();
-  return r;
-}
-
-// 16 bytes of an int8 row from head dim d0, zero past D: one 16-byte load
-// where rows are 16-byte aligned (VEC: D % 16 == 0), else byte loads.
-template <bool VEC>
-__device__ __forceinline__ int4 load_row16(const int8_t* row, int d0, int D) {
-  if (d0 >= D) return make_int4(0, 0, 0, 0);
-  if (VEC) return *reinterpret_cast<const int4*>(row + d0);
-  unsigned w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int e = 0; e < 16; ++e)
-    if (d0 + e < D) w[e >> 2] |= static_cast<unsigned>(static_cast<uint8_t>(row[d0 + e])) << (8 * (e & 3));
-  return make_int4(static_cast<int>(w[0]), static_cast<int>(w[1]), static_cast<int>(w[2]),
-                   static_cast<int>(w[3]));
-}
-
-// The 4 bytes of an int8 row from head dim d0 (a multiple of 4), zero past D.
-template <bool VEC>
-__device__ __forceinline__ unsigned load_row4(const int8_t* row, int d0, int D) {
-  if (d0 >= D) return 0u;
-  if (VEC) return *reinterpret_cast<const unsigned*>(row + d0);
-  unsigned w = 0u;
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    if (d0 + e < D) w |= static_cast<unsigned>(static_cast<uint8_t>(row[d0 + e])) << (8 * e);
-  return w;
+  return v;
 }
 
 // LPS = lanes per K row (16 LPS >= D). 6 * roundup(Smax, 4) bytes a block
 // (fp32 logits, then the int8 w_hi and w_lo of every slot): dynamic shared
-// memory, or the block's slice of `scratch` where the wrapper passes one.
+// memory after the stages, or the block's slice of `scratch` where the
+// wrapper passes one.
 template <typename T, int LPS, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 decode_q8_mxu_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
                      const __nv_bfloat16* __restrict__ ks, const int8_t* __restrict__ vq,
                      const __nv_bfloat16* __restrict__ vs, const int* __restrict__ kv_len,
                      T* __restrict__ out, unsigned char* __restrict__ scratch, int H, int Smax,
-                     int D, float scale) {
+                     int D, float scale, int C, int NS) {
   constexpr int DP = 16 * LPS;         // D rounded up to the lanes' 16-byte pieces
   constexpr int G = 32 / LPS;          // K rows a warp reads at once
   constexpr int WC = DP / 4;           // 4-byte word columns of a V row
   constexpr int NSG = kThreads / WC;   // slot groups of the value pass
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float red[kWarps];
-  __shared__ __align__(16) int8_t qsplit[2][DP];
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ uint64_t bar[mmmm::q8::kMaxStages];
+  __shared__ float red_m[kWarps], red_s[kWarps], red_w[kWarps];
   __shared__ unsigned osum[NSG][DP];
-
-  const int smax4 = (Smax + 3) & ~3;
-  float* logit = reinterpret_cast<float*>(
-      scratch == nullptr ? smem : scratch + (size_t)blockIdx.x * 6 * smax4);
-  int8_t* whi = reinterpret_cast<int8_t*>(logit + smax4);
-  int8_t* wlo = whi + smax4;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int bh = blockIdx.x;
   const int b = bh / H;
+  const int g = lane / LPS;
+  const int d0 = 16 * (lane % LPS);
+  float qv[16];
+  mmmm::q8::load_q16<VEC>(q + (size_t)bh * D + d0, D - d0, qv);
   int len = kv_len[b];
   len = len < 0 ? 0 : (len > Smax ? Smax : len);
   const size_t row0 = (size_t)bh * Smax;
+  const int smax4 = (Smax + 3) & ~3;
 
-  // ---- q -> (q_hi, q_lo, q_s) -------------------------------------------------------
-  const float qv = tid < D ? mmmm::to_f(q[(size_t)bh * D + tid]) : 0.f;
-  const float qs = fmaxf(block_max(fabsf(qv), red), 1e-8f) / 16256.f;
-  if (tid < DP) {  // lanes past D hold zeros
-    const int x14 = __float2int_rn(qv / qs);
-    const int hi = x14 >> 7;
-    qsplit[0][tid] = static_cast<int8_t>(hi);
-    qsplit[1][tid] = static_cast<int8_t>(x14 - hi * 128);
-  }
-  __syncthreads();
+  const mmmm::q8::Ring ring{smem, bar, kq + row0 * D, vq + row0 * D, ks + row0, vs + row0,
+                            C, NS, D, len, (len + C - 1) / C, false};
+  const int nc = ring.n_chunks;
+  const bool refill = ring.items() > NS;
+  float* logit = reinterpret_cast<float*>(
+      scratch == nullptr ? smem + (size_t)NS * mmmm::q8::stage_bytes(C, D)
+                         : scratch + (size_t)bh * 6 * smax4);
+  int8_t* whi = reinterpret_cast<int8_t*>(logit + smax4);
+  int8_t* wlo = whi + smax4;
+  ring.start();
 
-  // ---- logits of the valid slots ------------------------------------------------------
+  // ---- 1. q -> (q_hi, q_lo, q_s), a lane group holding the row ---------------------
+  int4 qh, ql;
+  float qs;
   {
-    const int g = lane / LPS;
-    const int d0 = 16 * (lane % LPS);
-    const int4 qh = *reinterpret_cast<const int4*>(&qsplit[0][d0]);
-    const int4 ql = *reinterpret_cast<const int4*>(&qsplit[1][d0]);
-    const float qss = qs * scale;
-    for (int base = warp * G; base < len; base += kWarps * G) {
-      const int j = base + g;
-      int a = 0, c = 0;
-      if (j < len) {
-        const int4 kr = load_row16<VEC>(kq + (row0 + j) * D, d0, D);
-        a = __dp4a(kr.x, qh.x, a);
-        a = __dp4a(kr.y, qh.y, a);
-        a = __dp4a(kr.z, qh.z, a);
-        a = __dp4a(kr.w, qh.w, a);
-        c = __dp4a(kr.x, ql.x, c);
-        c = __dp4a(kr.y, ql.y, c);
-        c = __dp4a(kr.z, ql.z, c);
-        c = __dp4a(kr.w, ql.w, c);
-      }
+    float amax = 0.f;
 #pragma unroll
-      for (int off = LPS / 2; off > 0; off >>= 1) {
-        a += __shfl_xor_sync(0xffffffffu, a, off);
-        c += __shfl_xor_sync(0xffffffffu, c, off);
+    for (int e = 0; e < 16; ++e) amax = fmaxf(amax, fabsf(qv[e]));
+#pragma unroll
+    for (int off = LPS / 2; off > 0; off >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    qs = fmaxf(amax, 1e-8f) / 16256.f;
+    unsigned hw[4] = {0u, 0u, 0u, 0u}, lw[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int x14 = __float2int_rn(qv[e] / qs);
+      const int hi = x14 >> 7;
+      hw[e >> 2] |= static_cast<unsigned>(hi & 0xFF) << (8 * (e & 3));
+      lw[e >> 2] |= static_cast<unsigned>((x14 - hi * 128) & 0xFF) << (8 * (e & 3));
+    }
+    qh = make_int4(hw[0], hw[1], hw[2], hw[3]);
+    ql = make_int4(lw[0], lw[1], lw[2], lw[3]);
+  }
+
+  // ---- 2. logits of the valid slots, and their max ---------------------------------
+  float mx = mmmm::kNegInf;
+  {
+    const float qss = qs * scale;
+    for (int c = 0; c < nc; ++c) {
+      ring.wait(c);
+      const int8_t* rows = ring.rows(c);
+      const __nv_bfloat16* sc = ring.scales(c);
+      const int cnt = ring.count(c);
+      float* lg = logit + c * C;
+      for (int base = warp * G; base < cnt; base += 2 * kWarps * G) {
+        const int j[2] = {base + g, base + kWarps * G + g};
+        int a[2] = {0, 0}, cc[2] = {0, 0};
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          if (j[u] < cnt) {
+            const int4 kr = mmmm::q8::load_row16<VEC>(rows + (size_t)j[u] * D, d0, D);
+            a[u] = __dp4a(kr.x, qh.x, a[u]);
+            cc[u] = __dp4a(kr.x, ql.x, cc[u]);
+            a[u] = __dp4a(kr.y, qh.y, a[u]);
+            cc[u] = __dp4a(kr.y, ql.y, cc[u]);
+            a[u] = __dp4a(kr.z, qh.z, a[u]);
+            cc[u] = __dp4a(kr.z, ql.z, cc[u]);
+            a[u] = __dp4a(kr.w, qh.w, a[u]);
+            cc[u] = __dp4a(kr.w, ql.w, cc[u]);
+          }
+#pragma unroll
+        for (int off = LPS / 2; off > 0; off >>= 1)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            a[u] += __shfl_xor_sync(0xffffffffu, a[u], off);
+            cc[u] += __shfl_xor_sync(0xffffffffu, cc[u], off);
+          }
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          if (j[u] < cnt) {
+            const int s32 = static_cast<int>(128u * static_cast<unsigned>(a[u]) +
+                                             static_cast<unsigned>(cc[u]));
+            const float x = (static_cast<float>(s32) * __bfloat162float(sc[j[u]])) * qss;
+            mx = fmaxf(mx, x);
+            if (lane % LPS == 0) lg[j[u]] = x;
+          }
       }
-      if (j < len && lane % LPS == 0) {
-        const int s32 = static_cast<int>(128u * static_cast<unsigned>(a) + static_cast<unsigned>(c));
-        logit[j] = (static_cast<float>(s32) * __bfloat162float(ks[row0 + j])) * qss;
+      if (refill) {
+        __syncthreads();
+        ring.release(c);
       }
     }
   }
+  mx = warp_max(mx);
+  if (lane == 0) red_m[warp] = mx;
   __syncthreads();
 
-  // ---- softmax, folded with v_s, split to (w_hi, w_lo) ----------------------------------
-  float mx = mmmm::kNegInf;
-  for (int j = tid; j < len; j += kThreads) mx = fmaxf(mx, logit[j]);
-  mx = block_max(mx, red);
+  // ---- 3. softmax folded with v_s, split to (w_hi, w_lo) ---------------------------
+  float m = red_m[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red_m[w]);
   float sum = 0.f;
   for (int j = tid; j < len; j += kThreads) {
-    const float p = expf(logit[j] - mx);
+    const float p = expf(logit[j] - m);
     logit[j] = p;
     sum += p;
   }
-  const float denom = fmaxf(block_sum(sum, red), 1e-30f);
+  sum = warp_sum(sum);
+  if (lane == 0) red_s[warp] = sum;
+  __syncthreads();
+  float den = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) den += red_s[w];
+  const float denom = fmaxf(den, 1e-30f);
+  // one chunk: v_s from the V stage (requested with K); on the ring it
+  // arrives with V's rows after the softmax, so it is read from global memory
+  const __nv_bfloat16* vsc = vs + row0;
+  if (nc == 1) {
+    ring.wait(1);
+    vsc = ring.scales(1);
+  }
   float wmx = 0.f;
   for (int j = tid; j < len; j += kThreads) {
-    const float w = (logit[j] / denom) * __bfloat162float(vs[row0 + j]);
+    const float w = (logit[j] / denom) * __bfloat162float(vsc[j]);
     logit[j] = w;
     wmx = fmaxf(wmx, w);
   }
-  const float ws = fmaxf(block_max(wmx, red), 1e-30f) / 16256.f;
-  for (int j = tid; j < smax4; j += kThreads) {
+  wmx = warp_max(wmx);
+  if (lane == 0) red_w[warp] = wmx;
+  __syncthreads();
+  float wmax = red_w[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) wmax = fmaxf(wmax, red_w[w]);
+  const float ws = fmaxf(wmax, 1e-30f) / 16256.f;
+  for (int j = tid; j < ((len + 3) & ~3); j += kThreads) {  // zero to a whole 4 slots
     int hi = 0, lo = 0;
     if (j < len) {
       const int w14 = __float2int_rn(logit[j] / ws);
@@ -198,36 +235,48 @@ decode_q8_mxu_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
   }
   __syncthreads();
 
-  // ---- o32 = 128 <v_q^T, w_hi> + <v_q^T, w_lo> -----------------------------------------
+  // ---- 4. o32 = 128 <v_q^T, w_hi> + <v_q^T, w_lo> ---------------------------------
   {
-    const int c = tid % WC;
+    const int cw = tid % WC;
     const int sg = tid / WC;
     int ah[4] = {0, 0, 0, 0}, al[4] = {0, 0, 0, 0};
-    for (int j0 = 4 * sg; j0 < len; j0 += 4 * NSG) {
-      unsigned r[4];
+    for (int c = 0; c < nc; ++c) {
+      const int i = nc + c;
+      ring.wait(i);
+      const int8_t* rows = ring.rows(i);
+      const int cnt = ring.count(i);
+      const int c0 = c * C;
+      // rows past cnt (to a whole 4) lie inside the stage and meet zero weights
+      for (int j0 = 4 * sg; j0 < cnt; j0 += 4 * NSG) {
+        unsigned r[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        r[i] = j0 + i < Smax ? load_row4<VEC>(vq + (row0 + j0 + i) * D, 4 * c, D) : 0u;
-      // t[d] = byte d of r[0..3]: head dim 4c + d of the four slots
-      const unsigned lo01 = __byte_perm(r[0], r[1], 0x5140);
-      const unsigned lo23 = __byte_perm(r[2], r[3], 0x5140);
-      const unsigned hi01 = __byte_perm(r[0], r[1], 0x7362);
-      const unsigned hi23 = __byte_perm(r[2], r[3], 0x7362);
-      const int t[4] = {static_cast<int>(__byte_perm(lo01, lo23, 0x5410)),
-                        static_cast<int>(__byte_perm(lo01, lo23, 0x7632)),
-                        static_cast<int>(__byte_perm(hi01, hi23, 0x5410)),
-                        static_cast<int>(__byte_perm(hi01, hi23, 0x7632))};
-      const int wh = *reinterpret_cast<const int*>(whi + j0);
-      const int wl = *reinterpret_cast<const int*>(wlo + j0);
+        for (int u = 0; u < 4; ++u)
+          r[u] = mmmm::q8::load_row4<VEC>(rows + (size_t)(j0 + u) * D, 4 * cw, D);
+        // t[d] = byte d of r[0..3]: head dim 4 cw + d of the four slots
+        const unsigned lo01 = __byte_perm(r[0], r[1], 0x5140);
+        const unsigned lo23 = __byte_perm(r[2], r[3], 0x5140);
+        const unsigned hi01 = __byte_perm(r[0], r[1], 0x7362);
+        const unsigned hi23 = __byte_perm(r[2], r[3], 0x7362);
+        const int t[4] = {static_cast<int>(__byte_perm(lo01, lo23, 0x5410)),
+                          static_cast<int>(__byte_perm(lo01, lo23, 0x7632)),
+                          static_cast<int>(__byte_perm(hi01, hi23, 0x5410)),
+                          static_cast<int>(__byte_perm(hi01, hi23, 0x7632))};
+        const int wh = *reinterpret_cast<const int*>(whi + c0 + j0);
+        const int wl = *reinterpret_cast<const int*>(wlo + c0 + j0);
 #pragma unroll
-      for (int d = 0; d < 4; ++d) {
-        ah[d] = __dp4a(t[d], wh, ah[d]);
-        al[d] = __dp4a(t[d], wl, al[d]);
+        for (int d = 0; d < 4; ++d) {
+          ah[d] = __dp4a(t[d], wh, ah[d]);
+          al[d] = __dp4a(t[d], wl, al[d]);
+        }
+      }
+      if (refill) {
+        __syncthreads();
+        ring.release(i);
       }
     }
 #pragma unroll
     for (int d = 0; d < 4; ++d)
-      osum[sg][4 * c + d] = 128u * static_cast<unsigned>(ah[d]) + static_cast<unsigned>(al[d]);
+      osum[sg][4 * cw + d] = 128u * static_cast<unsigned>(ah[d]) + static_cast<unsigned>(al[d]);
   }
   __syncthreads();
   for (int d = tid; d < D; d += kThreads) {
@@ -237,36 +286,45 @@ decode_q8_mxu_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
   }
 }
 
+// Dynamic shared memory of a launch: the stages, then (without a workspace)
+// the logits and split weights.
+size_t k10_smem(int C, int NS, int D, int Smax, bool in_shared) {
+  return (size_t)NS * mmmm::q8::stage_bytes(C, D) +
+         (in_shared ? (size_t)6 * ((Smax + 3) & ~3) : 0);
+}
+
 template <typename T, int LPS, bool VEC>
 int launch_lps(const T* q, const int8_t* kq, const __nv_bfloat16* ks, const int8_t* vq,
                const __nv_bfloat16* vs, const int* lens, T* out, unsigned char* scratch, int B,
-               int H, int Smax, int D, float scale, cudaStream_t st) {
+               int H, int Smax, int D, float scale, int C, int NS, cudaStream_t st) {
   auto* kern = decode_q8_mxu_kernel<T, LPS, VEC>;
-  const size_t smem = scratch == nullptr ? 6 * (size_t)((Smax + 3) & ~3) : 0;
-  if (smem > 40 * 1024) {
+  const size_t smem = k10_smem(C, NS, D, Smax, scratch == nullptr);
+  if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kern<<<B * H, kThreads, smem, st>>>(q, kq, ks, vq, vs, lens, out, scratch, H, Smax, D, scale);
+  kern<<<B * H, kThreads, smem, st>>>(q, kq, ks, vq, vs, lens, out, scratch, H, Smax, D, scale,
+                                      C, NS);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int LPS>
-int launch_vec(const T* q, const int8_t* kq, const __nv_bfloat16* ks, const int8_t* vq,
-               const __nv_bfloat16* vs, const int* lens, T* out, unsigned char* scratch, int B,
-               int H, int Smax, int D, float scale, cudaStream_t st) {
-  if (D % 16 == 0)
+int launch_vec(bool vec, const T* q, const int8_t* kq, const __nv_bfloat16* ks,
+               const int8_t* vq, const __nv_bfloat16* vs, const int* lens, T* out,
+               unsigned char* scratch, int B, int H, int Smax, int D, float scale, int C, int NS,
+               cudaStream_t st) {
+  if (vec)
     return launch_lps<T, LPS, true>(q, kq, ks, vq, vs, lens, out, scratch, B, H, Smax, D, scale,
-                                    st);
+                                    C, NS, st);
   return launch_lps<T, LPS, false>(q, kq, ks, vq, vs, lens, out, scratch, B, H, Smax, D, scale,
-                                   st);
+                                   C, NS, st);
 }
 
 template <typename T>
 int launch(const void* q, const void* kq, const void* ks, const void* vq, const void* vs,
            const int* lens, void* out, void* scratch, int B, int H, int Smax, int D, float scale,
-           cudaStream_t st) {
+           int C, int NS, cudaStream_t st) {
   const T* qp = static_cast<const T*>(q);
   const int8_t* kqp = static_cast<const int8_t*>(kq);
   const int8_t* vqp = static_cast<const int8_t*>(vq);
@@ -274,10 +332,21 @@ int launch(const void* q, const void* kq, const void* ks, const void* vq, const 
   const __nv_bfloat16* vsp = static_cast<const __nv_bfloat16*>(vs);
   T* op = static_cast<T*>(out);
   unsigned char* w = static_cast<unsigned char*>(scratch);
-  if (D <= 16) return launch_vec<T, 1>(qp, kqp, ksp, vqp, vsp, lens, op, w, B, H, Smax, D, scale, st);
-  if (D <= 32) return launch_vec<T, 2>(qp, kqp, ksp, vqp, vsp, lens, op, w, B, H, Smax, D, scale, st);
-  if (D <= 64) return launch_vec<T, 4>(qp, kqp, ksp, vqp, vsp, lens, op, w, B, H, Smax, D, scale, st);
-  return launch_vec<T, 8>(qp, kqp, ksp, vqp, vsp, lens, op, w, B, H, Smax, D, scale, st);
+  // 16-byte row and q loads: whole 16-byte pieces from 16-byte-aligned bases
+  const bool vec = D % 16 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(kq) |
+                     reinterpret_cast<uintptr_t>(vq)) & 15) == 0;
+  if (D <= 16)
+    return launch_vec<T, 1>(vec, qp, kqp, ksp, vqp, vsp, lens, op, w, B, H, Smax, D, scale, C, NS,
+                            st);
+  if (D <= 32)
+    return launch_vec<T, 2>(vec, qp, kqp, ksp, vqp, vsp, lens, op, w, B, H, Smax, D, scale, C, NS,
+                            st);
+  if (D <= 64)
+    return launch_vec<T, 4>(vec, qp, kqp, ksp, vqp, vsp, lens, op, w, B, H, Smax, D, scale, C, NS,
+                            st);
+  return launch_vec<T, 8>(vec, qp, kqp, ksp, vqp, vsp, lens, op, w, B, H, Smax, D, scale, C, NS,
+                          st);
 }
 
 }  // namespace
@@ -286,18 +355,26 @@ int launch(const void* q, const void* kq, const void* ks, const void* vq, const 
 // (B, H, Smax, 1) bf16; kv_len (B,) int32; 1 <= D <= 128. scratch: null, or
 // B * H * 6 * roundup(Smax, 4) bytes of scratch for the logits and split
 // weights where they do not fit in shared memory (ops/decode_kernel.py
-// q8_mxu_in_shared).
+// q8_mxu_in_shared). chunk, stages: the staged read's plan
+// (ops/decode_kernel.py q8_stage_plan).
 extern "C" int mmmm_decode_attention_q8_mxu(const void* q, const void* kq, const void* ks,
                                             const void* vq, const void* vs,
                                             const void* kv_len, void* out, void* scratch, int B,
                                             int H, int Smax, int D, float scale, int is_bf16,
-                                            void* stream) {
-  if (B <= 0 || H <= 0 || Smax <= 0 || D <= 0 || D > 128)
+                                            int chunk, int stages, void* stream) {
+  if (B <= 0 || H <= 0 || Smax <= 0 || D <= 0 || D > 128 || chunk < 16 || chunk % 16 ||
+      stages < 2 || stages > mmmm::q8::kMaxStages)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(kv_len);
   if (is_bf16)
     return launch<__nv_bfloat16>(q, kq, ks, vq, vs, lens, out, scratch, B, H, Smax, D, scale,
-                                 st);
-  return launch<float>(q, kq, ks, vq, vs, lens, out, scratch, B, H, Smax, D, scale, st);
+                                 chunk, stages, st);
+  return launch<float>(q, kq, ks, vq, vs, lens, out, scratch, B, H, Smax, D, scale, chunk, stages,
+                       st);
+}
+
+// The dynamic shared memory K10 asks for under a plan.
+extern "C" int mmmm_decode_q8_mxu_smem(int chunk, int stages, int D, int Smax, int in_shared) {
+  return static_cast<int>(k10_smem(chunk, stages, D, Smax, in_shared != 0));
 }

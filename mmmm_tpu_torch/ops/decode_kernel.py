@@ -66,14 +66,16 @@ K8 = _cuda.register(_cuda.Kernel(
 ))
 K9 = _cuda.register(_cuda.Kernel(
     "K9", "mmmm_decode_attention_q8",
-    [_cuda.P] * 7 + [_cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.I, _cuda.P],
+    [_cuda.P] * 7 + [_cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.I, _cuda.I, _cuda.I,
+                     _cuda.P],
     source="mmmm_tpu_torch/csrc/decode_q8.cu",
     replaces="mmmm_tpu/ops/decode_kernel.py:328 decode_attention_pallas_q8 "
              "(pallas_call :377 via :370; ragged :704 -> :733)",
 ))
 K10 = _cuda.register(_cuda.Kernel(
     "K10", "mmmm_decode_attention_q8_mxu",
-    [_cuda.P] * 8 + [_cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.I, _cuda.P],
+    [_cuda.P] * 8 + [_cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.I, _cuda.I, _cuda.I,
+                     _cuda.P],
     source="mmmm_tpu_torch/csrc/decode_q8_mxu.cu",
     replaces="mmmm_tpu/ops/decode_kernel.py:604 decode_attention_pallas_q8_mxu "
              "(pallas_call :624; _decode_kernel_q8_mxu :542, _q14_split :528)",
@@ -84,6 +86,11 @@ FULL_READ_BUDGET = 12 * 1024 * 1024
 # K10 keeps 6 bytes a slot (fp32 logit, int8 w_hi and w_lo) in shared memory
 # up to this many slots, in a global workspace above
 Q8_MXU_SHARED_SLOTS = 32768
+# K9's and K10's staged read (csrc/decode_q8_stage.cuh): the dynamic shared
+# memory a block may take (the H100's 227 KiB less room for the kernels'
+# static arrays), and the stages of its ring
+Q8_DYNAMIC_SMEM = 220 * 1024
+Q8_RING_STAGES = 4
 
 
 def dus_rows(cache, new, write_index):
@@ -324,6 +331,57 @@ def decode_attention_q8_plain(q, kq, ks, vq, vs, kv_len, scale: float | None = N
     return out.transpose(1, 2).to(q.dtype)  # (B, 1, H, D)
 
 
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def q8_stage_bytes(chunk: int, d: int) -> int:
+    """Shared memory of one stage of the staged read: ``chunk`` int8 rows of
+    ``d`` bytes and ``chunk`` bf16 scales, each region with 15 bytes of
+    slack so that a slab keeps its address modulo 16."""
+    return _round16(chunk * d + 15) + _round16(2 * chunk + 15)
+
+
+def q8_math_smem(smax: int, chunk: int, mxu: bool) -> int:
+    """The dynamic shared memory K9 (``mxu=False``: a chunk's fp32 logits and
+    exps) or K10 (the logits and split weights of every slot, 6 bytes a
+    slot, unless they go to its workspace) takes beside the stages."""
+    if not mxu:
+        return 8 * chunk
+    return 6 * (-(-smax // 4) * 4) if q8_mxu_in_shared(smax) else 0
+
+
+def q8_stage_plan(smax: int, d: int, mxu: bool = False) -> tuple[int, int]:
+    """(slots a stage, stages) of K9's (or, ``mxu``, K10's) staged read of a
+    head: the whole read, two stages of ``roundup(smax, 16)`` slots (the K
+    rows and the V rows, both requested as the block starts), where they fit
+    beside the kernel's own shared memory in ``Q8_DYNAMIC_SMEM``; else a ring
+    of 4 stages of the most slots, a multiple of 16, that fit. Run
+    (c)'s and (d)'s flagship cache (Smax 320, D = 128): (320, 2), 83 KiB."""
+    whole = _round16(smax)
+    if 2 * q8_stage_bytes(whole, d) + q8_math_smem(smax, whole, mxu) <= Q8_DYNAMIC_SMEM:
+        return whole, 2
+    chunk = _round16(Q8_DYNAMIC_SMEM // (Q8_RING_STAGES * (d + 2)))
+    while (Q8_RING_STAGES * q8_stage_bytes(chunk, d)
+           + q8_math_smem(smax, chunk, mxu) > Q8_DYNAMIC_SMEM):
+        chunk -= 16
+    if chunk < 16:
+        raise ValueError(f"no staged read of Smax {smax}, D {d} fits in shared memory")
+    return chunk, Q8_RING_STAGES
+
+
+def q8_slab_copy(offset: int, nbytes: int) -> tuple[int, int, int]:
+    """How the staged read copies a slab of ``nbytes`` bytes that starts
+    ``offset`` bytes past a 16-byte-aligned address (a head's rows or
+    scales, or a chunk of them): (head, body, tail). The body, whole 16-byte
+    pieces from a 16-byte boundary, goes by one bulk copy; the head (up to
+    that boundary) and the tail (after the body), at most 15 bytes each, by
+    ordinary loads. Nothing past the slab is read."""
+    head = min(-offset % 16, nbytes)
+    body = (nbytes - head) // 16 * 16
+    return head, body, nbytes - head - body
+
+
 def _q8_mxu_eligible(h: int, smax: int, d: int) -> bool:
     """The reference's condition for the split-int8 read: a head chunk's
     fp32 image of the (Smax, D) int8 operands fits its VMEM budget
@@ -363,9 +421,10 @@ def decode_attention_q8(q, kq, ks, vq, vs, kv_len, scale: float | None = None, *
     if not 0 < d <= 128:
         raise ValueError(f"decode_attention_q8: head dim {d} must be in 1..128")
     out = torch.empty_like(q)
+    chunk, stages = q8_stage_plan(smax, d)
     K9(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
        kv_len.data_ptr(), out.data_ptr(), b, h, smax, d, float(scale),
-       int(q.dtype == torch.bfloat16), _cuda.stream_of(q))
+       int(q.dtype == torch.bfloat16), chunk, stages, _cuda.stream_of(q))
     return out
 
 
@@ -441,7 +500,8 @@ def decode_attention_q8_mxu(q, kq, ks, vq, vs, kv_len, scale: float | None = Non
     out = torch.empty_like(q)
     ws = None if q8_mxu_in_shared(smax) else torch.empty(
         b * h * 6 * (-(-smax // 4) * 4), dtype=torch.uint8, device=q.device)
+    chunk, stages = q8_stage_plan(smax, d, mxu=True)
     K10(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
         kv_len.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(), b, h, smax,
-        d, float(scale), int(q.dtype == torch.bfloat16), _cuda.stream_of(q))
+        d, float(scale), int(q.dtype == torch.bfloat16), chunk, stages, _cuda.stream_of(q))
     return out

@@ -219,6 +219,65 @@ def test_q8_mxu_kernel_wraps_as_int32(cuda):
     assert torch.all(got < 0)
 
 
+def _q8_reads(mxu):
+    if mxu:
+        return pdec.decode_attention_q8_mxu, pdec.decode_attention_q8_mxu_plain
+    return pdec.decode_attention_q8, pdec.decode_attention_q8_plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("smax", [320, 321])
+@pytest.mark.parametrize("mxu", [False, True])
+def test_q8_reads_at_the_flagship_shape(cuda, mxu, smax, dtype):
+    """K9 and K10 at the flagship's decode shape (H = 32, D = 128) for
+    kv_len 1, 193, 256, 320 and 0, over Smax 320 (every slab of the staged
+    read one bulk copy) and 321 (a head's scales start off a 16-byte
+    boundary: head and tail bytes): within 2e-2 (bf16 q) / 1e-4 (fp32 q) of
+    the plain versions, zeros at kv_len 0, and twice bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(smax)
+    b, h, d = 5, 32, 128
+    chunk, stages = pdec.q8_stage_plan(smax, d, mxu=mxu)
+    assert stages == 2 and chunk >= smax  # the whole read
+    kq, ks = quantize_kv(torch.randn(b, h, smax, d, generator=g, device=cuda))
+    vq, vs = quantize_kv(torch.randn(b, h, smax, d, generator=g, device=cuda))
+    q = torch.randn(b, 1, h, d, generator=g, device=cuda).to(dtype)
+    kv_len = torch.tensor([1, 193, 256, 320, 0], dtype=torch.int32, device=cuda)
+    fn, plain = _q8_reads(mxu)
+    got = fn(q, kq, ks, vq, vs, kv_len)
+    torch.testing.assert_close(got.float(), plain(q, kq, ks, vq, vs, kv_len).float(), rtol=0,
+                               atol=2e-2 if dtype == torch.bfloat16 else 1e-4)
+    assert torch.all(got[4] == 0)
+    assert torch.equal(got, fn(q, kq, ks, vq, vs, kv_len))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mxu,smax,d", [(False, 4096, 128), (False, 4096, 90),
+                                        (True, 1536, 128), (True, 1536, 90)])
+def test_q8_reads_through_the_ring(cuda, mxu, smax, d, dtype):
+    """K9 over Smax 4096 and K10 over 1536 (the reference's longest
+    split-int8 cache at H = 32, D = 128), where a head's rows stream through
+    the staged read's ring of 4 stages, at D = 128 and at D = 90 (rows and
+    scales off 16-byte boundaries): kv_len 0, inside the first chunk, just
+    past a chunk's end and Smax; within 2e-2 (bf16 q) / 1e-4 (fp32 q) of
+    the plain versions, and twice bit for bit."""
+    chunk, stages = pdec.q8_stage_plan(smax, d, mxu=mxu)
+    assert stages == 4 and chunk < smax
+    g = torch.Generator(device=cuda).manual_seed(smax + d)
+    b, h = 4, 8
+    kq, ks = quantize_kv(torch.randn(b, h, smax, d, generator=g, device=cuda))
+    vq, vs = quantize_kv(torch.randn(b, h, smax, d, generator=g, device=cuda))
+    q = torch.randn(b, 1, h, d, generator=g, device=cuda).to(dtype)
+    kv_len = torch.tensor([0, chunk - 5, 2 * chunk + 1, smax], dtype=torch.int32, device=cuda)
+    fn, plain = _q8_reads(mxu)
+    got = fn(q, kq, ks, vq, vs, kv_len)
+    torch.testing.assert_close(got.float(), plain(q, kq, ks, vq, vs, kv_len).float(), rtol=0,
+                               atol=2e-2 if dtype == torch.bfloat16 else 1e-4)
+    assert torch.all(got[0] == 0)
+    assert torch.equal(got, fn(q, kq, ks, vq, vs, kv_len))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,dtype", [(4, torch.bfloat16), (33, torch.bfloat16),
                                      (290, torch.bfloat16), (7, torch.float32),

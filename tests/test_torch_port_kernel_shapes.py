@@ -22,6 +22,13 @@ raises there:
     K10's workspace (``q8_mxu_in_shared``), at run (b)'s and run (d)'s
     flagship shapes and the tiny and W4 test widths, and what each card
     wrapper passes its kernel there (the launch recorded, not run);
+  - K9's and K10's staged read of the int8 cache: how it copies a head's
+    slab (``q8_slab_copy``: one bulk copy, or with a head and a tail) and
+    whether it takes the head whole or through a ring, of how many stages
+    (``q8_stage_plan``), at run (c)'s and run (d)'s flagship shapes and at
+    unaligned, short and long caches; K9's plain version against both TPU
+    forms of its kernel (the full read and the ragged one, in interpret
+    mode) at head dims and cache lengths off the 16-byte pieces;
 
 and check that the predicates refuse shapes the kernels cannot take. A head
 dim the attention kernels take only through zero lanes (D = 100 in bf16, 90
@@ -34,12 +41,15 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
 
+from mmmm_tpu.ops import decode_kernel as jdec
 from mmmm_tpu.ops import dense_attn as jdense
 from mmmm_tpu.ops import flash as jflash
+from mmmm_tpu.ops import quant as jquant
 from mmmm_tpu_torch.models.cogvlm import decoder as pdec
 from mmmm_tpu_torch.models.cogvlm.config import CogVLMConfig
 from mmmm_tpu_torch.models.segvol import SamConfig
@@ -394,7 +404,7 @@ def recorded(monkeypatch):
     monkeypatch.setattr(_cuda, "on_cpu", lambda name, t: False)
     monkeypatch.setattr(_cuda, "check_cuda", lambda *a, **k: None)
     monkeypatch.setattr(_cuda, "stream_of", lambda t: 0)
-    for mod, name in ((pdk, "K6"), (pdk, "K10"), (pw4, "K11")):
+    for mod, name in ((pdk, "K6"), (pdk, "K9"), (pdk, "K10"), (pw4, "K11")):
         monkeypatch.setattr(mod, name, lambda *a, _n=name: calls.setdefault(_n, []).append(a))
     return calls
 
@@ -454,3 +464,144 @@ def test_w4_decode_rows_launch(recorded, k, n):
     args = recorded["K11"][-1]
     assert args[4] is not None and args[9:11] == (0, 1)
     assert pw4.K11_BY_SHAPE[(k, n)] - before == 4  # each launch counted on its shape
+
+
+# ---- K9's and K10's staged read of the int8 cache ------------------------------------
+
+SMAX_Q8 = PROMPT + 128  # runs (c) and (d): the prompt and 128 new tokens
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("d", [8, 90, 100, 128])
+@pytest.mark.parametrize("smax", [57, SMAX_Q8, 321, 4096, 40000])
+def test_q8_stage_plan(smax, d, mxu):
+    """The whole head at once (two stages of roundup(Smax, 16) slots: K and
+    V both requested as the block starts) wherever that fits beside the
+    kernel's own shared memory, else the largest ring of 4 stages of a
+    multiple of 16 slots that fits."""
+    chunk, stages = pdk.q8_stage_plan(smax, d, mxu=mxu)
+    used = lambda c, n: n * pdk.q8_stage_bytes(c, d) + pdk.q8_math_smem(smax, c, mxu)
+    assert chunk % 16 == 0 and used(chunk, stages) <= pdk.Q8_DYNAMIC_SMEM
+    whole = smax <= 321 or (smax == 4096 and d == 8)
+    if whole:
+        assert (chunk, stages) == (-(-smax // 16) * 16, 2)
+    else:
+        assert stages == 4 and 16 <= chunk < smax
+        assert used(chunk + 16, stages) > pdk.Q8_DYNAMIC_SMEM
+    # the kernels' static arrays (at most 4.2 KiB) fit beside it in the H100's 227 KiB
+    assert pdk.Q8_DYNAMIC_SMEM + 4352 <= 232448
+
+
+def test_q8_stage_plan_at_the_flagship():
+    """Runs (c) and (d) (Smax 320, D = 128): all of a head's K and V rows
+    and scales in two stages, 83 KiB a block with K9's chunk logits and
+    K10's slot logits and split weights; K10's workspace only past
+    ``Q8_MXU_SHARED_SLOTS``."""
+    d = CogVLMConfig.cogvlm17b().head_dim
+    for mxu, math in ((False, 8 * SMAX_Q8), (True, 6 * SMAX_Q8)):
+        assert pdk.q8_stage_plan(SMAX_Q8, d, mxu=mxu) == (SMAX_Q8, 2)
+        assert pdk.q8_math_smem(SMAX_Q8, SMAX_Q8, mxu) == math
+    assert 2 * pdk.q8_stage_bytes(SMAX_Q8, d) == 2 * (40976 + 656)
+    assert pdk.q8_mxu_in_shared(pdk.Q8_MXU_SHARED_SLOTS)
+    assert not pdk.q8_mxu_in_shared(pdk.Q8_MXU_SHARED_SLOTS + 1)
+
+
+@pytest.mark.parametrize("offset,nbytes,split", [
+    (0, 256 * 128, (0, 32768, 0)),   # a flagship head's K rows at kv_len 256: one bulk copy
+    (640, 512, (0, 512, 0)),          # its scales
+    (640, 386, (0, 384, 2)),          # the scales at kv_len 193: a tail
+    (642, 642, (14, 624, 4)),         # Smax 321, head 1's scales: a head and a tail
+    (2 * 57 * 90, 23 * 90, (12, 2048, 10)),  # D = 90: rows 57 * 90 bytes apart
+    (10, 10, (6, 0, 4)),              # crosses a boundary, no whole piece
+    (2, 8, (8, 0, 0)),                # inside one piece
+    (16, 0, (0, 0, 0)),               # kv_len 0
+])
+def test_q8_slab_copy(offset, nbytes, split):
+    assert pdk.q8_slab_copy(offset, nbytes) == split
+
+
+@pytest.mark.parametrize("d", [8, 90, 100, 128])
+@pytest.mark.parametrize("smax", [57, SMAX_Q8, 321])
+def test_q8_slab_copy_covers_every_head(smax, d):
+    """Every head's rows and scales at the flagship batch (B = 4, H = 32)
+    and every kv_len: the pieces cover the slab exactly, the body is whole
+    aligned 16-byte pieces, and head and tail are under 16 bytes. Where
+    ``Smax * D`` and ``2 Smax`` are multiples of 16 (the flagship's 320 x 128)
+    every slab of rows is one bulk copy."""
+    for bh in range(B * 32):
+        for n in (0, 1, 17, 193, 256, smax):
+            n = min(n, smax)
+            for offset, nbytes in ((bh * smax * d, n * d), (bh * smax * 2, n * 2)):
+                head, body, tail = pdk.q8_slab_copy(offset, nbytes)
+                assert head + body + tail == nbytes and head < 16 and tail < 16
+                assert body % 16 == 0 and (body == 0 or (offset + head) % 16 == 0)
+                assert head == 0 or (offset + head) % 16 == 0 or tail == 0
+            if smax * d % 16 == 0:
+                assert pdk.q8_slab_copy(bh * smax * d, n * d) == (0, n * d - n * d % 16,
+                                                                  n * d % 16)
+    if smax == SMAX_Q8 and d == 128:
+        assert all(pdk.q8_slab_copy(bh * smax * d, n * d)[::2] == (0, 0)
+                   for bh in range(B * 32) for n in range(smax + 1))
+
+
+@pytest.mark.parametrize("smax,d", [(SMAX_Q8, 128), (321, 128), (57, 90), (4096, 128),
+                                    (40000, 16)])
+def test_q8_wrappers_launch(recorded, smax, d):
+    """What K9 and K10 are handed on the card: the plan of their staged read
+    (run (c)'s and run (d)'s flagship cache: two stages of 320 slots)."""
+    meta = dict(device="meta")
+    h = 32 if smax < 40000 else 3
+    q = torch.empty(B, 1, h, d, dtype=torch.bfloat16, **meta)
+    kq = torch.empty(B, h, smax, d, dtype=torch.int8, **meta)
+    ks = torch.empty(B, h, smax, 1, dtype=torch.bfloat16, **meta)
+    n = torch.empty(B, dtype=torch.int32, **meta)
+    pdk.decode_attention_q8(q, kq, ks, kq, ks, n)
+    assert recorded["K9"][-1][9:11] == (smax, d)
+    assert recorded["K9"][-1][13:15] == pdk.q8_stage_plan(smax, d)
+    pdk.decode_attention_q8_mxu(q, kq, ks, kq, ks, n)
+    assert recorded["K10"][-1][10:12] == (smax, d)
+    assert recorded["K10"][-1][14:16] == pdk.q8_stage_plan(smax, d, mxu=True)
+    if smax == SMAX_Q8:
+        assert recorded["K9"][-1][13:15] == recorded["K10"][-1][14:16] == (320, 2)
+
+
+def _q8_case(rng, b, h, smax, d, bf16):
+    q = rng.normal(size=(b, 1, h, d)).astype(np.float32)
+    if bf16:
+        q = q.astype(ml_dtypes.bfloat16).astype(np.float32)
+    kq, ks = jquant.quantize_kv(jnp.asarray(rng.normal(size=(b, h, smax, d)), jnp.bfloat16))
+    vq, vs = jquant.quantize_kv(jnp.asarray(rng.normal(size=(b, h, smax, d)), jnp.bfloat16))
+    return q, [kq, ks, vq, vs]
+
+
+def _torch_of(a):
+    a = np.array(a)
+    if a.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("smax,d,block_s", [(57, 90, 19), (40, 100, 8), (64, 8, 16),
+                                            (48, 128, 16)])
+def test_q8_plain_matches_both_pallas_forms(smax, d, block_s, bf16):
+    """K9's plain version against the full-read Pallas kernel
+    (``_decode_attention_pallas_q8_full``) and the ragged one
+    (``decode_attention_pallas_q8_ragged``), in interpret mode, at head dims
+    off the 16-byte pieces and an unaligned Smax: atol 1e-5 in fp32, 2e-2
+    in bf16 (the Pallas kernels' sums run in another order)."""
+    rng = np.random.default_rng(smax + d)
+    b, h = 3, 4
+    q, leaves = _q8_case(rng, b, h, smax, d, bf16)
+    kv_len = np.array([0, smax // 2 + 1, smax], np.int32)
+    jq = jnp.asarray(q, jnp.bfloat16 if bf16 else jnp.float32)
+    pq = torch.from_numpy(q).to(torch.bfloat16 if bf16 else torch.float32)
+    got = pdk.decode_attention_q8(pq, *map(_torch_of, leaves), torch.from_numpy(kv_len))
+    assert torch.all(got[0] == 0)
+    tol = dict(atol=2e-2 if bf16 else 1e-5, rtol=0)
+    full = jdec._decode_attention_pallas_q8_full(jq, *leaves, jnp.asarray(kv_len),
+                                                 scale=d ** -0.5)
+    ragged = jdec.decode_attention_pallas_q8_ragged(jq, *leaves, jnp.asarray(kv_len),
+                                                    block_s=block_s, cast="f32")
+    for ref in (full, ragged):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), **tol)
