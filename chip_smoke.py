@@ -11,14 +11,21 @@ Phases, in order; any failure exits non-zero before the result lines:
  2. build the CUDA kernels from ``mmmm_tpu_torch/csrc`` (``nvcc``, sm_90a)
     and print the registers, shared memory and spill bytes of every K3/K4
     (``attn_fwd_*``, with P1's form), K6 tensor-core, K11 decode-row,
-    K11mma, K7, K9 and K10 kernel (failing if one spills);
+    K11mma, K7, K9, K10 and K1 kernel (failing if one spills);
  3. hold each kernel (K1-K11, K7delta, K12 = K4's kernel, probe P1) against
     its plain PyTorch version on the card, at the grounded path's and the
-    training step's shapes and at edge cases (K6 for windows of 1 to 8 at
-    write indices from 0, mid-cache, at the end and negative, with warps'
-    tiles that hold no valid slot, at D = 128, 64 and 90 in bf16 and in
-    fp32, over a long cache, and twice bit for bit, timed at run (b)'s first,
-    middle and last verify steps; K9 and K10 at the flagship's H and D for
+    training step's shapes and at edge cases (K1 and its fused form with
+    K2's append at H = 32 for kv_len 1, 193, 256, 320 and 0 at B = 4 and 1,
+    over Smax 320 and 321, at D = 128, 64 and 90 in bf16 and fp32, over a
+    cache past a block's shared memory, twice bit for bit, the fused form's
+    caches bit-equal to ``kv_append_plain``'s at write indices in range,
+    past either end and past kv_len; timed at kv_len 193, 256, 320 and at
+    B = 1, the fused form beside K2 then K1 and ``index_put_`` + SDPA; K6
+    for windows of 1 to 8 at write indices from 0, mid-cache, at the end and
+    negative, with warps' tiles that hold no valid slot, at D = 128, 64 and
+    90 in bf16 and in fp32, over a long cache, and twice bit for bit, timed
+    at run (b)'s first, middle and last verify steps; K9 and K10 at the
+    flagship's H and D for
     kv_len 1, 193, 256, 320 and 0 over Smax 320 and 321, through their
     staged read's ring twice bit for bit, and timed at kv_len 193, 256 and
     320 and at B = 1; K10 at D = 8, 16, 48, 64, 90 and 100 and over a cache
@@ -42,7 +49,8 @@ Phases, in order; any failure exits non-zero before the result lines:
  5. run the grounded report path at the flagship width (CogVLM-17B +
     SegVol SAM, bf16 LLM/ViT, fp32 SAM, random weights from a seed): B=4,
     prompt 192 with 146 vision tokens, 128 new tokens, 4 targets, as four
-    runs: (a) greedy, bf16 weights and KV cache; then, with the LLM
+    runs: (a) greedy, bf16 weights and KV cache (each step's append inside
+    K1's launch: K2 launches 0 times); then, with the LLM
     quantized in place to W8A16, (b) speculative with 7 drafts and a bf16
     KV cache (the reference bench's default decode) and (c) greedy with an
     int8 KV cache; then, with the LLM made again from the seed and
@@ -119,10 +127,13 @@ W4_MMA = LAYERS * 10 * (B // CHUNK)
 W4_SHAPES = ((4096, 12288), (4096, 4096), (4096, 11008), (11008, 4096))
 W4_DECODE_CALLS = {s: (2 if s == (4096, 11008) else 1) * LAYERS * ((B // CHUNK) + NEW)
                    for s in W4_SHAPES}
-# flagship launches per run; "iters" is scaled by the run's verify steps
+# flagship launches per run; "iters" is scaled by the run's verify steps;
+# "forms": the launches of a kernel's named forms (every other form count 0).
+# Run (a) appends each step's K/V row inside K1's launch (its "append" form),
+# so the stand-alone K2 launches 0 times
 RUNS = {
-    "a_greedy_bf16": dict(kw={}, launches={"K4": 63 + 12, "K3": LAYERS, "K2": LAYERS * NEW,
-                                           "K1": LAYERS * NEW}),
+    "a_greedy_bf16": dict(kw={}, launches={"K4": 63 + 12, "K3": LAYERS, "K1": LAYERS * NEW},
+                          forms={"K1": {"append": LAYERS * NEW}}),
     "b_spec7_w8a16": dict(kw=dict(spec_draft_len=DRAFT),
                           launches={"K4": 63 + 12, "K3": LAYERS, "K5": "iters", "K6": "iters"}),
     "c_int8kv_w8a16": dict(kw=dict(kv_cache_dtype="int8"),
@@ -137,7 +148,9 @@ RUNS = {
 }
 # kernel -> (run whose launch count it reports, the counter it reads); K12 is
 # K4's kernel; P1 is a probe that no run launches; a train_* run is one
-# steady training step
+# steady training step; K2 reports the stand-alone append's launches on run
+# (a), 0 (its append runs inside K1's launch; K2 stays as the port of
+# kv_append_pallas, checked and timed in phase 3)
 KERNEL_RUN = {"K1": "a_greedy_bf16", "K2": "a_greedy_bf16", "K3": "a_greedy_bf16",
               "K4": "a_greedy_bf16", "K5": "b_spec7_w8a16", "K6": "b_spec7_w8a16",
               "K7dq": "train_semantic", "K7dkv": "train_semantic", "K7delta": "train_semantic",
@@ -370,39 +383,26 @@ def kernel_phase(peaks, gen):
                 and torch.all(o[1, 550:] == 0) and torch.all(lse[1, :, 550:] == 0)):
             raise AssertionError("K3: a fully masked row is not zero")
 
-    # ---- K1 decode attention and K2 KV append --------------------------------------
-    log("K1 decode attention, K2 KV append")
+    # ---- K1 decode attention (the read, and its fused form), K2 KV append ---------------
+    log("K1 decode attention and its fused form with K2's append, K2 KV append")
+    k1_checks(gen)
     b, h, smax, d = B, 32, PROMPT + NEW, 128
     copies = [(rnd(b, h, smax, d), rnd(b, h, smax, d)) for _ in range(8)]
     q = rnd(b, 1, h, d)
     kc, vc = copies[0]
-    kv_len = torch.tensor([1, 150, smax, 0], dtype=torch.int32, device=dev)
-    check("K1 edge kv_len (1, 150, Smax, 0)",
-          max_err(dk.decode_attention(q, kc, vc, kv_len), dk.decode_attention_plain(q, kc, vc, kv_len)),
-          2e-2)
-    mid = torch.full((b,), (PROMPT + 1 + smax) // 2, dtype=torch.int32, device=dev)
-    err = max_err(dk.decode_attention(q, kc, vc, mid), dk.decode_attention_plain(q, kc, vc, mid))
-    check(f"K1 {tuple(kc.shape)} bf16 kv_len {int(mid[0])}", err, 2e-2)
     rot = Rotating(copies)
-    valid = (torch.arange(smax, device=dev)[None] < mid[:, None])[:, None, None, :]
-    qh = q.transpose(1, 2).contiguous()
-
-    def lib_k1():
-        kk, vv = rot.next()
-        return F.scaled_dot_product_attention(qh, kk, vv, attn_mask=valid)
-
-    n_read = int(mid.sum().item())
-    bms, by = bound(2 * n_read * h * d * 2 + 2 * q.numel() * 2, 4 * n_read * h * d, bf16_rate, bw)
-    out["K1"] = {
-        "shape": [b, h, smax, d], "kv_len": int(mid[0]), "dtype": "bfloat16", "max_abs_err": err,
-        "ms": time_ms(lambda: dk.decode_attention(q, *rot.next(), mid)),
-        "plain_ms": time_ms(lambda: dk.decode_attention_plain(q, *rot.next(), mid)),
-        "library_ms": time_ms(lib_k1),
-        "bound_ms": bms, "bound_by": by,
-    }
-    out["K1"]["variants"] = [decode_d90_row(
+    mid = torch.full((b,), (PROMPT + 1 + smax) // 2, dtype=torch.int32, device=dev)
+    out["K1"] = k1_timed_row(peaks, q, rot, mid)
+    rows = [k1_timed_row(peaks, q, rot, torch.full((b,), n, dtype=torch.int32, device=dev))
+            for n in (PROMPT + 1, PROMPT + NEW)]
+    rows.append(k1_timed_row(peaks, q[:1].contiguous(), Rotating(
+        [(rnd(1, h, smax, d), rnd(1, h, smax, d)) for _ in range(8)]),
+        torch.full((1,), 256, dtype=torch.int32, device=dev)))
+    rows.append(k1_fused_row(peaks, gen, q, rot, mid))
+    rows.append(decode_d90_row(
         "K1", peaks, gen, lambda q, kc, vc, n: dk.decode_attention(q, kc, vc, n),
-        lambda q, kc, vc, n: dk.decode_attention_plain(q, kc, vc, n), sdpa=True)]
+        lambda q, kc, vc, n: dk.decode_attention_plain(q, kc, vc, n), sdpa=True))
+    out["K1"]["variants"] = rows
 
     kn, vn = rnd(b, h, 1, d), rnd(b, h, 1, d)
     for widx in ([PROMPT, 0, smax - 1, smax + 7], [-1, 5, 300, -400]):
@@ -429,6 +429,8 @@ def kernel_phase(peaks, gen):
         "library_ms": time_ms(lambda: lib_k2(rot.next())),
         "library_call": "Tensor.index_put_ (2 calls: K and V)",
         "bound_ms": bms, "bound_by": by,
+        "launches_note": "run (a) appends inside K1's launch (decode_attention_append), so "
+                         "the stand-alone K2 launches 0 times there",
     }
     spec_kernel_phase(peaks, gen, out)
     capacity_kernel_phase(peaks, gen, out)
@@ -441,6 +443,167 @@ def kernel_phase(peaks, gen):
         log(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib}, "
             f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
     return out
+
+
+def k1_checks(gen) -> None:
+    """K1 against its plain version (2e-2 bf16, 1e-4 fp32) at H = 32 over
+    Smax 320 and 321, for kv_len 1, 193, 256, 320 and 0 at B = 4 and B = 1,
+    at D = 128, 64 and 90 in bf16 and fp32, twice bit for bit; its fused
+    form at the same points and write indices [192, 0, Smax - 1, Smax + 7],
+    [-1, 5, 300, -400] and past kv_len: the caches bit-equal to
+    ``kv_append_plain``'s, the output within the tolerance of the plain
+    fused version, twice bit for bit; both over a cache past one block's
+    shared memory (Smax 8192: a split's run of 1,024 slots through the
+    ring) and over caches whose plan fills the shared memory to within a
+    few KiB of the card's limit."""
+    from mmmm_tpu_torch.ops import decode_kernel as dk
+
+    dev = torch.device("cuda")
+    rnd = lambda *s, dt=torch.bfloat16: torch.randn(*s, generator=gen, device=dev).to(dt)
+    ints = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)
+
+    def read(q, kc, vc, lens, tol, label):
+        n = ints(lens)
+        got = dk.decode_attention(q, kc, vc, n)
+        err = max_err(got, dk.decode_attention_plain(q, kc, vc, n))
+        if not torch.all(got[n <= 0] == 0):
+            raise AssertionError(f"K1 {label} kv_len {lens}: kv_len 0 does not give zeros")
+        if not torch.equal(got, dk.decode_attention(q, kc, vc, n)):
+            raise AssertionError(f"K1 {label} kv_len {lens}: two runs differ")
+        return err
+
+    def fused(q, kc, vc, kn, vn, widx, lens, label):
+        w, n = ints(widx), ints(lens)
+        rk, rv = kc.clone(), vc.clone()
+        ref = dk.decode_attention_append_plain(q, rk, rv, kn, vn, w, n)
+        outs = []
+        for _ in range(2):
+            gk, gv = kc.clone(), vc.clone()
+            outs.append(dk.decode_attention_append(q, gk, gv, kn, vn, w, n))
+            if not (torch.equal(gk, rk) and torch.equal(gv, rv)):
+                raise AssertionError(f"K1 fused {label} write_index {widx}: caches differ "
+                                     "from kv_append_plain's")
+        if not torch.equal(outs[0], outs[1]):
+            raise AssertionError(f"K1 fused {label} write_index {widx}: two runs differ")
+        return max_err(outs[0], ref)
+
+    h = 32
+    for smax in (PROMPT + NEW, PROMPT + NEW + 1):
+        for d in (128, 64, 90):
+            for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+                label = f"(B, {h}, {smax}, {d}) {str(dt).split('.')[-1]}"
+                q = rnd(B, 1, h, d, dt=dt)
+                kc, vc = rnd(B, h, smax, d, dt=dt), rnd(B, h, smax, d, dt=dt)
+                errs = [read(q, kc, vc, lens, tol, label)
+                        for lens in ([1, PROMPT + 1, 256, PROMPT + NEW], [0, 256, 0, PROMPT + 1])]
+                errs += [read(q[:1], kc[:1], vc[:1], [n], tol, label + " B=1")
+                         for n in (1, PROMPT + 1, 256, PROMPT + NEW, 0)]
+                check(f"K1 {label} kv_len 1/193/256/320/0, B = 4 and 1, twice", max(errs), tol)
+                kn, vn = rnd(B, h, 1, d, dt=dt), rnd(B, h, 1, d, dt=dt)
+                errs = [fused(q, kc, vc, kn, vn, widx, lens, label) for widx, lens in (
+                    ([PROMPT, 0, smax - 1, smax + 7], [PROMPT + 1, 1, smax, smax]),
+                    ([-1, 5, 300, -400], [smax, 6, 301, 256]),
+                    ([256, 200, 10, smax - 1], [PROMPT + 1, 0, 5, 256]))]  # t >= kv_len
+                check(f"K1 fused {label}: caches bit-equal, twice", max(errs), tol)
+    bf16, fp32 = (torch.bfloat16, 2e-2), (torch.float32, 1e-4)
+    # Smax 8192 must take the ring; the rest are caches whose ring fills the
+    # shared memory to within a few KiB of the card's limit, at run (a)'s
+    # heads and at D = 96
+    for b, h, smax, d, (dt, tol) in [(2, 8, 8192, 128, bf16), (2, 8, 8192, 128, fp32),
+                                     (2, 8, 8192, 90, bf16), (2, 8, 8192, 90, fp32),
+                                     (4, 32, 432, 128, bf16), (4, 32, 1024, 96, bf16),
+                                     (2, 32, 1296, 128, bf16), (1, 32, 2160, 128, bf16)]:
+        splits = dk.decode_splits(b, h, smax, dk.sm_count(dev))
+        chunk, stages = dk.decode_stage_plan(smax, splits, d, 2 if dt == torch.bfloat16 else 4)
+        if smax == 8192 and stages != dk.Q8_RING_STAGES:
+            raise AssertionError(f"K1 at Smax {smax}, D {d}: no ring ({chunk}, {stages})")
+        label = f"({b}, {h}, {smax}, {d}) {str(dt).split('.')[-1]}"
+        q, kc, vc = rnd(b, 1, h, d, dt=dt), rnd(b, h, smax, d, dt=dt), rnd(b, h, smax, d, dt=dt)
+        kn, vn = rnd(b, h, 1, d, dt=dt), rnd(b, h, 1, d, dt=dt)
+        lens = [smax, 3 * chunk + 5, smax - 1, 1][:b]
+        err = max(read(q, kc, vc, lens, tol, label),
+                  fused(q, kc, vc, kn, vn, [smax - 1, 2 * chunk, 0, -1][:b], lens, label))
+        check(f"K1 and fused {label} ({splits} split(s), {stages} stages of {chunk} slots), "
+              "twice", err, tol)
+
+
+def k1_timed_row(peaks, q, rot, lens) -> dict:
+    """K1 over rotating bf16 caches at one kv_len: checked (2e-2), then
+    timed beside its plain version and SDPA with a boolean mask."""
+    from mmmm_tpu_torch.ops import decode_kernel as dk
+
+    bw, bf16_rate, _, _ = peaks
+    kc, vc = rot.copies[0]
+    b, h, smax, d = kc.shape
+    err = max_err(dk.decode_attention(q, kc, vc, lens), dk.decode_attention_plain(q, kc, vc, lens))
+    check(f"K1 timed row B={b} kv_len {int(lens[0])}", err, 2e-2)
+    valid = (torch.arange(smax, device=q.device)[None] < lens[:, None])[:, None, None, :]
+    qh = q.transpose(1, 2).contiguous()
+    n_read = int(lens.sum().item())
+    bms, by = bound(2 * n_read * h * d * 2 + 2 * q.numel() * 2, 4 * n_read * h * d, bf16_rate, bw)
+    row = {"shape": [b, h, smax, d], "kv_len": int(lens[0]), "dtype": "bfloat16",
+           "splits": dk.decode_splits(b, h, smax, dk.sm_count(q.device)), "max_abs_err": err,
+           "ms": time_ms(lambda: dk.decode_attention(q, *rot.next(), lens)),
+           "plain_ms": time_ms(lambda: dk.decode_attention_plain(q, *rot.next(), lens)),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qh, *rot.next(),
+                                                                        attn_mask=valid)),
+           "bound_ms": bms, "bound_by": by}
+    log(f"  K1 B={b} kv_len {row['kv_len']}: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, bound {bms:.5f} ms ({by})")
+    return row
+
+
+def k1_fused_row(peaks, gen, q, rot, lens) -> dict:
+    """K1's fused form at run (a)'s step (write index kv_len - 1) over
+    rotating caches: checked against its plain version, then timed beside
+    the plain version, ``kv_append`` + ``decode_attention`` (K2 then K1, two
+    launches) and ``index_put_`` + SDPA (the library's append and read)."""
+    from mmmm_tpu_torch.ops import decode_kernel as dk
+
+    bw, bf16_rate, _, _ = peaks
+    kc, vc = rot.copies[0]
+    b, h, smax, d = kc.shape
+    dev = q.device
+    kn, vn = (torch.randn(b, h, 1, d, generator=gen, device=dev).to(kc.dtype) for _ in range(2))
+    w = lens - 1
+    ref = dk.decode_attention_append_plain(q, kc.clone(), vc.clone(), kn, vn, w, lens)
+    err = max_err(dk.decode_attention_append(q, kc.clone(), vc.clone(), kn, vn, w, lens), ref)
+    check(f"K1 fused timed row B={b} kv_len {int(lens[0])}", err, 2e-2)
+    valid = (torch.arange(smax, device=dev)[None] < lens[:, None])[:, None, None, :]
+    qh = q.transpose(1, 2).contiguous()
+    bi = torch.arange(b, device=dev)
+
+    def lib(caches):  # index_put_ of the new rows into each cache, then SDPA
+        for cache, new in zip(caches, (kn, vn)):
+            cache[bi, :, w.long()] = new[:, :, 0]
+        return F.scaled_dot_product_attention(qh, *caches, attn_mask=valid)
+
+    def k2_then_k1(caches):
+        dk.kv_append(*caches, kn, vn, w)
+        return dk.decode_attention(q, *caches, lens)
+
+    lib_caches = (kc.clone(), vc.clone())
+    lib_out = lib(lib_caches).transpose(1, 2)
+    rk, rv = dk.kv_append_plain(kc.clone(), vc.clone(), kn, vn, w)
+    if not (torch.equal(lib_caches[0], rk) and torch.equal(lib_caches[1], rv)):
+        raise AssertionError("K1 fused: the library yardstick's append differs from the plain one")
+    check("K1 fused library yardstick (index_put_ + SDPA)", max_err(lib_out, ref), 2e-2)
+    n_read = int(lens.sum().item())
+    bms, by = bound(2 * n_read * h * d * 2 + 2 * q.numel() * 2 + 4 * kn.numel() * 2,
+                    4 * n_read * h * d, bf16_rate, bw)
+    row = {"form": "append", "shape": [b, h, smax, d], "kv_len": int(lens[0]),
+           "write_index": int(w[0]), "dtype": "bfloat16", "max_abs_err": err,
+           "ms": time_ms(lambda: dk.decode_attention_append(q, *rot.next(), kn, vn, w, lens)),
+           "plain_ms": time_ms(lambda: dk.decode_attention_append_plain(q, *rot.next(), kn, vn,
+                                                                        w, lens)),
+           "k2_then_k1_ms": time_ms(lambda: k2_then_k1(rot.next())),
+           "library_ms": time_ms(lambda: lib(rot.next())),
+           "library_call": "Tensor.index_put_ (K and V) + SDPA (bool mask)",
+           "bound_ms": bms, "bound_by": by}
+    log(f"  K1 fused B={b} kv_len {row['kv_len']}: kernel {row['ms']:.4f} ms, K2 then K1 "
+        f"{row['k2_then_k1_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, index_put_ + SDPA "
+        f"{row['library_ms']:.4f} ms, bound {bms:.5f} ms")
+    return row
 
 
 def spec_kernel_phase(peaks, gen, out):
@@ -1411,7 +1574,38 @@ def tiny_reference_phase():
             tol = 2 ** -4 * ref.masks.float().abs().max().item() if extra.get("sam_bf16") else 2e-4
             check(f"tiny {label}: tokens equal, masks (card vs CPU)", r["masks_max_abs_err"], tol)
         out[label] = r
+    out["greedy B = 1, split decode"] = tiny_split_decode(cfg, params, args, kw)
     return out
+
+
+def tiny_split_decode(cfg, params, args, kw) -> dict:
+    """Greedy decode of one sample (B = 1) over a cache of 128 slots, where
+    the tiny config's 4 heads leave K1 splitting each head over a cluster:
+    the same tokens and masks (2e-4) on the card and on the CPU, every K1
+    launch of the card's run in its fused form."""
+    from mmmm_tpu_torch import generate_grounded
+    from mmmm_tpu_torch.ops import decode_kernel as dk
+
+    _, tok, ids, tt, pos, lens, img, patch, stride = args
+    new = 128 - ids.shape[1]
+    one = (cfg, tok, ids[:1], tt[:1], pos[:1], lens[:1], img[:1], patch, stride)
+    kw1 = dict(kw, max_new_tokens=new, grounding_image=kw["grounding_image"][:1])
+    splits = dk.decode_splits(1, cfg.vlm.num_attention_heads, 128, dk.sm_count(torch.device("cuda")))
+    if splits < 2:
+        raise AssertionError(f"tiny B = 1: K1 takes {splits} split(s), not a cluster")
+    ref = generate_grounded(params, *one, device="cpu", **kw1)
+    dk.K1.reset()
+    got = generate_grounded(_tree_to(params, "cuda"), *one, device="cuda", **kw1)
+    launches, fused = dk.K1.launches, dk.K1.forms.get("append", 0)
+    if not np.array_equal(got.tokens, ref.tokens):
+        raise AssertionError(f"tiny B = 1: tokens differ\n{got.tokens}\n{ref.tokens}")
+    if launches == 0 or fused != launches:
+        raise AssertionError(f"tiny B = 1: {launches} K1 launches, {fused} fused")
+    err = max_err(got.masks.cpu(), ref.masks)
+    check(f"tiny B = 1 ({splits} splits a head, {launches} K1 launches): tokens equal, masks "
+          "(card vs CPU)", err, 2e-4)
+    return {"tokens_equal": True, "splits": splits, "k1_launches": launches,
+            "masks_max_abs_err": err}
 
 
 def _tiny_train_batch(mode: str, b: int = 2, s: int = 32, n_vis: int = 18, targets: int = 2,
@@ -1621,17 +1815,18 @@ def flagship_phase(gen):
         log(f"    first run (warm-up): {first_s:.3f} s")
         torch.cuda.reset_peak_memory_stats()
         for kern in KERNELS.values():
-            kern.launches = 0
+            kern.reset()
         w4.K11_BY_SHAPE.clear()
         res, steady_s = run()
         launches = {name: kern.launches for name, kern in KERNELS.items()}
+        forms = {name: dict(kern.forms) for name, kern in KERNELS.items() if kern.forms}
         by_shape = {f"{k}x{n}": c for (k, n), c in sorted(w4.K11_BY_SHAPE.items())}
         peak = torch.cuda.max_memory_allocated()
         iters = res.spec_stats["iters"] if res.spec_stats else NEW
         tps = res.spec_stats["tokens_per_step"] if res.spec_stats else 1.0
         log(f"    steady run: {steady_s:.3f} s, {B / steady_s:.4f} reports/s, "
             f"tokens_per_step {tps:.4f} ({iters} decode steps), peak memory "
-            f"{peak / 2**30:.2f} GiB, launches {launches}")
+            f"{peak / 2**30:.2f} GiB, launches {launches}, by form {forms}")
         want = {name: 0 for name in KERNELS}
         want.update({k: LAYERS * iters if v == "iters" else v
                      for k, v in spec["launches"].items()})
@@ -1639,6 +1834,9 @@ def flagship_phase(gen):
             if launches[name] != n:
                 raise AssertionError(f"{label}: {name} launched {launches[name]} times, "
                                      f"expected {n}")
+        if forms != spec.get("forms", {}):
+            raise AssertionError(f"{label}: launches by form {forms}, expected "
+                                 f"{spec.get('forms', {})}")
         want_shapes = ({f"{k}x{n}": c for (k, n), c in sorted(W4_DECODE_CALLS.items())}
                        if launches["K11"] else {})
         if by_shape != want_shapes or sum(by_shape.values()) != launches["K11"]:
@@ -1663,7 +1861,7 @@ def flagship_phase(gen):
             f"{[None if t is None else len(t) for t in res.targets]}")
         r = {"first_run_s": first_s, "steady_run_s": steady_s, "reports_per_s": B / steady_s,
              "tokens_per_step": tps, "decode_steps": iters, "peak_mem_gib": peak / 2**30,
-             "launches": launches, "k11_launches_by_shape": by_shape,
+             "launches": launches, "launches_by_form": forms, "k11_launches_by_shape": by_shape,
              "num_generated": res.num_generated.tolist()}
         r["profile"] = profile_run(run)
         r["profile"].pop("result")
@@ -1776,7 +1974,7 @@ def flagship_train_phase(gen):
             if mode == "semantic" and i == TRAIN_STEPS - 1:
                 snapshot = _state_to(state, "cuda")
             for kern in KERNELS.values():
-                kern.launches = 0
+                kern.reset()
             run = lambda: _timed_step(step, state, frozen, batch)
             if i < TRAIN_STEPS - 1:
                 logs, wall = run()
@@ -1816,7 +2014,7 @@ def flagship_train_phase(gen):
                                        attn_impl="xla", remat=True, vis_span="auto",
                                        device="cuda")
             for kern in KERNELS.values():
-                kern.launches = 0
+                kern.reset()
             torch.cuda.reset_peak_memory_stats()
             xlogs, xwall = _timed_step(xla_step, snapshot, frozen, batch)
             xlaunch = {k: v.launches for k, v in KERNELS.items() if v.launches}
@@ -1914,7 +2112,7 @@ def train_route_phase_seed(seed: int):
         params = effective_params(state.trainable, frozen if bf16 else frozen32, lcfg, bf16)
         b = dict(batch, image=batch["image"].to(torch.bfloat16 if bf16 else torch.float32))
         for kern in KERNELS.values():
-            kern.launches = 0
+            kern.reset()
         loss, _ = training_step(params, cfg, b, vg_mode="semantic", attn_impl=impl, remat=True,
                                 vis_span="auto")
         g = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
@@ -2088,18 +2286,21 @@ def ptxas_entries(build_log: str) -> list:
 def redesigned_kernel_resources(build_log: str, lib) -> list:
     """Registers, shared memory (static, and the dynamic bytes the launcher
     asks for) and spill bytes of every K3/K4 (``attn_fwd_*``, with P1's
-    NOSM form), K6 tensor-core, K11 decode-row, K11mma and K7 kernel; fails
+    NOSM form), K6 tensor-core, K11 decode-row, K11mma, K7, K9, K10 and K1 kernel; fails
     if one spills."""
     rows = []
     for e in ptxas_entries(build_log):
         m = re.search(r"(attn_fwd_(?:wgmma|f32)|flash_bwd_(?:dq|dkv)_(?:wgmma|f32)|flash_bwd_delta"
                       r"|w4_mma_kernel|w4_gemv_mma_kernel|decode_window_mma_kernel"
-                      r"|decode_q8_mxu_kernel|decode_q8_kernel)", e["symbol"])
+                      r"|decode_q8_mxu_kernel|decode_q8_kernel|decode_attn_kernel)", e["symbol"])
         if not m:
             continue
         kname = m.group(1)
         if kname.startswith("decode_q8"):  # <T, LPS, VEC> at D = 16 LPS over run (c)'s cache
             rows.append(_q8_resource_row(kname, e, lib))
+            continue
+        if kname == "decode_attn_kernel":  # <T, LPS, VEC> at D = 8 LPS over run (a)'s cache
+            rows.append(_k1_resource_row(e, lib))
             continue
         if kname.startswith("attn_fwd"):
             # bf16 <MASKED, DP, KT (keys a tile), NOSM>, fp32 <MASKED, NJ, stages>: K3
@@ -2138,7 +2339,7 @@ def redesigned_kernel_resources(build_log: str, lib) -> list:
     if not any(r["kernel"].startswith("attn_fwd") for r in rows):
         raise AssertionError("no K3/K4 kernel in the build log")
     for prefix in ("flash_bwd", "w4_mma", "w4_gemv_mma", "decode_window_mma", "decode_q8_kernel",
-                   "decode_q8_mxu_kernel"):
+                   "decode_q8_mxu_kernel", "decode_attn_kernel"):
         if not any(r["kernel"].startswith(prefix) for r in rows):
             raise AssertionError(f"no {prefix} kernel in the build log")
     return rows
@@ -2161,6 +2362,34 @@ def _q8_resource_row(kname: str, e: dict, lib) -> dict:
         raise AssertionError(f"{kname}: the kernel's shared memory differs from the plan's")
     label = (f"{kname}<{'bf16' if t.group(1) != 'f' else 'fp32'}, LPS={lps}, VEC={int(vec)}; "
              f"{stages} stages of {chunk} slots>")
+    return _resource_row(label, e, dyn)
+
+
+def _k1_resource_row(e: dict, lib) -> dict:
+    """A K1 instance's resources, its dynamic shared memory that of the
+    staged read's plan at D = 8 LPS over run (a)'s cache (B = 4, H = 32,
+    Smax 320), which the kernel's own query must give as the plan counts it
+    (also split, at B = 1); fails if its static shared memory passes the
+    plan's allowance for it, ``K1_STATIC_SMEM``."""
+    from mmmm_tpu_torch.ops import decode_kernel as dk
+
+    t = re.search(r"I(13__nv_bfloat16|f)Li(\d+)ELb([01])E", e["symbol"])
+    lps, vec, elem = int(t.group(2)), t.group(3) == "1", 2 if t.group(1) != "f" else 4
+    d, smax = 8 * lps, PROMPT + NEW
+    sms = dk.sm_count(torch.device("cuda"))
+    warps = dk.DECODE_WARPS
+    for b in (1, B):  # the last, run (a)'s, is reported
+        splits = dk.decode_splits(b, 32, smax, sms)
+        chunk, stages = dk.decode_stage_plan(smax, splits, d, elem)
+        dyn = lib.mmmm_decode_attention_smem(chunk, stages, d, elem, splits)
+        if dyn != dk.decode_block_smem(chunk, stages, d, elem, splits):
+            raise AssertionError("decode_attn_kernel: the kernel's shared memory differs from "
+                                 "the plan's")
+    if e.get("static_smem", 0) > dk.K1_STATIC_SMEM:
+        raise AssertionError(f"decode_attn_kernel: {e['static_smem']} bytes of static shared "
+                             f"memory, past the plan's {dk.K1_STATIC_SMEM}")
+    label = (f"decode_attn_kernel<{'bf16' if elem == 2 else 'fp32'}, LPS={lps}, VEC={int(vec)}; "
+             f"{splits} split(s) of {warps} warps, {stages} stages of {chunk} slots a warp>")
     return _resource_row(label, e, dyn)
 
 
@@ -2256,6 +2485,9 @@ def main() -> int:
                  "replaces": REPLACES.get(kid, kern.replaces),
                  "launches": launches[run].get(counter, 0), "launches_in_run": run,
                  "kernel_ms": r["ms"]}
+        forms = results["flagship"]["runs"].get(run, {}).get("launches_by_form", {})
+        if counter in forms:
+            entry["launches_by_form"] = forms[counter]
         entry.update({k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")})
         entry.update({k: v for k, v in r.items() if k not in entry})

@@ -1,34 +1,37 @@
-// The staged read of an int8 KV cache, shared by K9 (decode_q8.cu) and K10
-// (decode_q8_mxu.cu). One block of 8 warps per (sample b, head h) reads the
-// valid slots [0, len) of its head, len = clamp(kv_len[b], 0, Smax), from
-// (B, H, Smax, D) int8 K and V and their (B, H, Smax, 1) bf16 scales. A
-// head's rows are one contiguous slab of len * D bytes, its scales one of
-// len * 2 bytes.
+// The staged read of a KV cache, shared by K9 (decode_q8.cu), K10
+// (decode_q8_mxu.cu) and K1 (decode_attn.cu). A block reads a run of len
+// valid slots of one head from (B, H, Smax, D) K and V rows of RB bytes
+// each (int8: RB = D, with (B, H, Smax, 1) bf16 scales beside them; K1's
+// bf16 or fp32 rows: RB = 2D or 4D, no scales). A run's rows are one
+// contiguous slab of len * RB bytes, its scales one of len * 2 bytes. K9
+// and K10 read a head's slots [0, len), len = clamp(kv_len[b], 0, Smax),
+// with one block of 8 warps; K1 splits them over the blocks of a cluster.
 //
-// The slots go in chunks of C (a multiple of 16). An item is one chunk of K
-// rows and K scales, or of V rows and V scales; items pass through NS
-// stages of shared memory, each with an mbarrier. Warp 0 fills a stage: its
-// first lane arms the barrier with the bytes to come and issues 1-D bulk
-// copies (cp.async.bulk, no tensor map) of each slab's 16-byte-aligned body;
-// a bulk copy needs a 16-byte-aligned source, destination and size, so the
-// lanes load the head and tail bytes (at most 15 each) with ordinary loads,
-// store them, and all 32 lanes arrive (the barrier waits for 33 arrivals and
-// the body's bytes). In its stage a slab keeps its address modulo 16 (that
-// many bytes of slack in front), so its body lands aligned; nothing past a
-// slab is read.
+// The slots go in chunks of C (K9, K10: a multiple of 16). An item is one
+// chunk of K rows (and K scales), or of V rows (and V scales); items pass
+// through NS stages of shared memory, each with an mbarrier. Warp 0 fills a
+// stage: its first lane arms the barrier with the bytes to come and issues
+// 1-D bulk copies (cp.async.bulk, no tensor map) of each slab's
+// 16-byte-aligned body; a bulk copy needs a 16-byte-aligned source,
+// destination and size, so the lanes load the head and tail bytes (at most
+// 15 each) with ordinary loads, store them, and all 32 lanes arrive (the
+// barrier waits for 33 arrivals and the body's bytes). In its stage a slab
+// keeps its address modulo 16 (that many bytes of slack in front), so its
+// body lands aligned; nothing past a slab is read.
 //
-// The plan (ops/decode_kernel.py q8_stage_plan) takes the whole read where
-// two stages of roundup(Smax, 16) slots fit beside the kernel's own shared
-// memory (at the flagship, Smax 320 and D = 128: 83 KB): NS = 2, C >= Smax,
-// and the K item and the V item are both requested as the block starts, so
-// every byte of the call is in flight at once and the logits start while V
-// still arrives. Otherwise a ring of 4 stages: once every thread has
-// consumed item i (a __syncthreads), warp 0 refills its stage with item
-// i + NS; items come in the kernel's order (K9: K0 V0 K1 V1 ..., K10: K0 K1
-// ... V0 V1 ...). Measured slower on the H100 at the flagship: a barrier
-// for each 32- to 128-slot chunk (more copies and waits on the block's
-// critical path), and int8 mma.sync on these stages (a 1-D copy cannot
-// swizzle, so ldmatrix over rows 128 bytes apart conflicts 8 ways).
+// The plan (ops/decode_kernel.py q8_stage_plan, decode_stage_plan) takes
+// the whole read where two stages of a run's slots fit beside the kernel's
+// own shared memory (at the flagship, Smax 320 and D = 128: K9 83 KB; K1
+// 20 KB a split of 40 slots): NS = 2, C >= len, and the K item and the V
+// item are both requested as the block starts, so every byte of the call
+// is in flight at once and the logits start while V still arrives.
+// Otherwise a ring of 4 stages: once every thread has consumed item i (a
+// __syncthreads), warp 0 refills its stage with item i + NS; items come in
+// the kernel's order (K9, K1: K0 V0 K1 V1 ..., K10: K0 K1 ... V0 V1 ...).
+// Measured slower on the H100 at the flagship: a barrier for each 32- to
+// 128-slot chunk (more copies and waits on the block's critical path), and
+// int8 mma.sync on these stages (a 1-D copy cannot swizzle, so ldmatrix
+// over rows 128 bytes apart conflicts 8 ways).
 #pragma once
 
 #include "common.cuh"
@@ -43,10 +46,10 @@ constexpr int kMaxStages = 4;
 constexpr int kArrivals = 33;  // lane 0's arrive.expect_tx and the 32 lanes of warp 0
 
 __host__ __device__ inline size_t round16(size_t x) { return (x + 15) / 16 * 16; }
-__host__ __device__ inline size_t rows_bytes(int c, int d) { return round16((size_t)c * d + 15); }
+__host__ __device__ inline size_t rows_bytes(int c, int rb) { return round16((size_t)c * rb + 15); }
 __host__ __device__ inline size_t scales_bytes(int c) { return round16((size_t)2 * c + 15); }
-__host__ __device__ inline size_t stage_bytes(int c, int d) {
-  return rows_bytes(c, d) + scales_bytes(c);
+__host__ __device__ inline size_t stage_bytes(int c, int rb) {
+  return rows_bytes(c, rb) + scales_bytes(c);
 }
 
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
@@ -90,15 +93,19 @@ __device__ __forceinline__ void copy_edges(unsigned char* dst, const unsigned ch
   if (t >= 0 && t < s.tail) dst[s.head + s.body + t] = src[s.head + s.body + t];
 }
 
-struct Ring {
+// SCALES: int8 rows with their bf16 scales (K9, K10: Ring); else rows
+// alone (K1: RowRing). A compile-time choice, so K9 and K10 carry no
+// branch for K1's form.
+template <bool SCALES>
+struct RingT {
   unsigned char* smem;  // NS stages from a 16-byte-aligned base
   uint64_t* bar;        // NS barriers
-  const int8_t* kq;     // the head's first row and scale
-  const int8_t* vq;
-  const __nv_bfloat16* ks;
+  const void* kq;       // the run's first K row and V row, rows of RB bytes
+  const void* vq;
+  const __nv_bfloat16* ks;  // their scales (SCALES only)
   const __nv_bfloat16* vs;
-  int C, NS, D, len, n_chunks;
-  bool interleaved;  // K9's order; else K10's
+  int C, NS, RB, len, n_chunks;
+  bool interleaved;  // K9's and K1's order; else K10's
 
   __device__ int items() const { return 2 * n_chunks; }
   __device__ bool is_v(int i) const { return interleaved ? (i & 1) : i >= n_chunks; }
@@ -110,20 +117,21 @@ struct Ring {
     return left < C ? left : C;
   }
   __device__ unsigned char* stage(int i) const {
-    return smem + (size_t)(i % NS) * stage_bytes(C, D);
+    return smem + (size_t)(i % NS) * (SCALES ? stage_bytes(C, RB) : rows_bytes(C, RB));
   }
   __device__ const unsigned char* rows_src(int i) const {
-    return reinterpret_cast<const unsigned char*>(is_v(i) ? vq : kq) + (size_t)chunk(i) * C * D;
+    return static_cast<const unsigned char*>(is_v(i) ? vq : kq) + (size_t)chunk(i) * C * RB;
   }
   __device__ const unsigned char* scales_src(int i) const {
     return reinterpret_cast<const unsigned char*>((is_v(i) ? vs : ks) + (size_t)chunk(i) * C);
   }
   // Where item i's slot 0 lies in its stage.
-  __device__ const int8_t* rows(int i) const {
-    return reinterpret_cast<const int8_t*>(stage(i) + mis(rows_src(i)));
+  template <typename E = int8_t>
+  __device__ const E* rows(int i) const {
+    return reinterpret_cast<const E*>(stage(i) + mis(rows_src(i)));
   }
   __device__ const __nv_bfloat16* scales(int i) const {
-    return reinterpret_cast<const __nv_bfloat16*>(stage(i) + rows_bytes(C, D) +
+    return reinterpret_cast<const __nv_bfloat16*>(stage(i) + rows_bytes(C, RB) +
                                                   mis(scales_src(i)));
   }
 
@@ -131,19 +139,29 @@ struct Ring {
   __device__ void issue(int i, int lane) const {
     const int n = count(i);
     const unsigned char* r = rows_src(i);
-    const unsigned char* s = scales_src(i);
     unsigned char* rd = stage(i) + mis(r);
-    unsigned char* sd = stage(i) + rows_bytes(C, D) + mis(s);
-    const Split rs = split(r, n * D), ss = split(s, 2 * n);
+    const Split rs = split(r, n * RB);
     uint64_t* b = bar + i % NS;
-    if (lane == 0) {
-      fence_proxy_async();
-      hop::mbar_expect_tx(b, static_cast<uint32_t>(rs.body + ss.body));
-      if (rs.body) bulk_load(rd + rs.head, r + rs.head, rs.body, b);
-      if (ss.body) bulk_load(sd + ss.head, s + ss.head, ss.body, b);
+    if constexpr (SCALES) {
+      const unsigned char* s = scales_src(i);
+      unsigned char* sd = stage(i) + rows_bytes(C, RB) + mis(s);
+      const Split ss = split(s, 2 * n);
+      if (lane == 0) {
+        fence_proxy_async();
+        hop::mbar_expect_tx(b, static_cast<uint32_t>(rs.body + ss.body));
+        if (rs.body) bulk_load(rd + rs.head, r + rs.head, rs.body, b);
+        if (ss.body) bulk_load(sd + ss.head, s + ss.head, ss.body, b);
+      }
+      copy_edges(rd, r, rs, lane);
+      copy_edges(sd, s, ss, lane);
+    } else {
+      if (lane == 0) {
+        fence_proxy_async();
+        hop::mbar_expect_tx(b, static_cast<uint32_t>(rs.body));
+        if (rs.body) bulk_load(rd + rs.head, r + rs.head, rs.body, b);
+      }
+      copy_edges(rd, r, rs, lane);
     }
-    copy_edges(rd, r, rs, lane);
-    copy_edges(sd, s, ss, lane);
     hop::mbar_arrive(b);
   }
   __device__ void wait(int i) const { hop::mbar_wait(bar + i % NS, (i / NS) & 1); }
@@ -164,6 +182,8 @@ struct Ring {
     if (threadIdx.x < 32 && i + NS < items()) issue(i + NS, threadIdx.x);
   }
 };
+using Ring = RingT<true>;
+using RowRing = RingT<false>;
 
 // ---- loads of a row's 16 values at head dim d0 ----------------------------------------
 // 16 values of q from p (its first n in the row): 16-byte loads where VEC

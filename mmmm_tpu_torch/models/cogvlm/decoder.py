@@ -32,7 +32,7 @@ speculative verify window of up to 8 and dispatches as the reference's
 cache branch does:
 
   cache   tokens  append, then attention
-  pair    1       K2, K1
+  pair    1       K1's fused form: K2's append inside K1's launch
   pair    2-8     K5, K6 (query j sees slots < write_index + j + 1)
   int8    1       ``quantize_kv``, K8, K9 (K10 with ``q8_mxu=True``, the
                   reference's ``MMMM_Q8_MXU``, where its condition holds)
@@ -48,9 +48,9 @@ import torch
 import torch.nn.functional as F
 
 from ...ops.attention import decode_attention_bhsd, segment_attention
-from ...ops.decode_kernel import (decode_attention, decode_attention_q8,
-                                  decode_attention_window, dus_rows, kv_append,
-                                  kv_append_multi, kv_append_q8)
+from ...ops.decode_kernel import (decode_attention_append, decode_attention_q8,
+                                  decode_attention_window, dus_rows, kv_append_multi,
+                                  kv_append_q8)
 from ...ops.flash import flash_segment_attention
 from ...ops.norm import rms_norm
 from ...ops.quant import dequantize_kv, qdot, quantize_kv
@@ -235,8 +235,7 @@ def _cached_attention(q, k, v, cache, write_index, kv_len, q8_mxu=False):
                                      dequantize_kv(cache["vq"], cache["vs"], v.dtype), valid)
     kc, vc = cache
     if sq == 1:
-        kv_append(kc, vc, kt, vt, write_index)
-        return decode_attention(q, kc, vc, kv_len)
+        return decode_attention_append(q, kc, vc, kt, vt, write_index, kv_len)
     if sq > 8:
         raise NotImplementedError(f"a verify window holds at most 8 tokens, got {sq}")
     kv_append_multi(kc, vc, kt, vt, write_index)

@@ -9,7 +9,9 @@ rebuilds) and loaded with ``ctypes`` at first use. Nothing here runs at
 import time.
 
 Every launch goes through :class:`Kernel`, which raises on a non-zero return
-and counts the launches it made; ``KERNELS`` maps each kernel's ID to it.
+and counts the launches it made (all of them, and those of each named form
+of an entry point, such as K1's fused append); ``KERNELS`` maps each
+kernel's ID to it.
 """
 from __future__ import annotations
 
@@ -125,9 +127,14 @@ class Kernel:
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self.forms: dict[str, int] = {}  # launches of each named form, within ``launches``
         self._fn = None
 
-    def __call__(self, *args) -> None:
+    def reset(self) -> None:
+        self.launches = 0
+        self.forms.clear()
+
+    def __call__(self, *args, form: str | None = None) -> None:
         if self._fn is None:
             fn = getattr(library(), self.symbol)
             fn.argtypes = self.argtypes
@@ -138,6 +145,8 @@ class Kernel:
             msg = library().mmmm_error_string(err).decode()
             raise RuntimeError(f"{self.name} ({self.symbol}) launch failed: {msg} ({err})")
         self.launches += 1
+        if form is not None:
+            self.forms[form] = self.forms.get(form, 0) + 1
 
 
 KERNELS: dict[str, Kernel] = {}

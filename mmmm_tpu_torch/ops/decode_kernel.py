@@ -1,7 +1,9 @@
 """The decode-step kernels over a (B, H, Smax, D) KV cache, the port of
 ``mmmm_tpu/ops/decode_kernel.py``:
 
-  - K1 ``decode_attention`` (``decode_attention_pallas``, full and ragged);
+  - K1 ``decode_attention`` (``decode_attention_pallas``, full and ragged),
+    and its fused form ``decode_attention_append``, which does K2's append
+    in the same launch (the decode step's route);
   - K2 ``kv_append`` (``kv_append_pallas``);
   - K5 ``kv_append_multi`` (``kv_append_pallas_multi``): a verify window;
   - K6 ``decode_attention_window`` (``decode_attention_pallas_window``):
@@ -30,8 +32,8 @@ from .attention import NEG_INF
 
 K1 = _cuda.register(_cuda.Kernel(
     "K1", "mmmm_decode_attention",
-    [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.I, _cuda.I,
-     _cuda.F, _cuda.I, _cuda.P],
+    [_cuda.P] * 8 + [_cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.I, _cuda.I, _cuda.I,
+                     _cuda.I, _cuda.P],
     source="mmmm_tpu_torch/csrc/decode_attn.cu",
     replaces="mmmm_tpu/ops/decode_kernel.py:853 decode_attention_pallas "
              "(pallas_call :886; ragged :828)",
@@ -88,9 +90,23 @@ FULL_READ_BUDGET = 12 * 1024 * 1024
 Q8_MXU_SHARED_SLOTS = 32768
 # K9's and K10's staged read (csrc/decode_q8_stage.cuh): the dynamic shared
 # memory a block may take (the H100's 227 KiB less room for the kernels'
-# static arrays), and the stages of its ring
+# static arrays), and the stages of its ring (K1's too)
+SMEM_OPTIN = 227 * 1024
 Q8_DYNAMIC_SMEM = 220 * 1024
 Q8_RING_STAGES = 4
+# K1's static shared memory, at most (its barriers, the warps' (m, l) and
+# partial sums: 4,424 bytes at D > 64; chip_smoke.py holds every instance's
+# ptxas figure to it); its dynamic shared memory takes the rest
+K1_STATIC_SMEM = 5 * 1024
+K1_DYNAMIC_SMEM = SMEM_OPTIN - K1_STATIC_SMEM
+# K1 splits a head's valid slots over the blocks of a cluster where the
+# heads alone leave SMs idle: at most the portable cluster size, each split
+# keeping at least DECODE_SPLIT_SLOTS of a full cache; a block's slots are
+# shared by its DECODE_WARPS warps, each with a staged read of its own
+DECODE_MAX_SPLITS = 8
+DECODE_SPLIT_SLOTS = 32
+DECODE_WARPS = 8
+_SM_COUNT: dict[int, int] = {}
 
 
 def dus_rows(cache, new, write_index):
@@ -157,6 +173,101 @@ def decode_attention_plain(q, k_cache, v_cache, kv_len, scale: float | None = No
     return out.transpose(1, 2).to(q.dtype)  # (B, 1, H, D)
 
 
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device (132 on an H100 SXM)."""
+    i = device.index if device.index is not None else torch.cuda.current_device()
+    if i not in _SM_COUNT:
+        _SM_COUNT[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SM_COUNT[i]
+
+
+def decode_splits(b: int, h: int, smax: int, sms: int) -> int:
+    """Blocks (a cluster) that share each (sample, head)'s valid slots in
+    K1, from the shapes and the device's ``sms`` alone (the lengths live on
+    the card): one where the ``b * h`` heads cover at least 7/8 of the SMs
+    (measured on the H100, a split's merge costs more than the last SMs
+    give: PERF.md §6); else enough to cover every SM, at most
+    ``DECODE_MAX_SPLITS`` and no more than leave each split
+    ``DECODE_SPLIT_SLOTS`` of a full cache. The flagship's decode on an
+    H100 (H = 32, Smax 320, 132 SMs): 1 at B = 4 (128 blocks), 5 at B = 1
+    (160 blocks)."""
+    heads = b * h
+    if 8 * heads >= 7 * sms:
+        return 1
+    return max(1, min(DECODE_MAX_SPLITS, smax // DECODE_SPLIT_SLOTS, -(-sms // heads)))
+
+
+def decode_stage_bytes(chunk: int, stages: int, d: int, elem_bytes: int) -> int:
+    """Shared memory of one K1 warp's staged read: ``stages`` stages of
+    ``chunk`` rows of ``d * elem_bytes`` bytes (each with 15 bytes of slack,
+    as ``q8_stage_bytes``), then a chunk's fp32 logits and exps."""
+    return _round16(stages * _round16(chunk * d * elem_bytes + 15) + 8 * chunk)
+
+
+def decode_block_smem(chunk: int, stages: int, d: int, elem_bytes: int, splits: int) -> int:
+    """A K1 block's dynamic shared memory: its warps' staged reads, then,
+    where a head is split, each split's partial (the fp32 sums over the
+    ``8 * LPS`` head dims its lane groups cover, with m and l), gathered in
+    split 0."""
+    lps = 1 if d <= 8 else 2 if d <= 16 else 4 if d <= 32 else 8 if d <= 64 else 16
+    parts = 0 if splits == 1 else splits * (8 * lps + 4) * 4
+    return DECODE_WARPS * decode_stage_bytes(chunk, stages, d, elem_bytes) + parts
+
+
+def decode_stage_plan(smax: int, splits: int, d: int, elem_bytes: int) -> tuple[int, int]:
+    """(slots a stage, stages) of each K1 warp's staged read of its share of
+    a split's run, ``ceil(ceil(smax / splits) / DECODE_WARPS)`` slots at
+    most: the whole share, its K rows and its V rows each one stage, both
+    requested as the block starts, where the block fits in
+    ``K1_DYNAMIC_SMEM`` (``decode_block_smem``); else a ring of 4 stages of
+    the most slots that fit. The flagship's cache (Smax 320, D = 128,
+    bf16): (40, 2) at B = 4, 163 KiB a block; (8, 2) at B = 1."""
+    per = -(-smax // splits)
+    share = -(-per // DECODE_WARPS)
+    fits = lambda c, ns: decode_block_smem(c, ns, d, elem_bytes, splits) <= K1_DYNAMIC_SMEM
+    if fits(share, 2):
+        return share, 2
+    lo, hi = 1, share  # the most slots a stage of the ring that fit
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid, Q8_RING_STAGES) else (lo, mid - 1)
+    return lo, Q8_RING_STAGES
+
+
+def _k1(name, q, k_cache, v_cache, kv_len, scale, new=None):
+    """Checks K1's operands and launches it: the read alone, or with
+    ``new = (k_new, v_new, write_index)`` the fused form."""
+    _cuda.check_cuda(name, q, k_cache, v_cache, dtypes=(torch.bfloat16, torch.float32))
+    _cuda.check_cuda(name, kv_len, dtypes=(torch.int32,), align=4)
+    b, h, smax, d = k_cache.shape
+    if q.shape != (b, 1, h, d) or v_cache.shape != k_cache.shape:
+        raise ValueError(f"{name}: q {q.shape} vs cache {k_cache.shape}")
+    if not q.dtype == k_cache.dtype == v_cache.dtype:
+        raise ValueError(f"{name}: q and caches must share one dtype")
+    if kv_len.shape != (b,):
+        raise ValueError(f"{name}: kv_len must be ({b},), got {tuple(kv_len.shape)}")
+    if not 0 < d <= 128:
+        raise ValueError(f"{name}: head dim {d} must be in 1..128")
+    ptrs = (None, None, None)
+    if new is not None:
+        k_new, v_new, write_index = new
+        _cuda.check_cuda(name, k_new, v_new, dtypes=(q.dtype,), align=4)
+        _cuda.check_cuda(name, write_index, dtypes=(torch.int32,), align=4)
+        if k_new.shape != (b, h, 1, d) or v_new.shape != k_new.shape:
+            raise ValueError(f"{name}: cache {k_cache.shape} vs new rows {k_new.shape}")
+        if write_index.shape != (b,):
+            raise ValueError(f"{name}: write_index must be ({b},), "
+                             f"got {tuple(write_index.shape)}")
+        ptrs = (k_new.data_ptr(), v_new.data_ptr(), write_index.data_ptr())
+    splits = decode_splits(b, h, smax, sm_count(q.device))
+    chunk, stages = decode_stage_plan(smax, splits, d, k_cache.element_size())
+    out = torch.empty_like(q)
+    K1(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr(), *ptrs,
+       out.data_ptr(), b, h, smax, d, float(scale), int(q.dtype == torch.bfloat16), splits,
+       chunk, stages, _cuda.stream_of(q), form=None if new is None else "append")
+    return out
+
+
 def decode_attention(q, k_cache, v_cache, kv_len, scale: float | None = None):
     """One query token per sample against the cache: q (B, 1, H, D), caches
     (B, H, Smax, D), kv_len (B,) -> (B, 1, H, D) in q's dtype."""
@@ -164,23 +275,32 @@ def decode_attention(q, k_cache, v_cache, kv_len, scale: float | None = None):
         scale = q.shape[-1] ** -0.5
     if _cuda.on_cpu("decode_attention", q):
         return decode_attention_plain(q, k_cache, v_cache, kv_len, scale)
-    _cuda.check_cuda("decode_attention", q, k_cache, v_cache,
-                     dtypes=(torch.bfloat16, torch.float32))
-    _cuda.check_cuda("decode_attention", kv_len, dtypes=(torch.int32,), align=4)
-    b, h, smax, d = k_cache.shape
-    if q.shape != (b, 1, h, d) or v_cache.shape != k_cache.shape:
-        raise ValueError(f"decode_attention: q {q.shape} vs cache {k_cache.shape}")
-    if not q.dtype == k_cache.dtype == v_cache.dtype:
-        raise ValueError("decode_attention: q and caches must share one dtype")
-    if kv_len.shape != (b,):
-        raise ValueError(f"decode_attention: kv_len must be ({b},), got {tuple(kv_len.shape)}")
-    if not 0 < d <= 128:
-        raise ValueError(f"decode_attention: head dim {d} must be in 1..128")
-    out = torch.empty_like(q)
-    K1(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr(),
-       out.data_ptr(), b, h, smax, d, float(scale), int(q.dtype == torch.bfloat16),
-       _cuda.stream_of(q))
-    return out
+    return _k1("decode_attention", q, k_cache, v_cache, kv_len, scale)
+
+
+def decode_attention_append_plain(q, k_cache, v_cache, k_new, v_new, write_index, kv_len,
+                                  scale: float | None = None):
+    """Plain version of K1's fused form: ``kv_append_plain``, then
+    ``decode_attention_plain`` on the appended caches."""
+    kv_append_plain(k_cache, v_cache, k_new, v_new, write_index)
+    return decode_attention_plain(q, k_cache, v_cache, kv_len, scale)
+
+
+def decode_attention_append(q, k_cache, v_cache, k_new, v_new, write_index, kv_len,
+                            scale: float | None = None):
+    """K2's append and K1's read in one launch: rows ``[b, :, 0]`` of
+    ``k_new``/``v_new`` (B, H, 1, D) go into the caches IN PLACE at slot
+    ``write_index[b]`` (``dus_rows``' rule), then q (B, 1, H, D) attends to
+    the slots ``< kv_len[b]`` -> (B, 1, H, D) in q's dtype, exactly what
+    ``kv_append`` then ``decode_attention`` give. One K1 launch, counted
+    under its form ``"append"``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _cuda.on_cpu("decode_attention_append", q):
+        return decode_attention_append_plain(q, k_cache, v_cache, k_new, v_new, write_index,
+                                             kv_len, scale)
+    return _k1("decode_attention_append", q, k_cache, v_cache, kv_len, scale,
+               (k_new, v_new, write_index))
 
 
 def kv_append_multi(k_cache, v_cache, k_new, v_new, write_index):

@@ -637,3 +637,130 @@ def test_decode_reads_at_head_dim_90(cuda, dtype):
                                pdec.decode_attention_q8_plain(q, kq, ks, vq, vs, kv_len).float(),
                                **tol)
     assert torch.all(got[0] == 0)
+
+
+def _k1_inputs(g, cuda, b, h, smax, d, dtype):
+    return (torch.randn(b, 1, h, d, generator=g, device=cuda).to(dtype),
+            *(torch.randn(b, h, smax, d, generator=g, device=cuda).to(dtype) for _ in range(2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [128, 64, 90])
+@pytest.mark.parametrize("smax", [320, 321])
+def test_decode_read_at_the_flagship_shape(cuda, smax, d, dtype):
+    """K1 at H = 32 over Smax 320 and 321 (a warp's run starting off a
+    16-byte boundary where D = 90) for kv_len 1, 193, 256, 320 and 0 at
+    B = 4 (a block a head; in fp32 each warp's rows through its ring) and
+    B = 1 (a head's slots over a cluster of 5 blocks): within 2e-2 (bf16) /
+    1e-4 (fp32) of the plain version, zeros at kv_len 0, twice bit for bit."""
+    sms = pdec.sm_count(cuda)
+    assert pdec.decode_splits(4, 32, smax, sms) == 1 and pdec.decode_splits(1, 32, smax, sms) == 5
+    g = torch.Generator(device=cuda).manual_seed(smax + d)
+    tol = dict(rtol=0, atol=2e-2 if dtype == torch.bfloat16 else 1e-4)
+    q, kc, vc = _k1_inputs(g, cuda, 4, 32, smax, d, dtype)
+    for lens in ([1, 193, 256, 320], [0, 256, 0, 193]):
+        n = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        got = pdec.decode_attention(q, kc, vc, n)
+        torch.testing.assert_close(got.float(), pdec.decode_attention_plain(q, kc, vc, n).float(),
+                                   **tol)
+        assert torch.all(got[n == 0] == 0)
+        assert torch.equal(got, pdec.decode_attention(q, kc, vc, n))
+    for n1 in (1, 193, 256, 320, 0):
+        n = torch.tensor([n1], dtype=torch.int32, device=cuda)
+        got = pdec.decode_attention(q[:1], kc[:1], vc[:1], n)
+        torch.testing.assert_close(
+            got.float(), pdec.decode_attention_plain(q[:1], kc[:1], vc[:1], n).float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [128, 90])
+def test_decode_read_past_shared_memory(cuda, d, dtype):
+    """K1 over Smax 8192 (8 splits), where each warp's 128 slots stream
+    through its staged read's ring of 4 stages: within tolerance, twice bit
+    for bit."""
+    smax, b, h = 8192, 2, 8
+    splits = pdec.decode_splits(b, h, smax, pdec.sm_count(cuda))
+    elem = 2 if dtype == torch.bfloat16 else 4
+    chunk, stages = pdec.decode_stage_plan(smax, splits, d, elem)
+    assert splits == 8 and stages == 4 and chunk < smax // splits // pdec.DECODE_WARPS
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q, kc, vc = _k1_inputs(g, cuda, b, h, smax, d, dtype)
+    n = torch.tensor([smax, 3 * chunk + 5], dtype=torch.int32, device=cuda)
+    got = pdec.decode_attention(q, kc, vc, n)
+    torch.testing.assert_close(got.float(), pdec.decode_attention_plain(q, kc, vc, n).float(),
+                               rtol=0, atol=2e-2 if dtype == torch.bfloat16 else 1e-4)
+    assert torch.equal(got, pdec.decode_attention(q, kc, vc, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,smax,d", [(4, 432, 128), (4, 1024, 96), (2, 1296, 128),
+                                      (1, 2160, 128)])
+def test_decode_read_near_the_shared_memory_limit(cuda, b, smax, d):
+    """K1 in bf16 at H = 32 over caches whose plan fills the block's shared
+    memory to within a few KiB of the card's limit (dynamic plus static):
+    the read and the fused form within 2e-2 of their plain versions, the
+    caches bit-equal to ``kv_append_plain``'s."""
+    h, dt = 32, torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(smax + d)
+    q, kc, vc = _k1_inputs(g, cuda, b, h, smax, d, dt)
+    kn, vn = (torch.randn(b, h, 1, d, generator=g, device=cuda).to(dt) for _ in range(2))
+    n = torch.tensor([smax, smax - 129, 1, smax // 2][:b], dtype=torch.int32, device=cuda)
+    w = torch.tensor([smax - 1, 7, -1, smax][:b], dtype=torch.int32, device=cuda)
+    tol = dict(rtol=0, atol=2e-2)
+    torch.testing.assert_close(pdec.decode_attention(q, kc, vc, n).float(),
+                               pdec.decode_attention_plain(q, kc, vc, n).float(), **tol)
+    rk, rv = kc.clone(), vc.clone()
+    ref = pdec.decode_attention_append_plain(q, rk, rv, kn, vn, w, n)
+    got = pdec.decode_attention_append(q, kc, vc, kn, vn, w, n)
+    assert torch.equal(kc, rk) and torch.equal(vc, rv)
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_read_split_kv_len_sweep(cuda, dtype):
+    """K1 at B = 1, H = 32 over Smax 320 (5 splits a head on the H100) for
+    every kv_len from 0 to 320: each split's run, empty or not, and its
+    warps' shares cover the valid slots once (within tolerance of the plain
+    version, which reads each once)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, kc, vc = _k1_inputs(g, cuda, 1, 32, 320, 128, dtype)
+    tol = dict(rtol=0, atol=2e-2 if dtype == torch.bfloat16 else 1e-4)
+    for n1 in range(0, 321):
+        n = torch.tensor([n1], dtype=torch.int32, device=cuda)
+        torch.testing.assert_close(pdec.decode_attention(q, kc, vc, n).float(),
+                                   pdec.decode_attention_plain(q, kc, vc, n).float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [128, 64, 90])
+@pytest.mark.parametrize("widx,lens", [([192, 0, 319, 327], [193, 1, 320, 320]),
+                                       ([-1, 5, 300, -400], [320, 6, 301, 256]),
+                                       ([256, 200, 10, 319], [193, 0, 5, 256])])
+def test_decode_append_fused(cuda, widx, lens, d, dtype):
+    """K1's fused form over Smax 320 at write indices in range, at the last
+    slot, past Smax, negative, and at or past kv_len (t >= kv_len): the
+    caches bit-equal to ``kv_append_plain``'s, the output within 2e-2 (bf16)
+    / 1e-4 (fp32) of the plain fused version, twice bit for bit; one K1
+    launch of form "append", no K2 launch."""
+    g = torch.Generator(device=cuda).manual_seed(d + widx[0])
+    q, kc, vc = _k1_inputs(g, cuda, 4, 32, 320, d, dtype)
+    kn, vn = (torch.randn(4, 32, 1, d, generator=g, device=cuda).to(dtype) for _ in range(2))
+    w = torch.tensor(widx, dtype=torch.int32, device=cuda)
+    n = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    rk, rv = kc.clone(), vc.clone()
+    ref = pdec.decode_attention_append_plain(q, rk, rv, kn, vn, w, n)
+    outs = []
+    for _ in range(2):
+        gk, gv = kc.clone(), vc.clone()
+        before = (pdec.K1.launches, pdec.K1.forms.get("append", 0), pdec.K2.launches)
+        outs.append(pdec.decode_attention_append(q, gk, gv, kn, vn, w, n))
+        assert (pdec.K1.launches, pdec.K1.forms.get("append", 0), pdec.K2.launches) == (
+            before[0] + 1, before[1] + 1, before[2])
+        assert torch.equal(gk, rk) and torch.equal(gv, rv)
+    torch.testing.assert_close(outs[0].float(), ref.float(), rtol=0,
+                               atol=2e-2 if dtype == torch.bfloat16 else 1e-4)
+    assert torch.equal(outs[0], outs[1])
