@@ -29,7 +29,14 @@ Phases, in order; any failure exits non-zero before the result lines:
     kv_len 1, 193, 256, 320 and 0 over Smax 320 and 321, through their
     staged read's ring twice bit for bit, and timed at kv_len 193, 256 and
     320 and at B = 1; K10 at D = 8, 16, 48, 64, 90 and 100 and over a cache
-    past its shared memory; K11 at 1, 4 and 16 bf16 rows and
+    past its shared memory; the fused forms of K9 and K10 (``quantize_kv``
+    and K8's append inside the read's launch) and of K6 (K5's append inside
+    its launch) at every write-index edge, over Smax 320/321 (K6: 328 and
+    2100), D = 128 and 90 (K6 also 64), bf16 and fp32, B = 4 and 1, through
+    the ring and K10's workspace, their caches bit-equal to the appends'
+    and their outputs bit-equal to the appends then the reads, each timed
+    at the decode step beside the read alone, the launches in sequence and
+    the plain version; K11 at 1, 4 and 16 bf16 rows and
     4 fp32 rows on run (d)'s four weight shapes, twice bit for bit, timed
     at 4 rows on each with its launches a batch; K11mma at every row count
     W4A16 serving passes, and both of its tile widths timed at the
@@ -49,16 +56,18 @@ Phases, in order; any failure exits non-zero before the result lines:
  5. run the grounded report path at the flagship width (CogVLM-17B +
     SegVol SAM, bf16 LLM/ViT, fp32 SAM, random weights from a seed): B=4,
     prompt 192 with 146 vision tokens, 128 new tokens, 4 targets, as four
-    runs: (a) greedy, bf16 weights and KV cache (each step's append inside
-    K1's launch: K2 launches 0 times); then, with the LLM
+    runs: (a) greedy, bf16 weights and KV cache; then, with the LLM
     quantized in place to W8A16, (b) speculative with 7 drafts and a bf16
     KV cache (the reference bench's default decode) and (c) greedy with an
     int8 KV cache; then, with the LLM made again from the seed and
     quantized to W4A16, (d) capacity serving: greedy over an int8 KV cache
     read by the split-int8 kernel, prefill in chunks of 2, instance SAM.
+    Every decode step appends inside its read's launch (K2, K5 and K8
+    launch 0 times; K1, K6, K9 and K10 only in their "append" form).
     Each is warmed up once, then run with every launch counter at 0 and
     checked for its outputs and its exact launch counts, then profiled
-    (device time by kernel group and by stage, busy share);
+    (device time by kernel group; host time, device span, kernel time and
+    launches by stage; busy share);
  6. the LoRA training step (``make_train_step``, ``attn_impl="pallas"``:
     K3 forward, K7delta, K7dq and K7dkv backward at every flash site) at the
     tiny config in fp32, 3 steps in each grounding mode, on the card and the
@@ -129,28 +138,34 @@ W4_DECODE_CALLS = {s: (2 if s == (4096, 11008) else 1) * LAYERS * ((B // CHUNK) 
                    for s in W4_SHAPES}
 # flagship launches per run; "iters" is scaled by the run's verify steps;
 # "forms": the launches of a kernel's named forms (every other form count 0).
-# Run (a) appends each step's K/V row inside K1's launch (its "append" form),
-# so the stand-alone K2 launches 0 times
+# Each decode step appends inside its read's launch (the read's "append"
+# form): run (a)'s K/V row inside K1's, run (b)'s verify window inside K6's,
+# runs (c) and (d) quantize their row and append it inside K9's and K10's;
+# so the stand-alone appends K2, K5 and K8 launch 0 times
 RUNS = {
     "a_greedy_bf16": dict(kw={}, launches={"K4": 63 + 12, "K3": LAYERS, "K1": LAYERS * NEW},
                           forms={"K1": {"append": LAYERS * NEW}}),
     "b_spec7_w8a16": dict(kw=dict(spec_draft_len=DRAFT),
-                          launches={"K4": 63 + 12, "K3": LAYERS, "K5": "iters", "K6": "iters"}),
+                          launches={"K4": 63 + 12, "K3": LAYERS, "K6": "iters"},
+                          forms={"K6": {"append": "iters"}}),
     "c_int8kv_w8a16": dict(kw=dict(kv_cache_dtype="int8"),
-                           launches={"K4": 63 + 12, "K3": LAYERS, "K8": LAYERS * NEW,
-                                     "K9": LAYERS * NEW}),
+                           launches={"K4": 63 + 12, "K3": LAYERS, "K9": LAYERS * NEW},
+                           forms={"K9": {"append": LAYERS * NEW}}),
     # chunking runs the ViT, the LLM prefill and the SAM encoder once a chunk
     "d_w4_q8mxu_chunk2": dict(kw=dict(kv_cache_dtype="int8", q8_mxu=True, prefill_chunk=CHUNK,
                                       instance=True),
                               launches={"K4": (VIT_LAYERS + SAM_LAYERS) * (B // CHUNK),
-                                        "K3": LAYERS * (B // CHUNK), "K8": LAYERS * NEW,
-                                        "K10": LAYERS * NEW, "K11": W4_GEMV, "K11mma": W4_MMA}),
+                                        "K3": LAYERS * (B // CHUNK), "K10": LAYERS * NEW,
+                                        "K11": W4_GEMV, "K11mma": W4_MMA},
+                              forms={"K10": {"append": LAYERS * NEW}}),
 }
 # kernel -> (run whose launch count it reports, the counter it reads); K12 is
 # K4's kernel; P1 is a probe that no run launches; a train_* run is one
-# steady training step; K2 reports the stand-alone append's launches on run
-# (a), 0 (its append runs inside K1's launch; K2 stays as the port of
-# kv_append_pallas, checked and timed in phase 3)
+# steady training step. The stand-alone appends report their launches on
+# the run whose read does their work, 0: K2 on run (a) (inside K1's launch),
+# K5 on run (b) (inside K6's), K8 on run (c) (quantized and appended inside
+# K9's; run (d): K10's). Each stays as the port of its TPU kernel
+# (kv_append_pallas, _multi, _q8), checked and timed in phase 3
 KERNEL_RUN = {"K1": "a_greedy_bf16", "K2": "a_greedy_bf16", "K3": "a_greedy_bf16",
               "K4": "a_greedy_bf16", "K5": "b_spec7_w8a16", "K6": "b_spec7_w8a16",
               "K7dq": "train_semantic", "K7dkv": "train_semantic", "K7delta": "train_semantic",
@@ -707,7 +722,12 @@ def spec_kernel_phase(peaks, gen, out):
         "K6", peaks, gen, lambda q, kc, vc, w: dk.decode_attention_window(q, kc, vc, w),
         lambda q, kc, vc, w: dk.decode_attention_window_plain(q, kc, vc, w), window=WINDOW,
         sdpa=True))
+    window_fused_checks(gen)
+    variants += [window_fused_row(peaks, gen, q, rot, t0) for t0 in (t_mid, PROMPT)]
     out["K6"]["variants"] = variants
+    out["K5"]["launches_note"] = ("run (b) appends each verify window inside K6's launch "
+                                  "(decode_attention_window_append), so the stand-alone K5 "
+                                  "launches 0 times there")
     del copies, rot, kc, vc
 
     # ---- K8 int8 append, K9 int8 decode attention ------------------------------------
@@ -786,6 +806,10 @@ def spec_kernel_phase(peaks, gen, out):
 
     out["K9"]["variants"] = q8_read_rows("K9", peaks, gen) + [decode_d90_row(
         "K9", peaks, gen, q8_read, lambda *a: q8_read(*a, plain=True), int8=True)]
+    out["K9"]["variants"] += q8_fused_rows("K9", peaks, gen)
+    out["K8"]["launches_note"] = ("runs (c) and (d) quantize each step's row and append it "
+                                  "inside K9's and K10's launch (decode_attention_q8_append), "
+                                  "so the stand-alone K8 launches 0 times there")
 
 
 def k6_checks(gen, kc, vc, q, t_mid) -> float:
@@ -956,6 +980,270 @@ def decode_d90_row(kid, peaks, gen, kernel, plain, *, window=0, sdpa=False, int8
     return row
 
 
+def q8_append_check(kid, cache, q, kn, vn, widx, lens):
+    """K9's or K10's (``kid``) fused form at one set of write indices and
+    lengths: the caches bit-equal to the plain sequence's (``quantize_kv``,
+    ``kv_append_q8_plain``) and to ``quantize_kv`` then K8's, so the
+    in-launch quantization gives ``quantize_kv``'s bits; the output
+    bit-equal to K8 then the read's, twice; one launch of the read in its
+    form "append", none of K8. Returns the error against the plain
+    version."""
+    from mmmm_tpu_torch.ops import decode_kernel as dk
+    from mmmm_tpu_torch.ops.quant import quantize_kv
+
+    mxu = kid == "K10"
+    kern = dk.K10 if mxu else dk.K9
+    dev = q.device
+    w = torch.tensor(widx, dtype=torch.int32, device=dev)
+    n = torch.tensor(lens, dtype=torch.int32, device=dev)
+    plain = {k: t.clone() for k, t in cache.items()}
+    ref = dk.decode_attention_q8_append_plain(q, plain, kn, vn, w, n, q8_mxu=mxu)
+    seq = {k: t.clone() for k, t in cache.items()}
+    dk.kv_append_q8(seq, *quantize_kv(kn.transpose(1, 2)), *quantize_kv(vn.transpose(1, 2)), w)
+    want = dk.decode_attention_q8(q, *(seq[k] for k in dk.Q8_LEAVES), n, q8_mxu=mxu)
+    outs = []
+    for _ in range(2):
+        got = {k: t.clone() for k, t in cache.items()}
+        before = (kern.launches, kern.forms.get("append", 0), dk.K8.launches)
+        outs.append(dk.decode_attention_q8_append(q, got, kn, vn, w, n, q8_mxu=mxu))
+        if (kern.launches, kern.forms.get("append", 0), dk.K8.launches) != (
+                before[0] + 1, before[1] + 1, before[2]):
+            raise AssertionError(f"{kid} fused: not one launch of its form 'append'")
+        for k in dk.Q8_LEAVES:
+            if not torch.equal(got[k], plain[k]) or not torch.equal(got[k], seq[k]):
+                bad = (got[k] != plain[k]).sum().item()
+                raise AssertionError(f"{kid} fused write_index {widx}: leaf {k} differs from "
+                                     f"quantize_kv then K8's in {bad} elements")
+    if not torch.equal(outs[0], want):
+        raise AssertionError(f"{kid} fused write_index {widx}: output not K8 then {kid}'s bits "
+                             f"(max {max_err(outs[0], want):.3e})")
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError(f"{kid} fused write_index {widx}: two runs differ")
+    if not torch.all(outs[0][n <= 0] == 0):
+        raise AssertionError(f"{kid} fused: kv_len 0 does not give zeros")
+    return max_err(outs[0], ref)
+
+
+def q8_fused_rows(kid, peaks, gen) -> list:
+    """K9's or K10's (``kid``) fused form (``quantize_kv`` of the step's new
+    row and K8's append inside the read's launch), checked by
+    ``q8_append_check`` at the flagship's H = 32 and D = 128 and 90 over
+    Smax 320 and 321, q in bf16 and fp32, B = 4 and 1, at write indices in
+    range, at either end, past Smax, negative and at or past kv_len, over
+    new rows that are views of one (B, 1, 3H, D) projection; through the
+    staged read's ring (K9 Smax 4096, K10 1536); K10 past its shared
+    memory. Then timed at runs (c)'s and (d)'s step (write index kv_len - 1)
+    at kv_len 256, B = 4 and B = 1, beside the read alone, K8 then the read
+    (two launches, the rows quantized before), ``quantize_kv`` twice, K8
+    and the read (the step before this form) and the plain version; the
+    bound counts the cache's slots other than the written one, q and the
+    output, the new rows read and the int8 rows and scales written. Returns
+    the timed rows."""
+    from mmmm_tpu_torch.ops import decode_kernel as dk
+    from mmmm_tpu_torch.ops.quant import quantize_kv
+
+    bw, bf16_rate, _, int8_rate = peaks
+    dev = torch.device("cuda")
+    mxu = kid == "K10"
+    h = 32
+
+    def step(b, h, smax, d, dt):
+        kq, ks = quantize_kv(torch.randn(b, h, smax, d, generator=gen, device=dev))
+        vq, vs = quantize_kv(torch.randn(b, h, smax, d, generator=gen, device=dev))
+        qkv = torch.randn(b, 1, 3 * h, d, generator=gen, device=dev).to(dt)
+        return (qkv[:, :, :h].contiguous(), {"kq": kq, "ks": ks, "vq": vq, "vs": vs},
+                qkv[:, :, h:2 * h], qkv[:, :, 2 * h:])
+
+    for smax in (PROMPT + NEW, PROMPT + NEW + 1):
+        for d in (128, 90):
+            for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+                q, cache, kn, vn = step(B, h, smax, d, dt)
+                errs = [q8_append_check(kid, cache, q, kn, vn, widx, lens) for widx, lens in (
+                    ([PROMPT, 0, smax - 1, smax + 7], [PROMPT + 1, 1, smax, smax]),
+                    ([-1, 5, 300, -400], [smax, 6, 301, 256]),
+                    ([256, 200, 10, smax - 1], [PROMPT + 1, 0, 5, 256]))]
+                one = {k: t[:1] for k, t in cache.items()}
+                errs += [q8_append_check(kid, one, q[:1], kn[:1], vn[:1], [w], [n])
+                         for w, n in ((255, 256), (smax - 1, 0), (-3, smax))]
+                check(f"{kid} fused (B, {h}, {smax}, {d}) q {str(dt).split('.')[-1]}: caches "
+                      "as quantize_kv then K8, output as K8 then the read, bit for bit", max(errs),
+                      tol)
+    smax = 1536 if mxu else 4096
+    for d in (128, 90):
+        chunk, stages = dk.q8_stage_plan(smax, d, mxu=mxu)
+        q, cache, kn, vn = step(4, 8, smax, d, torch.float32)
+        err = max(q8_append_check(kid, cache, q, kn, vn, [chunk - 6, 2 * chunk, smax - 1, -1],
+                                  [chunk - 5, 2 * chunk + 1, smax - 100, smax]),
+                  q8_append_check(kid, cache, q, kn, vn, [0, chunk + 3, 5, smax + 2],
+                                  [0, chunk + 1, 2 * chunk + 1, smax]))
+        check(f"{kid} fused through the ring (Smax {smax}, D {d}, {stages} stages of {chunk} "
+              "slots)", err, 1e-4)
+    if mxu:
+        big = dk.Q8_MXU_SHARED_SLOTS + 7232
+        q, cache, kn, vn = step(1, 3, big, 16, torch.float32)
+        check(f"K10 fused Smax {big} (workspace)", max(
+            q8_append_check(kid, cache, q, kn, vn, [big - 4], [big - 3]),
+            q8_append_check(kid, cache, q, kn, vn, [-1], [big])), 1e-4)
+
+    read = dk.decode_attention_q8_mxu if mxu else dk.decode_attention_q8
+    rows = []
+    for b, n in ((B, 256), (1, 256)):
+        smax, d = PROMPT + NEW, 128
+        steps = [step(b, h, smax, d, torch.bfloat16) for _ in range(8)]
+        q, _, kn, vn = steps[0]
+        caches = Rotating([c for _, c, _, _ in steps])
+        lens = torch.full((b,), n, dtype=torch.int32, device=dev)
+        w = lens - 1
+        new = [*quantize_kv(kn.transpose(1, 2)), *quantize_kv(vn.transpose(1, 2))]
+        leaves = lambda c: [c[k] for k in dk.Q8_LEAVES]
+        fused = lambda: dk.decode_attention_q8_append(q, caches.next(), kn, vn, w, lens,
+                                                      q8_mxu=mxu)
+
+        def k8_then_read():
+            c = caches.next()
+            dk.kv_append_q8(c, *new, w)
+            return read(q, *leaves(c), lens)
+
+        def quantize_k8_read():  # the step as the decoder ran it before this form
+            c = caches.next()
+            dk.kv_append_q8(c, *quantize_kv(kn.transpose(1, 2)), *quantize_kv(vn.transpose(1, 2)),
+                            w)
+            return read(q, *leaves(c), lens)
+
+        err = q8_append_check(kid, steps[0][1], q, kn, vn, w.tolist(), lens.tolist())
+        check(f"{kid} fused timed row B={b} kv_len {n}", err, 2e-2)
+        # slot n - 1 comes from the new rows, so the cache gives n - 1 slots
+        n_read = b * (n - 1)
+        new_bytes = 2 * b * h * d * 2 + 2 * b * h * (d + 2)  # bf16 rows in, int8 rows + scales out
+        bms, by = bound(2 * n_read * h * (d + 2) + 2 * q.numel() * 2 + new_bytes,
+                        (8 if mxu else 4) * b * n * h * d, int8_rate if mxu else bf16_rate, bw)
+        row = {"form": "append", "shape": [b, h, smax, d], "kv_len": n, "write_index": n - 1,
+               "dtype": "int8 KV, bf16 q and new rows", "max_abs_err": err,
+               "ms": time_ms(fused),
+               "read_ms": time_ms(lambda: read(q, *leaves(caches.next()), lens)),
+               "k8_then_read_ms": time_ms(k8_then_read),
+               "quantize_k8_read_ms": time_ms(quantize_k8_read),
+               "plain_ms": time_ms(lambda: dk.decode_attention_q8_append_plain(
+                   q, caches.next(), kn, vn, w, lens, q8_mxu=mxu)),
+               "library_ms": None, "bound_ms": bms, "bound_by": by}
+        log(f"  {kid} fused B={b} kv_len {n}: kernel {row['ms']:.4f} ms, the read alone "
+            f"{row['read_ms']:.4f} ms, K8 then {kid} {row['k8_then_read_ms']:.4f} ms, "
+            f"quantize_kv x2 + K8 + {kid} {row['quantize_k8_read_ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {bms:.5f} ms ({by})")
+        rows.append(row)
+        del steps, caches
+    return rows
+
+
+def window_append_check(kc, vc, q, kn, vn, widx) -> float:
+    """K6's fused form at one set of write indices: the caches bit-equal to
+    the plain sequence's and to K5's, the output bit-equal to K5 then K6's,
+    twice; one K6 launch in its form "append", none of K5. Returns the
+    error against the plain version."""
+    from mmmm_tpu_torch.ops import decode_kernel as dk
+
+    w = torch.tensor(widx, dtype=torch.int32, device=q.device)
+    pk, pv = kc.clone(), vc.clone()
+    ref = dk.decode_attention_window_append_plain(q, pk, pv, kn, vn, w)
+    sk, sv = kc.clone(), vc.clone()
+    dk.kv_append_multi(sk, sv, kn.transpose(1, 2).contiguous(), vn.transpose(1, 2).contiguous(), w)
+    want = dk.decode_attention_window(q, sk, sv, w)
+    outs = []
+    for _ in range(2):
+        gk, gv = kc.clone(), vc.clone()
+        before = (dk.K6.launches, dk.K6.forms.get("append", 0), dk.K5.launches)
+        outs.append(dk.decode_attention_window_append(q, gk, gv, kn, vn, w))
+        if (dk.K6.launches, dk.K6.forms.get("append", 0), dk.K5.launches) != (
+                before[0] + 1, before[1] + 1, before[2]):
+            raise AssertionError("K6 fused: not one launch of its form 'append'")
+        if not all(torch.equal(a, b_) for a, b_ in ((gk, pk), (gv, pv), (gk, sk), (gv, sv))):
+            raise AssertionError(f"K6 fused write_index {widx}: caches differ from K5's")
+    if not torch.equal(outs[0], want):
+        raise AssertionError(f"K6 fused write_index {widx}: output not K5 then K6's bits "
+                             f"(max {max_err(outs[0], want):.3e})")
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError(f"K6 fused write_index {widx}: two runs differ")
+    return max_err(outs[0], ref)
+
+
+def window_fused_checks(gen) -> None:
+    """K6's fused form (K5's append inside K6's launch) by
+    ``window_append_check`` at run (b)'s cache (4, 32, 328, D), windows of
+    1, 3 and 8 rows that are views of one (B, K, 3H, D) projection, D = 128
+    and 64 (bf16: the tensor-core form) and 90 (the CUDA-core form), in
+    bf16 and fp32, at write indices in the middle, at a tile's edge, at
+    Smax - K, past it (the rows shift back whole, the mask keeps the raw
+    index), negative, and at B = 1; over Smax 2100 (several tiles a warp),
+    windows straddling two tiles."""
+    dev = torch.device("cuda")
+    h, smax = 32, PROMPT + NEW + WINDOW
+
+    def step(b, nq, h, smax, d, dt):
+        kc, vc = (torch.randn(b, h, smax, d, generator=gen, device=dev).to(dt) for _ in range(2))
+        qkv = torch.randn(b, nq, 3 * h, d, generator=gen, device=dev).to(dt)
+        return kc, vc, qkv[:, :, :h].contiguous(), qkv[:, :, h:2 * h], qkv[:, :, 2 * h:]
+
+    for d in (128, 64, 90):
+        for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+            errs = []
+            for nq in (1, 3, WINDOW):
+                kc, vc, q, kn, vn = step(B, nq, h, smax, d, dt)
+                errs += [window_append_check(kc, vc, q, kn, vn, widx) for widx in (
+                    [256, 31 - nq // 2, smax - nq, smax - 1], [-1, -nq - 3, smax + 12, 128 - nq],
+                    [-smax, 0, 95, 5])]
+                errs.append(window_append_check(kc[:1], vc[:1], q[:1], kn[:1], vn[:1], [200]))
+            check(f"K6 fused (B, {h}, {smax}, {d}) {str(dt).split('.')[-1]}, windows 1, 3, 8: "
+                  "caches as K5, output as K5 then K6, bit for bit", max(errs), tol)
+    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        kc, vc, q, kn, vn = step(2, WINDOW, 2, 2100, 128, dt)
+        check(f"K6 fused over Smax 2100 {str(dt).split('.')[-1]}", max(
+            window_append_check(kc, vc, q, kn, vn, widx)
+            for widx in ([2092, 700], [28, 1000], [-1, 2099], [-2000, 222])), tol)
+
+
+def window_fused_row(peaks, gen, q, rot, t0) -> dict:
+    """K6's fused form at a run-(b) verify step (write index ``t0``, bf16,
+    D = 128) over rotating caches: checked, then timed beside the read
+    alone, K5 then K6 (two launches) and the plain version; the bound
+    counts the cache's slots before the window, q and the output, and the
+    window's rows read and written."""
+    from mmmm_tpu_torch.ops import decode_kernel as dk
+
+    bw, bf16_rate, _, _ = peaks
+    kc, vc = rot.copies[0]
+    b, h, smax, d = kc.shape
+    dev = q.device
+    qkv = torch.randn(b, WINDOW, 3 * h, d, generator=gen, device=dev).to(kc.dtype)
+    kn, vn = qkv[:, :, h:2 * h], qkv[:, :, 2 * h:]
+    kt, vt = kn.transpose(1, 2).contiguous(), vn.transpose(1, 2).contiguous()
+    w = torch.full((b,), t0, dtype=torch.int32, device=dev)
+    err = window_append_check(kc, vc, q, kn, vn, w.tolist())
+    check(f"K6 fused timed row write_index {t0}", err, 2e-2)
+
+    def k5_then_k6():
+        caches = rot.next()
+        dk.kv_append_multi(*caches, kt, vt, w)
+        return dk.decode_attention_window(q, *caches, w)
+
+    lens = t0 + torch.arange(1, WINDOW + 1, device=dev)
+    # the window's slots come from its new rows: the caches give the t0 before them
+    new_bytes = 4 * b * h * WINDOW * d * 2  # K and V rows read, then written
+    bms, by = bound(2 * b * t0 * h * d * 2 + 2 * q.numel() * 2 + new_bytes,
+                    4 * b * int(lens.sum().item()) * h * d, bf16_rate, bw)
+    row = {"form": "append", "shape": [b, h, smax, d], "window": WINDOW, "write_index": t0,
+           "dtype": "bfloat16", "max_abs_err": err,
+           "ms": time_ms(lambda: dk.decode_attention_window_append(q, *rot.next(), kn, vn, w)),
+           "read_ms": time_ms(lambda: dk.decode_attention_window(q, *rot.next(), w)),
+           "k5_then_k6_ms": time_ms(k5_then_k6),
+           "plain_ms": time_ms(lambda: dk.decode_attention_window_append_plain(
+               q, *rot.next(), kn, vn, w)),
+           "library_ms": None, "bound_ms": bms, "bound_by": by}
+    log(f"  K6 fused write_index {t0}: kernel {row['ms']:.4f} ms, the read alone "
+        f"{row['read_ms']:.4f} ms, K5 then K6 {row['k5_then_k6_ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, bound {bms:.5f} ms ({by})")
+    return row
+
+
 def capacity_kernel_phase(peaks, gen, out):
     """K10 (the split-int8 read, at K9's shape, at head dims off its 16-byte
     lanes and past its shared memory) and K11 (W4A16: the decode-row kernel
@@ -1044,8 +1332,10 @@ def capacity_kernel_phase(peaks, gen, out):
 
     row = decode_d90_row("K10", peaks, gen, mxu_read, lambda *a: mxu_read(*a, plain=True),
                          int8=True, mxu=True)
-    row["k9_ms_same_shape"] = out["K9"]["variants"][-1]["ms"]
+    row["k9_ms_same_shape"] = next(r["ms"] for r in out["K9"]["variants"]
+                                   if r["shape"][3] == 90 and r.get("form") is None)
     out["K10"]["variants"] = q8_read_rows("K10", peaks, gen) + [row]
+    out["K10"]["variants"] += q8_fused_rows("K10", peaks, gen)
     del caches, rot, cache
 
     # ---- K11 W4A16 product -------------------------------------------------------
@@ -1733,9 +2023,11 @@ def tiny_train_phase():
     return out
 
 
-def flagship_phase(gen):
+def flagship_phase(gen, expect: bool = True):
     """Runs (a)-(d) at the flagship width; returns their results and each
-    run's launch counts."""
+    run's launch counts. ``expect=False`` skips the launch counts' checks
+    against ``RUNS`` (time_flagship_runs.py runs other versions of the
+    port, which launch other kernels); the outputs are checked either way."""
     from mmmm_tpu_torch import MMMMConfig, generate_grounded, init_params
     from mmmm_tpu_torch.data.tokenizer import SPECIAL_TOKENS, MMMMTokenizer, _ByteBackend
     from mmmm_tpu_torch.models.cogvlm import CogVLMConfig
@@ -1827,19 +2119,20 @@ def flagship_phase(gen):
         log(f"    steady run: {steady_s:.3f} s, {B / steady_s:.4f} reports/s, "
             f"tokens_per_step {tps:.4f} ({iters} decode steps), peak memory "
             f"{peak / 2**30:.2f} GiB, launches {launches}, by form {forms}")
+        per_run = lambda v: LAYERS * iters if v == "iters" else v
         want = {name: 0 for name in KERNELS}
-        want.update({k: LAYERS * iters if v == "iters" else v
-                     for k, v in spec["launches"].items()})
+        want.update({k: per_run(v) for k, v in spec["launches"].items()})
         for name, n in want.items():
-            if launches[name] != n:
+            if expect and launches[name] != n:
                 raise AssertionError(f"{label}: {name} launched {launches[name]} times, "
                                      f"expected {n}")
-        if forms != spec.get("forms", {}):
-            raise AssertionError(f"{label}: launches by form {forms}, expected "
-                                 f"{spec.get('forms', {})}")
+        want_forms = {k: {f: per_run(v) for f, v in fs.items()}
+                      for k, fs in spec.get("forms", {}).items()}
+        if expect and forms != want_forms:
+            raise AssertionError(f"{label}: launches by form {forms}, expected {want_forms}")
         want_shapes = ({f"{k}x{n}": c for (k, n), c in sorted(W4_DECODE_CALLS.items())}
                        if launches["K11"] else {})
-        if by_shape != want_shapes or sum(by_shape.values()) != launches["K11"]:
+        if expect and (by_shape != want_shapes or sum(by_shape.values()) != launches["K11"]):
             raise AssertionError(f"{label}: K11 launches by weight shape {by_shape}, "
                                  f"expected {want_shapes}")
         if spec["kw"].get("instance"):
@@ -2238,12 +2531,13 @@ def profile_run(run, stages=STAGES):
     for name in stages:
         h, d = host_span.get(name), device_span.get(name)
         stage = {"host_ms": None if h is None else h[3] / 1e3,
-                 "device_span_ms": None, "kernels_ms": None}
+                 "device_span_ms": None, "kernels_ms": None, "launches": None}
         if d is not None:
             lo = bisect.bisect_left(starts, (d[2], -1.0))
             hi = bisect.bisect_left(starts, (d[2] + d[3], -1.0))
             stage["device_span_ms"] = d[3] / 1e3
             stage["kernels_ms"] = sum(us for _, us in starts[lo:hi]) / 1e3
+            stage["launches"] = hi - lo
         stage_times[name] = stage
         log(f"    stage {name:12s} " + ", ".join(
             f"{k} {'n/a' if v is None else f'{v:.3f}'}" for k, v in stage.items()))
@@ -2286,8 +2580,9 @@ def ptxas_entries(build_log: str) -> list:
 def redesigned_kernel_resources(build_log: str, lib) -> list:
     """Registers, shared memory (static, and the dynamic bytes the launcher
     asks for) and spill bytes of every K3/K4 (``attn_fwd_*``, with P1's
-    NOSM form), K6 tensor-core, K11 decode-row, K11mma, K7, K9, K10 and K1 kernel; fails
-    if one spills."""
+    NOSM form), K6 tensor-core, K11 decode-row, K11mma, K7, K9, K10 and K1
+    kernel, the fused forms of K6, K9 and K10 included; fails if one
+    spills."""
     rows = []
     for e in ptxas_entries(build_log):
         m = re.search(r"(attn_fwd_(?:wgmma|f32)|flash_bwd_(?:dq|dkv)_(?:wgmma|f32)|flash_bwd_delta"
@@ -2296,7 +2591,7 @@ def redesigned_kernel_resources(build_log: str, lib) -> list:
         if not m:
             continue
         kname = m.group(1)
-        if kname.startswith("decode_q8"):  # <T, LPS, VEC> at D = 16 LPS over run (c)'s cache
+        if kname.startswith("decode_q8"):  # <T, LPS, VEC, APPEND> at D = 16 LPS, run (c)'s cache
             rows.append(_q8_resource_row(kname, e, lib))
             continue
         if kname == "decode_attn_kernel":  # <T, LPS, VEC> at D = 8 LPS over run (a)'s cache
@@ -2322,7 +2617,7 @@ def redesigned_kernel_resources(build_log: str, lib) -> list:
             dyn = lib.mmmm_w4_mma_smem(targ)
         elif kname == "w4_gemv_mma_kernel":  # <MT>: M <= 8 MT
             dyn = lib.mmmm_w4_gemv_smem(8 * targ)
-        elif kname == "decode_window_mma_kernel":  # <DP>, at run (b)'s cache
+        elif kname == "decode_window_mma_kernel":  # <DP, APPEND>, at run (b)'s cache
             from mmmm_tpu_torch.ops.decode_kernel import window_warps
 
             dyn = lib.mmmm_decode_window_smem(targ, *window_warps(PROMPT + NEW + WINDOW))
@@ -2333,6 +2628,8 @@ def redesigned_kernel_resources(build_log: str, lib) -> list:
         else:
             dyn = 0
         label = kname if targ is None else f"{kname}<{targ}>"
+        if kname == "decode_window_mma_kernel" and re.search(r"ILi\d+ELb1E", e["symbol"]):
+            label = f"{kname}<{targ}, fused: K5's append>"
         if kname == "flash_bwd_delta":
             label += "<bf16>" if "bfloat16" in e["symbol"] else "<fp32>"
         rows.append(_resource_row(label, e, dyn))
@@ -2342,26 +2639,34 @@ def redesigned_kernel_resources(build_log: str, lib) -> list:
                    "decode_q8_mxu_kernel", "decode_attn_kernel"):
         if not any(r["kernel"].startswith(prefix) for r in rows):
             raise AssertionError(f"no {prefix} kernel in the build log")
+    for kname in ("decode_window_mma_kernel", "decode_q8_kernel", "decode_q8_mxu_kernel"):
+        if not any(r["kernel"].startswith(kname) and "fused" in r["kernel"] for r in rows):
+            raise AssertionError(f"no fused {kname} in the build log")
     return rows
 
 
 def _q8_resource_row(kname: str, e: dict, lib) -> dict:
-    """A K9 or K10 instance's resources, its dynamic shared memory that of
-    the staged read's plan at D = 16 LPS over Smax 320 (run (c)'s and run
-    (d)'s cache), which the kernel's own query must give as the wrapper's
-    plan counts it."""
+    """A K9 or K10 instance's resources (the read alone, or its fused form),
+    its dynamic shared memory that of the staged read's plan at D = 16 LPS
+    over Smax 320 (run (c)'s and run (d)'s cache), which the kernel's own
+    query must give as the wrapper's plan counts it; fails if its static
+    shared memory passes the plan's allowance for it, ``Q8_STATIC_SMEM``."""
     from mmmm_tpu_torch.ops import decode_kernel as dk
 
-    t = re.search(r"I(13__nv_bfloat16|f)Li(\d+)ELb([01])E", e["symbol"])
-    lps, vec = int(t.group(2)), t.group(3) == "1"
+    t = re.search(r"I(13__nv_bfloat16|f)Li(\d+)ELb([01])ELb([01])E", e["symbol"])
+    lps, vec, fused = int(t.group(2)), t.group(3) == "1", t.group(4) == "1"
     d, smax, mxu = 16 * lps, PROMPT + NEW, kname == "decode_q8_mxu_kernel"
     chunk, stages = dk.q8_stage_plan(smax, d, mxu=mxu)
     dyn = (lib.mmmm_decode_q8_mxu_smem(chunk, stages, d, smax, 1) if mxu
            else lib.mmmm_decode_q8_smem(chunk, stages, d))
     if dyn != stages * dk.q8_stage_bytes(chunk, d) + dk.q8_math_smem(smax, chunk, mxu):
         raise AssertionError(f"{kname}: the kernel's shared memory differs from the plan's")
-    label = (f"{kname}<{'bf16' if t.group(1) != 'f' else 'fp32'}, LPS={lps}, VEC={int(vec)}; "
-             f"{stages} stages of {chunk} slots>")
+    if e.get("static_smem", 0) > dk.Q8_STATIC_SMEM:
+        raise AssertionError(f"{kname}: {e['static_smem']} bytes of static shared memory, past "
+                             f"the plan's {dk.Q8_STATIC_SMEM}")
+    label = (f"{kname}<{'bf16' if t.group(1) != 'f' else 'fp32'}, LPS={lps}, VEC={int(vec)}"
+             f"{', fused: K8 and quantize_kv' if fused else ''}; {stages} stages of {chunk} "
+             "slots>")
     return _resource_row(label, e, dyn)
 
 

@@ -31,6 +31,24 @@
 // int8 values become floats through a byte permute into 2^23's mantissa and
 // one subtraction (i8x16_to_f32), not the slower conversion unit. Rows with
 // D % 16 != 0 are read a byte at a time (VEC = false). kv_len = 0 gives zeros.
+//
+// The fused form (APPEND; ops/decode_kernel.py decode_attention_q8_append)
+// also does the decode step's quantize_kv of the new K and V rows and K8's
+// append (kv_append_pallas_q8, `_kv_append_q8_kernel`) in this launch. The
+// head's new rows (in q's dtype) and write_index are requested with q,
+// before the staged rows (behind the bulk copies they would arrive late);
+// the warp whose lane group takes slot t = clamp(wrap(write_index[b]), 0,
+// Smax - 1) quantizes the rows into registers while the staged rows are in
+// flight (each lane group the whole row, 16 head dims a lane, the max by
+// shuffles: quantize_row16; append_warp), and that lane group takes the new
+// row and scale from registers in place of the staged ones, in both passes
+// (one compare and select a slot), so the arithmetic is K8's then K9's to
+// the bit; after the block's last read, that warp's first lane group writes
+// the rows and scales to the four leaves (warp 0 where t >= kv_len, which
+// no pass reads). Rows stay int8, scales
+// bf16: the caches match kv_append_q8_plain's bit for bit. (Putting the new
+// rows over the staged ones in shared memory, behind a barrier, measured
+// slower: PERF.md §6.)
 #include "decode_q8_stage.cuh"
 
 namespace {
@@ -38,12 +56,18 @@ namespace {
 using mmmm::q8::kThreads;
 using mmmm::q8::kWarps;
 
-template <typename T, int LPS, bool VEC>
-__global__ void __launch_bounds__(kThreads)
+// APPEND: the fused form, with the step's new rows `nr`; the stores of the
+// append go through the cache pointers (written once, after their last read).
+// Two blocks an SM (the flagship's plan takes 83 KB of shared memory a
+// block): without the hint ptxas held the fused D <= 16 instance to 80
+// registers, and it spilled.
+template <typename T, int LPS, bool VEC, bool APPEND>
+__global__ void __launch_bounds__(kThreads, 2)
 decode_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
                  const __nv_bfloat16* __restrict__ ks, const int8_t* __restrict__ vq,
                  const __nv_bfloat16* __restrict__ vs, const int* __restrict__ kv_len,
-                 T* __restrict__ out, int H, int Smax, int D, float scale, int C, int NS) {
+                 T* __restrict__ out, int H, int Smax, int D, float scale, int C, int NS,
+                 mmmm::q8::NewRows<T> nr) {
   constexpr int DP = 16 * LPS;
   constexpr int G = 32 / LPS;  // slots a warp takes at once
   extern __shared__ __align__(128) unsigned char smem[];
@@ -63,6 +87,14 @@ decode_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
   float qv[16];
   mmmm::q8::load_q16<VEC>(q + (size_t)bh * D + d0, n, qv);  // q: (B, 1, H, D)
   int len = kv_len[b];
+  float kx[16], vx[16];  // the fused form's new rows, requested with q and kv_len
+  int t = -1;
+  if constexpr (APPEND) {
+    const int h = bh - b * H;
+    mmmm::q8::load_q16<VEC>(nr.k + (size_t)b * nr.ksb + (size_t)h * nr.ksh + d0, n, kx);
+    mmmm::q8::load_q16<VEC>(nr.v + (size_t)b * nr.vsb + (size_t)h * nr.vsh + d0, n, vx);
+    t = nr.write_index[b];
+  }
   len = len < 0 ? 0 : (len > Smax ? Smax : len);
   const size_t row0 = (size_t)bh * Smax;
 
@@ -71,6 +103,23 @@ decode_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
   float* lg = reinterpret_cast<float*>(smem + (size_t)NS * mmmm::q8::stage_bytes(C, D));
   float* pw = lg + C;
   ring.start();
+
+  // the fused form: the warp that reads slot t quantizes the new rows while
+  // the staged rows arrive
+  int4 kn = make_int4(0, 0, 0, 0), vn = kn;
+  __nv_bfloat16 ksn = __float2bfloat16_rn(0.f), vsn = ksn;
+  int owner = 0;
+  if constexpr (APPEND) {
+    t = mmmm::append_slot(t, Smax);
+    owner = mmmm::q8::append_warp(t, len, C, G);
+    if (warp == owner) {
+      float s;
+      kn = mmmm::q8::quantize_row16<LPS>(kx, s);
+      ksn = __float2bfloat16_rn(s);
+      vn = mmmm::q8::quantize_row16<LPS>(vx, s);
+      vsn = __float2bfloat16_rn(s);
+    }
+  }
 
   float m = mmmm::kNegInf;
   float l = 0.f;  // this thread's share of the exps' sum
@@ -81,6 +130,7 @@ decode_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
   for (int c = 0; c < ring.n_chunks; ++c) {
     const int ik = 2 * c, iv = ik + 1;
     const int cnt = ring.count(ik);
+    const int tc = t - c * C;  // the new row's slot in this chunk, if it holds it
     // ---- 1. logits of the chunk, and its max ---------------------------------------
     ring.wait(ik);
     {
@@ -94,8 +144,9 @@ decode_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
         for (int u = 0; u < 2; ++u)
           if (j[u] < cnt && n > 0) {
             float kf[16];
-            mmmm::q8::i8x16_to_f32(
-                mmmm::q8::load_row16<VEC>(rows + (size_t)j[u] * D, d0, D), kf);
+            int4 kr = mmmm::q8::load_row16<VEC>(rows + (size_t)j[u] * D, d0, D);
+            if (APPEND && j[u] == tc) kr = kn;
+            mmmm::q8::i8x16_to_f32(kr, kf);
             float x0 = 0.f, x1 = 0.f;
 #pragma unroll
             for (int e = 0; e < 16; e += 2) {
@@ -111,7 +162,8 @@ decode_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
 #pragma unroll
         for (int u = 0; u < 2; ++u)
           if (j[u] < cnt) {
-            const float x = s[u] * __bfloat162float(sc[j[u]]) * scale;
+            const float x =
+                s[u] * __bfloat162float(APPEND && j[u] == tc ? ksn : sc[j[u]]) * scale;
             mx = fmaxf(mx, x);
             if (lane % LPS == 0) lg[j[u]] = x;
           }
@@ -146,9 +198,12 @@ decode_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
       const __nv_bfloat16* sc = ring.scales(iv);
       for (int jj = warp * G + g; jj < cnt; jj += kWarps * G) {
         if (n <= 0) break;
-        const float w = pw[jj] * __bfloat162float(sc[jj]);
+        const bool fresh = APPEND && jj == tc;
+        const float w = pw[jj] * __bfloat162float(fresh ? vsn : sc[jj]);
         float vf[16];
-        mmmm::q8::i8x16_to_f32(mmmm::q8::load_row16<VEC>(rows + (size_t)jj * D, d0, D), vf);
+        int4 vr = mmmm::q8::load_row16<VEC>(rows + (size_t)jj * D, d0, D);
+        if (fresh) vr = vn;
+        mmmm::q8::i8x16_to_f32(vr, vf);
 #pragma unroll
         for (int e = 0; e < 16; ++e) acc[e] = fmaf(w, vf[e], acc[e]);
       }
@@ -156,6 +211,11 @@ decode_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
     __syncthreads();
     ring.release(iv);
   }
+  // ---- the fused form's append, after every read of the block (the barrier above) ----
+  if constexpr (APPEND)
+    mmmm::q8::write_new_rows<LPS, VEC>(const_cast<int8_t*>(kq), const_cast<__nv_bfloat16*>(ks),
+                                       const_cast<int8_t*>(vq), const_cast<__nv_bfloat16*>(vs),
+                                       row0 + t, D, owner, kn, vn, ksn, vsn);
 
   // ---- merge: the G lane groups of a warp (same head dims), then the warps -----------
 #pragma unroll
@@ -187,52 +247,58 @@ size_t k9_smem(int C, int NS, int D) {
   return (size_t)NS * mmmm::q8::stage_bytes(C, D) + (size_t)8 * C;
 }
 
-template <typename T, int LPS, bool VEC>
-int launch_lps(const T* q, const int8_t* kq, const __nv_bfloat16* ks, const int8_t* vq,
-               const __nv_bfloat16* vs, const int* lens, T* out, int B, int H, int Smax, int D,
-               float scale, int C, int NS, cudaStream_t st) {
-  auto* kern = decode_q8_kernel<T, LPS, VEC>;
-  const size_t smem = k9_smem(C, NS, D);
+struct Args {
+  const void *q, *kq, *ks, *vq, *vs;
+  const int* lens;
+  void* out;
+  int B, H, Smax, D;
+  float scale;
+  int C, NS;
+  const void *kn, *vn;  // the fused form's new rows, else null
+  const int* widx;
+  int ksb, ksh, vsb, vsh;
+  cudaStream_t st;
+};
+
+template <typename T, int LPS, bool VEC, bool APPEND>
+int launch_form(const Args& a) {
+  auto* kern = decode_q8_kernel<T, LPS, VEC, APPEND>;
+  const size_t smem = k9_smem(a.C, a.NS, a.D);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kern<<<B * H, kThreads, smem, st>>>(q, kq, ks, vq, vs, lens, out, H, Smax, D, scale, C, NS);
+  const mmmm::q8::NewRows<T> nr{static_cast<const T*>(a.kn), static_cast<const T*>(a.vn), a.widx,
+                                a.ksb, a.ksh, a.vsb, a.vsh};
+  kern<<<a.B * a.H, kThreads, smem, a.st>>>(
+      static_cast<const T*>(a.q), static_cast<const int8_t*>(a.kq),
+      static_cast<const __nv_bfloat16*>(a.ks), static_cast<const int8_t*>(a.vq),
+      static_cast<const __nv_bfloat16*>(a.vs), a.lens, static_cast<T*>(a.out), a.H, a.Smax, a.D,
+      a.scale, a.C, a.NS, nr);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int LPS>
-int launch_vec(bool vec, const T* q, const int8_t* kq, const __nv_bfloat16* ks,
-               const int8_t* vq, const __nv_bfloat16* vs, const int* lens, T* out, int B, int H,
-               int Smax, int D, float scale, int C, int NS, cudaStream_t st) {
-  if (vec)
-    return launch_lps<T, LPS, true>(q, kq, ks, vq, vs, lens, out, B, H, Smax, D, scale, C, NS,
-                                    st);
-  return launch_lps<T, LPS, false>(q, kq, ks, vq, vs, lens, out, B, H, Smax, D, scale, C, NS, st);
+int launch_lps(bool vec, const Args& a) {
+  if (a.kn != nullptr)
+    return vec ? launch_form<T, LPS, true, true>(a) : launch_form<T, LPS, false, true>(a);
+  return vec ? launch_form<T, LPS, true, false>(a) : launch_form<T, LPS, false, false>(a);
 }
 
 template <typename T>
-int launch(const void* q, const void* kq, const void* ks, const void* vq, const void* vs,
-           const int* lens, void* out, int B, int H, int Smax, int D, float scale, int C, int NS,
-           cudaStream_t st) {
-  const T* qp = static_cast<const T*>(q);
-  const int8_t* kqp = static_cast<const int8_t*>(kq);
-  const int8_t* vqp = static_cast<const int8_t*>(vq);
-  const __nv_bfloat16* ksp = static_cast<const __nv_bfloat16*>(ks);
-  const __nv_bfloat16* vsp = static_cast<const __nv_bfloat16*>(vs);
-  T* op = static_cast<T*>(out);
-  // 16-byte row and q loads: whole 16-byte pieces from 16-byte-aligned bases
-  const bool vec = D % 16 == 0 &&
-                   ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(kq) |
-                     reinterpret_cast<uintptr_t>(vq)) & 15) == 0;
-  if (D <= 16)
-    return launch_vec<T, 1>(vec, qp, kqp, ksp, vqp, vsp, lens, op, B, H, Smax, D, scale, C, NS, st);
-  if (D <= 32)
-    return launch_vec<T, 2>(vec, qp, kqp, ksp, vqp, vsp, lens, op, B, H, Smax, D, scale, C, NS, st);
-  if (D <= 64)
-    return launch_vec<T, 4>(vec, qp, kqp, ksp, vqp, vsp, lens, op, B, H, Smax, D, scale, C, NS, st);
-  return launch_vec<T, 8>(vec, qp, kqp, ksp, vqp, vsp, lens, op, B, H, Smax, D, scale, C, NS, st);
+int launch(const Args& a) {
+  // 16-byte row, q and new-row loads: whole 16-byte pieces from 16-byte-aligned bases
+  const bool vec = a.D % 16 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.kq) |
+                     reinterpret_cast<uintptr_t>(a.vq)) & 15) == 0;
+  if (vec && a.kn != nullptr &&
+      !mmmm::q8::rows_aligned16(a.kn, a.vn, sizeof(T), a.ksb, a.ksh, a.vsb, a.vsh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.D <= 16) return launch_lps<T, 1>(vec, a);
+  if (a.D <= 32) return launch_lps<T, 2>(vec, a);
+  if (a.D <= 64) return launch_lps<T, 4>(vec, a);
+  return launch_lps<T, 8>(vec, a);
 }
 
 }  // namespace
@@ -240,20 +306,25 @@ int launch(const void* q, const void* kq, const void* ks, const void* vq, const 
 // q, out: (B, 1, H, D) bf16 or fp32; kq, vq: (B, H, Smax, D) int8; ks, vs:
 // (B, H, Smax, 1) bf16; kv_len (B,) int32. 0 < D <= 128. chunk, stages: the
 // staged read's plan (ops/decode_kernel.py q8_stage_plan): stages of chunk
-// slots (a multiple of 16), 2 to 4 of them.
+// slots (a multiple of 16), 2 to 4 of them. k_new, v_new, write_index: all
+// null for the read alone, or the fused form's new rows ((B, 1, H, D) in
+// q's dtype, strides k_sb, k_sh, v_sb, v_sh elements over b and h, unit
+// stride over D) and (B,) int32 slots, quantized and appended first.
 extern "C" int mmmm_decode_attention_q8(const void* q, const void* kq, const void* ks,
                                         const void* vq, const void* vs, const void* kv_len,
                                         void* out, int B, int H, int Smax, int D, float scale,
-                                        int is_bf16, int chunk, int stages, void* stream) {
+                                        int is_bf16, int chunk, int stages, const void* k_new,
+                                        const void* v_new, const void* write_index, int k_sb,
+                                        int k_sh, int v_sb, int v_sh, void* stream) {
+  const bool fused = k_new != nullptr;
   if (B <= 0 || H <= 0 || Smax <= 0 || D <= 0 || D > 128 || chunk < 16 || chunk % 16 ||
-      stages < 2 || stages > mmmm::q8::kMaxStages)
+      stages < 2 || stages > mmmm::q8::kMaxStages || fused != (v_new != nullptr) ||
+      fused != (write_index != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* lens = static_cast<const int*>(kv_len);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(q, kq, ks, vq, vs, lens, out, B, H, Smax, D, scale, chunk,
-                                 stages, st);
-  return launch<float>(q, kq, ks, vq, vs, lens, out, B, H, Smax, D, scale, chunk, stages, st);
+  const Args a{q, kq, ks, vq, vs, static_cast<const int*>(kv_len), out, B, H, Smax, D, scale,
+               chunk, stages, k_new, v_new, static_cast<const int*>(write_index), k_sb, k_sh,
+               v_sb, v_sh, static_cast<cudaStream_t>(stream)};
+  return is_bf16 ? launch<__nv_bfloat16>(a) : launch<float>(a);
 }
 
 // The dynamic shared memory K9 asks for under a plan.

@@ -46,6 +46,21 @@
 // __syncthreads. Rows of a head dim that is not a multiple of 16 are read a
 // byte at a time, zero past D (VEC = false). int8 mma.sync m16n8k32 on these
 // stages measured slower (decode_q8_stage.cuh).
+//
+// The fused form (APPEND; ops/decode_kernel.py decode_attention_q8_append
+// with q8_mxu) also does the decode step's quantize_kv of the new K and V
+// rows and K8's append (kv_append_pallas_q8) in this launch, as K9's does:
+// the new rows and write_index are requested with q, before the staged
+// rows; the warp whose lane group takes slot t in the K pass (append_warp)
+// quantizes them into registers beside q's split;
+// the K pass takes slot t = clamp(wrap(write_index[b]), 0, Smax - 1)'s row
+// and scale from registers, the softmax its V scale, the value pass its V
+// row from a 128-byte copy in shared memory (its threads own word columns,
+// not a lane group's 16 head dims; the softmax takes the new V scale from
+// shared memory too); after the block's last read that warp's first lane
+// group writes the rows and scales to the four leaves (warp 0 where t >=
+// kv_len). The integers and the order of every sum are K8's then
+// K10's, so the output and the caches are theirs to the bit.
 #include "decode_q8_stage.cuh"
 
 namespace {
@@ -69,13 +84,15 @@ __device__ __forceinline__ float warp_sum(float v) {
 // (fp32 logits, then the int8 w_hi and w_lo of every slot): dynamic shared
 // memory after the stages, or the block's slice of `scratch` where the
 // wrapper passes one.
-template <typename T, int LPS, bool VEC>
+// APPEND: the fused form, with the step's new rows `nr`; the stores of the
+// append go through the cache pointers (written once, after their last read).
+template <typename T, int LPS, bool VEC, bool APPEND>
 __global__ void __launch_bounds__(kThreads)
 decode_q8_mxu_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
                      const __nv_bfloat16* __restrict__ ks, const int8_t* __restrict__ vq,
                      const __nv_bfloat16* __restrict__ vs, const int* __restrict__ kv_len,
                      T* __restrict__ out, unsigned char* __restrict__ scratch, int H, int Smax,
-                     int D, float scale, int C, int NS) {
+                     int D, float scale, int C, int NS, mmmm::q8::NewRows<T> nr) {
   constexpr int DP = 16 * LPS;         // D rounded up to the lanes' 16-byte pieces
   constexpr int G = 32 / LPS;          // K rows a warp reads at once
   constexpr int WC = DP / 4;           // 4-byte word columns of a V row
@@ -84,6 +101,9 @@ decode_q8_mxu_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
   __shared__ uint64_t bar[mmmm::q8::kMaxStages];
   __shared__ float red_m[kWarps], red_s[kWarps], red_w[kWarps];
   __shared__ unsigned osum[NSG][DP];
+  // the fused form's new V row by word column, and its scale, for every thread
+  __shared__ unsigned vnew_w[APPEND ? WC : 1];
+  __shared__ __nv_bfloat16 vs_new;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -95,6 +115,14 @@ decode_q8_mxu_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
   float qv[16];
   mmmm::q8::load_q16<VEC>(q + (size_t)bh * D + d0, D - d0, qv);
   int len = kv_len[b];
+  float kx[16], vx[16];  // the fused form's new rows, requested with q and kv_len
+  int tn = -1;           // the new row's slot
+  if constexpr (APPEND) {
+    const int h = bh - b * H;
+    mmmm::q8::load_q16<VEC>(nr.k + (size_t)b * nr.ksb + (size_t)h * nr.ksh + d0, D - d0, kx);
+    mmmm::q8::load_q16<VEC>(nr.v + (size_t)b * nr.vsb + (size_t)h * nr.vsh + d0, D - d0, vx);
+    tn = nr.write_index[b];
+  }
   len = len < 0 ? 0 : (len > Smax ? Smax : len);
   const size_t row0 = (size_t)bh * Smax;
   const int smax4 = (Smax + 3) & ~3;
@@ -132,6 +160,29 @@ decode_q8_mxu_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
     qh = make_int4(hw[0], hw[1], hw[2], hw[3]);
     ql = make_int4(lw[0], lw[1], lw[2], lw[3]);
   }
+  // the fused form: the new rows quantized beside q (the V row's words to
+  // shared memory for the value pass; the barriers below publish them)
+  int4 kn = make_int4(0, 0, 0, 0), vn = kn;
+  __nv_bfloat16 ksn = __float2bfloat16_rn(0.f), vsn = ksn;
+  int owner = 0;
+  if constexpr (APPEND) {
+    tn = mmmm::append_slot(tn, Smax);
+    owner = mmmm::q8::append_warp(tn, len, C, G);
+    if (warp == owner) {
+      float s;
+      kn = mmmm::q8::quantize_row16<LPS>(kx, s);
+      ksn = __float2bfloat16_rn(s);
+      vn = mmmm::q8::quantize_row16<LPS>(vx, s);
+      vsn = __float2bfloat16_rn(s);
+      if (lane < LPS) {
+        vnew_w[4 * lane] = static_cast<unsigned>(vn.x);
+        vnew_w[4 * lane + 1] = static_cast<unsigned>(vn.y);
+        vnew_w[4 * lane + 2] = static_cast<unsigned>(vn.z);
+        vnew_w[4 * lane + 3] = static_cast<unsigned>(vn.w);
+      }
+      if (lane == 0) vs_new = vsn;
+    }
+  }
 
   // ---- 2. logits of the valid slots, and their max ---------------------------------
   float mx = mmmm::kNegInf;
@@ -142,6 +193,7 @@ decode_q8_mxu_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
       const int8_t* rows = ring.rows(c);
       const __nv_bfloat16* sc = ring.scales(c);
       const int cnt = ring.count(c);
+      const int tc = tn - c * C;  // the new row's slot in this chunk, if it holds it
       float* lg = logit + c * C;
       for (int base = warp * G; base < cnt; base += 2 * kWarps * G) {
         const int j[2] = {base + g, base + kWarps * G + g};
@@ -149,7 +201,8 @@ decode_q8_mxu_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
 #pragma unroll
         for (int u = 0; u < 2; ++u)
           if (j[u] < cnt) {
-            const int4 kr = mmmm::q8::load_row16<VEC>(rows + (size_t)j[u] * D, d0, D);
+            int4 kr = mmmm::q8::load_row16<VEC>(rows + (size_t)j[u] * D, d0, D);
+            if (APPEND && j[u] == tc) kr = kn;
             a[u] = __dp4a(kr.x, qh.x, a[u]);
             cc[u] = __dp4a(kr.x, ql.x, cc[u]);
             a[u] = __dp4a(kr.y, qh.y, a[u]);
@@ -171,7 +224,8 @@ decode_q8_mxu_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
           if (j[u] < cnt) {
             const int s32 = static_cast<int>(128u * static_cast<unsigned>(a[u]) +
                                              static_cast<unsigned>(cc[u]));
-            const float x = (static_cast<float>(s32) * __bfloat162float(sc[j[u]])) * qss;
+            const __nv_bfloat16 ksc = APPEND && j[u] == tc ? ksn : sc[j[u]];
+            const float x = (static_cast<float>(s32) * __bfloat162float(ksc)) * qss;
             mx = fmaxf(mx, x);
             if (lane % LPS == 0) lg[j[u]] = x;
           }
@@ -212,7 +266,7 @@ decode_q8_mxu_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
   }
   float wmx = 0.f;
   for (int j = tid; j < len; j += kThreads) {
-    const float w = (logit[j] / denom) * __bfloat162float(vsc[j]);
+    const float w = (logit[j] / denom) * __bfloat162float(APPEND && j == tn ? vs_new : vsc[j]);
     logit[j] = w;
     wmx = fmaxf(wmx, w);
   }
@@ -246,12 +300,15 @@ decode_q8_mxu_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
       const int8_t* rows = ring.rows(i);
       const int cnt = ring.count(i);
       const int c0 = c * C;
+      const int tc = tn - c0;
       // rows past cnt (to a whole 4) lie inside the stage and meet zero weights
       for (int j0 = 4 * sg; j0 < cnt; j0 += 4 * NSG) {
         unsigned r[4];
 #pragma unroll
-        for (int u = 0; u < 4; ++u)
+        for (int u = 0; u < 4; ++u) {
           r[u] = mmmm::q8::load_row4<VEC>(rows + (size_t)(j0 + u) * D, 4 * cw, D);
+          if (APPEND && j0 + u == tc) r[u] = vnew_w[cw];
+        }
         // t[d] = byte d of r[0..3]: head dim 4 cw + d of the four slots
         const unsigned lo01 = __byte_perm(r[0], r[1], 0x5140);
         const unsigned lo23 = __byte_perm(r[2], r[3], 0x5140);
@@ -279,6 +336,11 @@ decode_q8_mxu_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
       osum[sg][4 * cw + d] = 128u * static_cast<unsigned>(ah[d]) + static_cast<unsigned>(al[d]);
   }
   __syncthreads();
+  // ---- the fused form's append, after every read of the block (the barrier above) ----
+  if constexpr (APPEND)
+    mmmm::q8::write_new_rows<LPS, VEC>(const_cast<int8_t*>(kq), const_cast<__nv_bfloat16*>(ks),
+                                       const_cast<int8_t*>(vq), const_cast<__nv_bfloat16*>(vs),
+                                       row0 + tn, D, owner, kn, vn, ksn, vsn);
   for (int d = tid; d < D; d += kThreads) {
     unsigned o = 0u;
     for (int s = 0; s < NSG; ++s) o += osum[s][d];
@@ -293,60 +355,59 @@ size_t k10_smem(int C, int NS, int D, int Smax, bool in_shared) {
          (in_shared ? (size_t)6 * ((Smax + 3) & ~3) : 0);
 }
 
-template <typename T, int LPS, bool VEC>
-int launch_lps(const T* q, const int8_t* kq, const __nv_bfloat16* ks, const int8_t* vq,
-               const __nv_bfloat16* vs, const int* lens, T* out, unsigned char* scratch, int B,
-               int H, int Smax, int D, float scale, int C, int NS, cudaStream_t st) {
-  auto* kern = decode_q8_mxu_kernel<T, LPS, VEC>;
-  const size_t smem = k10_smem(C, NS, D, Smax, scratch == nullptr);
+struct Args {
+  const void *q, *kq, *ks, *vq, *vs;
+  const int* lens;
+  void* out;
+  void* scratch;
+  int B, H, Smax, D;
+  float scale;
+  int C, NS;
+  const void *kn, *vn;  // the fused form's new rows, else null
+  const int* widx;
+  int ksb, ksh, vsb, vsh;
+  cudaStream_t st;
+};
+
+template <typename T, int LPS, bool VEC, bool APPEND>
+int launch_form(const Args& a) {
+  auto* kern = decode_q8_mxu_kernel<T, LPS, VEC, APPEND>;
+  const size_t smem = k10_smem(a.C, a.NS, a.D, a.Smax, a.scratch == nullptr);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kern<<<B * H, kThreads, smem, st>>>(q, kq, ks, vq, vs, lens, out, scratch, H, Smax, D, scale,
-                                      C, NS);
+  const mmmm::q8::NewRows<T> nr{static_cast<const T*>(a.kn), static_cast<const T*>(a.vn), a.widx,
+                                a.ksb, a.ksh, a.vsb, a.vsh};
+  kern<<<a.B * a.H, kThreads, smem, a.st>>>(
+      static_cast<const T*>(a.q), static_cast<const int8_t*>(a.kq),
+      static_cast<const __nv_bfloat16*>(a.ks), static_cast<const int8_t*>(a.vq),
+      static_cast<const __nv_bfloat16*>(a.vs), a.lens, static_cast<T*>(a.out),
+      static_cast<unsigned char*>(a.scratch), a.H, a.Smax, a.D, a.scale, a.C, a.NS, nr);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int LPS>
-int launch_vec(bool vec, const T* q, const int8_t* kq, const __nv_bfloat16* ks,
-               const int8_t* vq, const __nv_bfloat16* vs, const int* lens, T* out,
-               unsigned char* scratch, int B, int H, int Smax, int D, float scale, int C, int NS,
-               cudaStream_t st) {
-  if (vec)
-    return launch_lps<T, LPS, true>(q, kq, ks, vq, vs, lens, out, scratch, B, H, Smax, D, scale,
-                                    C, NS, st);
-  return launch_lps<T, LPS, false>(q, kq, ks, vq, vs, lens, out, scratch, B, H, Smax, D, scale,
-                                   C, NS, st);
+int launch_lps(bool vec, const Args& a) {
+  if (a.kn != nullptr)
+    return vec ? launch_form<T, LPS, true, true>(a) : launch_form<T, LPS, false, true>(a);
+  return vec ? launch_form<T, LPS, true, false>(a) : launch_form<T, LPS, false, false>(a);
 }
 
 template <typename T>
-int launch(const void* q, const void* kq, const void* ks, const void* vq, const void* vs,
-           const int* lens, void* out, void* scratch, int B, int H, int Smax, int D, float scale,
-           int C, int NS, cudaStream_t st) {
-  const T* qp = static_cast<const T*>(q);
-  const int8_t* kqp = static_cast<const int8_t*>(kq);
-  const int8_t* vqp = static_cast<const int8_t*>(vq);
-  const __nv_bfloat16* ksp = static_cast<const __nv_bfloat16*>(ks);
-  const __nv_bfloat16* vsp = static_cast<const __nv_bfloat16*>(vs);
-  T* op = static_cast<T*>(out);
-  unsigned char* w = static_cast<unsigned char*>(scratch);
-  // 16-byte row and q loads: whole 16-byte pieces from 16-byte-aligned bases
-  const bool vec = D % 16 == 0 &&
-                   ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(kq) |
-                     reinterpret_cast<uintptr_t>(vq)) & 15) == 0;
-  if (D <= 16)
-    return launch_vec<T, 1>(vec, qp, kqp, ksp, vqp, vsp, lens, op, w, B, H, Smax, D, scale, C, NS,
-                            st);
-  if (D <= 32)
-    return launch_vec<T, 2>(vec, qp, kqp, ksp, vqp, vsp, lens, op, w, B, H, Smax, D, scale, C, NS,
-                            st);
-  if (D <= 64)
-    return launch_vec<T, 4>(vec, qp, kqp, ksp, vqp, vsp, lens, op, w, B, H, Smax, D, scale, C, NS,
-                            st);
-  return launch_vec<T, 8>(vec, qp, kqp, ksp, vqp, vsp, lens, op, w, B, H, Smax, D, scale, C, NS,
-                          st);
+int launch(const Args& a) {
+  // 16-byte row, q and new-row loads: whole 16-byte pieces from 16-byte-aligned bases
+  const bool vec = a.D % 16 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.kq) |
+                     reinterpret_cast<uintptr_t>(a.vq)) & 15) == 0;
+  if (vec && a.kn != nullptr &&
+      !mmmm::q8::rows_aligned16(a.kn, a.vn, sizeof(T), a.ksb, a.ksh, a.vsb, a.vsh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.D <= 16) return launch_lps<T, 1>(vec, a);
+  if (a.D <= 32) return launch_lps<T, 2>(vec, a);
+  if (a.D <= 64) return launch_lps<T, 4>(vec, a);
+  return launch_lps<T, 8>(vec, a);
 }
 
 }  // namespace
@@ -356,22 +417,27 @@ int launch(const void* q, const void* kq, const void* ks, const void* vq, const 
 // B * H * 6 * roundup(Smax, 4) bytes of scratch for the logits and split
 // weights where they do not fit in shared memory (ops/decode_kernel.py
 // q8_mxu_in_shared). chunk, stages: the staged read's plan
-// (ops/decode_kernel.py q8_stage_plan).
+// (ops/decode_kernel.py q8_stage_plan). k_new, v_new, write_index: all null
+// for the read alone, or the fused form's new rows ((B, 1, H, D) in q's
+// dtype, strides k_sb, k_sh, v_sb, v_sh elements over b and h, unit stride
+// over D) and (B,) int32 slots, quantized and appended first.
 extern "C" int mmmm_decode_attention_q8_mxu(const void* q, const void* kq, const void* ks,
                                             const void* vq, const void* vs,
                                             const void* kv_len, void* out, void* scratch, int B,
                                             int H, int Smax, int D, float scale, int is_bf16,
-                                            int chunk, int stages, void* stream) {
+                                            int chunk, int stages, const void* k_new,
+                                            const void* v_new, const void* write_index,
+                                            int k_sb, int k_sh, int v_sb, int v_sh,
+                                            void* stream) {
+  const bool fused = k_new != nullptr;
   if (B <= 0 || H <= 0 || Smax <= 0 || D <= 0 || D > 128 || chunk < 16 || chunk % 16 ||
-      stages < 2 || stages > mmmm::q8::kMaxStages)
+      stages < 2 || stages > mmmm::q8::kMaxStages || fused != (v_new != nullptr) ||
+      fused != (write_index != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* lens = static_cast<const int*>(kv_len);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(q, kq, ks, vq, vs, lens, out, scratch, B, H, Smax, D, scale,
-                                 chunk, stages, st);
-  return launch<float>(q, kq, ks, vq, vs, lens, out, scratch, B, H, Smax, D, scale, chunk, stages,
-                       st);
+  const Args a{q, kq, ks, vq, vs, static_cast<const int*>(kv_len), out, scratch, B, H, Smax, D,
+               scale, chunk, stages, k_new, v_new, static_cast<const int*>(write_index), k_sb,
+               k_sh, v_sb, v_sh, static_cast<cudaStream_t>(stream)};
+  return is_bf16 ? launch<__nv_bfloat16>(a) : launch<float>(a);
 }
 
 // The dynamic shared memory K10 asks for under a plan.

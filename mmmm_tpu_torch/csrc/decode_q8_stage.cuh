@@ -261,6 +261,98 @@ __device__ __forceinline__ unsigned load_row4(const int8_t* row, int d0, int D) 
   return w;
 }
 
+// ---- the fused forms' new row (K8's append and quantize_kv inside K9's and K10's launch)
+// The step's new K and V rows, (B, 1, H, D) in q's dtype with any strides
+// over b and h (elements; unit stride over D): all null for the read alone.
+template <typename T>
+struct NewRows {
+  const T* k;
+  const T* v;
+  const int* write_index;  // (B,) int32
+  int ksb, ksh, vsb, vsh;
+};
+
+// Whether the fused form's new rows (bases and strides over b and h, in
+// elements of esz bytes) start every row on 16 bytes. The wrapper
+// (ops/decode_kernel.py _q8_read) copies them into such a layout wherever
+// D % 16 == 0, so a launch that reads by 16-byte pieces only asserts it.
+inline bool rows_aligned16(const void* k, const void* v, long long esz, int ksb, int ksh,
+                           int vsb, int vsh) {
+  return ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) & 15) == 0 &&
+         ((ksb * esz) | (ksh * esz) | (vsb * esz) | (vsh * esz)) % 16 == 0;
+}
+
+// quantize_kv (ops/quant.py) of a new row, by a group of LPS lanes that
+// holds the whole row (16 LPS >= D), each lane its 16 head dims x (zero
+// past the row; load_q16): amax of |x| in fp32 by shuffles in the group;
+// the scale s = max(amax, 1e-8) * (1 / 127), as PyTorch's CUDA division by
+// a Python number computes it (it multiplies by the fp32 reciprocal; the
+// quotient amax / 127 rounds some scales, and so some int8 values,
+// differently); the 16 bytes rint(x / s) by IEEE division, round half to
+// even. `s` is the fp32 scale; the cache holds it rounded to bf16.
+template <int LPS>
+__device__ __forceinline__ int4 quantize_row16(const float x[16], float& s) {
+  float amax = 0.f;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) amax = fmaxf(amax, fabsf(x[e]));
+#pragma unroll
+  for (int off = LPS / 2; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  s = fmaxf(amax, 1e-8f) * (1.f / 127.f);
+  unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+    w[e >> 2] |= static_cast<unsigned>(__float2int_rn(x[e] / s) & 0xFF) << (8 * (e & 3));
+  return make_int4(static_cast<int>(w[0]), static_cast<int>(w[1]), static_cast<int>(w[2]),
+                   static_cast<int>(w[3]));
+}
+
+// The lane's 16 bytes of a new int8 row at head dim d0 into the cache row
+// `row` (one 16-byte store where VEC), none past D.
+template <bool VEC>
+__device__ __forceinline__ void store_row16(int8_t* row, int d0, int D, const int4& r) {
+  if (d0 >= D) return;
+  if (VEC) {
+    *reinterpret_cast<int4*>(row + d0) = r;
+    return;
+  }
+  const unsigned w[4] = {static_cast<unsigned>(r.x), static_cast<unsigned>(r.y),
+                         static_cast<unsigned>(r.z), static_cast<unsigned>(r.w)};
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+    if (d0 + e < D) row[d0 + e] = static_cast<int8_t>((w[e >> 2] >> (8 * (e & 3))) & 0xFF);
+}
+
+// The warp that quantizes the fused forms' new rows: the one whose lane
+// group takes slot t (chunk-local t % C) in K9's and K10's K pass (and K9's
+// V pass), where a slot goes to warp (j % (8 G)) / G, G = 32 / LPS slots a
+// warp at once; warp 0 where no pass reads t (t >= len). Quantizing in one
+// warp, not eight, spares the SM's conversion and reciprocal units.
+__device__ __forceinline__ int append_warp(int t, int len, int C, int G) {
+  return t < len ? (t % C) % (kWarps * G) / G : 0;
+}
+
+// The fused forms' one writer of slot `slot` (b h Smax + t) of the four
+// leaves: the first lane group of warp `owner` (which holds the whole
+// quantized rows) stores the K and V rows, its lane 0 their bf16 scales,
+// once every read of the block is done. The fence orders the bulk copies
+// (async proxy) that read the caches before these generic stores.
+template <int LPS, bool VEC>
+__device__ __forceinline__ void write_new_rows(int8_t* kq, __nv_bfloat16* ks, int8_t* vq,
+                                               __nv_bfloat16* vs, size_t slot, int D, int owner,
+                                               const int4& kr, const int4& vr,
+                                               __nv_bfloat16 ksc, __nv_bfloat16 vsc) {
+  const int lane = threadIdx.x & 31;
+  if ((threadIdx.x >> 5) != owner || lane >= LPS) return;
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  store_row16<VEC>(kq + slot * D, 16 * lane, D, kr);
+  store_row16<VEC>(vq + slot * D, 16 * lane, D, vr);
+  if (lane == 0) {
+    ks[slot] = ksc;
+    vs[slot] = vsc;
+  }
+}
+
 // The 16 int8 values of r as floats, exactly and without the conversion
 // unit (int-to-float runs at an eighth of the FMA rate on this SM): byte
 // b ^ 0x80 = b + 128 becomes the low mantissa byte of 2^23, and 2^23 + 128

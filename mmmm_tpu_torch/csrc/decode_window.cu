@@ -47,6 +47,22 @@
 //
 // In both, masked slots never enter a sum, so a query with no valid slot
 // gives zeros, as the TPU kernel does.
+//
+// The fused forms (APPEND; ops/decode_kernel.py
+// decode_attention_window_append) also do K5's append
+// (kv_append_pallas_multi, `_kv_append_multi_kernel`) in this launch: the
+// window's new rows r < NQ ((B, NQ, H, D), read with their strides) land
+// at slots tw + r, tw = clamp(wrap(write_index[b]), 0, Smax - NQ) (a
+// window that would pass Smax shifts back whole), while the mask keeps the
+// raw write_index (query j sees the slots < write_index[b] + j + 1), as K5
+// then K6 give. The tensor-core form copies a new row, not the stale one,
+// into the tile that holds its slot (cp.async from the new row), so
+// ldmatrix reads it in the padded layout; the CUDA-core form reads a new
+// row in place of the cache's for a slot in the window. So no read takes
+// the cache's window slots, and the block stores the NQ rows there as it
+// starts (rows whose slots no warp loads, at or past the window's end as
+// under a negative write_index, too). Each row is written once; the output
+// and the caches are K5's then K6's to the bit.
 #include "decode_common.cuh"
 #include "hopper.cuh"
 
@@ -57,12 +73,24 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kUnroll = 2;
 
-// VEC: D % 4 == 0, the rows are read with vector loads.
-template <typename T, int NQ, bool VEC>
+// The fused forms' new rows, (B, NQ, H, D) with strides (elements) over b,
+// the window's row r and h, unit stride over D: null for the read alone.
+template <typename T>
+struct WindowRows {
+  const T* k;
+  const T* v;
+  int ksb, ksr, ksh, vsb, vsr, vsh;
+};
+
+// VEC: D % 4 == 0, the rows (and new rows) are read with vector loads.
+// APPEND: the fused form; the stores of the append go through the cache
+// pointers (slots that no read of the block takes).
+template <typename T, int NQ, bool VEC, bool APPEND>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_window_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                      const T* __restrict__ vc, const int* __restrict__ write_index,
-                     T* __restrict__ out, int H, int Smax, int D, float scale) {
+                     T* __restrict__ out, int H, int Smax, int D, float scale,
+                     WindowRows<T> nr) {
   __shared__ float m_s[kWarps][NQ];
   __shared__ float l_s[kWarps][NQ];
   __shared__ float acc_s[kWarps][NQ][128];
@@ -91,6 +119,21 @@ decode_window_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
   const T* kb = kc + (size_t)bh * Smax * D;
   const T* vb = vc + (size_t)bh * Smax * D;
+  // the fused form: the window's first slot and (b, h)'s new rows
+  const int tw = APPEND ? mmmm::append_slot(t, Smax, NQ) : 0;
+  const T* kn = APPEND ? nr.k + (size_t)b * nr.ksb + (size_t)h * nr.ksh : nullptr;
+  const T* vn = APPEND ? nr.v + (size_t)b * nr.vsb + (size_t)h * nr.vsh : nullptr;
+
+  if constexpr (APPEND) {  // the window's rows to the caches: no read below takes those slots
+    T* kw = const_cast<T*>(kb) + (size_t)tw * D;
+    T* vw = const_cast<T*>(vb) + (size_t)tw * D;
+    for (int i = threadIdx.x; i < NQ * D; i += kWarps * 32) {
+      const int r = i / D;
+      const int d = i - r * D;
+      kw[(size_t)r * D + d] = kn[(size_t)r * nr.ksr + d];
+      vw[(size_t)r * D + d] = vn[(size_t)r * nr.vsr + d];
+    }
+  }
 
   float m[NQ], l[NQ], acc[NQ][4];
 #pragma unroll
@@ -108,8 +151,17 @@ decode_window_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     for (int u = 0; u < kUnroll; ++u) {
       const int s = s0 + u * kWarps;
       if (lane_ok && s < len_end) {
-        mmmm::load4(kb + (size_t)s * D + d0, D - d0, VEC, kr[u]);
-        mmmm::load4(vb + (size_t)s * D + d0, D - d0, VEC, vr[u]);
+        const T* kp = kb + (size_t)s * D;
+        const T* vp = vb + (size_t)s * D;
+        if constexpr (APPEND) {
+          const int r = s - tw;  // a slot of the window takes its new row
+          if (r >= 0 && r < NQ) {
+            kp = kn + (size_t)r * nr.ksr;
+            vp = vn + (size_t)r * nr.vsr;
+          }
+        }
+        mmmm::load4(kp + d0, D - d0, VEC, kr[u]);
+        mmmm::load4(vp + d0, D - d0, VEC, vr[u]);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e) kr[u][e] = vr[u][e] = 0.f;
@@ -176,9 +228,10 @@ decode_window_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
 }
 
-template <typename T>
+template <typename T, bool APPEND>
 int launch(const void* q, const void* k_cache, const void* v_cache, const int* widx,
-           void* out, int B, int NQ, int H, int Smax, int D, float scale, cudaStream_t st) {
+           void* out, int B, int NQ, int H, int Smax, int D, float scale,
+           const WindowRows<T>& nr, bool vec, cudaStream_t st) {
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k_cache);
   const T* vp = static_cast<const T*>(v_cache);
@@ -187,12 +240,12 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const int* w
   switch (NQ) {
 #define MMMM_WINDOW_CASE(N)                                                                 \
   case N:                                                                                   \
-    if (D % 4 == 0)                                                                         \
-      decode_window_kernel<T, N, true><<<grid, block, 0, st>>>(qp, kp, vp, widx, op, H, Smax, \
-                                                               D, scale);                   \
+    if (vec)                                                                                \
+      decode_window_kernel<T, N, true, APPEND><<<grid, block, 0, st>>>(                     \
+          qp, kp, vp, widx, op, H, Smax, D, scale, nr);                                     \
     else                                                                                    \
-      decode_window_kernel<T, N, false><<<grid, block, 0, st>>>(qp, kp, vp, widx, op, H,     \
-                                                                Smax, D, scale);            \
+      decode_window_kernel<T, N, false, APPEND><<<grid, block, 0, st>>>(                    \
+          qp, kp, vp, widx, op, H, Smax, D, scale, nr);                                     \
     break;
     MMMM_WINDOW_CASE(1)
     MMMM_WINDOW_CASE(2)
@@ -232,13 +285,19 @@ struct WinCfg {
 // ldmatrix.trans as A; P^T as B, the S^T fragment rounded to bf16 and
 // turned by movmatrix.trans). A lane holds the online-softmax state of
 // queries 2q and 2q + 1; a query's 32 keys lie over the 8 lanes of one q.
-template <int DP>
+//
+// APPEND: the fused form. load_tile copies a slot of the window [tw, tw + NQ)
+// from its new row (16-byte aligned rows, as the wrapper requires) in a
+// short loop of its own, so the cache's window slots are never read: the
+// block stores the new rows there as it starts.
+template <int DP, bool APPEND>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 decode_window_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ kc,
                          const __nv_bfloat16* __restrict__ vc,
                          const int* __restrict__ write_index, __nv_bfloat16* __restrict__ out,
-                         int NQ, int H, int Smax, int D, int per, float scale2) {
+                         int NQ, int H, int Smax, int D, int per, float scale2,
+                         WindowRows<__nv_bfloat16> nr) {
   using C = WinCfg<DP>;
   constexpr int KS = DP / 16;   // k16 steps of K Q^T; m16 tiles of O^T
   constexpr int CH = DP / 8;    // 16-byte chunks of a tile row
@@ -258,6 +317,10 @@ decode_window_mma_kernel(const __nv_bfloat16* __restrict__ q,
   len_end = len_end < 0 ? 0 : (len_end > Smax ? Smax : len_end);
   const __nv_bfloat16* kb = kc + (size_t)bh * Smax * D;
   const __nv_bfloat16* vb = vc + (size_t)bh * Smax * D;
+  // the fused form: the window's first slot and (b, h)'s new rows
+  const int tw = APPEND ? mmmm::append_slot(t, Smax, NQ) : 0;
+  const __nv_bfloat16* kn = APPEND ? nr.k + (size_t)b * nr.ksb + (size_t)h * nr.ksh : nullptr;
+  const __nv_bfloat16* vn = APPEND ? nr.v + (size_t)b * nr.vsb + (size_t)h * nr.vsh : nullptr;
   auto ktile = [&](int stage, int w) {
     return reinterpret_cast<__nv_bfloat16*>(smem + (size_t)(stage * nwarps + w) * C::kWarpStage);
   };
@@ -278,8 +341,19 @@ decode_window_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const int d = 8 * (c - r * CH);
       const bool ok = key0 + r < len_end && d < D;
       const size_t off = ok ? (size_t)(key0 + r) * D + d : 0;
+      // the fused form copies the window's rows below, from the new rows
+      if (APPEND && ok && static_cast<unsigned>(key0 + r - tw) < static_cast<unsigned>(NQ))
+        continue;
       hop::cp_async16(kt + r * C::kRow + d, kb + off, ok ? 16 : 0);
       hop::cp_async16(vt + r * C::kRow + d, vb + off, ok ? 16 : 0);
+    }
+    if constexpr (APPEND) {  // the window's rows in this tile, from its new rows
+      const int hi = min(min(tw + NQ, key0 + kTileKeys), len_end);
+      for (int sl = max(tw, key0); sl < hi; ++sl)
+        for (int d = 8 * lane; d < D; d += 8 * 32) {
+          hop::cp_async16(kt + (sl - key0) * C::kRow + d, kn + (size_t)(sl - tw) * nr.ksr + d, 16);
+          hop::cp_async16(vt + (sl - key0) * C::kRow + d, vn + (size_t)(sl - tw) * nr.vsr + d, 16);
+        }
     }
     hop::cp_async_commit();
   };
@@ -295,6 +369,22 @@ decode_window_mma_kernel(const __nv_bfloat16* __restrict__ q,
       qb[kk][hf] = g < NQ && d < D ? *reinterpret_cast<const uint32_t*>(
                                          q + (((size_t)b * NQ + g) * H + h) * D + d)
                                    : 0u;
+    }
+  }
+
+  // the fused form: the window's rows go to the caches now, 16 bytes a
+  // thread; no tile reads those slots of the cache (load_tile takes them
+  // from the new rows), so nothing orders these stores after a read
+  if constexpr (APPEND) {
+    const int chd = D / 8;
+    for (int c = threadIdx.x; c < NQ * chd; c += blockDim.x) {
+      const int r = c / chd;
+      const int d = 8 * (c - r * chd);
+      const size_t dst = (size_t)(tw + r) * D + d;
+      *reinterpret_cast<uint4*>(const_cast<__nv_bfloat16*>(kb) + dst) =
+          *reinterpret_cast<const uint4*>(kn + (size_t)r * nr.ksr + d);
+      *reinterpret_cast<uint4*>(const_cast<__nv_bfloat16*>(vb) + dst) =
+          *reinterpret_cast<const uint4*>(vn + (size_t)r * nr.vsr + d);
     }
   }
 
@@ -429,32 +519,44 @@ decode_window_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DP>
+template <int DP, bool APPEND>
 int launch_mma(const void* q, const void* kc, const void* vc, const int* widx, void* out,
                int B, int NQ, int H, int Smax, int D, float scale, int warps, int per,
-               cudaStream_t st) {
+               const WindowRows<__nv_bfloat16>& nr, cudaStream_t st) {
   const size_t smem = (size_t)(per > 1 ? 2 : 1) * warps * WinCfg<DP>::kWarpStage;
-  auto* kern = decode_window_mma_kernel<DP>;
+  auto* kern = decode_window_mma_kernel<DP, APPEND>;
   const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kern<<<B * H, warps * 32, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kc),
       static_cast<const __nv_bfloat16*>(vc), widx, static_cast<__nv_bfloat16*>(out), NQ, H, Smax,
-      D, per, scale * mmmm::kLog2e);
+      D, per, scale * mmmm::kLog2e, nr);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP>
+int launch_mma(const void* q, const void* kc, const void* vc, const int* widx, void* out,
+               int B, int NQ, int H, int Smax, int D, float scale, int warps, int per,
+               const WindowRows<__nv_bfloat16>& nr, cudaStream_t st) {
+  if (nr.k != nullptr)
+    return launch_mma<DP, true>(q, kc, vc, widx, out, B, NQ, H, Smax, D, scale, warps, per, nr,
+                                st);
+  return launch_mma<DP, false>(q, kc, vc, widx, out, B, NQ, H, Smax, D, scale, warps, per, nr,
+                               st);
 }
 
 int launch_window_mma(const void* q, const void* kc, const void* vc, const int* widx, void* out,
                       int B, int NQ, int H, int Smax, int D, float scale, int warps, int per,
-                      cudaStream_t st) {
+                      const WindowRows<__nv_bfloat16>& nr, cudaStream_t st) {
   if (D % 8 || warps < 1 || warps > kMaxWarps || per < 1 ||
       (long long)warps * per * kTileKeys < Smax)
     return static_cast<int>(cudaErrorInvalidValue);
   switch ((D + 15) / 16) {
 #define MMMM_WINDOW_MMA(KS)                                                                  \
   case KS:                                                                                   \
-    return launch_mma<16 * KS>(q, kc, vc, widx, out, B, NQ, H, Smax, D, scale, warps, per, st);
+    return launch_mma<16 * KS>(q, kc, vc, widx, out, B, NQ, H, Smax, D, scale, warps, per, nr, \
+                               st);
     MMMM_WINDOW_MMA(1)
     MMMM_WINDOW_MMA(2)
     MMMM_WINDOW_MMA(3)
@@ -469,29 +571,63 @@ int launch_window_mma(const void* q, const void* kc, const void* vc, const int* 
   }
 }
 
+bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
+
 }  // namespace
 
 // q, out: (B, NQ, H, D); k_cache, v_cache: (B, H, Smax, D); write_index (B,)
 // int32. 1 <= NQ <= 8, D <= 128. warps > 0 takes the tensor-core form (bf16,
 // D % 8 == 0) with blocks of `warps` warps that read `per` 32-slot tiles
 // each (ops/decode_kernel.py window_warps); warps = 0 the CUDA-core form.
+// k_new, v_new: null for the read alone, or the fused form's window rows
+// ((B, NQ, H, D) in the caches' dtype, strides k_sb, k_sr, k_sh, v_sb, v_sr,
+// v_sh elements over b, the row and h, unit stride over D), appended first;
+// the tensor-core form needs them 16-byte aligned (rows and strides).
 extern "C" int mmmm_decode_attention_window(const void* q, const void* k_cache,
                                             const void* v_cache, const void* write_index,
                                             void* out, int B, int NQ, int H, int Smax, int D,
                                             float scale, int is_bf16, int warps, int per,
+                                            const void* k_new, const void* v_new, int k_sb,
+                                            int k_sr, int k_sh, int v_sb, int v_sr, int v_sh,
                                             void* stream) {
-  if (B <= 0 || H <= 0 || Smax <= 0 || D <= 0 || D > 128 || NQ < 1 || NQ > 8)
+  const bool fused = k_new != nullptr;
+  if (B <= 0 || H <= 0 || Smax <= 0 || D <= 0 || D > 128 || NQ < 1 || NQ > 8 ||
+      fused != (v_new != nullptr) || (fused && NQ > Smax))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* widx = static_cast<const int*>(write_index);
+  const int esz = is_bf16 ? 2 : 4;
+  // the strides of the new rows, in elements, keep a row's vector loads aligned
+  const auto rows_aligned = [&](int bytes) {
+    const int n = bytes / esz;
+    return !fused || (aligned(k_new, bytes) && aligned(v_new, bytes) && k_sb % n == 0 &&
+                      k_sr % n == 0 && k_sh % n == 0 && v_sb % n == 0 && v_sr % n == 0 &&
+                      v_sh % n == 0);
+  };
   if (warps > 0) {
-    if (!is_bf16) return static_cast<int>(cudaErrorInvalidValue);
+    if (!is_bf16 || !rows_aligned(16)) return static_cast<int>(cudaErrorInvalidValue);
+    const WindowRows<__nv_bfloat16> nr{static_cast<const __nv_bfloat16*>(k_new),
+                                       static_cast<const __nv_bfloat16*>(v_new), k_sb, k_sr,
+                                       k_sh, v_sb, v_sr, v_sh};
     return launch_window_mma(q, k_cache, v_cache, widx, out, B, NQ, H, Smax, D, scale, warps,
-                             per, st);
+                             per, nr, st);
   }
-  if (is_bf16)
-    return launch<__nv_bfloat16>(q, k_cache, v_cache, widx, out, B, NQ, H, Smax, D, scale, st);
-  return launch<float>(q, k_cache, v_cache, widx, out, B, NQ, H, Smax, D, scale, st);
+  const bool vec = D % 4 == 0 && rows_aligned(4 * esz);
+  if (is_bf16) {
+    const WindowRows<__nv_bfloat16> nr{static_cast<const __nv_bfloat16*>(k_new),
+                                       static_cast<const __nv_bfloat16*>(v_new), k_sb, k_sr,
+                                       k_sh, v_sb, v_sr, v_sh};
+    return fused ? launch<__nv_bfloat16, true>(q, k_cache, v_cache, widx, out, B, NQ, H, Smax, D,
+                                               scale, nr, vec, st)
+                 : launch<__nv_bfloat16, false>(q, k_cache, v_cache, widx, out, B, NQ, H, Smax,
+                                                D, scale, nr, vec, st);
+  }
+  const WindowRows<float> nr{static_cast<const float*>(k_new), static_cast<const float*>(v_new),
+                             k_sb, k_sr, k_sh, v_sb, v_sr, v_sh};
+  return fused ? launch<float, true>(q, k_cache, v_cache, widx, out, B, NQ, H, Smax, D, scale, nr,
+                                     vec, st)
+               : launch<float, false>(q, k_cache, v_cache, widx, out, B, NQ, H, Smax, D, scale,
+                                      nr, vec, st);
 }
 
 // Dynamic shared memory (bytes) of a K6 tensor-core launch at head dim DP (a

@@ -33,9 +33,11 @@ cache branch does:
 
   cache   tokens  append, then attention
   pair    1       K1's fused form: K2's append inside K1's launch
-  pair    2-8     K5, K6 (query j sees slots < write_index + j + 1)
-  int8    1       ``quantize_kv``, K8, K9 (K10 with ``q8_mxu=True``, the
-                  reference's ``MMMM_Q8_MXU``, where its condition holds)
+  pair    2-8     K6's fused form: K5's append inside K6's launch (query j
+                  sees slots < write_index + j + 1)
+  int8    1       K9's fused form (K10's with ``q8_mxu=True``, the
+                  reference's ``MMMM_Q8_MXU``, where its condition holds):
+                  ``quantize_kv`` and K8's append inside the read's launch
   int8    > 1     plain: quantize, indexed write, ``dequantize_kv``, then
                   ``decode_attention_bhsd``, as the reference does outside
                   its kernels
@@ -48,9 +50,8 @@ import torch
 import torch.nn.functional as F
 
 from ...ops.attention import decode_attention_bhsd, segment_attention
-from ...ops.decode_kernel import (decode_attention_append, decode_attention_q8,
-                                  decode_attention_window, dus_rows, kv_append_multi,
-                                  kv_append_q8)
+from ...ops.decode_kernel import (decode_attention_append, decode_attention_q8_append,
+                                  decode_attention_window_append, dus_rows)
 from ...ops.flash import flash_segment_attention
 from ...ops.norm import rms_norm
 from ...ops.quant import dequantize_kv, qdot, quantize_kv
@@ -220,13 +221,11 @@ def _cached_attention(q, k, v, cache, write_index, kv_len, q8_mxu=False):
     """Append this step's K/V (B, Sq, H, D) to one layer's cache in place and
     attend to it (the dispatch table in the module docstring)."""
     sq = q.shape[1]
-    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
     if isinstance(cache, dict):
-        (kq, ks), (vq, vs) = quantize_kv(kt), quantize_kv(vt)
         if sq == 1:
-            kv_append_q8(cache, kq, ks, vq, vs, write_index)
-            return decode_attention_q8(q, cache["kq"], cache["ks"], cache["vq"], cache["vs"],
-                                       kv_len, q8_mxu=q8_mxu)
+            return decode_attention_q8_append(q, cache, k, v, write_index, kv_len,
+                                              q8_mxu=q8_mxu)
+        (kq, ks), (vq, vs) = quantize_kv(k.transpose(1, 2)), quantize_kv(v.transpose(1, 2))
         for key, new in (("kq", kq), ("ks", ks), ("vq", vq), ("vs", vs)):
             dus_rows(cache[key], new, write_index)
         smax = cache["kq"].shape[2]
@@ -235,11 +234,11 @@ def _cached_attention(q, k, v, cache, write_index, kv_len, q8_mxu=False):
                                      dequantize_kv(cache["vq"], cache["vs"], v.dtype), valid)
     kc, vc = cache
     if sq == 1:
+        kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
         return decode_attention_append(q, kc, vc, kt, vt, write_index, kv_len)
     if sq > 8:
         raise NotImplementedError(f"a verify window holds at most 8 tokens, got {sq}")
-    kv_append_multi(kc, vc, kt, vt, write_index)
-    return decode_attention_window(q, kc, vc, write_index)
+    return decode_attention_window_append(q, kc, vc, k, v, write_index)
 
 
 def llm_decode_step(params: dict, cfg: CogVLMConfig, inputs_embeds, position_ids, kv_caches,

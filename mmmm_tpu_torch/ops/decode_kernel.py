@@ -8,14 +8,18 @@
   - K5 ``kv_append_multi`` (``kv_append_pallas_multi``): a verify window;
   - K6 ``decode_attention_window`` (``decode_attention_pallas_window``):
     tensor cores in bf16 (``window_mma_takes``, ``window_warps``), CUDA
-    cores in fp32;
+    cores in fp32; and its fused form ``decode_attention_window_append``,
+    which does K5's append in the same launch (the verify step's route);
   - K8 ``kv_append_q8`` (``kv_append_pallas_q8``): the int8 cache;
   - K9 ``decode_attention_q8`` (``decode_attention_pallas_q8``, full and
     ragged);
   - K10 ``decode_attention_q8_mxu`` (``decode_attention_pallas_q8_mxu``):
     the int8-cache read as exact split-int8 integer dots, which
     ``decode_attention_q8(q8_mxu=True)`` takes under the reference's own
-    condition (its ``MMMM_Q8_MXU`` switch).
+    condition (its ``MMMM_Q8_MXU`` switch);
+  - the fused form of K9 and K10, ``decode_attention_q8_append``, which
+    quantizes the step's new K/V row (``quantize_kv``) and does K8's append
+    in the same launch (the int8 decode step's route).
 
 Each wrapper takes its plain version for CPU tensors and launches the CUDA
 kernel (``csrc/decode_attn.cu``, ``csrc/decode_window.cu``,
@@ -29,6 +33,7 @@ import torch
 
 from . import _cuda
 from .attention import NEG_INF
+from .quant import quantize_kv
 
 K1 = _cuda.register(_cuda.Kernel(
     "K1", "mmmm_decode_attention",
@@ -55,7 +60,7 @@ K5 = _cuda.register(_cuda.Kernel(
 K6 = _cuda.register(_cuda.Kernel(
     "K6", "mmmm_decode_attention_window",
     [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.I, _cuda.I,
-     _cuda.I, _cuda.F, _cuda.I, _cuda.I, _cuda.I, _cuda.P],
+     _cuda.I, _cuda.F, _cuda.I, _cuda.I, _cuda.I, _cuda.P, _cuda.P] + [_cuda.I] * 6 + [_cuda.P],
     source="mmmm_tpu_torch/csrc/decode_window.cu",
     replaces="mmmm_tpu/ops/decode_kernel.py:437 decode_attention_pallas_window "
              "(pallas_call :459)",
@@ -69,7 +74,7 @@ K8 = _cuda.register(_cuda.Kernel(
 K9 = _cuda.register(_cuda.Kernel(
     "K9", "mmmm_decode_attention_q8",
     [_cuda.P] * 7 + [_cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.I, _cuda.I, _cuda.I,
-                     _cuda.P],
+                     _cuda.P, _cuda.P, _cuda.P] + [_cuda.I] * 4 + [_cuda.P],
     source="mmmm_tpu_torch/csrc/decode_q8.cu",
     replaces="mmmm_tpu/ops/decode_kernel.py:328 decode_attention_pallas_q8 "
              "(pallas_call :377 via :370; ragged :704 -> :733)",
@@ -77,7 +82,7 @@ K9 = _cuda.register(_cuda.Kernel(
 K10 = _cuda.register(_cuda.Kernel(
     "K10", "mmmm_decode_attention_q8_mxu",
     [_cuda.P] * 8 + [_cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.I, _cuda.I, _cuda.I,
-                     _cuda.P],
+                     _cuda.P, _cuda.P, _cuda.P] + [_cuda.I] * 4 + [_cuda.P],
     source="mmmm_tpu_torch/csrc/decode_q8_mxu.cu",
     replaces="mmmm_tpu/ops/decode_kernel.py:604 decode_attention_pallas_q8_mxu "
              "(pallas_call :624; _decode_kernel_q8_mxu :542, _q14_split :528)",
@@ -93,6 +98,7 @@ Q8_MXU_SHARED_SLOTS = 32768
 # static arrays), and the stages of its ring (K1's too)
 SMEM_OPTIN = 227 * 1024
 Q8_DYNAMIC_SMEM = 220 * 1024
+Q8_STATIC_SMEM = SMEM_OPTIN - Q8_DYNAMIC_SMEM  # K9's and K10's static arrays, at most
 Q8_RING_STAGES = 4
 # K1's static shared memory, at most (its barriers, the warps' (m, l) and
 # partial sums: 4,424 bytes at D > 64; chip_smoke.py holds every instance's
@@ -369,6 +375,55 @@ def window_warps(smax: int) -> tuple[int, int]:
     return WINDOW_RING_WARPS, -(-tiles // WINDOW_RING_WARPS)
 
 
+def _k6(name, q, k_cache, v_cache, write_index, scale, new=None):
+    """Checks K6's operands and launches it: the read alone, or with ``new =
+    (k_new, v_new)`` the fused form."""
+    _cuda.check_cuda(name, q, k_cache, v_cache, dtypes=(torch.bfloat16, torch.float32))
+    _cuda.check_cuda(name, write_index, dtypes=(torch.int32,), align=4)
+    b, h, smax, d = k_cache.shape
+    nq = q.shape[1]
+    if q.shape != (b, nq, h, d) or v_cache.shape != k_cache.shape or not 1 <= nq <= 8:
+        raise ValueError(f"{name}: q {q.shape} vs cache {k_cache.shape}")
+    if not q.dtype == k_cache.dtype == v_cache.dtype:
+        raise ValueError(f"{name}: q and caches must share one dtype")
+    if write_index.shape != (b,):
+        raise ValueError(f"{name}: write_index must be ({b},), got {tuple(write_index.shape)}")
+    if not 0 < d <= 128:
+        raise ValueError(f"{name}: head dim {d} must be in 1..128")
+    mma = window_mma_takes(q.dtype, d)
+    warps, per = window_warps(smax) if mma else (0, 0)
+    ptrs, strides = (None, None), (0,) * 6
+    if new is not None:
+        # the tensor-core form copies new rows by 16-byte pieces; rows in
+        # another layout are copied once into an aligned one
+        new = tuple(_new_rows(name, t, q, (b, nq, h, d), 16 if mma else 1) for t in new)
+        if nq > smax:
+            raise ValueError(f"{name}: a window of {nq} rows does not fit {smax} slots")
+        ptrs = tuple(t.data_ptr() for t in new)
+        strides = (*new[0].stride()[:3], *new[1].stride()[:3])
+    out = torch.empty_like(q)
+    K6(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), write_index.data_ptr(),
+       out.data_ptr(), b, nq, h, smax, d, float(scale), int(q.dtype == torch.bfloat16),
+       warps, per, *ptrs, *strides, _cuda.stream_of(q), form=None if new is None else "append")
+    return out
+
+
+def _new_rows(name, t, q, shape, align):
+    """A step's new K or V rows as a kernel reads them: ``shape`` on q's
+    device in q's dtype, unit stride over D, any strides over the rest;
+    copied once into a contiguous tensor only where its rows are not
+    ``align``-byte aligned."""
+    if t.device != q.device or t.dtype != q.dtype or tuple(t.shape) != shape:
+        raise ValueError(f"{name}: new rows {tuple(t.shape)} {t.dtype} on {t.device}, "
+                         f"expected {shape} {q.dtype} on {q.device}")
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}: new rows need unit stride over D, got {t.stride()}")
+    n = max(1, align // t.element_size())
+    if t.data_ptr() % align or any(st % n for st in t.stride()[:-1]):
+        t = torch.empty(shape, dtype=t.dtype, device=t.device).copy_(t)
+    return t
+
+
 def decode_attention_window(q, k_cache, v_cache, write_index, scale: float | None = None):
     """Verify-window attention: q (B, K, H, D) with 1 <= K <= 8, caches
     (B, H, Smax, D) that already hold the window, write_index (B,) the
@@ -377,26 +432,35 @@ def decode_attention_window(q, k_cache, v_cache, write_index, scale: float | Non
         scale = q.shape[-1] ** -0.5
     if _cuda.on_cpu("decode_attention_window", q):
         return decode_attention_window_plain(q, k_cache, v_cache, write_index, scale)
-    _cuda.check_cuda("decode_attention_window", q, k_cache, v_cache,
-                     dtypes=(torch.bfloat16, torch.float32))
-    _cuda.check_cuda("decode_attention_window", write_index, dtypes=(torch.int32,), align=4)
-    b, h, smax, d = k_cache.shape
-    nq = q.shape[1]
-    if q.shape != (b, nq, h, d) or v_cache.shape != k_cache.shape or not 1 <= nq <= 8:
-        raise ValueError(f"decode_attention_window: q {q.shape} vs cache {k_cache.shape}")
-    if not q.dtype == k_cache.dtype == v_cache.dtype:
-        raise ValueError("decode_attention_window: q and caches must share one dtype")
-    if write_index.shape != (b,):
-        raise ValueError(f"decode_attention_window: write_index must be ({b},), "
-                         f"got {tuple(write_index.shape)}")
-    if not 0 < d <= 128:
-        raise ValueError(f"decode_attention_window: head dim {d} must be in 1..128")
-    warps, per = window_warps(smax) if window_mma_takes(q.dtype, d) else (0, 0)
-    out = torch.empty_like(q)
-    K6(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), write_index.data_ptr(),
-       out.data_ptr(), b, nq, h, smax, d, float(scale), int(q.dtype == torch.bfloat16),
-       warps, per, _cuda.stream_of(q))
-    return out
+    return _k6("decode_attention_window", q, k_cache, v_cache, write_index, scale)
+
+
+def decode_attention_window_append_plain(q, k_cache, v_cache, k_new, v_new, write_index,
+                                         scale: float | None = None):
+    """Plain version of K6's fused form: ``kv_append_plain`` of the window's
+    rows (B, K, H, D), then ``decode_attention_window_plain``."""
+    kv_append_plain(k_cache, v_cache, k_new.transpose(1, 2), v_new.transpose(1, 2), write_index)
+    return decode_attention_window_plain(q, k_cache, v_cache, write_index, scale)
+
+
+def decode_attention_window_append(q, k_cache, v_cache, k_new, v_new, write_index,
+                                   scale: float | None = None):
+    """K5's append and K6's read in one launch: the verify window's rows
+    ``k_new``/``v_new`` (B, K, H, D), 1 <= K <= 8, as the projection gives
+    them (read with their strides), go into the caches IN PLACE at slots
+    ``[tc, tc + K)``, ``tc`` = ``write_index[b]`` by ``dus_rows``' rule (a
+    window that would pass Smax shifts back whole); then q (B, K, H, D)
+    attends with query j seeing the slots ``< write_index[b] + j + 1`` (the
+    raw index) -> (B, K, H, D) in q's dtype, exactly what
+    ``kv_append_multi`` then ``decode_attention_window`` give. One K6
+    launch, counted under its form ``"append"``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _cuda.on_cpu("decode_attention_window_append", q):
+        return decode_attention_window_append_plain(q, k_cache, v_cache, k_new, v_new,
+                                                    write_index, scale)
+    return _k6("decode_attention_window_append", q, k_cache, v_cache, write_index, scale,
+               (k_new, v_new))
 
 
 Q8_LEAVES = ("kq", "ks", "vq", "vs")
@@ -516,6 +580,49 @@ def q8_mxu_in_shared(smax: int) -> bool:
     return smax <= Q8_MXU_SHARED_SLOTS
 
 
+def _q8_read(name, kernel, q, kq, ks, vq, vs, kv_len, scale, new=None):
+    """Checks K9's or K10's (``kernel``) operands and launches it: the read
+    alone, or with ``new = (k_new, v_new, write_index)`` the fused form."""
+    _cuda.check_cuda(name, q, dtypes=(torch.bfloat16, torch.float32))
+    _cuda.check_cuda(name, kq, vq, dtypes=(torch.int8,))
+    _cuda.check_cuda(name, ks, vs, dtypes=(torch.bfloat16,), align=2)
+    _cuda.check_cuda(name, kv_len, dtypes=(torch.int32,), align=4)
+    b, h, smax, d = kq.shape
+    if (q.shape != (b, 1, h, d) or vq.shape != kq.shape or ks.shape != (b, h, smax, 1)
+            or vs.shape != ks.shape):
+        raise ValueError(f"{name}: q {q.shape} vs cache {kq.shape}")
+    if kv_len.shape != (b,):
+        raise ValueError(f"{name}: kv_len must be ({b},), got {tuple(kv_len.shape)}")
+    if not 0 < d <= 128:
+        raise ValueError(f"{name}: head dim {d} must be in 1..128")
+    ptrs, strides = (None, None, None), (0,) * 4
+    if new is not None:
+        k_new, v_new, write_index = new
+        # where D % 16 == 0 the kernel reads a row by 16-byte pieces and
+        # requires the rows 16-byte aligned: rows in another layout are
+        # copied once into an aligned one
+        align = 16 if d % 16 == 0 else 1
+        k_new, v_new = (_new_rows(name, t, q, (b, 1, h, d), align) for t in (k_new, v_new))
+        _cuda.check_cuda(name, write_index, dtypes=(torch.int32,), align=4)
+        if write_index.shape != (b,):
+            raise ValueError(f"{name}: write_index must be ({b},), "
+                             f"got {tuple(write_index.shape)}")
+        ptrs = (k_new.data_ptr(), v_new.data_ptr(), write_index.data_ptr())
+        strides = (k_new.stride(0), k_new.stride(2), v_new.stride(0), v_new.stride(2))
+    mxu = kernel is K10
+    out = torch.empty_like(q)
+    chunk, stages = q8_stage_plan(smax, d, mxu=mxu)
+    args = (q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
+            kv_len.data_ptr(), out.data_ptr())
+    if mxu:
+        ws = None if q8_mxu_in_shared(smax) else torch.empty(
+            b * h * 6 * (-(-smax // 4) * 4), dtype=torch.uint8, device=q.device)
+        args += (None if ws is None else ws.data_ptr(),)
+    kernel(*args, b, h, smax, d, float(scale), int(q.dtype == torch.bfloat16), chunk, stages,
+           *ptrs, *strides, _cuda.stream_of(q), form=None if new is None else "append")
+    return out
+
+
 def decode_attention_q8(q, kq, ks, vq, vs, kv_len, scale: float | None = None, *,
                         q8_mxu: bool = False):
     """One query token per sample against an int8 cache: q (B, 1, H, D) bf16
@@ -528,24 +635,42 @@ def decode_attention_q8(q, kq, ks, vq, vs, kv_len, scale: float | None = None, *
         return decode_attention_q8_mxu(q, kq, ks, vq, vs, kv_len, scale)
     if _cuda.on_cpu("decode_attention_q8", q):
         return decode_attention_q8_plain(q, kq, ks, vq, vs, kv_len, scale)
-    _cuda.check_cuda("decode_attention_q8", q, dtypes=(torch.bfloat16, torch.float32))
-    _cuda.check_cuda("decode_attention_q8", kq, vq, dtypes=(torch.int8,))
-    _cuda.check_cuda("decode_attention_q8", ks, vs, dtypes=(torch.bfloat16,), align=2)
-    _cuda.check_cuda("decode_attention_q8", kv_len, dtypes=(torch.int32,), align=4)
-    b, h, smax, d = kq.shape
-    if (q.shape != (b, 1, h, d) or vq.shape != kq.shape or ks.shape != (b, h, smax, 1)
-            or vs.shape != ks.shape):
-        raise ValueError(f"decode_attention_q8: q {q.shape} vs cache {kq.shape}")
-    if kv_len.shape != (b,):
-        raise ValueError(f"decode_attention_q8: kv_len must be ({b},), got {tuple(kv_len.shape)}")
-    if not 0 < d <= 128:
-        raise ValueError(f"decode_attention_q8: head dim {d} must be in 1..128")
-    out = torch.empty_like(q)
-    chunk, stages = q8_stage_plan(smax, d)
-    K9(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
-       kv_len.data_ptr(), out.data_ptr(), b, h, smax, d, float(scale),
-       int(q.dtype == torch.bfloat16), chunk, stages, _cuda.stream_of(q))
-    return out
+    return _q8_read("decode_attention_q8", K9, q, kq, ks, vq, vs, kv_len, scale)
+
+
+def decode_attention_q8_append_plain(q, cache: dict, k_new, v_new, write_index, kv_len,
+                                     scale: float | None = None, *, q8_mxu: bool = False):
+    """Plain version of the fused int8 step: ``quantize_kv`` of the new rows
+    (B, 1, H, D), ``kv_append_q8_plain``, then the read's plain version (K10's
+    where ``q8_mxu`` and the reference's condition hold, else K9's)."""
+    (kq, ks), (vq, vs) = quantize_kv(k_new.transpose(1, 2)), quantize_kv(v_new.transpose(1, 2))
+    kv_append_q8_plain(cache, kq, ks, vq, vs, write_index)
+    leaves = [cache[key] for key in Q8_LEAVES]
+    if q8_mxu and _q8_mxu_eligible(*leaves[0].shape[1:]):
+        return decode_attention_q8_mxu_plain(q, *leaves, kv_len, scale)
+    return decode_attention_q8_plain(q, *leaves, kv_len, scale)
+
+
+def decode_attention_q8_append(q, cache: dict, k_new, v_new, write_index, kv_len,
+                               scale: float | None = None, *, q8_mxu: bool = False):
+    """The int8 decode step in one launch: the new K/V rows ``k_new``/``v_new``
+    (B, 1, H, D) in q's dtype, as the projection gives them (read with their
+    strides), are quantized as ``quantize_kv`` does and go IN PLACE into slot
+    ``write_index[b]`` of the cache ``{"kq", "ks", "vq", "vs"}``
+    (``dus_rows``' rule), then q (B, 1, H, D) attends to the slots
+    ``< kv_len[b]`` -> (B, 1, H, D) in q's dtype: exactly what ``quantize_kv``
+    twice, ``kv_append_q8`` and ``decode_attention_q8(q8_mxu=q8_mxu)`` give.
+    One K9 launch, or K10 where ``decode_attention_q8`` takes it, counted
+    under its form ``"append"``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _cuda.on_cpu("decode_attention_q8_append", q):
+        return decode_attention_q8_append_plain(q, cache, k_new, v_new, write_index, kv_len,
+                                                scale, q8_mxu=q8_mxu)
+    leaves = [cache[key] for key in Q8_LEAVES]
+    mxu = q8_mxu and _q8_mxu_eligible(*leaves[0].shape[1:])
+    return _q8_read("decode_attention_q8_append", K10 if mxu else K9, q, *leaves, kv_len, scale,
+                    (k_new, v_new, write_index))
 
 
 def q14_split(x: torch.Tensor, amax_dims) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -604,24 +729,4 @@ def decode_attention_q8_mxu(q, kq, ks, vq, vs, kv_len, scale: float | None = Non
         scale = q.shape[-1] ** -0.5
     if _cuda.on_cpu("decode_attention_q8_mxu", q):
         return decode_attention_q8_mxu_plain(q, kq, ks, vq, vs, kv_len, scale)
-    _cuda.check_cuda("decode_attention_q8_mxu", q, dtypes=(torch.bfloat16, torch.float32))
-    _cuda.check_cuda("decode_attention_q8_mxu", kq, vq, dtypes=(torch.int8,))
-    _cuda.check_cuda("decode_attention_q8_mxu", ks, vs, dtypes=(torch.bfloat16,), align=2)
-    _cuda.check_cuda("decode_attention_q8_mxu", kv_len, dtypes=(torch.int32,), align=4)
-    b, h, smax, d = kq.shape
-    if (q.shape != (b, 1, h, d) or vq.shape != kq.shape or ks.shape != (b, h, smax, 1)
-            or vs.shape != ks.shape):
-        raise ValueError(f"decode_attention_q8_mxu: q {q.shape} vs cache {kq.shape}")
-    if kv_len.shape != (b,):
-        raise ValueError(f"decode_attention_q8_mxu: kv_len must be ({b},), "
-                         f"got {tuple(kv_len.shape)}")
-    if not 0 < d <= 128:
-        raise ValueError(f"decode_attention_q8_mxu: head dim {d} must be in 1..128")
-    out = torch.empty_like(q)
-    ws = None if q8_mxu_in_shared(smax) else torch.empty(
-        b * h * 6 * (-(-smax // 4) * 4), dtype=torch.uint8, device=q.device)
-    chunk, stages = q8_stage_plan(smax, d, mxu=True)
-    K10(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
-        kv_len.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(), b, h, smax,
-        d, float(scale), int(q.dtype == torch.bfloat16), chunk, stages, _cuda.stream_of(q))
-    return out
+    return _q8_read("decode_attention_q8_mxu", K10, q, kq, ks, vq, vs, kv_len, scale)

@@ -764,3 +764,202 @@ def test_decode_append_fused(cuda, widx, lens, d, dtype):
     torch.testing.assert_close(outs[0].float(), ref.float(), rtol=0,
                                atol=2e-2 if dtype == torch.bfloat16 else 1e-4)
     assert torch.equal(outs[0], outs[1])
+
+
+# ---- the fused forms: K8's append (and quantize_kv) inside K9/K10, K5's inside K6 --------
+
+def _q8_step(g, cuda, b, h, smax, d, dtype, rows=None):
+    """An int8 cache and a decode step's q and new K/V rows (B, 1, H, D) in
+    ``dtype``, as views of one fused projection unless ``rows`` says
+    contiguous, or unaligned (rows 2 elements into rows of D + 4)."""
+    kq, ks = quantize_kv(torch.randn(b, h, smax, d, generator=g, device=cuda))
+    vq, vs = quantize_kv(torch.randn(b, h, smax, d, generator=g, device=cuda))
+    qkv = torch.randn(b, 1, 3 * h, d, generator=g, device=cuda).to(dtype)
+    q, kn, vn = qkv[:, :, :h], qkv[:, :, h:2 * h], qkv[:, :, 2 * h:]
+    if rows == "contiguous":
+        q, kn, vn = q.contiguous(), kn.contiguous(), vn.contiguous()
+    if rows == "unaligned":
+        wide = torch.zeros(2, b, 1, h, d + 4, device=cuda, dtype=dtype)
+        wide[..., 2:d + 2] = torch.stack([kn, vn])
+        kn, vn = wide[0, ..., 2:d + 2], wide[1, ..., 2:d + 2]
+    return q.contiguous(), {"kq": kq, "ks": ks, "vq": vq, "vs": vs}, kn, vn
+
+
+def _check_q8_append(cache, q, kn, vn, widx, lens, mxu):
+    """The fused int8 step against the kernels in sequence (``quantize_kv``,
+    K8, then K9 or K10) and against the plain sequence: caches bit-equal to
+    both, the output bit-equal to the kernels' and twice bit for bit; one
+    launch of the read in its form "append", no K8 launch."""
+    cuda = q.device
+    w = torch.tensor(widx, dtype=torch.int32, device=cuda)
+    n = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    plain = {k: t.clone() for k, t in cache.items()}
+    ref = pdec.decode_attention_q8_append_plain(q, plain, kn, vn, w, n, q8_mxu=mxu)
+    seq = {k: t.clone() for k, t in cache.items()}
+    pdec.kv_append_q8(seq, *quantize_kv(kn.transpose(1, 2)), *quantize_kv(vn.transpose(1, 2)), w)
+    want = pdec.decode_attention_q8(q, *(seq[k] for k in pdec.Q8_LEAVES), n, q8_mxu=mxu)
+    kern = pdec.K10 if mxu and pdec._q8_mxu_eligible(*cache["kq"].shape[1:]) else pdec.K9
+    outs = []
+    for _ in range(2):
+        got_cache = {k: t.clone() for k, t in cache.items()}
+        before = (kern.launches, kern.forms.get("append", 0), pdec.K8.launches)
+        outs.append(pdec.decode_attention_q8_append(q, got_cache, kn, vn, w, n, q8_mxu=mxu))
+        assert (kern.launches, kern.forms.get("append", 0), pdec.K8.launches) == (
+            before[0] + 1, before[1] + 1, before[2])
+        for k in pdec.Q8_LEAVES:
+            assert torch.equal(got_cache[k], plain[k]), k
+            assert torch.equal(got_cache[k], seq[k]), k
+    assert torch.equal(outs[0], want) and torch.equal(outs[0], outs[1])
+    torch.testing.assert_close(outs[0].float(), ref.float(), rtol=0,
+                               atol=2e-2 if q.dtype == torch.bfloat16 else 1e-4)
+    assert torch.all(outs[0][n <= 0] == 0)
+
+
+# the flagship's decode (H = 32, Smax 320 and 321): t = kv_len - 1, the first
+# and the last slot, past Smax, negative (from the end), t >= kv_len (written,
+# not read), kv_len 0
+Q8_EDGES = [([192, 0, 319, 327], [193, 1, 320, 320]), ([-1, 5, 300, -400], [320, 6, 301, 256]),
+            ([256, 200, 10, 319], [193, 0, 5, 256])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [128, 90])
+@pytest.mark.parametrize("smax", [320, 321])
+def test_q8_append_fused_at_the_flagship(cuda, smax, d, dtype, mxu):
+    """K9's and K10's fused forms at B = 4 and B = 1, H = 32, at every
+    write-index edge: the in-launch quantization gives ``quantize_kv``'s
+    bits (caches bit-equal), the output is K8 then the read's, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(smax + d + mxu)
+    q, cache, kn, vn = _q8_step(g, cuda, 4, 32, smax, d, dtype)
+    for widx, lens in Q8_EDGES:
+        _check_q8_append(cache, q, kn, vn, widx, lens, mxu)
+    for widx, lens in (([255], [256]), ([smax - 1], [0]), ([-3], [smax])):
+        _check_q8_append({k: t[:1] for k, t in cache.items()}, q[:1], kn[:1], vn[:1], widx,
+                         lens, mxu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mxu,smax,d", [(False, 4096, 128), (False, 4096, 90),
+                                        (True, 1536, 128), (True, 1536, 90)])
+def test_q8_append_fused_through_the_ring(cuda, mxu, smax, d, dtype):
+    """The fused forms where a head's rows stream through the staged read's
+    ring: the new row in the first chunk, in a later one, past kv_len, at
+    Smax - 1 and negative."""
+    chunk, stages = pdec.q8_stage_plan(smax, d, mxu=mxu)
+    assert stages == 4 and chunk < smax
+    g = torch.Generator(device=cuda).manual_seed(smax + d)
+    q, cache, kn, vn = _q8_step(g, cuda, 4, 8, smax, d, dtype, rows="contiguous")
+    _check_q8_append(cache, q, kn, vn, [chunk - 6, 2 * chunk, smax - 1, -1],
+                     [chunk - 5, 2 * chunk + 1, smax - 100, smax], mxu)
+    _check_q8_append(cache, q, kn, vn, [0, chunk + 3, 5, smax + 2],
+                     [0, chunk + 1, 2 * chunk + 1, smax], mxu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [128, 90])
+def test_q8_append_fused_takes_unaligned_rows(cuda, d, dtype, mxu):
+    """New rows that do not start on 16 bytes: copied into an aligned tensor
+    where D % 16 == 0 (the kernel reads them by 16-byte pieces), read in
+    place at D = 90; the same bits either way."""
+    g = torch.Generator(device=cuda).manual_seed(d + mxu)
+    q, cache, kn, vn = _q8_step(g, cuda, 4, 32, 320, d, dtype, rows="unaligned")
+    assert kn.data_ptr() % 16 and kn.stride(2) == d + 4
+    for widx, lens in Q8_EDGES:
+        _check_q8_append(cache, q, kn, vn, widx, lens, mxu)
+
+
+@pytest.mark.cuda
+def test_q8_mxu_append_fused_past_shared_memory(cuda):
+    """K10's fused form over more slots than its shared memory holds (the
+    logits in a workspace), where the reference's gate admits it."""
+    b, h, d = 1, 3, 16
+    smax = pdec.Q8_MXU_SHARED_SLOTS + 7232
+    assert pdec._q8_mxu_eligible(h, smax, d) and not pdec.q8_mxu_in_shared(smax)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, cache, kn, vn = _q8_step(g, cuda, b, h, smax, d, torch.float32)
+    _check_q8_append(cache, q, kn, vn, [smax - 4], [smax - 3], True)
+    _check_q8_append(cache, q, kn, vn, [-1], [smax], True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("d", [128, 16])
+def test_q8_append_fused_near_the_shared_memory_limit(cuda, mxu, d):
+    """The fused forms over the longest cache whose whole read still fits
+    (the most dynamic shared memory a whole-read plan takes): their static
+    arrays leave it room to launch."""
+    smax = max(s for s in range(16, 8192, 16) if pdec.q8_stage_plan(s, d, mxu=mxu)[1] == 2)
+    assert pdec.q8_stage_plan(smax + 16, d, mxu=mxu)[1] == pdec.Q8_RING_STAGES
+    if mxu:
+        assert pdec._q8_mxu_eligible(1, smax, d)
+    g = torch.Generator(device=cuda).manual_seed(smax)
+    q, cache, kn, vn = _q8_step(g, cuda, 2, 1, smax, d, torch.bfloat16)
+    _check_q8_append(cache, q, kn, vn, [smax - 1, 17], [smax, 18], mxu)
+
+
+def _check_window_append(kc, vc, q, kn, vn, widx):
+    """The fused verify step against K5 then K6 and against the plain
+    sequence: caches bit-equal to both, the output bit-equal to the kernels'
+    and twice bit for bit; one K6 launch in its form "append", no K5
+    launch."""
+    w = torch.tensor(widx, dtype=torch.int32, device=q.device)
+    pk, pv = kc.clone(), vc.clone()
+    ref = pdec.decode_attention_window_append_plain(q, pk, pv, kn, vn, w)
+    sk, sv = kc.clone(), vc.clone()
+    pdec.kv_append_multi(sk, sv, kn.transpose(1, 2).contiguous(), vn.transpose(1, 2).contiguous(),
+                         w)
+    want = pdec.decode_attention_window(q, sk, sv, w)
+    outs = []
+    for _ in range(2):
+        gk, gv = kc.clone(), vc.clone()
+        before = (pdec.K6.launches, pdec.K6.forms.get("append", 0), pdec.K5.launches)
+        outs.append(pdec.decode_attention_window_append(q, gk, gv, kn, vn, w))
+        assert (pdec.K6.launches, pdec.K6.forms.get("append", 0), pdec.K5.launches) == (
+            before[0] + 1, before[1] + 1, before[2])
+        assert torch.equal(gk, pk) and torch.equal(gv, pv)
+        assert torch.equal(gk, sk) and torch.equal(gv, sv)
+    assert torch.equal(outs[0], want) and torch.equal(outs[0], outs[1])
+    torch.testing.assert_close(outs[0].float(), ref.float(), rtol=0,
+                               atol=2e-2 if q.dtype == torch.bfloat16 else 1e-4)
+
+
+def _window_step(g, cuda, b, nq, h, smax, d, dtype):
+    kc, vc = (torch.randn(b, h, smax, d, generator=g, device=cuda).to(dtype) for _ in range(2))
+    qkv = torch.randn(b, nq, 3 * h, d, generator=g, device=cuda).to(dtype)
+    return kc, vc, qkv[:, :, :h].contiguous(), qkv[:, :, h:2 * h], qkv[:, :, 2 * h:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [128, 64, 90])
+@pytest.mark.parametrize("nq", [1, 3, 8])
+def test_window_append_fused_at_the_flagship(cuda, nq, d, dtype):
+    """K6's fused form at run (b)'s cache (4, 32, 328, D): the tensor-core
+    form in bf16 at D = 128 and 64, the CUDA-core form in fp32 and at
+    D = 90; the window's rows at write indices in the middle, at a tile's
+    edge, at Smax - NQ, past it (the window shifts back whole, the mask
+    keeps the raw index), negative (rows land at the end, the read sees
+    the prefix's first slots or none), and at B = 1."""
+    g = torch.Generator(device=cuda).manual_seed(nq + d)
+    kc, vc, q, kn, vn = _window_step(g, cuda, 4, nq, 32, 328, d, dtype)
+    for widx in ([256, 31 - nq // 2, 328 - nq, 327], [-1, -nq - 3, 340, 128 - nq],
+                 [-328, 0, 95, 5]):
+        _check_window_append(kc, vc, q, kn, vn, widx)
+    _check_window_append(kc[:1], vc[:1], q[:1], kn[:1], vn[:1], [200])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_window_append_fused_several_tiles_a_warp(cuda, dtype):
+    """K6's fused form over Smax 2100 (bf16: 6 warps of 11 tiles, a double
+    buffer each): windows that straddle two tiles (two warps), in a warp's
+    later tiles, at the end and negative."""
+    g = torch.Generator(device=cuda).manual_seed(2100)
+    kc, vc, q, kn, vn = _window_step(g, cuda, 2, 8, 2, 2100, 128, dtype)
+    for widx in ([2092, 700], [28, 1000], [-1, 2099], [-2000, 222]):
+        _check_window_append(kc, vc, q, kn, vn, widx)

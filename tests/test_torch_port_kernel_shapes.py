@@ -399,13 +399,15 @@ def test_gemv_cluster(k, n, cluster):
 def recorded(monkeypatch):
     """The card path of the decode wrappers on meta or CPU tensors: every
     tensor counts as a CUDA tensor and each kernel call is recorded, not
-    run."""
+    run: its arguments, then the launch's ``form=`` keyword (None where it
+    has none)."""
     calls = {}
     monkeypatch.setattr(_cuda, "on_cpu", lambda name, t: False)
     monkeypatch.setattr(_cuda, "check_cuda", lambda *a, **k: None)
     monkeypatch.setattr(_cuda, "stream_of", lambda t: 0)
     for mod, name in ((pdk, "K6"), (pdk, "K9"), (pdk, "K10"), (pw4, "K11")):
-        monkeypatch.setattr(mod, name, lambda *a, _n=name: calls.setdefault(_n, []).append(a))
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, **kw: calls.setdefault(_n, []).append(
+            (*a, kw.get("form"))))
     return calls
 
 
@@ -421,6 +423,35 @@ def test_window_wrapper_launch(recorded):
     q90, k90 = (torch.empty(*t.shape[:-1], 90, dtype=torch.bfloat16, **meta) for t in (q, kc))
     pdk.decode_attention_window(q90, k90, k90, w)
     assert recorded["K6"][-1][11:14] == (1, 0, 0)
+    assert all(args[-1] is None for args in recorded["K6"])  # the read alone
+
+
+def test_fused_window_launch_takes_the_rows_as_they_are(recorded):
+    """The verify step launches K6 once in its form ``"append"``: the
+    tensor-core form (bf16, D = 128) with the rows' strides where every row
+    starts on 16 bytes; rows that do not are first copied into an aligned
+    tensor; the CUDA-core form (fp32) takes any strides."""
+    meta = dict(device="meta")
+    h, d = 32, 128
+    qkv = torch.empty(B, WINDOW, 3 * h, d, dtype=torch.bfloat16, **meta)
+    q, kn, vn = qkv[:, :, :h], qkv[:, :, h:2 * h], qkv[:, :, 2 * h:]
+    kc = torch.empty(B, h, SMAX_SPEC, d, dtype=torch.bfloat16, **meta)
+    w = torch.empty(B, dtype=torch.int32, **meta)
+    pdk.decode_attention_window_append(q, kc, kc, kn, vn, w)
+    args = recorded["K6"][-1]
+    assert args[-1] == "append" and args[11:14] == (1, 11, 1)
+    assert args[16:22] == (WINDOW * 3 * h * d, 3 * h * d, d) * 2
+    odd = torch.empty(B, WINDOW, h, d + 4, dtype=torch.bfloat16, **meta)[..., 2:d + 2]
+    pdk.decode_attention_window_append(q, kc, kc, odd, odd, w)
+    args = recorded["K6"][-1]
+    assert args[16:22] == (WINDOW * h * d, h * d, d) * 2  # copied: rows now start on 16 bytes
+    qf, kf = q.float(), kc.float()
+    of = torch.empty(B, WINDOW, h, d + 4, **meta)[..., 2:d + 2]
+    pdk.decode_attention_window_append(qf, kf, kf, of, of, w)
+    args = recorded["K6"][-1]
+    assert args[11:14] == (0, 0, 0)
+    assert args[16:22] == (WINDOW * h * (d + 4), h * (d + 4), d + 4) * 2
+    assert [args[-1] for args in recorded["K6"]] == ["append"] * 3
 
 
 @pytest.mark.parametrize("h,smax,d,shared", [
@@ -563,6 +594,36 @@ def test_q8_wrappers_launch(recorded, smax, d):
     assert recorded["K10"][-1][14:16] == pdk.q8_stage_plan(smax, d, mxu=True)
     if smax == SMAX_Q8:
         assert recorded["K9"][-1][13:15] == recorded["K10"][-1][14:16] == (320, 2)
+
+
+@pytest.mark.parametrize("mxu,kid,at", [(False, "K9", 15), (True, "K10", 16)])
+def test_fused_q8_launch_reads_the_projection_strides(recorded, mxu, kid, at):
+    """The int8 step launches K9 (or K10 under ``q8_mxu``) once, in its form
+    ``"append"``, under the read's plan, with the new rows' own strides over
+    b and h (views of a fused (B, 1, 3H, D) projection: no copy, no
+    transpose). Where D % 16 == 0 the kernel reads a row by 16-byte pieces,
+    so rows that do not start on 16 bytes are first copied into an aligned
+    tensor; at D = 90 they are taken as they are."""
+    meta = dict(device="meta")
+    h = 32
+
+    def launch(d, kn, vn):
+        qkv = torch.empty(B, 1, 3 * h, d, dtype=torch.bfloat16, **meta)
+        cache = {"kq": torch.empty(B, h, SMAX_Q8, d, dtype=torch.int8, **meta),
+                 "ks": torch.empty(B, h, SMAX_Q8, 1, dtype=torch.bfloat16, **meta)}
+        cache.update(vq=cache["kq"], vs=cache["ks"])
+        n = torch.empty(B, dtype=torch.int32, **meta)
+        kn, vn = (qkv[:, :, h:2 * h], qkv[:, :, 2 * h:]) if kn is None else (kn, vn)
+        pdk.decode_attention_q8_append(qkv[:, :, :h], cache, kn, vn, n, n, q8_mxu=mxu)
+        args = recorded[kid][-1]
+        assert args[-1] == "append" and args[at - 2:at] == pdk.q8_stage_plan(SMAX_Q8, d, mxu=mxu)
+        return args[at + 3:at + 7]  # k_sb, k_sh, v_sb, v_sh
+
+    assert launch(128, None, None) == (3 * h * 128, 128, 3 * h * 128, 128)
+    for d, copied in ((128, True), (90, False)):
+        odd = torch.empty(B, 1, h, d + 4, dtype=torch.bfloat16, **meta)[..., 2:d + 2]
+        assert launch(d, odd, odd) == ((h * d, d) if copied else (h * (d + 4), d + 4)) * 2
+    assert len(recorded[kid]) == 3
 
 
 def _q8_case(rng, b, h, smax, d, bf16):

@@ -197,21 +197,23 @@ def _imports(tree):
 
 
 def test_port_imports_no_jax_and_no_library_kernels():
-    """No module of the port, and not chip_smoke.py, imports jax, jaxlib or
-    mmmm_tpu (the ``mmmm_tpu.`` pattern leaves ``mmmm_tpu_torch`` alone),
-    and no module of the port calls SDPA or torch.compile (chip_smoke.py
-    times SDPA as a yardstick)."""
+    """No module of the port, and neither chip_smoke.py nor the timing
+    scripts beside it, imports jax, jaxlib or mmmm_tpu (the ``mmmm_tpu.``
+    pattern leaves ``mmmm_tpu_torch`` alone), and no module of the port
+    calls SDPA or torch.compile (chip_smoke.py times SDPA as a yardstick)."""
     files = sorted((ROOT / "mmmm_tpu_torch").rglob("*.py"))
     assert len(files) > 15
     for rel in (("ops", "w4_matmul.py"), ("ops", "flash.py"), ("peft", "lora.py"),
                 ("train", "step.py"), ("train", "optim.py")):
         assert ROOT.joinpath("mmmm_tpu_torch", *rel) in files
-    for f in files + [ROOT / "chip_smoke.py"]:
+    scripts = [ROOT / n for n in ("chip_smoke.py", "time_decode_reads.py",
+                                  "time_flagship_runs.py")]
+    for f in files + scripts:
         tree = ast.parse(f.read_text(), filename=str(f))
         for mod in _imports(tree):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "mmmm_tpu"), f"{f}: imports {mod}"
-        if f.name == "chip_smoke.py":
+        if f in scripts:
             continue
         attrs = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
         assert not attrs & {"scaled_dot_product_attention", "compile"}, f
