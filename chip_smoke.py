@@ -49,10 +49,15 @@ Phases, in order; any failure exits non-zero before the result lines:
     W8A8 and W4A16 ``qdot`` against a bf16 ``torch.matmul`` at decode rows;
  4. run ``generate_grounded`` on the card and on the CPU (plain versions)
     and require the same tokens, masks, boxes and presence logits: at
-    ``MMMMConfig.tiny()`` in fp32 greedy and n-gram speculative, bf16 and
-    int8 KV, plain, W8A16 and W8A8 (decode, prefill) weights, chunked
-    prefill in both modes; at the W4-capable small widths W4A16 with the
-    split-int8 read, instance SAM and chunked prefill;
+    ``MMMMConfig.tiny()`` in fp32 greedy and n-gram speculative (3, 7 and
+    8 drafts: windows of 9 take the decoder's plain route), bf16 and int8
+    KV, plain, W8A16 and W8A8 (decode, prefill) weights, chunked prefill in
+    both modes; at the W4-capable small widths W4A16 with the split-int8
+    read, instance SAM and chunked prefill; then the continuous-batching
+    servers card vs CPU at the tiny config (``TextServer`` greedy with
+    refills mid-flight, with the prefix cache's suffix windows of 16-32
+    tokens, speculative over W8A16; ``GroundedServer`` greedy and
+    speculative): the same texts, stats and masks;
  5. run the grounded report path at the flagship width (CogVLM-17B +
     SegVol SAM, bf16 LLM/ViT, fp32 SAM, random weights from a seed): B=4,
     prompt 192 with 146 vision tokens, 128 new tokens, 4 targets, as four
@@ -67,7 +72,15 @@ Phases, in order; any failure exits non-zero before the result lines:
     Each is warmed up once, then run with every launch counter at 0 and
     checked for its outputs and its exact launch counts, then profiled
     (device time by kernel group; host time, device span, kernel time and
-    launches by stage; busy share);
+    launches by stage; busy share). Between (a) and (b), over (a)'s bf16
+    weights, the servers: (s1) ``GroundedServer`` greedy, 4 slots, 8
+    requests of (a)'s shape; (s2) the same with 7 drafts; (s3)
+    ``TextServer``, 8 slots, 16 prompts on a shared 128-token template with
+    budgets of 16-128; each warmed up, then timed (requests/s, stats,
+    tokens a verify step, peak memory) with launch counts exact against
+    the server's stats, then profiled; (s1)'s tokens are compared with
+    ``generate_grounded``'s and (s2)'s over the same requests (reported,
+    not gated);
  6. the LoRA training step (``make_train_step``, ``attn_impl="pallas"``:
     K3 forward, K7delta, K7dq and K7dkv backward at every flash site) at the
     tiny config in fp32, 3 steps in each grounding mode, on the card and the
@@ -1832,6 +1845,7 @@ def tiny_reference_phase():
             ("spec 3, W8A16", cfg, qparams, dict(spec_draft_len=3)),
             ("greedy int8 KV, W8A16", cfg, qparams, dict(kv_cache_dtype="int8")),
             ("spec 7 int8 KV, W8A16", cfg, qparams, dict(spec_draft_len=7, kv_cache_dtype="int8")),
+            ("spec 8 (windows of 9), W8A16", cfg, qparams, dict(spec_draft_len=8)),
             ("greedy int8 KV, W8A8 decode", cfg, qparams, dict(kv_cache_dtype="int8", w8a8=True)),
             ("greedy, W8A8 prefill", cfg, qparams, dict(w8a8_prefill=True)),
             ("greedy, SAM head in bf16", cfg, params, dict(sam_bf16=True)),
@@ -1896,6 +1910,120 @@ def tiny_split_decode(cfg, params, args, kw) -> dict:
           "(card vs CPU)", err, 2e-4)
     return {"tokens_equal": True, "splits": splits, "k1_launches": launches,
             "masks_max_abs_err": err}
+
+
+def masks_tol(ref: torch.Tensor) -> float:
+    """2e-4, or 1e-2 of the largest mask logit where that is smaller (the
+    random tiny model's logits are about 1e-4, which 2e-4 alone would pass
+    whatever the masks)."""
+    return min(2e-4, 1e-2 * ref.float().abs().max().item())
+
+
+def grounded_requests(rng, gen, lens, n_vis, image, g_image, vocab, device, dtype):
+    """GroundedServer requests of the prompt lengths ``lens``: a bos, ``n_vis``
+    vision tokens and random text ids below ``vocab``, the layout's token
+    types and position ids, an image in ``dtype`` and an fp32 grounding
+    image, made on ``device`` from ``gen``."""
+    reqs = []
+    for n in lens:
+        text = n - 1 - n_vis
+        tt = np.zeros(n, np.int32)
+        tt[1:1 + n_vis] = 1
+        reqs.append({
+            "input_ids": np.concatenate([[1], np.full(n_vis, 3),
+                                         rng.integers(4, vocab, size=text)]).astype(np.int32),
+            "token_type_ids": tt,
+            "position_ids": np.concatenate([[0, 1], np.full(n_vis - 2, 2), [3],
+                                            np.arange(4, 4 + text)]).astype(np.int32),
+            "image": torch.randn(image, generator=gen, device=device).to(dtype),
+            "grounding_image": torch.randn(g_image, generator=gen, device=device)})
+    return reqs
+
+
+def tiny_serving_phase():
+    """The continuous-batching servers on the card and on the CPU at
+    ``MMMMConfig.tiny()`` in fp32: the same texts and ``stats`` (and tokens,
+    targets, masks within ``masks_tol``) for ``TextServer`` greedy with two
+    slots and seven requests (refilled mid-flight), with the prefix cache
+    (suffix windows of 16 and 32 tokens, the decoder's plain route: no K6
+    launch), speculative with 4 drafts over W8A16 weights, and
+    ``GroundedServer`` greedy and speculative with 3 drafts. The card's runs
+    launch K1 only in its fused form, K6 only in its fused form, K2 and K5
+    never."""
+    from mmmm_tpu_torch import GroundedServer, MMMMConfig, TextServer, init_params
+    from mmmm_tpu_torch.data.tokenizer import MMMMTokenizer
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+    from mmmm_tpu_torch.ops.quant import quantize_llm_for_serving
+
+    log("tiny servers: card vs CPU")
+    tok = MMMMTokenizer.byte_fallback()
+    cfg = MMMMConfig.tiny(vocab_size=len(tok))
+    params = init_params(cfg, 0, torch.float32, "cpu")
+    qllm = quantize_llm_for_serving(params["cogvlm"], release_originals=False)
+    template = "You are a radiology assistant. Extract findings from: "
+    words = ["a", "the quick brown fox", "mid", "another prompt here",
+             "yet another much longer prompt for the pool", "zz", "last one"]
+    text_kw = dict(n_slots=2, max_new_tokens=6, chunk=3, seq_quant=16)
+    budgets = [6, 3, 5, 2, 6, 4, 3]
+    out = {}
+    for label, llm, prompts, extra, spec in [
+            ("TextServer greedy, 2 slots, 7 requests", params["cogvlm"], words,
+             dict(max_prompt_len=64, prefix_cache=False), False),
+            # a refill of 3 requests: a sub-batch padded to 4 (K3 over a
+            # row of prompt_len 1)
+            ("TextServer greedy, 4 slots, a padded refill", params["cogvlm"], words,
+             dict(max_prompt_len=64, prefix_cache=False, n_slots=4), False),
+            ("TextServer prefix cache, suffix windows of 16-32", params["cogvlm"],
+             [template + w for w in words], dict(max_prompt_len=128), False),
+            ("TextServer speculate 4, W8A16, prefix cache", qllm,
+             [template + w for w in words], dict(max_prompt_len=128, speculate=4), True)]:
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            tree = llm if dev == "cpu" else _tree_to(llm, dev)
+            server = TextServer(tree, cfg.vlm, tok, device=dev, **{**text_kw, **extra})
+            for kern in KERNELS.values():
+                kern.reset()
+            runs[dev] = (server.generate(prompts, max_new=budgets), dict(server.stats))
+        launches = {n: k.launches for n, k in KERNELS.items() if k.launches}
+        forms = {n: dict(k.forms) for n, k in KERNELS.items() if k.forms}
+        if runs["cuda"] != runs["cpu"]:
+            raise AssertionError(f"tiny {label}: card {runs['cuda']} vs CPU {runs['cpu']}")
+        stats = runs["cuda"][1]
+        read = "K6" if spec else "K1"
+        if (launches.get("K2") or launches.get("K5") or not launches.get(read)
+                or forms.get(read) != {"append": launches[read]}
+                or launches.get("K6" if not spec else "K1")):
+            raise AssertionError(f"tiny {label}: launches {launches}, by form {forms}")
+        if stats["refilled_mid_flight"] < 1 or (extra.get("prefix_cache", True)
+                                                and stats["prefix_len"] < 32):
+            raise AssertionError(f"tiny {label}: stats {stats}")
+        log(f"  tiny {label}: texts and stats equal (card vs CPU); stats {stats}; launches "
+            f"{launches}")
+        out[label] = {"texts_equal": True, "stats": stats, "launches": launches}
+
+    reqs = grounded_requests(np.random.default_rng(0), torch.Generator().manual_seed(0),
+                             (25, 22, 28, 20, 31), 18, (3, 4, 16, 16), (3, 4, 16, 16), 250,
+                             "cpu", torch.float32)
+    g_kw = dict(patch_size=(4, 4, 4), pool_size=(1, 1, 1), n_vis=18, n_slots=2,
+                max_new_tokens=6, chunk=3, seq_quant=16, max_prompt_len=31, max_targets=2)
+    for label, extra in [("GroundedServer greedy", {}),
+                         ("GroundedServer speculate 3", dict(speculate=3))]:
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            tree = params if dev == "cpu" else _tree_to(params, dev)
+            server = GroundedServer(tree, cfg, tok, device=dev, **g_kw, **extra)
+            runs[dev] = (server.generate(reqs), dict(server.stats))
+        (ref, ref_stats), (got, stats) = runs["cpu"], runs["cuda"]
+        if stats != ref_stats or any(
+                g["text"] != r["text"] or not np.array_equal(g["tokens"], r["tokens"])
+                or g["targets"] != r["targets"] for g, r in zip(got, ref)):
+            raise AssertionError(f"tiny {label}: card {stats} vs CPU {ref_stats}, texts "
+                                 f"{[g['text'] for g in got]} vs {[r['text'] for r in ref]}")
+        err = max(max_err(g["masks"].cpu(), r["masks"]) for g, r in zip(got, ref))
+        tol = min(masks_tol(r["masks"]) for r in ref)
+        check(f"tiny {label}: texts, tokens, stats equal; masks (card vs CPU)", err, tol)
+        out[label] = {"texts_equal": True, "stats": stats, "masks_max_abs_err": err}
+    return out
 
 
 def _tiny_train_batch(mode: str, b: int = 2, s: int = 32, n_vis: int = 18, targets: int = 2,
@@ -2023,11 +2151,13 @@ def tiny_train_phase():
     return out
 
 
-def flagship_phase(gen, expect: bool = True):
+def flagship_phase(gen, expect: bool = True, serving: bool = False):
     """Runs (a)-(d) at the flagship width; returns their results and each
     run's launch counts. ``expect=False`` skips the launch counts' checks
     against ``RUNS`` (time_flagship_runs.py runs other versions of the
-    port, which launch other kernels); the outputs are checked either way."""
+    port, which launch other kernels); the outputs are checked either way.
+    ``serving`` runs ``flagship_serving_phase`` over run (a)'s bf16 params
+    before the LLM is quantized."""
     from mmmm_tpu_torch import MMMMConfig, generate_grounded, init_params
     from mmmm_tpu_torch.data.tokenizer import SPECIAL_TOKENS, MMMMTokenizer, _ByteBackend
     from mmmm_tpu_torch.models.cogvlm import CogVLMConfig
@@ -2166,7 +2296,177 @@ def flagship_phase(gen, expect: bool = True):
             f"{r['busy_share_profiled']:.4f} of the profiled run")
         out["runs"][label] = r
         all_launches[label] = launches
+        if serving and label == "a_greedy_bf16":
+            out["serving"] = flagship_serving_phase(params, cfg, tok, gen)
     return out, all_launches
+
+
+SERVE_SLOTS, SERVE_REQS, SERVE_CHUNK = 4, 8, 16  # (s1), (s2): the grounded pool
+SERVE_STAGES = ("vit", "llm_prefill", "prefix_refill", "decode", "sam")  # the servers' spans
+TEXT_SLOTS, TEXT_REQS = 8, 16  # (s3): the text pool over the flagship LLM
+SERVE_TEMPLATE = ("You are a radiology assistant. Read the findings of this CT report and "
+                  "list every abnormal structure with its location. Report: ")
+
+
+def _serve_run(label, server, inputs, want):
+    """A warm-up run, then a steady run with every launch counter at 0:
+    its wall time, requests/s, stats, peak memory and launches, checked
+    against ``want(stats, results)`` (the exact counts of every kernel,
+    and K1's or K6's launches all of form "append")."""
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+
+    log(f"  serving {label}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    server.generate(*inputs)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    server.stats = dict.fromkeys(server.stats, 0)
+    for kern in KERNELS.values():
+        kern.reset()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = server.generate(*inputs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    stats = dict(server.stats)
+    launches = {n: k.launches for n, k in KERNELS.items()}
+    forms = {n: dict(k.forms) for n, k in KERNELS.items() if k.forms}
+    want_launches, want_forms = want(stats, res)
+    expected = dict.fromkeys(KERNELS, 0)
+    expected.update(want_launches)
+    if launches != expected or forms != want_forms:
+        raise AssertionError(f"{label}: launches {launches} by form {forms}, expected "
+                             f"{expected} by form {want_forms}")
+    n = len(inputs[0])
+    r = {"first_run_s": first_s, "steady_run_s": wall, "requests_per_s": n / wall,
+         "stats": stats, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+         "launches": {k: v for k, v in launches.items() if v}, "launches_by_form": forms}
+    if stats.get("spec_steps"):
+        r["tokens_per_verify_step"] = stats["spec_committed"] / stats["spec_steps"]
+    log(f"    steady run: {wall:.3f} s, {r['requests_per_s']:.4f} requests/s (first run "
+        f"{first_s:.3f} s), peak memory {r['peak_mem_gib']:.2f} GiB, stats {stats}, tokens a "
+        f"verify step {r.get('tokens_per_verify_step', 'n/a')}, launches {r['launches']}, "
+        f"by form {forms}")
+
+    def run():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = server.generate(*inputs)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    r["profile"] = profile_run(run, SERVE_STAGES)
+    r["profile"].pop("result")
+    r["busy_share_steady"] = r["profile"]["kernels_busy_s"] / wall
+    log(f"    device busy share: {r['busy_share_steady']:.4f} of the steady run")
+    return res, r
+
+
+def first_difference(a, b) -> int:
+    """The first index where two token sequences differ (-1: equal)."""
+    a, b = [int(t) for t in a], [int(t) for t in b]
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return -1 if len(a) == len(b) else min(len(a), len(b))
+
+
+def flagship_serving_phase(params, cfg, tok, gen) -> dict:
+    """The servers at the flagship's full width and depth over run (a)'s
+    bf16 params: (s1) ``GroundedServer`` greedy, 4 slots, 8 requests of run
+    (a)'s shape, 128 new tokens, chunks of 16, 4 targets; (s2) the same
+    with 7 drafts a step; (s3) ``TextServer`` with 8 slots over 16 prompts
+    that share a template of more than 96 tokens, suffixes of 20-60 tokens
+    (a refill runs them as one 64-token window: the decoder's plain route)
+    and budgets of 16-128. Exact launches from the servers' stats: K3 32 a
+    sub-batch prefill (or the shared prefix), K4 63 a ViT prefill and 12 a
+    SAM pass, K1 (greedy) or K6 (speculative) 32 x 16 a chunk, all fused
+    with their appends; every other kernel 0. Also reports where (s1)'s
+    texts part from ``generate_grounded``'s and (s2)'s over the same
+    inputs, and the one-shot path's greedy from its speculative (not gated:
+    the pool's batch and Smax change K1's split plan, K6 rounds otherwise
+    than K1, and bf16 rounding may turn an argmax at random weights)."""
+    from mmmm_tpu_torch import GroundedServer, TextServer, generate_grounded
+
+    log("flagship servers")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1)
+    reqs = grounded_requests(rng, gen, [PROMPT] * SERVE_REQS, N_VIS, (3, 32, 384, 384),
+                             (3, 32, 256, 256), 32000, "cuda", torch.bfloat16)
+    kw = dict(patch_size=(16, 16, 16), pool_size=(2, 2, 2), n_vis=N_VIS, n_slots=SERVE_SLOTS,
+              max_new_tokens=NEW, chunk=SERVE_CHUNK, seq_quant=32, max_prompt_len=PROMPT,
+              max_targets=TARGETS, device="cuda")
+    out = {}
+
+    def grounded_want(read):
+        def want(stats, res):
+            # each SAM pass's masks are rows of one tensor
+            passes = len({r["masks"].untyped_storage().data_ptr() for r in res})
+            n = LAYERS * SERVE_CHUNK * stats["chunks"]
+            return ({"K3": LAYERS * stats["refills"],
+                     "K4": VIT_LAYERS * stats["refills"] + SAM_LAYERS * passes, read: n},
+                    {read: {"append": n}})
+        return want
+
+    tokens = {}
+    for label, extra, read in [("s1_grounded_greedy", {}, "K1"),
+                               ("s2_grounded_spec7", dict(speculate=DRAFT), "K6")]:
+        server = GroundedServer(params, cfg, tok, **kw, **extra)
+        res, r = _serve_run(label, server, (reqs,), grounded_want(read))
+        for o in res:
+            m = o["masks"]
+            if tuple(m.shape) != (TARGETS, 32, 256, 256) or not torch.isfinite(m).all():
+                raise AssertionError(f"{label} masks: shape {tuple(m.shape)} or non-finite")
+            if len(o["tokens"]) > NEW or not ((o["tokens"] >= 0) & (o["tokens"] < 32008)).all():
+                raise AssertionError(f"{label} tokens: {o['tokens']}")
+        r["smax"] = server.smax
+        r["targets"] = [None if o["targets"] is None else len(o["targets"]) for o in res]
+        tokens[label] = [o["tokens"] for o in res]
+        out[label] = r
+    stack = lambda key: np.stack([q[key] for q in reqs])
+    batch = {}
+    for draft in (0, DRAFT):  # the one-shot path over the same requests, greedy and spec
+        res = generate_grounded(params, cfg, tok, stack("input_ids"), stack("token_type_ids"),
+                                stack("position_ids"), np.full(SERVE_REQS, PROMPT, np.int32),
+                                torch.stack([q["image"] for q in reqs]), (16, 16, 16),
+                                (2, 2, 2), max_new_tokens=NEW, max_targets=TARGETS,
+                                grounding_image=torch.stack([q["grounding_image"] for q in reqs]),
+                                force_grounding=True, vis_span=(1, 1 + N_VIS),
+                                spec_draft_len=draft, device="cuda")
+        batch[draft] = [row[row != tok.eos_token_id] for row in res.tokens]
+    # the first token where two runs' texts part (-1: never); bf16 rounding
+    # differs between K1 and K6 and between batch shapes, and at random
+    # weights may turn an argmax
+    for key, a, b in (("s1_vs_generate_grounded", tokens["s1_grounded_greedy"], batch[0]),
+                      ("s1_vs_s2", tokens["s1_grounded_greedy"], tokens["s2_grounded_spec7"]),
+                      ("generate_grounded_greedy_vs_spec7", batch[0], batch[DRAFT])):
+        first = [first_difference(x, y) for x, y in zip(a, b)]
+        out[f"{key}_first_difference"] = first
+        log(f"  {key}: {first.count(-1)} of {SERVE_REQS} texts equal; first differing token "
+            f"{first}")
+
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
+    prompts = [SERVE_TEMPLATE + chr(ord("A") + i) + "".join(rng.choice(letters, n - 1))
+               for i, n in enumerate(rng.integers(20, 61, TEXT_REQS))]
+    budgets = [int(x) for x in rng.integers(16, NEW + 1, TEXT_REQS)]
+    server = TextServer(params["cogvlm"], cfg.vlm, tok, n_slots=TEXT_SLOTS, max_new_tokens=NEW,
+                        chunk=SERVE_CHUNK, seq_quant=64, max_prompt_len=PROMPT, device="cuda")
+
+    def text_want(stats, res):
+        n = LAYERS * SERVE_CHUNK * stats["chunks"]
+        return {"K3": LAYERS, "K1": n}, {"K1": {"append": n}}
+
+    res, r = _serve_run("s3_text_prefix_cache", server, (prompts, budgets), text_want)
+    if (len(res) != TEXT_REQS or r["stats"]["refilled_mid_flight"] < 1
+            or r["stats"]["prefix_len"] < 96):
+        raise AssertionError(f"s3: {len(res)} texts, stats {r['stats']}")
+    r["smax"], r["budgets"] = server.smax, budgets
+    r["prompt_tokens"] = [1 + len(tok.encode(p)) for p in prompts]
+    out["s3_text_prefix_cache"] = r
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def flagship_train_batch(mode: str, gen) -> dict:
@@ -2523,21 +2823,24 @@ def profile_run(run, stages=STAGES):
         f"({100 * busy_us / 1e6 / wall_s:.1f}% of wall), {len(events)} events")
     # a stage's span is recorded on the host (its CPU time) and on the device
     # timeline (first to last of its kernels); the kernels that start inside
-    # the device span give the stage's busy time
-    host_span = {e[0]: e for e in events if e[0] in stages and e[1] == DeviceType.CPU}
-    device_span = {e[0]: e for e in events if e[0] in stages and e[1] == DeviceType.CUDA}
+    # the device span give the stage's busy time; a stage that runs several
+    # times (a chunk of the prefill, a server's decode chunk) sums its spans
     starts = sorted((start, us) for _, _, start, us in kernels)
     stage_times = {}
     for name in stages:
-        h, d = host_span.get(name), device_span.get(name)
-        stage = {"host_ms": None if h is None else h[3] / 1e3,
-                 "device_span_ms": None, "kernels_ms": None, "launches": None}
-        if d is not None:
-            lo = bisect.bisect_left(starts, (d[2], -1.0))
-            hi = bisect.bisect_left(starts, (d[2] + d[3], -1.0))
-            stage["device_span_ms"] = d[3] / 1e3
-            stage["kernels_ms"] = sum(us for _, us in starts[lo:hi]) / 1e3
-            stage["launches"] = hi - lo
+        host = [e for e in events if e[0] == name and e[1] == DeviceType.CPU]
+        dev = [e for e in events if e[0] == name and e[1] == DeviceType.CUDA]
+        stage = {"host_ms": sum(e[3] for e in host) / 1e3 if host else None,
+                 "device_span_ms": None, "kernels_ms": None, "launches": None,
+                 "spans": len(host)}
+        if dev:
+            stage.update(device_span_ms=0.0, kernels_ms=0.0, launches=0)
+            for d in dev:
+                lo = bisect.bisect_left(starts, (d[2], -1.0))
+                hi = bisect.bisect_left(starts, (d[2] + d[3], -1.0))
+                stage["device_span_ms"] += d[3] / 1e3
+                stage["kernels_ms"] += sum(us for _, us in starts[lo:hi]) / 1e3
+                stage["launches"] += hi - lo
         stage_times[name] = stage
         log(f"    stage {name:12s} " + ", ".join(
             f"{k} {'n/a' if v is None else f'{v:.3f}'}" for k, v in stage.items()))
@@ -2765,10 +3068,14 @@ def main() -> int:
     results["kernels"] = phase("kernels", kernel_phase, peaks, gen)
     results["qdot"] = phase("qdot", qdot_phase, peaks, gen)
     results["tiny_reference"] = phase("tiny_reference", tiny_reference_phase)
+    results["tiny_serving"] = phase("tiny_serving", tiny_serving_phase)
     # the flagship's inputs come from a generator of their own, so that the
     # checks above do not change them
     results["flagship"], launches = phase("flagship", flagship_phase,
-                                          torch.Generator(device="cuda").manual_seed(0))
+                                          torch.Generator(device="cuda").manual_seed(0), True,
+                                          True)
+    results["phase_s"]["flagship_serving (within flagship)"] = \
+        results["flagship"]["serving"]["seconds"]
     torch.cuda.empty_cache()
     results["tiny_train"] = phase("tiny_train", tiny_train_phase)
     results["flagship_train"], train_launches = phase(
@@ -2793,6 +3100,10 @@ def main() -> int:
         forms = results["flagship"]["runs"].get(run, {}).get("launches_by_form", {})
         if counter in forms:
             entry["launches_by_form"] = forms[counter]
+        # the servers' steady runs (s1)-(s3), each counted from 0
+        entry["launches_serving"] = {label: v["launches"].get(counter, 0) for label, v in
+                                     results["flagship"]["serving"].items()
+                                     if isinstance(v, dict) and "launches" in v}
         entry.update({k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")})
         entry.update({k: v for k, v in r.items() if k not in entry})

@@ -12,18 +12,24 @@ instance SAM) and on the LoRA training step (``train/``, ``peft/``; the
 flash backward K7) are CUDA C++ kernels in ``csrc/`` (K1-K11; K12 is K4's
 kernel; probe P1 is a variant of it), built with ``nvcc`` at first use;
 every kernel wrapper takes its plain PyTorch version for CPU tensors and
-launches the kernel for CUDA tensors.
+launches the kernel for CUDA tensors. The continuous-batching servers
+(``models/serving.py``), the text-generation harness
+(``models/llm_batch.py``), the YAML configs (``config.py``), the ``.npz``
+checkpoints (``train/checkpoint.py``) and the builders (``build.py``) run
+on the same kernels.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 from .models.inference import GroundedResult, generate_grounded
-from .models.mmmm import MMMMConfig
+from .models.llm_batch import make_text_generator
+from .models.mmmm import MMMMConfig, MMMMModel
+from .models.serving import GroundedServer, TextServer
 from .ops.quant import quantize_llm_for_serving
 from .params import init_params, params_from_jax, train_state_from_jax
 from .peft.lora import LoraConfig
 from .train import OptimizerConfig, init_train_state, make_optimizer, make_train_step
 
-__all__ = ["GroundedResult", "LoraConfig", "MMMMConfig", "OptimizerConfig",
-           "generate_grounded", "init_params", "init_train_state", "make_optimizer",
-           "make_train_step", "params_from_jax", "quantize_llm_for_serving",
-           "train_state_from_jax"]
+__all__ = ["GroundedResult", "GroundedServer", "LoraConfig", "MMMMConfig", "MMMMModel",
+           "OptimizerConfig", "TextServer", "generate_grounded", "init_params",
+           "init_train_state", "make_optimizer", "make_text_generator", "make_train_step",
+           "params_from_jax", "quantize_llm_for_serving", "train_state_from_jax"]

@@ -1,8 +1,10 @@
 """MMMM tokenizer: a base LM tokenizer + the 8 grounding special tokens.
 
-The port's own copy of ``mmmm_tpu/data/tokenizer.py`` with the byte-level
-backend only (ids 0 pad, 1 bos, 2 eos, 3..258 bytes); the HuggingFace
-backend waits until a real vocabulary ships with the repository.
+The port's own copy of ``mmmm_tpu/data/tokenizer.py``. The backend is
+pluggable: ``MMMMTokenizer.from_pretrained(path)`` wraps a HuggingFace fast
+tokenizer (``transformers`` is imported there only), and
+``MMMMTokenizer.byte_fallback()`` is a self-contained byte-level tokenizer
+(ids 0 pad, 1 bos, 2 eos, 3..258 bytes) for tests and random-weight runs.
 
 ``parse_targets`` extracts grounded phrase spans from generated ids using the
 full span ``ids[bop+1 : i]``; ``compat_drop_last=True`` reproduces the
@@ -35,6 +37,30 @@ class _ByteBackend:
         return data.decode("utf-8", errors="replace")
 
 
+class _HFBackend:
+    """Wraps a HuggingFace fast tokenizer already holding the base vocab.
+
+    ``handles_specials``: the 8 MMMM specials are AddedTokens inside the HF
+    tokenizer, so one ``encode`` call splits on them natively; encoding the
+    segments separately would give every post-special segment its own
+    sentencepiece dummy-prefix space."""
+
+    handles_specials = True
+
+    def __init__(self, tok):
+        self.tok = tok
+        self.base_vocab_size = tok.vocab_size
+        self.pad_token_id = tok.pad_token_id if tok.pad_token_id is not None else 0
+        self.bos_token_id = tok.bos_token_id
+        self.eos_token_id = tok.eos_token_id
+
+    def encode(self, text: str) -> list[int]:
+        return self.tok.encode(text, add_special_tokens=False)
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self.tok.decode(ids)
+
+
 class MMMMTokenizer:
     def __init__(self, backend, special_to_id: dict[str, int] | None = None):
         self.backend = backend
@@ -57,6 +83,14 @@ class MMMMTokenizer:
         ) = (self._special_to_id[t] for t in SPECIAL_TOKENS)
 
     @classmethod
+    def from_pretrained(cls, path: str) -> "MMMMTokenizer":
+        from transformers import AutoTokenizer
+
+        tok = AutoTokenizer.from_pretrained(path, use_fast=True)
+        tok.add_tokens(list(SPECIAL_TOKENS), special_tokens=True)
+        return cls(_HFBackend(tok), {t: tok.convert_tokens_to_ids(t) for t in SPECIAL_TOKENS})
+
+    @classmethod
     def byte_fallback(cls) -> "MMMMTokenizer":
         return cls(_ByteBackend())
 
@@ -69,6 +103,8 @@ class MMMMTokenizer:
 
     def encode(self, text: str) -> list[int]:
         """Encode text, recognizing special tokens as atomic units."""
+        if getattr(self.backend, "handles_specials", False):
+            return self.backend.encode(text)
         ids: list[int] = []
         rest = text
         while rest:

@@ -27,14 +27,17 @@ attention goes through ``segment_attention(impl=attn_impl)`` (under
 Prefill attention is kernel K3 (causal, segment ids). Caches are per-layer
 (B, H, Smax, D) pairs in the model's dtype, or int8 dicts
 ``{"kq", "ks", "vq", "vs"}`` with one bf16 scale per (sample, head, slot);
-decode appends to them IN PLACE. A decode step feeds one token or a
-speculative verify window of up to 8 and dispatches as the reference's
-cache branch does:
+decode appends to them IN PLACE. A decode step feeds one token, a
+speculative verify window or a prompt suffix (the servers' prefix refill)
+and dispatches as the reference's cache branch does:
 
   cache   tokens  append, then attention
   pair    1       K1's fused form: K2's append inside K1's launch
   pair    2-8     K6's fused form: K5's append inside K6's launch (query j
                   sees slots < write_index + j + 1)
+  pair    > 8     plain: indexed write (``dus_rows``), then
+                  ``decode_attention_bhsd`` masked by the caller's
+                  ``kv_len``, the route the reference leaves to XLA
   int8    1       K9's fused form (K10's with ``q8_mxu=True``, the
                   reference's ``MMMM_Q8_MXU``, where its condition holds):
                   ``quantize_kv`` and K8's append inside the read's launch
@@ -236,22 +239,30 @@ def _cached_attention(q, k, v, cache, write_index, kv_len, q8_mxu=False):
     if sq == 1:
         kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
         return decode_attention_append(q, kc, vc, kt, vt, write_index, kv_len)
-    if sq > 8:
-        raise NotImplementedError(f"a verify window holds at most 8 tokens, got {sq}")
-    return decode_attention_window_append(q, kc, vc, k, v, write_index)
+    if sq <= 8:
+        return decode_attention_window_append(q, kc, vc, k, v, write_index)
+    dus_rows(kc, k.transpose(1, 2), write_index)
+    dus_rows(vc, v.transpose(1, 2), write_index)
+    valid = torch.arange(kc.shape[2], device=q.device) < kv_len[..., None]
+    return decode_attention_bhsd(q, kc, vc, valid)
 
 
 def llm_decode_step(params: dict, cfg: CogVLMConfig, inputs_embeds, position_ids, kv_caches,
                     write_index, kv_len, *, w8a8: bool = False, q8_mxu: bool = False):
-    """Decode one token per sample, or verify a window of Sq <= 8 tokens,
-    against the caches.
+    """Decode one token per sample, or a window of Sq tokens, against the
+    caches.
 
     inputs_embeds (B, Sq, C); position_ids (B, Sq); ``write_index`` (B,)
     int32 is the first slot the window's K/V goes to. ``kv_len`` is (B,)
-    int32, the valid slots including the token, for Sq = 1; for a window it
-    is (B, Sq) with ``kv_len[b, j] = write_index[b] + j + 1`` (query j sees
-    the prefix and the window causally), the contract the window kernel K6
-    derives from ``write_index``. The caches are updated IN PLACE and
+    int32, the valid slots including the token, for Sq = 1, and (B, Sq) for
+    a window: query j sees the slots ``< kv_len[b, j]``. On a bf16 cache a
+    window of 2 to 8 tokens (K6) does not read ``kv_len``: it assumes
+    ``kv_len[b, j] = write_index[b] + j + 1`` (query j sees the prefix and
+    the window causally), which the verify windows pass; where a caller
+    clamps ``kv_len`` past its valid positions (the servers' prefix refill),
+    only those clamped positions' outputs, and their cache slots, which no
+    later step reads before overwriting, differ from the reference's. Every
+    other window reads ``kv_len``. The caches are updated IN PLACE and
     returned. ``w8a8`` runs the projections W8A8; ``q8_mxu`` asks for the
     split-int8 read of an int8 cache. Returns (hidden (B, Sq, C) after the
     final norm, caches)."""

@@ -1,6 +1,7 @@
 """Top-level MMMM configuration, the grounding projection and the training
 loss, the port of ``mmmm_tpu/models/mmmm.py`` (``MMMMConfig`` with its loss
-fields, ``vg_project``, ``gather_vg_prompts``, ``MMMMModel.training_step``).
+fields, ``vg_project``, ``gather_vg_prompts``, ``MMMMModel.training_step``),
+and ``MMMMModel``, the front that ``build.build_model`` returns.
 
 Precision policy of the reference: the VLM runs in the parameter dtype
 (bf16 when serving or training with ``bf16_vlm``), SAM, iSAM and
@@ -17,6 +18,7 @@ from torch.profiler import record_function
 
 from ..ops.fused_ce import fused_weighted_ce_loss
 from ..ops.resample import nearest_resize
+from ..params import init_params
 from ..peft.lora import materialize
 from .cogvlm import CogVLMConfig
 from .cogvlm.model import cogvlm_forward
@@ -45,6 +47,17 @@ class MMMMConfig:
     @classmethod
     def tiny(cls, vocab_size: int = 128) -> "MMMMConfig":
         return cls(vlm=CogVLMConfig.tiny(vocab_size), sam=SamConfig.tiny())
+
+
+class MMMMModel:
+    """A config and the way to make its parameters (``params.init_params``)."""
+
+    def __init__(self, cfg: MMMMConfig):
+        self.cfg = cfg
+
+    def init(self, seed: int = 0, dtype: torch.dtype = torch.float32,
+             device: str | torch.device = "cuda") -> dict:
+        return init_params(self.cfg, seed, dtype, device)
 
 
 def vg_project(params: dict, hidden: torch.Tensor) -> torch.Tensor:

@@ -4,8 +4,9 @@
 Each verify step drafts ``draft_len`` tokens by looking the trailing n-gram
 up in the request's own history (prompt plus what was generated), feeds the
 current token and the drafts as one window of ``k = draft_len + 1`` tokens
-through ``llm_decode_step`` (one pass over the weights; the cache appends
-and reads are kernels K5 and K6 on a bf16 cache), and commits the longest
+through ``llm_decode_step`` (one pass over the weights; on a bf16 cache a
+window of up to 8 is K6 with K5's append inside its launch, a longer one
+the decoder's plain route), and commits the longest
 draft prefix that matches the model's own fp32 argmax, plus the model's
 next token. The output is token-identical to greedy decoding, with the
 ``<p>`` position freeze applied across the window and greedy's eos and
@@ -72,15 +73,16 @@ def ngram_speculative_generate(params: dict, cfg: CogVLMConfig, input_ids, token
                                w8a8: bool = False, w8a8_prefill: bool = False):
     """Drop-in replacement for ``greedy_generate`` with n-gram speculation:
     the same tokens, ``num_generated`` and per-token hidden states. A window
-    holds ``k = draft_len + 1 <= 8`` tokens; the caches get ``k`` slack slots
-    so a full window always fits. ``prefill_chunk > 0`` prefills in batch
+    holds ``k = draft_len + 1`` tokens, any ``draft_len >= 1`` as in the
+    reference; the caches get ``k`` slack slots so a full window always
+    fits. ``prefill_chunk > 0`` prefills in batch
     chunks (``chunked_prefill_decode_state``, cut back to the true batch
     before the verify loop). ``return_stats=True`` also returns
     ``{"iters": verify steps, "tokens_per_step": committed tokens per row
     and step}``."""
     k = draft_len + 1
-    if not 2 <= k <= 8:
-        raise ValueError(f"draft_len must be in [1, 7], got {draft_len}")
+    if draft_len < 1:
+        raise ValueError(f"draft_len must be at least 1, got {draft_len}")
     b, s_prompt = input_ids.shape
     dev = input_ids.device
     smax = s_prompt + max_new_tokens + k

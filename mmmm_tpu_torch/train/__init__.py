@@ -1,5 +1,6 @@
-"""Training of the port: the optimizer (``optim.py``) and the LoRA training
-step (``step.py``)."""
+"""Training of the port: the optimizer (``optim.py``), the LoRA training
+step (``step.py``) and the ``.npz`` adapter and parameter files
+(``checkpoint.py``)."""
 from .optim import AdamW, OptimizerConfig, make_optimizer
 from .step import TrainState, effective_params, init_train_state, make_step_fn, make_train_step
 

@@ -963,3 +963,66 @@ def test_window_append_fused_several_tiles_a_warp(cuda, dtype):
     kc, vc, q, kn, vn = _window_step(g, cuda, 2, 8, 2, 2100, 128, dtype)
     for widx in ([2092, 700], [28, 1000], [-1, 2099], [-2000, 222]):
         _check_window_append(kc, vc, q, kn, vn, widx)
+
+
+# ---- the servers' slot pool and prefix refill ---------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,smax,d", [(4, 32, 337, 128), (8, 32, 401, 128), (2, 4, 81, 16)])
+def test_decode_append_fused_pool_rows(cuda, b, h, smax, d):
+    """K1's fused form at a server pool's ragged rows: each slot at its own
+    write index with ``kv_len = write + 1``, idle slots clamped to the last
+    slot (``kv_len == Smax``), over an Smax that is not a multiple of 32
+    (B = 2, H = 4: the heads split over a cluster); the caches bit-equal to
+    ``kv_append_plain``'s, the output within 2e-2 of the plain version, one
+    launch of form "append"."""
+    g = torch.Generator(device=cuda).manual_seed(smax)
+    q, kc, vc = _k1_inputs(g, cuda, b, h, smax, d, torch.bfloat16)
+    kn, vn = (torch.randn(b, h, 1, d, generator=g, device=cuda).bfloat16() for _ in range(2))
+    widx = [smax - 1, 0, 130, smax - 1, 5, 300, 77, smax - 2][:b]
+    w = torch.tensor(widx, dtype=torch.int32, device=cuda)
+    n = w + 1
+    rk, rv = kc.clone(), vc.clone()
+    ref = pdec.decode_attention_append_plain(q, rk, rv, kn, vn, w, n)
+    before = (pdec.K1.launches, pdec.K1.forms.get("append", 0))
+    got = pdec.decode_attention_append(q, kc, vc, kn, vn, w, n)
+    assert (pdec.K1.launches, pdec.K1.forms.get("append", 0)) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(kc, rk) and torch.equal(vc, rv)
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=0)
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+def test_decode_window_past_eight_on_the_card(cuda):
+    """A 64-token window through ``llm_decode_step`` on a pair cache (the
+    prefix refill's route past K6's 8, ``kv_len`` clamped for the second
+    row's padding) on the card equals the same step on the CPU at the tiny
+    config in fp32: hidden states and caches within 1e-4."""
+    from mmmm_tpu_torch import MMMMConfig, init_params
+    from mmmm_tpu_torch.models.cogvlm import decoder
+
+    cfg = MMMMConfig.tiny()
+    llm = init_params(cfg, 0, torch.float32, "cpu")["cogvlm"]["llm"]
+    g = torch.Generator().manual_seed(0)
+    b, p, s, smax = 2, 40, 64, 128
+    emb, x = (torch.randn(b, n, cfg.vlm.hidden_size, generator=g) * 0.02 for n in (p, s))
+    pos = torch.arange(p, dtype=torch.int32).expand(b, p)
+    wpos = p + torch.arange(s).expand(b, s)
+    sfx = torch.tensor([s, 37], dtype=torch.int32)
+    kv_len = (p + torch.minimum(torch.arange(s)[None], sfx[:, None] - 1) + 1).to(torch.int32)
+    write = torch.full((b,), p, dtype=torch.int32)
+    out = []
+    for dev in ("cpu", cuda):
+        params = _to(llm, dev)
+        _, caches = decoder.llm_prefill(params, cfg.vlm, emb.to(dev), torch.zeros_like(pos).to(dev),
+                                        pos.to(dev), torch.ones_like(pos).to(dev), smax=smax)
+        h, caches = decoder.llm_decode_step(params, cfg.vlm, x.to(dev), wpos.to(dev), caches,
+                                            write.to(dev), kv_len.to(dev))
+        out.append((h.cpu(), [t.cpu() for layer in caches for t in layer]))
+    (ref, ref_caches), (got, got_caches) = out
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+    for tg, tc in zip(got_caches, ref_caches):
+        torch.testing.assert_close(tg, tc, atol=1e-4, rtol=0)

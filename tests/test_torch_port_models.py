@@ -106,6 +106,53 @@ def test_llm_prefill_and_decode_step(setup, vis_span):
         np.testing.assert_allclose(pv.numpy(), np.asarray(jv), **TOL)
 
 
+def _cache_leaves(cache):
+    return list(cache.values()) if isinstance(cache, dict) else list(cache)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("sq", [8, 9, 16])
+def test_decode_window_with_clamped_kv_len(setup, kv, sq):
+    """A prompt suffix as one decode window, as the servers' prefix refill
+    runs it: write index p and ``kv_len[b, j] = p + min(j, suffix_len[b] - 1)
+    + 1``, the second row's last 3 positions padding. The valid positions'
+    hidden states and the cache slots below ``p + suffix_len`` equal the
+    reference's. Windows of more than 8 tokens read ``kv_len`` on either
+    cache (every position equal); a pair-cache window of at most 8 is K6's,
+    which assumes ``kv_len[b, j] = p + j + 1``."""
+    jcfg, jparams, cfg, pparams = setup
+    rng = np.random.default_rng(3)
+    b, p, smax = 2, 10, 32
+    c = cfg.vlm.hidden_size
+    emb, tt, pos, _ = _prompt(rng, b, p, 6, c)
+    seg = np.ones((b, p), np.int32)
+    jllm, pllm = jparams["cogvlm"]["llm"], pparams["cogvlm"]["llm"]
+    _, jcaches = jdecoder.llm_prefill(jllm, jcfg.vlm, jnp.asarray(emb), jnp.asarray(tt),
+                                      jnp.asarray(pos), jnp.asarray(seg), smax=smax,
+                                      attn_impl="xla", kv_cache_dtype=kv)
+    _, pcaches = pdecoder.llm_prefill(pllm, cfg.vlm, _t(emb), _t(tt), _t(pos), _t(seg),
+                                      smax=smax, kv_cache_dtype=kv)
+    x = rng.normal(size=(b, sq, c)).astype(np.float32) * 0.02
+    wpos = (p + np.arange(sq, dtype=np.int32))[None].repeat(b, 0)
+    write = np.full((b,), p, np.int32)
+    sfx = np.array([sq, sq - 3], np.int32)
+    kv_len = (p + np.minimum(np.arange(sq)[None], sfx[:, None] - 1) + 1).astype(np.int32)
+    jh, jcaches = jdecoder.llm_decode_step(jllm, jcfg.vlm, jnp.asarray(x), None,
+                                           jnp.asarray(wpos), jcaches, jnp.asarray(write),
+                                           jnp.asarray(kv_len), attn_impl="xla")
+    ph, pcaches = pdecoder.llm_decode_step(pllm, cfg.vlm, _t(x), _t(wpos), pcaches, _t(write),
+                                           _t(kv_len))
+    jh = np.asarray(jh)
+    for row, n in enumerate(sfx):
+        np.testing.assert_allclose(ph[row, :n].numpy(), jh[row, :n], **TOL)
+        for jl, pl in zip(jcaches, pcaches):
+            for jt, pt in zip(_cache_leaves(jl), _cache_leaves(pl)):
+                np.testing.assert_allclose(pt[row, :, : p + n].float().numpy(),
+                                           np.asarray(jt, np.float32)[row, :, : p + n], **TOL)
+    if sq > 8 or kv == "int8":
+        np.testing.assert_allclose(ph.numpy(), jh, **TOL)
+
+
 def test_vision_expert_mask():
     tt = np.array([[0, 1, 1, 1, 0, 0], [1, 1, 0, 1, 1, 1]], np.int32)
     np.testing.assert_array_equal(pdecoder.vision_expert_mask(_t(tt)).numpy(),

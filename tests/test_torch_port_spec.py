@@ -48,7 +48,8 @@ def quantized():
     return cfg, tok, jtree, params
 
 
-@pytest.mark.parametrize("spec,kv", [(3, "bf16"), (7, "bf16"), (0, "int8"), (3, "int8")])
+@pytest.mark.parametrize("spec,kv", [(3, "bf16"), (7, "bf16"), (8, "bf16"), (0, "int8"),
+                                     (3, "int8")])
 def test_generate_grounded_w8a16_matches_jax(quantized, spec, kv):
     cfg, tok, jtree, params = quantized
     jtok = JaxTokenizer.byte_fallback()
@@ -97,7 +98,7 @@ def test_speculative_matches_greedy(quantized, kv):
               pool_size=POOL, vis_span=(1, 1 + N_VIS), kv_cache_dtype=kv)
     with torch.inference_mode():
         res_g = greedy_generate(*args, **kw)
-        for draft_len in (3, 7):
+        for draft_len in (3, 7, 8):
             res_s, stats = ngram_speculative_generate(*args, draft_len=draft_len,
                                                       return_stats=True, **kw)
             assert torch.equal(res_s.tokens, res_g.tokens)
@@ -110,6 +111,37 @@ def test_speculative_matches_greedy(quantized, kv):
                                        rtol=0, atol=0)
             # the fixture's output repeats "a<p>z</p>", so drafts are accepted
             assert stats["iters"] < 12 and stats["tokens_per_step"] > 1.0
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_speculative_draft8_matches_jax(quantized, kv):
+    """``ngram_speculative_generate`` with 8 drafts (verify windows of 9,
+    past K6's 8: the decoder's plain route on a bf16 cache) against the
+    reference's: tokens, ``num_generated`` and verify steps equal; on the
+    bf16-path cache (fp32 here) the hidden states within 1e-4 (on the int8
+    cache a slot's quantization may round the other way)."""
+    from mmmm_tpu.models.speculate import ngram_speculative_generate as jax_spec
+
+    cfg, tok, jtree, params = quantized
+    jtok = JaxTokenizer.byte_fallback()
+    jcfg = JaxConfig.tiny(vocab_size=len(jtok))
+    ids, tt, pos, lens, img, _ = _prompts()
+    kw = dict(max_new_tokens=12, eos_token_id=tok.eos_token_id, bop_token_id=tok.bop_token_id,
+              eop_token_id=tok.eop_token_id, patch_size=PATCH, pool_size=POOL,
+              vis_span=(1, 1 + N_VIS), kv_cache_dtype=kv, draft_len=8, return_stats=True)
+    ref, ref_stats = jax_spec(jtree["cogvlm"], jcfg.vlm,
+                              *(jnp.asarray(x) for x in (ids, tt, pos, lens)),
+                              image=jnp.asarray(img), attn_impl="xla", **kw)
+    with torch.inference_mode():
+        got, stats = ngram_speculative_generate(
+            params["cogvlm"], cfg.vlm, *(torch.from_numpy(x) for x in (ids, tt, pos, lens)),
+            image=torch.from_numpy(img), **kw)
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(ref.tokens))
+    np.testing.assert_array_equal(got.num_generated.numpy(), np.asarray(ref.num_generated))
+    assert stats["iters"] == int(ref_stats["iters"]) < 12
+    for i, n in enumerate(got.num_generated.tolist() if kv == "bf16" else []):
+        np.testing.assert_allclose(got.hidden[i, :n].numpy(), np.asarray(ref.hidden)[i, :n],
+                                   atol=1e-4, rtol=0)
 
 
 def _jax_draft(hist, hist_len, n_draft, ngram):
@@ -155,6 +187,6 @@ def test_speculative_refuses_what_is_not_ported(quantized):
     with pytest.raises(ValueError, match="chunk_mode"):
         ngram_speculative_generate(*args, prefill_chunk=2, chunk_mode="llm", **kw)
     with pytest.raises(ValueError, match="draft_len"):
-        ngram_speculative_generate(*args, draft_len=8, **kw)
+        ngram_speculative_generate(*args, draft_len=0, **kw)
     with pytest.raises(ValueError, match="kv_cache_dtype"):
         greedy_generate(*args, kv_cache_dtype="fp8", **kw)
