@@ -95,7 +95,19 @@ Phases, in order; any failure exits non-zero before the result lines:
     over four seeds, the gradients of the ``"pallas"`` and ``"xla"`` routes
     held to each other in fp32, and each route's bf16 gradients measured
     against fp32, the kernels' route held to the plain route's distance;
- 7. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+ 7. the training loop (``Trainer.fit``): at conf/tiny/fit.yaml's values in
+    fp32 over a synthetic vision-language dataset of ``.pt`` volumes, 4
+    steps then a resumed run to 6, on the card and on the CPU from one
+    state: each step's ``lm_loss`` and ``grad_norm`` within 1e-5 relative,
+    the checkpoint restored bit for bit, ``adapter.npz`` read back, launches
+    exact at every bucket; 3 stage-0 ``align_training_step`` steps
+    (semantic, instance) card vs CPU; then ``Trainer.fit`` at the flagship's
+    full width and depth over conf/phase-vlm/data.yaml's data settings
+    (8 constant (1, 64, 320, 320) CT volumes, S = 1024, B = 4, 6 steps, a
+    checkpoint at step 6 and the adapter export): step time, data host time
+    a step, tokens/s, peak memory, checkpoint and export bytes and seconds,
+    exact launches every step;
+ 8. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 ``--log-dir`` keeps the build log and the results as JSON there.
 No JAX and nothing of ``mmmm_tpu`` is imported.
@@ -2767,6 +2779,387 @@ def _flat_values(tree):
             yield v
 
 
+
+# ---- the training loop (Trainer.fit) over a vision-language dataset ----
+# chip_smoke.py builds its run configs as Python dicts (the card has no
+# PyYAML); tests/test_torch_port_trainer.py holds these to the YAML files
+# they mirror. TINY_FIT is conf/tiny/fit.yaml as load_yaml resolves it.
+TINY_FIT = {
+    "model": {
+        "vlm": {"vocab_size": 267, "hidden_size": 64, "intermediate_size": 128,
+                "num_hidden_layers": 2, "num_attention_heads": 4,
+                "max_position_embeddings": 1024,
+                "vision": {"hidden_size": 32, "intermediate_size": 64, "num_hidden_layers": 2,
+                           "num_heads": 4, "patch_size": [4, 4, 4], "pos_embed_shape": [2, 4, 4],
+                           "pt_pos_embed_shape": [5, 5]}},
+        "sam": {"embed_dim": 32, "encoder_num_layers": 2, "encoder_num_heads": 4,
+                "patch_size": [4, 4, 4], "pos_embed_shape": [2, 4, 4], "num_instances": 3,
+                "decoder_mlp_dim": 64}},
+    "lora": {"r": 4, "alpha": 8},
+    "tokenizer": {"path": None},
+    "data": {"conf": {"base_vit_patch_size_z": 4, "vit_patch_size_xy": 4, "pool_size_xy": 1,
+                      "base_pool_size_z": 1, "max_seq_len": 640, "max_targets": 4,
+                      "max_instances": 8,
+                      "local_trans": {"max_vision_tokens": 64, "max_tokens_z": 4, "num_pos": 2,
+                                      "num_neg": 1}},
+             "datasets": []},
+    "optimizer": {"lr": 1.0e-3, "warmup_steps": 2, "max_steps": 4},
+    "trainer": {"max_steps": 4, "log_every": 1, "ckpt_every": 4, "batch_size": 2,
+                "mesh_model": 1, "out_dir": "runs/tiny"},
+}
+# conf/phase-vlm/data.yaml's conf and vl_trans, and conf/lora.yaml
+PHASE_VLM_DATA = {"conf": {"base_vit_patch_size_z": 16, "vit_patch_size_xy": 16,
+                           "pool_size_xy": 2, "base_pool_size_z": 2, "max_seq_len": 1024,
+                           "mimic_cxr_neg_weight": 0.2},
+                  "vl_trans": {"max_tokens": 144, "max_tokens_z": 4}}
+LORA_YAML = {"r": 64, "alpha": 8, "dropout": 0.05, "use_rslora": True}
+FIT_TINY_STEPS, FIT_TINY_RESUME = 4, 6
+FIT_STEPS, FIT_BATCH = 6, 4  # the flagship fit: 6 steps of 4, one checkpoint at step 6
+FIT_VOLUME = (1, 64, 320, 320)  # the flagship fit's CT volumes (C, D, H, W)
+REPORT_WORDS = ("the", "liver", "is", "normal", "in", "size", "and", "attenuation", "no",
+                "focal", "lesion", "lungs", "are", "clear", "without", "nodule", "or",
+                "effusion", "mild", "cardiomegaly", "heart", "kidneys", "spleen", "unremarkable")
+
+
+def with_keys(cfg: dict, **dotted) -> dict:
+    """A deep copy of ``cfg`` with ``a__b=value`` keyword overrides set at
+    ``cfg["a"]["b"]``."""
+    out = json.loads(json.dumps(cfg))
+    for key, value in dotted.items():
+        *parents, leaf = key.split("__")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return out
+
+
+def write_vl_dataset(root: Path, n: int, shape, *, report_chars: int, seed: int,
+                     constant: bool = False, vqa: bool = True) -> Path:
+    """A vision-language dataset of ``n`` cases in the layout of the VL
+    converters: ``train-processed.json`` beside ``torch.save``d uint8
+    (C, D, H, W) ``.pt`` volumes (random, or each one value with
+    ``constant``), each item with its image's shape, modality CT, a report
+    of about ``report_chars`` characters and, with ``vqa``, a VQA pair."""
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    items = []
+    for i in range(n):
+        if constant:
+            vol = np.full(shape, int(rng.integers(40, 216)), np.uint8)
+        else:
+            vol = rng.integers(0, 256, size=shape, dtype=np.uint8)
+        path = root / f"case{i}.pt"
+        torch.save(torch.from_numpy(vol), path)
+        words = []
+        while sum(len(w) + 1 for w in words) < report_chars:
+            words.append(str(rng.choice(REPORT_WORDS)))
+        item = {"key": f"case{i}", "image": [str(path)], "shape": [list(shape)],
+                "modality": ["CT"], "processed_report": "Findings: " + " ".join(words) + "."}
+        if vqa:
+            item["vqa"] = [{"question": "Is there a nodule?", "answer": "No." if i % 2 else "Yes."}]
+        items.append(item)
+    (root / "train-processed.json").write_text(json.dumps(items))
+    return root
+
+
+def build_trainer(cfg: dict, device: str, model_cfg=None):
+    """The port's ``fit`` command's objects from a config dict: tokenizer,
+    model (``model_cfg`` in place of the config's ``model`` section), the
+    dataset, and the ``Trainer`` on ``device``."""
+    import dataclasses
+    from mmmm_tpu_torch.build import build_dataset, build_model, build_tokenizer
+    from mmmm_tpu_torch.config import build
+    from mmmm_tpu_torch.models.mmmm import MMMMModel
+    from mmmm_tpu_torch.peft import LoraConfig
+    from mmmm_tpu_torch.train import OptimizerConfig
+    from mmmm_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    tok = build_tokenizer(cfg.get("tokenizer"))
+    if model_cfg is None:
+        model = build_model(cfg["model"], tok)
+    else:
+        model = MMMMModel(dataclasses.replace(model_cfg, bop_token_id=tok.bop_token_id,
+                                              eop_token_id=tok.eop_token_id))
+    dataset = build_dataset(cfg["data"], tok, Path("."))
+    return Trainer(model, dataset, build(OptimizerConfig, cfg["optimizer"]),
+                   build(LoraConfig, cfg["lora"]), build(TrainerConfig, cfg["trainer"]),
+                   device=device)
+
+
+def count_fit_steps(trainer) -> list:
+    """Wrap each step of ``trainer`` so that every call records its grounding
+    mode, the batch's S, vision tokens and image shape, and the kernel
+    launches of that step alone (every counter set to 0 before it)."""
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+
+    record = []
+    for mode, step in list(trainer.steps.items()):
+        def counted(state, frozen, batch, _step=step, _mode=mode):
+            for kern in KERNELS.values():
+                kern.reset()
+            entry = {"mode": _mode, "seq": int(batch["input_ids"].shape[1]),
+                     "vision_tokens": int((batch["token_type_ids"][0] == 1).sum()) - 2,
+                     "image": list(batch["image"].shape), "patch_size": batch["patch_size"],
+                     "pool_size": batch["pool_size"]}
+            out = _step(state, frozen, batch)
+            entry["launches"] = {n: k.launches for n, k in KERNELS.items() if k.launches}
+            record.append(entry)
+            return out
+        trainer.steps[mode] = counted
+    return record
+
+
+def fit_launches_expected(model_cfg, mode: str) -> dict:
+    """A step's launches under ``attn_impl="pallas"`` with ``remat``: K3
+    twice and K7dq, K7dkv and K7delta once at every flash site (the LLM's
+    and the ViT's layers, and the SAM encoder's with grounding)."""
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+
+    sites = model_cfg.vlm.num_hidden_layers + model_cfg.vlm.vision.num_hidden_layers
+    if mode != "none":
+        sites += model_cfg.sam.encoder_num_layers
+    want = {name: 0 for name in KERNELS}
+    want.update({"K3": 2 * sites, "K7dq": sites, "K7dkv": sites, "K7delta": sites})
+    return want
+
+
+def check_fit_launches(label: str, model_cfg, record: list) -> None:
+    for i, r in enumerate(record):
+        want = fit_launches_expected(model_cfg, r["mode"])
+        got = {name: r["launches"].get(name, 0) for name in want}
+        if got != want:
+            raise AssertionError(f"{label} step {i + 1} ({r['mode']}, S {r['seq']}): launches "
+                                 f"{r['launches']}, expected {want}")
+
+
+def _metrics(out_dir: Path) -> list:
+    return [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
+
+
+def tiny_fit_phase():
+    """``Trainer.fit`` at conf/tiny/fit.yaml's model, LoRA, data and trainer
+    values in fp32 (``bf16_vlm`` off) over a synthetic vision-language
+    dataset of six random ``.pt`` volumes with reports and VQA pairs: 4
+    steps, then a resumed run to 6, from one CPU-made state, on the card
+    and on the CPU (plain versions). Each step's ``lm_loss`` and
+    ``grad_norm`` agree within 1e-5 relative; the resumed runs start at
+    step 4; the checkpoint restores the 4-step state bit for bit;
+    ``adapter.npz`` reads back to the trainable tree; launches are exact
+    every step (``fit_launches_expected`` at each bucket). Then 3
+    ``align_training_step`` steps, semantic and instance, at
+    ``SamConfig.tiny()`` on the card and the CPU: the loss within 1e-5
+    relative, launches exact."""
+    import tempfile
+    from mmmm_tpu_torch import init_train_state
+    from mmmm_tpu_torch.peft.lora import flatten
+    from mmmm_tpu_torch.train.checkpoint import CheckpointManager, load_adapter
+
+    log("tiny fit: Trainer.fit on the card vs the CPU")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tiny_fit_"))
+    out = {"steps": {}}
+    try:
+        ds = write_vl_dataset(tmp / "VLSet", 6, (1, 8, 32, 32), report_chars=200, seed=0)
+        base = with_keys(TINY_FIT, data__vl_trans={"max_tokens": 64, "max_tokens_z": 4},
+                         data__datasets=[{"name": "VLSet", "type": "vl", "dir": str(ds)}],
+                         trainer__bf16_vlm=False, trainer__frozen_vlm_bf16=False,
+                         optimizer__max_steps=FIT_TINY_RESUME)
+        made = build_trainer(with_keys(base, trainer__out_dir=str(tmp / "init")), "cpu")
+        state0, frozen0 = init_train_state(made.model.cfg, made.optimizer, made.lora_cfg,
+                                           seed=made.cfg.seed, device="cpu")
+        records, metrics = {}, {}
+        for dev in ("cuda", "cpu"):
+            run_dir = tmp / f"run_{dev}"
+            records[dev] = []
+            for max_steps in (FIT_TINY_STEPS, FIT_TINY_RESUME):
+                cfg = with_keys(base, trainer__out_dir=str(run_dir),
+                                trainer__max_steps=max_steps)
+                trainer = build_trainer(cfg, dev)
+                rec = count_fit_steps(trainer)
+                start = (_state_to(state0, dev), _tree_to(frozen0, dev))
+                state = trainer.fit(resume=max_steps == FIT_TINY_RESUME, state=start)
+                records[dev] += rec
+                if max_steps == FIT_TINY_STEPS:
+                    like = {"trainable": state.trainable, "opt_state": state.opt_state}
+                    step, restored = CheckpointManager(run_dir / "ckpt", 4).restore(like)
+                    got, want = flatten(restored), flatten(like)
+                    same = step == FIT_TINY_STEPS and set(got) == set(want) and all(
+                        torch.equal(got[p], want[p]) if isinstance(want[p], torch.Tensor)
+                        else got[p] == want[p] for p in want)
+                    adapter = flatten(load_adapter(run_dir / "adapter.npz"))
+                    live = flatten(state.trainable)
+                    same_adapter = set(adapter) == set(live) and all(
+                        torch.equal(adapter[p], live[p].detach().cpu()) for p in live)
+                    log(f"  {dev}: step-4 checkpoint restores bit for bit: {same}; "
+                        f"adapter.npz reads back: {same_adapter}")
+                    if not (same and same_adapter):
+                        raise AssertionError(f"tiny fit {dev}: checkpoint or adapter differs")
+            metrics[dev] = _metrics(run_dir)
+            if [m["step"] for m in metrics[dev]] != list(range(1, FIT_TINY_RESUME + 1)):
+                raise AssertionError(f"tiny fit {dev}: steps {[m['step'] for m in metrics[dev]]}")
+        check_fit_launches("tiny fit (card)", made.model.cfg, records["cuda"])
+        rel = lambda a, b: abs(a - b) / abs(b)
+        for key in ("lm_loss", "grad_norm"):
+            errs = [rel(g[key], c[key]) for g, c in zip(metrics["cuda"], metrics["cpu"])]
+            out[f"{key}_rel_err"] = errs
+            check(f"tiny fit {key} card vs CPU, steps 1-6 (relative)", max(errs), 1e-5)
+        out["buckets"] = [{k: r[k] for k in ("mode", "seq", "vision_tokens", "patch_size")}
+                          for r in records["cuda"]]
+        out["launches"] = [r["launches"] for r in records["cuda"]]
+        log(f"  tiny fit buckets {out['buckets']}; launches exact at each")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["align"] = tiny_align_check()
+    return out
+
+
+def align_batch(instance: bool, b: int = 2, n: int = 3, lmax: int = 6) -> dict:
+    """A stage-0 patch batch at ``SamConfig.tiny()``: (3, 4, 16, 16)
+    patches, 3 classes a sample (the last of the second invalid), masks;
+    instance: boxes with Lmax 6 and index offsets."""
+    rng = np.random.default_rng(1)
+    batch = {"image": rng.uniform(size=(b, 3, 4, 16, 16)).astype(np.float32),
+             "patch_size": (4, 4, 4),
+             "class_idx": rng.integers(0, 5, size=(b, n)),
+             "class_valid": np.array([[True] * n, [True] * (n - 1) + [False]]),
+             "masks": (rng.uniform(size=(b, n, 4, 16, 16)) > 0.7).astype(np.float32)}
+    if instance:
+        batch["boxes_label"] = rng.uniform(0.2, 0.8, size=(b, lmax, 6)).astype(np.float32)
+        batch["index_offsets"] = np.array([[[0, 2], [2, 3], [3, 3]]] * b, np.int32)
+    return batch
+
+
+def tiny_align_check() -> dict:
+    from mmmm_tpu_torch import OptimizerConfig, make_optimizer
+    from mmmm_tpu_torch.models.align import AlignConfig, align_training_step
+    from mmmm_tpu_torch.models.segvol import SamConfig
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+    from mmmm_tpu_torch.params import init_sam_params
+    from mmmm_tpu_torch.peft.lora import flatten, unflatten
+    from mmmm_tpu_torch.train.step import batch_to
+
+    sam = SamConfig.tiny()
+    out = {}
+    for instance in (False, True):
+        label = "instance" if instance else "semantic"
+        cfg = AlignConfig(sam=sam, instance=instance)
+        init = flatten(init_sam_params(sam, instance, seed=0, device="cpu"))
+        emb = torch.from_numpy(np.random.default_rng(0).normal(size=(5, sam.embed_dim))
+                               .astype(np.float32) * 0.02)
+        losses = {}
+        for dev in ("cuda", "cpu"):
+            flat = {p: t.to(dev, copy=True).requires_grad_(True) for p, t in init.items()}
+            params, opt = unflatten(flat), make_optimizer(OptimizerConfig(lr=1e-3,
+                                                                           warmup_steps=1))
+            state = opt.init(flat)
+            batch = batch_to(align_batch(instance), torch.device(dev))
+            losses[dev] = []
+            for i in range(3):
+                for kern in KERNELS.values():
+                    kern.reset()
+                loss, _ = align_training_step(params, cfg, emb.to(dev), batch,
+                                              attn_impl="pallas")
+                grads = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
+                opt.step(flat, dict(zip(flat, grads)), state)
+                launches = {n: k.launches for n, k in KERNELS.items() if k.launches}
+                want = ({"K3": sam.encoder_num_layers, "K7dq": sam.encoder_num_layers,
+                         "K7dkv": sam.encoder_num_layers, "K7delta": sam.encoder_num_layers}
+                        if dev == "cuda" else {})
+                if launches != want:
+                    raise AssertionError(f"align {label} {dev} step {i + 1}: launches "
+                                         f"{launches}, expected {want}")
+                losses[dev].append(float(loss.detach()))
+        errs = [abs(g - c) / abs(c) for g, c in zip(losses["cuda"], losses["cpu"])]
+        check(f"align {label} loss card vs CPU, 3 steps (relative)", max(errs), 1e-5)
+        out[label] = {"loss": losses, "rel_err": errs}
+    return out
+
+
+def flagship_fit_phase(train_none_step_s: float | None) -> dict:
+    """``Trainer.fit`` at the flagship's full width and depth
+    (``MMMMConfig(vlm=CogVLMConfig.cogvlm17b(), sam=SamConfig())`` from seed
+    0), conf/lora.yaml's LoRA, AdamW lr 5e-5 with warmup 1, ``bf16_vlm``,
+    ``frozen_vlm_bf16``, ``remat``, ``"pallas"``, ``vis_span="auto"``; the
+    data of conf/phase-vlm/data.yaml (its ``conf`` and ``vl_trans``, with
+    ``log2_patch_size_z_std`` 0 so every batch has one shape) over 8
+    constant-valued (1, 64, 320, 320) ``.pt`` CT volumes with reports of
+    about 850 characters (the 1024 bucket). B = 4, 6 steps, ``log_every``
+    1, ``ckpt_every`` 6 (the manager also saves the first step it sees, as
+    orbax's does: steps 1 and 6, ``keep_ckpts`` 1), in a temporary directory
+    that the phase deletes.
+    Gates: every loss finite, launches exact every step (at S = 1024 a
+    ``"none"`` step is K3 2 x 95 and K7dq, K7dkv and K7delta 95 each)."""
+    import tempfile
+    from mmmm_tpu_torch.models.cogvlm import CogVLMConfig
+    from mmmm_tpu_torch.models.mmmm import MMMMConfig
+    from mmmm_tpu_torch.models.segvol import SamConfig
+
+    log("flagship fit: Trainer.fit at full width and depth")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fit_"))
+    out = {}
+    try:
+        usage = shutil.disk_usage(tmp)
+        log(f"  scratch {tmp}: {usage.free / 2**30:.1f} GiB free")
+        ds = write_vl_dataset(tmp / "CT-RATE", 8, FIT_VOLUME, report_chars=850, seed=0,
+                              constant=True, vqa=False)
+        cfg = {"tokenizer": {"path": None}, "lora": LORA_YAML,
+               "data": {"conf": PHASE_VLM_DATA["conf"],
+                        "vl_trans": {**PHASE_VLM_DATA["vl_trans"], "log2_patch_size_z_std": 0},
+                        "datasets": [{"name": "CT-RATE", "type": "vl", "dir": str(ds)}]},
+               "optimizer": {"lr": 5e-5, "warmup_steps": 1, "max_steps": 1000},
+               "trainer": {"max_steps": FIT_STEPS, "log_every": 1, "ckpt_every": FIT_STEPS,
+                           "batch_size": FIT_BATCH, "seed": 0, "out_dir": str(tmp / "run"),
+                           "keep_ckpts": 1,
+                           "bf16_vlm": True, "frozen_vlm_bf16": True, "remat": True,
+                           "attn_impl": "pallas", "vis_span": "auto"}}
+        model_cfg = MMMMConfig(vlm=CogVLMConfig.cogvlm17b(), sam=SamConfig())
+        trainer = build_trainer(cfg, "cuda", model_cfg=model_cfg)
+        record = count_fit_steps(trainer)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.fit(resume=False)
+        out["fit_s"] = time.perf_counter() - t0
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        metrics = _metrics(tmp / "run")
+        check_fit_launches("flagship fit", trainer.model.cfg, record)
+        if len(metrics) != FIT_STEPS or not all(np.isfinite(m["lm_loss"]) and
+                                                np.isfinite(m["grad_norm"]) for m in metrics):
+            raise AssertionError(f"flagship fit: bad metrics {metrics}")
+        first = record[0]
+        step_s = [1.0 / m["steps_per_sec"] for m in metrics]
+        files = lambda d: sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
+        ckpts = sorted((p for p in (tmp / "run" / "ckpt").iterdir() if p.name.isdigit()),
+                       key=lambda p: int(p.name))
+        out.update({
+            "seq": first["seq"], "vision_tokens": first["vision_tokens"],
+            "image": first["image"], "patch_size": first["patch_size"],
+            "pool_size": first["pool_size"], "modes": [r["mode"] for r in record],
+            "launches_per_step": first["launches"], "metrics": metrics, "step_s": step_s,
+            "steady_step_s": statistics.median(step_s[2:]),
+            "data_s": trainer.seconds["data"],
+            "checkpoint_steps": [p.name for p in ckpts],
+            "checkpoint_bytes": files(ckpts[-1]), "checkpoint_s": trainer.seconds["checkpoint"],
+            "adapter_bytes": (tmp / "run" / "adapter.npz").stat().st_size,
+            "adapter_s": trainer.seconds["export"],
+            "phase6_none_step_s": train_none_step_s})
+        out["tokens_per_s"] = FIT_BATCH * out["seq"] / out["steady_step_s"]
+        out["data_s_per_step"] = statistics.median(out["data_s"][1:])
+        log(f"  S {out['seq']}, vision tokens {out['vision_tokens']}, image {out['image']}, "
+            f"patch {out['patch_size']}, pool {out['pool_size']}, modes {out['modes']}")
+        log(f"  steps (host clock between log records) {['%.3f' % s for s in step_s]}; "
+            f"steady (median of steps 3-6) {out['steady_step_s']:.3f} s, "
+            f"{out['tokens_per_s']:.1f} tokens/s; phase 6's \"none\" step at its shapes "
+            f"{train_none_step_s} s; peak {out['peak_mem_gib']:.2f} GiB")
+        log(f"  data (scheduled_batches: plans, loads, transforms, resize_3d, collation) a "
+            f"step {['%.3f' % s for s in out['data_s']]} s")
+        log(f"  checkpoint {out['checkpoint_steps']}: {out['checkpoint_bytes'] / 2**30:.3f} GiB "
+            f"in {out['checkpoint_s']} s; adapter.npz {out['adapter_bytes'] / 2**30:.3f} GiB in "
+            f"{out['adapter_s']:.3f} s; whole fit {out['fit_s']:.1f} s; launches a step "
+            f"{out['launches_per_step']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
 # profiler spans of generate_grounded's stages (record_function names)
 STAGES = ("vit", "llm_prefill", "decode", "sam")
 KERNEL_GROUPS = (  # (label, substrings of a kernel name), first match wins
@@ -3078,11 +3471,15 @@ def main() -> int:
         results["flagship"]["serving"]["seconds"]
     torch.cuda.empty_cache()
     results["tiny_train"] = phase("tiny_train", tiny_train_phase)
+    results["tiny_fit"] = phase("tiny_fit", tiny_fit_phase)
     results["flagship_train"], train_launches = phase(
         "flagship_train", flagship_train_phase, torch.Generator(device="cuda").manual_seed(0))
     launches.update(train_launches)
     torch.cuda.empty_cache()
     results["train_routes"] = phase("train_routes", train_route_phase)
+    torch.cuda.empty_cache()
+    results["flagship_fit"] = phase("flagship_fit", flagship_fit_phase,
+                                    results["flagship_train"]["modes"]["none"]["steady_step_s"])
 
     # each K11 row's launches on its own weight shape, read from the counter
     by_shape = results["flagship"]["runs"][KERNEL_RUN["K11"]]["k11_launches_by_shape"]

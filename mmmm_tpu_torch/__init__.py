@@ -16,7 +16,11 @@ launches the kernel for CUDA tensors. The continuous-batching servers
 (``models/serving.py``), the text-generation harness
 (``models/llm_batch.py``), the YAML configs (``config.py``), the ``.npz``
 checkpoints (``train/checkpoint.py``) and the builders (``build.py``) run
-on the same kernels.
+on the same kernels. The training loop (``train/trainer.py Trainer``, its
+step checkpoints ``CheckpointManager``) streams the data layer's batches
+(``data/``: transforms, sampler, bucketing, ``MultiDataset``; ``utils/io.py``)
+into the training step; ``models/align.py`` is stage-0 SAM alignment;
+``cli.py`` has the ``fit`` and ``align-sam`` commands.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
@@ -27,9 +31,11 @@ from .models.serving import GroundedServer, TextServer
 from .ops.quant import quantize_llm_for_serving
 from .params import init_params, params_from_jax, train_state_from_jax
 from .peft.lora import LoraConfig
-from .train import OptimizerConfig, init_train_state, make_optimizer, make_train_step
+from .train import (OptimizerConfig, Trainer, TrainerConfig, init_train_state, make_optimizer,
+                    make_train_step)
 
 __all__ = ["GroundedResult", "GroundedServer", "LoraConfig", "MMMMConfig", "MMMMModel",
-           "OptimizerConfig", "TextServer", "generate_grounded", "init_params",
+           "OptimizerConfig", "TextServer", "Trainer", "TrainerConfig", "generate_grounded",
+           "init_params",
            "init_train_state", "make_optimizer", "make_text_generator", "make_train_step",
            "params_from_jax", "quantize_llm_for_serving", "train_state_from_jax"]

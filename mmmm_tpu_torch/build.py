@@ -1,10 +1,12 @@
 """Builders from config dicts, the port of ``mmmm_tpu/build.py``
-(``build_tokenizer``, ``build_model``, ``load_model_with_adapter``):
-a YAML run config -> tokenizer, model and parameters on the card.
+(``build_tokenizer``, ``build_model``, ``build_dataset``,
+``load_model_with_adapter``): a YAML run config -> tokenizer, model,
+dataset and parameters on the card.
 """
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import torch
 
@@ -29,6 +31,40 @@ def build_model(cfg: dict | None, tokenizer: MMMMTokenizer) -> MMMMModel:
         mcfg, bop_token_id=tokenizer.bop_token_id, eop_token_id=tokenizer.eop_token_id,
         vlm=dataclasses.replace(mcfg.vlm, vocab_size=max(mcfg.vlm.vocab_size, len(tokenizer))))
     return MMMMModel(mcfg)
+
+
+def build_dataset(cfg: dict, tokenizer: MMMMTokenizer, conf_dir: Path):
+    """The ``MultiDataset`` of a config's ``data`` section: ``conf`` (with
+    ``vl_trans`` and ``grg_trans``), the ``datasets`` specs (a relative
+    ``dir`` resolves against ``conf_dir``), ``target_tax`` and
+    ``skip_missing`` (default true: train on whatever subset of a roster is
+    on disk)."""
+    from .data.dataset import DatasetSpec, MultiDataset
+    from .data.grg import GRGTransConf
+    from .data.local import DatasetConf
+    from .data.vl import VLTransConf
+
+    dconf: DatasetConf = build(DatasetConf, cfg.get("conf") or {})
+    if cfg.get("vl_trans") is not None:
+        dconf.vl_trans = build(VLTransConf, cfg["vl_trans"])
+    if cfg.get("grg_trans") is not None:
+        dconf.grg_trans = build(GRGTransConf, cfg["grg_trans"])
+    specs = []
+    for s in cfg.get("datasets", []):
+        d = dict(s)
+        if d.get("dir"):
+            p = Path(d["dir"])
+            if not p.is_absolute():
+                p = (conf_dir / p).resolve()
+            d["dir"] = p
+        specs.append(DatasetSpec(**d))
+    target_tax = None
+    if tax_path := cfg.get("target_tax"):
+        from .data.target_tax import load_target_tax
+
+        target_tax = load_target_tax(tax_path)
+    return MultiDataset(dconf, specs, tokenizer, target_tax=target_tax,
+                        skip_missing=bool(cfg.get("skip_missing", True)))
 
 
 def load_model_with_adapter(config_path: str, adapter: str | None, quantize: bool = False,

@@ -137,6 +137,11 @@ class MMMMTokenizer:
             out.append(self.backend.decode(chunk))
         return "".join(out)
 
+    def wrap_name(self, name: str, pos: bool) -> str:
+        """A class name in ``<p> ...</p>`` (positive) or ``<np> ...</np>``."""
+        bop, eop = ("<p>", "</p>") if pos else ("<np>", "</np>")
+        return f"{bop} {name}{eop}"
+
     def _parse_targets(self, ids: Sequence[int], compat_drop_last: bool) -> list[str] | None:
         ret: list[str] = []
         last_bop: int | None = None

@@ -196,16 +196,11 @@ def _unflatten(flat: dict) -> dict:
     return tree
 
 
-def init_params(cfg: MMMMConfig, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
-                device: str | torch.device = "cuda") -> dict:
-    """Random parameters (normal(0, std) / zeros / ones, as the JAX init) made
-    on ``device`` from a ``torch.Generator`` seeded with ``seed``; the CogVLM
-    tower in ``dtype``, the grounding heads in fp32. The values differ from
-    the JAX init's (another generator)."""
+def _init_tree(spec: dict, seed: int, dtype: torch.dtype, device) -> dict:
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     flat = {}
-    for path, leaf in _flatten(param_spec(cfg)).items():
+    for path, leaf in _flatten(spec).items():
         dt = torch.float32 if leaf.fp32 else dtype
         if leaf.init == "normal":
             t = torch.randn(leaf.shape, generator=gen, dtype=dt, device=dev).mul_(leaf.std)
@@ -215,6 +210,24 @@ def init_params(cfg: MMMMConfig, seed: int = 0, dtype: torch.dtype = torch.bfloa
             t = torch.ones(leaf.shape, dtype=dt, device=dev)
         flat[path] = t
     return _unflatten(flat)
+
+
+def init_params(cfg: MMMMConfig, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
+                device: str | torch.device = "cuda") -> dict:
+    """Random parameters (normal(0, std) / zeros / ones, as the JAX init) made
+    on ``device`` from a ``torch.Generator`` seeded with ``seed``; the CogVLM
+    tower in ``dtype``, the grounding heads in fp32. The values differ from
+    the JAX init's (another generator)."""
+    return _init_tree(param_spec(cfg), seed, dtype, device)
+
+
+def init_sam_params(cfg, instance: bool = False, seed: int = 0,
+                    device: str | torch.device = "cuda") -> dict:
+    """A SAM tree alone, fp32, in the layout of the JAX package's
+    ``init_sam_params`` (``_sam_spec``), made as :func:`init_params` makes
+    its leaves; ``instance`` adds the box and presence heads. Stage-0
+    alignment trains it without the LLM."""
+    return _init_tree(_sam_spec(cfg, instance), seed, torch.float32, device)
 
 
 # the leaves quantize_llm_for_serving converts to {"q", "s"}

@@ -1,7 +1,19 @@
-""".npz export of adapters and parameter trees, the port of
-``save_adapter``, ``load_adapter``, ``save_params`` and ``load_params`` in
-``mmmm_tpu/train/checkpoint.py``, in the same file layout, so that each
-package reads the other's files: one array a leaf under its ``/``-joined
+"""Step checkpoints of the training state and the ``.npz`` export of
+adapters and parameter trees, the port of ``mmmm_tpu/train/checkpoint.py``.
+
+``CheckpointManager`` keeps a format of its own (the reference's is orbax,
+which is JAX): one directory ``<directory>/<step>/`` a saved step, holding
+one ``torch.save`` file per top-level key of the saved tree (the trainable
+tree and the AdamW state: ``count``, ``mu``, ``nu``) as CPU tensors. A step
+is written into a temporary directory that is then renamed into place, so a
+killed run never leaves half a checkpoint. It saves at the steps orbax's
+manager saves at: the steps that ``save_every`` divides, and the first step
+it sees when the directory holds no checkpoint; never a step at or below
+the latest on disk; ``keep`` retains the latest steps.
+
+``save_adapter``, ``load_adapter``, ``save_params`` and ``load_params`` keep
+the JAX package's file layout, so that each package reads the other's
+files: one array a leaf under its ``/``-joined
 path (list items as ``idx:N`` segments, non-array leaves JSON-encoded under
 the path plus ``"\\x00json"``; a zip member's name ends at the NUL, so
 both packages read such a leaf back as its uint8 JSON bytes).
@@ -14,10 +26,94 @@ and read back as bf16.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 from pathlib import Path
 
 import numpy as np
 import torch
+
+
+class CheckpointManager:
+    def __init__(self, directory: str | Path, save_every: int, keep: int | None = None):
+        self.directory = Path(directory).absolute()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self.save_every = save_every
+        self.keep = keep
+
+    def all_steps(self) -> list[int]:
+        return sorted(int(p.name) for p in self.directory.iterdir()
+                      if p.is_dir() and p.name.isdigit())
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def should_save(self, step: int) -> bool:
+        steps = self.all_steps()
+        if steps and steps[-1] >= step:
+            return False
+        return step % self.save_every == 0 or not steps
+
+    def maybe_save(self, step: int, state: dict) -> bool:
+        """Save ``state`` (a dict of trees of tensors and numbers) when the
+        interval policy says so; returns whether it saved."""
+        if not self.should_save(step):
+            return False
+        self._save(step, state)
+        return True
+
+    def force_save(self, step: int, state: dict) -> None:
+        """Unconditional save (the preemption path), ignoring the interval;
+        no-op when the step is already on disk."""
+        if step not in self.all_steps():
+            self._save(step, state)
+
+    def _save(self, step: int, state: dict) -> None:
+        tmp = self.directory / f".tmp-{step}"
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir()
+        for key, tree in state.items():
+            torch.save(_map_tensors(tree, lambda t: t.detach().cpu()), tmp / f"{key}.pt")
+        os.replace(tmp, self.directory / str(step))
+        if self.keep is not None:
+            for old in self.all_steps()[:-self.keep]:
+                shutil.rmtree(self.directory / str(old))
+
+    def restore(self, state_like: dict):
+        """``(step, state)`` of the latest checkpoint, each tensor on the
+        device of its counterpart in ``state_like`` (same keys), or
+        ``(None, None)`` when none is on disk."""
+        step = self.latest_step()
+        if step is None:
+            return None, None
+        out = {}
+        for key, like in state_like.items():
+            tree = torch.load(self.directory / str(step) / f"{key}.pt", weights_only=True)
+            out[key] = _place_like(tree, like, key)
+        return step, out
+
+    def wait(self) -> None:
+        """Saves are synchronous: nothing to wait for."""
+
+
+def _map_tensors(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def _place_like(tree, like, path: str):
+    if isinstance(like, dict):
+        if not isinstance(tree, dict) or set(tree) != set(like):
+            raise ValueError(f"checkpoint: {path} does not match the state's keys")
+        return {k: _place_like(tree[k], like[k], f"{path}/{k}") for k in like}
+    if isinstance(like, torch.Tensor):
+        if not isinstance(tree, torch.Tensor) or tree.shape != like.shape or \
+                tree.dtype != like.dtype:
+            raise ValueError(f"checkpoint: {path} does not match the state's tensor")
+        return tree.to(like.device)
+    return tree
 
 
 def _to_numpy(leaf) -> np.ndarray:

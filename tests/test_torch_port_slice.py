@@ -220,13 +220,37 @@ def test_port_imports_no_jax_and_no_library_kernels():
 
 
 def test_import_leaves_jax_out():
-    """Importing every module of the port, and chip_smoke.py, loads no JAX."""
+    """Importing every module of the port, and chip_smoke.py, loads no JAX,
+    and none of ``zstandard``, ``PIL`` and ``yaml``, which the card's
+    machine lacks (each is imported where a file that needs it is read)."""
     code = ("import importlib, pkgutil, sys, mmmm_tpu_torch, chip_smoke\n"
             "for m in pkgutil.walk_packages(mmmm_tpu_torch.__path__, 'mmmm_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
-            "assert 'jax' not in sys.modules, 'jax imported'\n"
-            "for m in ('ops.w4_matmul', 'peft.lora', 'train.step', 'train.optim'):\n"
+            "for m in ('jax', 'zstandard', 'PIL', 'yaml'):\n"
+            "    assert m not in sys.modules, m + ' imported'\n"
+            "for m in ('ops.w4_matmul', 'peft.lora', 'train.step', 'train.optim',\n"
+            "          'train.trainer', 'data.dataset', 'utils.io', 'models.align', 'cli'):\n"
             "    assert 'mmmm_tpu_torch.' + m in sys.modules, m")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_chip_smoke_fit_configs_mirror_the_yaml():
+    """chip_smoke.py builds its fit configs as dicts (the card has no
+    PyYAML): ``TINY_FIT`` is conf/tiny/fit.yaml as ``load_yaml`` resolves
+    it (tiny_fit_phase overrides only the dataset, ``vl_trans``, the
+    output directory, the step counts and the fp32 switches), the flagship
+    fit's data ``conf`` and ``vl_trans`` are conf/phase-vlm/data.yaml's
+    (flagship_fit_phase adds ``log2_patch_size_z_std: 0``), and its LoRA
+    is conf/lora.yaml."""
+    import chip_smoke
+    from mmmm_tpu_torch.config import load_yaml
+
+    assert chip_smoke.TINY_FIT == load_yaml(ROOT / "conf" / "tiny" / "fit.yaml")
+    vlm = load_yaml(ROOT / "conf" / "phase-vlm" / "data.yaml")
+    assert chip_smoke.PHASE_VLM_DATA == {"conf": vlm["conf"], "vl_trans": vlm["vl_trans"]}
+    assert "log2_patch_size_z_std" not in vlm["vl_trans"]
+    assert chip_smoke.LORA_YAML == load_yaml(ROOT / "conf" / "lora.yaml")
+    phase = load_yaml(ROOT / "conf" / "phase-vlm" / "fit.yaml")
+    assert phase["optimizer"]["lr"] == 5e-5 and phase["lora"] == chip_smoke.LORA_YAML
