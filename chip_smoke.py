@@ -107,7 +107,23 @@ Phases, in order; any failure exits non-zero before the result lines:
     checkpoint at step 6 and the adapter export): step time, data host time
     a step, tokens/s, peak memory, checkpoint and export bytes and seconds,
     exact launches every step;
- 8. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+ 8. the entry points at the flagship's full width: the checkpoint
+    importers (``train/import_torch.py``) on seeded HF CogVLM and SegVol
+    state dicts at 2 LLM and 2 ViT layers into a fresh tree on the card
+    (copied leaves bit-equal, resampled ones within 1e-6 of
+    ``F.interpolate``); the flagship at full depth loaded by
+    ``build.load_model_with_adapter`` from a dict of conf/phase-vlm/fit.yaml
+    with phase 7's ``adapter.npz``; the HF PEFT round trip
+    (``train/peft_export.py``) of a LoRA tree at conf/lora.yaml's rank,
+    bit for bit; the CLI's ``demo`` on a ``.pt`` CT volume (greedy, 128 new
+    tokens; then ``--speculate 7 --quantize``), its tokens those of
+    ``generate_grounded``; ``predict`` over 8 ``.pt`` report items batched
+    and ``--continuous`` and ``evaluate --suite all`` on each; the ViT with
+    ``pad_attention_heads`` against the unpadded and fp32 towers, and K4 at
+    D = 128 beside D = 112; ``sam_forward_prompted`` with a point, a box
+    and a mask prompt, card vs CPU. Each run counted from 0, launches
+    exact;
+ 9. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 ``--log-dir`` keeps the build log and the results as JSON there.
 No JAX and nothing of ``mmmm_tpu`` is imported.
@@ -116,8 +132,11 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import contextlib
 import gc
+import io
 import json
+import math
 import re
 import shutil
 import statistics
@@ -3075,7 +3094,7 @@ def tiny_align_check() -> dict:
     return out
 
 
-def flagship_fit_phase(train_none_step_s: float | None) -> dict:
+def flagship_fit_phase(train_none_step_s: float | None, keep_adapter: Path | None = None) -> dict:
     """``Trainer.fit`` at the flagship's full width and depth
     (``MMMMConfig(vlm=CogVLMConfig.cogvlm17b(), sam=SamConfig())`` from seed
     0), conf/lora.yaml's LoRA, AdamW lr 5e-5 with warmup 1, ``bf16_vlm``,
@@ -3086,7 +3105,8 @@ def flagship_fit_phase(train_none_step_s: float | None) -> dict:
     about 850 characters (the 1024 bucket). B = 4, 6 steps, ``log_every``
     1, ``ckpt_every`` 6 (the manager also saves the first step it sees, as
     orbax's does: steps 1 and 6, ``keep_ckpts`` 1), in a temporary directory
-    that the phase deletes.
+    that the phase deletes; ``keep_adapter`` is where the fit's
+    ``adapter.npz`` is moved first (phase 8 loads it).
     Gates: every loss finite, launches exact every step (at S = 1024 a
     ``"none"`` step is K3 2 x 95 and K7dq, K7dkv and K7delta 95 each)."""
     import tempfile
@@ -3156,9 +3176,694 @@ def flagship_fit_phase(train_none_step_s: float | None) -> dict:
             f"in {out['checkpoint_s']} s; adapter.npz {out['adapter_bytes'] / 2**30:.3f} GiB in "
             f"{out['adapter_s']:.3f} s; whole fit {out['fit_s']:.1f} s; launches a step "
             f"{out['launches_per_step']}")
+        if keep_adapter is not None:
+            shutil.move(tmp / "run" / "adapter.npz", keep_adapter)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+# ---- phase 8: the entry points (import, PEFT, demo, predict, evaluate) -------------
+# conf/model.yaml, and conf/phase-vlm/fit.yaml's model, tokenizer, data conf
+# and LoRA as load_yaml resolves them (the card has no PyYAML)
+MODEL_YAML = {
+    "vlm": {"vocab_size": 32008, "hidden_size": 4096, "intermediate_size": 11008,
+            "num_hidden_layers": 32, "num_attention_heads": 32,
+            "max_position_embeddings": 2048,
+            "vision": {"hidden_size": 1792, "intermediate_size": 15360, "num_hidden_layers": 63,
+                       "num_heads": 16, "patch_size": [16, 16, 16], "pos_embed_shape": [8, 32, 32],
+                       "pt_pos_embed_shape": [35, 35]}},
+    "sam": {"embed_dim": 768, "encoder_num_layers": 12, "encoder_num_heads": 12,
+            "patch_size": [16, 16, 16], "pos_embed_shape": [8, 32, 32], "num_instances": 6},
+    "lm_loss_weight": 1.0,
+    "mask_loss": {"dice_weight": 2, "focal_weight": 2, "focal_gamma": 2},
+    "isam_loss": {"use_neg_mask": False, "box_l1_weight": 5, "box_giou_weight": 2,
+                  "disc_weight": 2, "disc_focal_gamma": 2, "disc_focal_alpha": 0.85},
+}
+PHASE_VLM_FIT = {"model": MODEL_YAML, "tokenizer": {"path": None}, "lora": LORA_YAML,
+                 "data": {"conf": PHASE_VLM_DATA["conf"]}}
+IMPORT_LAYERS = 2  # LLM and ViT layers of the import check (full width)
+SEGVOL_PT_PATCH, SEGVOL_PT_POS = (4, 16, 16), (8, 8, 8)
+PREDICT_ITEMS, PREDICT_BATCH = 8, 4
+# run (a)'s image and grounding image, one sample each, and its patch and pool
+ENTRY_IMAGE, ENTRY_GIMAGE = (1, 3, 32, 384, 384), (1, 3, 32, 256, 256)
+ENTRY_PATCH, ENTRY_POOL = (16, 16, 16), (2, 2, 2)
+# (tree path, HF key format, transposed) of every leaf the importers copy
+# layer by layer; {} is the layer
+COGVLM_LAYER_COPIES = [
+    ("llm/layers/vis_qkv", "model.layers.{}.self_attn.vision_expert_query_key_value.weight", 1),
+    ("llm/layers/lang_qkv", "model.layers.{}.self_attn.language_expert_query_key_value.weight",
+     1),
+    ("llm/layers/vis_dense", "model.layers.{}.self_attn.vision_expert_dense.weight", 1),
+    ("llm/layers/lang_dense", "model.layers.{}.self_attn.language_expert_dense.weight", 1),
+    *[(f"llm/layers/{ours}/{p}", f"model.layers.{{}}.mlp.{hf}.{p}_proj.weight", 1)
+      for ours, hf in (("vis_mlp", "vision_mlp"), ("lang_mlp", "language_mlp"))
+      for p in ("gate", "up", "down")],
+    ("llm/layers/input_ln", "model.layers.{}.input_layernorm.weight", 0),
+    ("llm/layers/post_ln", "model.layers.{}.post_attention_layernorm.weight", 0),
+    *[(f"vision/layers/{ours}", f"model.vision.transformer.layers.{{}}.{hf}", t)
+      for ours, hf, t in (("qkv_w", "attention.query_key_value.weight", 1),
+                          ("qkv_b", "attention.query_key_value.bias", 0),
+                          ("dense_w", "attention.dense.weight", 1),
+                          ("dense_b", "attention.dense.bias", 0),
+                          ("ln1_w", "input_layernorm.weight", 0),
+                          ("ln1_b", "input_layernorm.bias", 0),
+                          ("ln2_w", "post_attention_layernorm.weight", 0),
+                          ("ln2_b", "post_attention_layernorm.bias", 0),
+                          ("fc1_w", "mlp.fc1.weight", 1), ("fc1_b", "mlp.fc1.bias", 0),
+                          ("fc2_w", "mlp.fc2.weight", 1), ("fc2_b", "mlp.fc2.bias", 0))],
+]
+COGVLM_COPIES = [("llm/norm", "model.norm.weight", 0),
+                 ("vision/patch/proj_b", "model.vision.patch_embedding.proj.bias", 0),
+                 ("vision/glu/linear_proj", "model.vision.linear_proj.linear_proj.weight", 1),
+                 ("vision/glu/ln_w", "model.vision.linear_proj.norm1.weight", 0),
+                 ("vision/glu/ln_b", "model.vision.linear_proj.norm1.bias", 0),
+                 ("vision/glu/gate", "model.vision.linear_proj.gate_proj.weight", 1),
+                 ("vision/glu/h4h", "model.vision.linear_proj.dense_h_to_4h.weight", 1),
+                 ("vision/glu/4hh", "model.vision.linear_proj.dense_4h_to_h.weight", 1)]
+SAM_LAYER_COPIES = [(f"encoder/layers/{ours}", f"image_encoder.blocks.{{}}.{hf}", t)
+                    for ours, hf, t in (("qkv_w", "attn.qkv.weight", 1),
+                                        ("out_w", "attn.out_proj.weight", 1),
+                                        ("out_b", "attn.out_proj.bias", 0),
+                                        ("ln1_w", "norm1.weight", 0), ("ln1_b", "norm1.bias", 0),
+                                        ("ln2_w", "norm2.weight", 0), ("ln2_b", "norm2.bias", 0),
+                                        ("fc1_w", "mlp.linear1.weight", 1),
+                                        ("fc1_b", "mlp.linear1.bias", 0),
+                                        ("fc2_w", "mlp.linear2.weight", 1),
+                                        ("fc2_b", "mlp.linear2.bias", 0))]
+RESAMPLED_LEAVES = {"cogvlm/vision/patch/pos", "cogvlm/vision/patch/proj_w",
+                    "sam/encoder/patch/proj_w", "sam/encoder/patch/pos"}
+
+
+def hf_cogvlm_state(vcfg, base_vocab: int, gen) -> dict:
+    """A seeded HF CogVLM state dict (torch names, Linear weights (out, in),
+    a (1 + 35 x 35, C) position table, a 14 x 14 patch conv) at ``vcfg``'s
+    width and depth, bf16 in host memory as a loaded checkpoint is."""
+    c, i, L = vcfg.hidden_size, vcfg.intermediate_size, vcfg.num_hidden_layers
+    v = vcfg.vision
+    cv, iv = v.hidden_size, v.intermediate_size
+    h0, w0 = v.pt_pos_embed_shape
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda", dtype=torch.bfloat16).mul_(
+        0.02).cpu()
+    one = lambda n: torch.ones(n, dtype=torch.bfloat16)
+    zero = lambda n: torch.zeros(n, dtype=torch.bfloat16)
+    vp = "model.vision."
+    sd = {"model.embed_tokens.weight": r(base_vocab, c), "model.norm.weight": one(c),
+          "lm_head.weight": r(base_vocab, c),
+          vp + "patch_embedding.position_embedding.weight": r(1 + h0 * w0, cv),
+          vp + "patch_embedding.proj.weight": r(cv, 3, 14, 14),
+          vp + "patch_embedding.proj.bias": r(cv), vp + "patch_embedding.cls_embedding": r(cv),
+          vp + "boi": r(1, 1, c), vp + "eoi": r(1, 1, c),
+          vp + "linear_proj.linear_proj.weight": r(c, cv), vp + "linear_proj.norm1.weight": one(c),
+          vp + "linear_proj.norm1.bias": zero(c), vp + "linear_proj.gate_proj.weight": r(i, c),
+          vp + "linear_proj.dense_h_to_4h.weight": r(i, c),
+          vp + "linear_proj.dense_4h_to_h.weight": r(c, i)}
+    for li in range(L):
+        p = f"model.layers.{li}."
+        for ex in ("vision", "language"):
+            sd[p + f"self_attn.{ex}_expert_query_key_value.weight"] = r(3 * c, c)
+            sd[p + f"self_attn.{ex}_expert_dense.weight"] = r(c, c)
+            sd[p + f"mlp.{ex}_mlp.gate_proj.weight"] = r(i, c)
+            sd[p + f"mlp.{ex}_mlp.up_proj.weight"] = r(i, c)
+            sd[p + f"mlp.{ex}_mlp.down_proj.weight"] = r(c, i)
+        sd[p + "input_layernorm.weight"] = one(c)
+        sd[p + "post_attention_layernorm.weight"] = one(c)
+    for li in range(v.num_hidden_layers):
+        p = vp + f"transformer.layers.{li}."
+        sd.update({p + "attention.query_key_value.weight": r(3 * cv, cv),
+                   p + "attention.query_key_value.bias": r(3 * cv),
+                   p + "attention.dense.weight": r(cv, cv), p + "attention.dense.bias": r(cv),
+                   p + "input_layernorm.weight": one(cv), p + "input_layernorm.bias": zero(cv),
+                   p + "post_attention_layernorm.weight": one(cv),
+                   p + "post_attention_layernorm.bias": zero(cv),
+                   p + "mlp.fc1.weight": r(iv, cv), p + "mlp.fc1.bias": r(iv),
+                   p + "mlp.fc2.weight": r(cv, iv), p + "mlp.fc2.bias": r(cv)})
+    return sd
+
+
+def hf_segvol_state(cfg, gen) -> dict:
+    """A seeded SegVol SAM state dict (keys relative to the sam module, fp32)
+    with the released patch (4, 16, 16) flattened, the (8, 8, 8) token grid,
+    4 mask tokens, 4-D LayerNormNd stats and the point prompt tables."""
+    c, L, md = cfg.embed_dim, cfg.encoder_num_layers, cfg.decoder_mlp_dim
+    internal = c // cfg.attention_downsample_rate
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda").mul_(0.02).cpu()
+    p0, p1, p2 = SEGVOL_PT_PATCH
+    sd = {"image_encoder.patch_embedding.patch_embeddings.1.weight": r(c, p0 * p1 * p2),
+          "image_encoder.patch_embedding.patch_embeddings.1.bias": r(c),
+          "image_encoder.patch_embedding.position_embeddings": r(1, math.prod(SEGVOL_PT_POS), c),
+          "image_encoder.norm.weight": torch.ones(c), "image_encoder.norm.bias": torch.zeros(c),
+          "prompt_encoder.pe_layer.positional_encoding_gaussian_matrix": r(3, c // 2) * 50,
+          "prompt_encoder.no_mask_embed.weight": r(1, c),
+          "prompt_encoder.not_a_point_embed.weight": r(1, c),
+          "mask_decoder.iou_token.weight": r(1, c), "mask_decoder.mask_tokens.weight": r(4, c),
+          "mask_decoder.output_upscaling.0.weight": r(c, c // 4, 2, 2, 2),
+          "mask_decoder.output_upscaling.0.bias": r(c // 4),
+          "mask_decoder.output_upscaling.1.weight": 1 + r(c // 4, 3, 3, 3),
+          "mask_decoder.output_upscaling.1.bias": r(c // 4, 3, 3, 3),
+          "mask_decoder.output_upscaling.3.weight": r(c // 4, c // 8, 2, 2, 2),
+          "mask_decoder.output_upscaling.3.bias": r(c // 8),
+          "mask_decoder.txt_align_upscaled_embedding.weight": r(c // 8, c),
+          "mask_decoder.txt_align_upscaled_embedding.bias": r(c // 8)}
+    for i in range(4):
+        sd[f"prompt_encoder.point_embeddings.{i}.weight"] = r(1, c)
+    for i in range(L):
+        p = f"image_encoder.blocks.{i}."
+        sd.update({p + "attn.qkv.weight": r(3 * c, c), p + "attn.out_proj.weight": r(c, c),
+                   p + "attn.out_proj.bias": r(c), p + "norm1.weight": torch.ones(c),
+                   p + "norm1.bias": torch.zeros(c), p + "norm2.weight": torch.ones(c),
+                   p + "norm2.bias": torch.zeros(c),
+                   p + "mlp.linear1.weight": r(cfg.encoder_mlp_dim, c),
+                   p + "mlp.linear1.bias": r(cfg.encoder_mlp_dim),
+                   p + "mlp.linear2.weight": r(c, cfg.encoder_mlp_dim), p + "mlp.linear2.bias": r(c)})
+
+    def attn(p, dim):
+        for proj in ("q_proj", "k_proj", "v_proj"):
+            sd[p + proj + ".weight"], sd[p + proj + ".bias"] = r(dim, c), r(dim)
+        sd[p + "out_proj.weight"], sd[p + "out_proj.bias"] = r(c, dim), r(c)
+
+    for i in range(cfg.decoder_depth):
+        p = f"mask_decoder.transformer.layers.{i}."
+        attn(p + "self_attn.", c)
+        attn(p + "cross_attn_token_to_image.", internal)
+        attn(p + "cross_attn_image_to_token.", internal)
+        for n in ("norm1", "norm2", "norm3", "norm4"):
+            sd[p + n + ".weight"], sd[p + n + ".bias"] = torch.ones(c), torch.zeros(c)
+        sd.update({p + "mlp.lin1.weight": r(md, c), p + "mlp.lin1.bias": r(md),
+                   p + "mlp.lin2.weight": r(c, md), p + "mlp.lin2.bias": r(c)})
+    attn("mask_decoder.transformer.final_attn_token_to_image.", internal)
+    sd["mask_decoder.transformer.norm_final_attn.weight"] = torch.ones(c)
+    sd["mask_decoder.transformer.norm_final_attn.bias"] = torch.zeros(c)
+    for mi in range(2):
+        p = f"mask_decoder.output_hypernetworks_mlps.{mi}."
+        sd.update({p + "layers.0.weight": r(c, c), p + "layers.0.bias": r(c),
+                   p + "layers.1.weight": r(c, c), p + "layers.1.bias": r(c),
+                   p + "layers.2.weight": r(c // 8, c), p + "layers.2.bias": r(c // 8)})
+    return sd
+
+
+def _plain_resample(x: torch.Tensor, shape, scale: bool = False) -> torch.Tensor:
+    """``F.interpolate``'s linear resize (half-pixel centers, no
+    anti-aliasing) on the CPU in fp32: the plain resampler the importer's
+    matrices are held to."""
+    mode = {2: "bilinear", 3: "trilinear"}[len(shape)]
+    lead = x.shape[:x.dim() - len(shape)]
+    flat = x.float().reshape(1, -1, *x.shape[x.dim() - len(shape):])
+    out = F.interpolate(flat, size=tuple(shape), mode=mode, align_corners=False)
+    out = out.reshape(*lead, *shape)
+    if scale:
+        out = out * (math.prod(x.shape[x.dim() - len(shape):]) / math.prod(shape))
+    return out
+
+
+def import_check(cfg) -> dict:
+    """``import_cogvlm``, ``import_segvol_sam`` and ``merge_imported`` at the
+    flagship's width with ``IMPORT_LAYERS`` LLM and ViT layers (the whole
+    tower in host memory would be about 36 GB): seeded HF-layout state dicts
+    -> a fresh ``init_params`` tree on the card. Every copied leaf must be
+    bit-equal to its source (transposed where the HF layout is (out, in));
+    the resampled leaves (the ViT's position grid (35, 35) -> (32, 32) and
+    patch conv 14 x 14 -> 16 x 16, mean-inflated over z; SAM's patch
+    (4, 16, 16) -> (16, 16, 16) and token grid (8, 8, 8) -> (8, 32, 32))
+    within 1e-6 of ``F.interpolate`` on the CPU, and on the card the same
+    values in the tree's dtype."""
+    import dataclasses
+    from mmmm_tpu_torch import init_params
+    from mmmm_tpu_torch.params import _flatten
+    from mmmm_tpu_torch.train.import_torch import (import_cogvlm, import_segvol_sam,
+                                                   merge_imported)
+
+    vlm = dataclasses.replace(cfg.vlm, num_hidden_layers=IMPORT_LAYERS, vision=dataclasses.replace(
+        cfg.vlm.vision, num_hidden_layers=IMPORT_LAYERS))
+    cut = dataclasses.replace(cfg, vlm=vlm)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    base_vocab = vlm.vocab_size - 8  # the released vocabulary, before the grounding tokens
+    t0 = time.perf_counter()
+    sd = hf_cogvlm_state(vlm, base_vocab, gen)
+    sam_sd = hf_segvol_state(cfg.sam, gen)
+    make_s = time.perf_counter() - t0
+    src_bytes = sum(t.numel() * t.element_size() for t in (*sd.values(), *sam_sd.values()))
+    fresh = init_params(cut, seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    imported = {"cogvlm": import_cogvlm(sd, vlm),
+                "sam": import_segvol_sam(sam_sd, cfg.sam, pt_in_channels=1,
+                                         pt_patch_size=SEGVOL_PT_PATCH,
+                                         pt_pos_embed_shape=SEGVOL_PT_POS)}
+    import_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = merge_imported(fresh, imported)
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    flat, imp = _flatten(params), _flatten(imported)
+    out_bytes = sum(flat[p].numel() * flat[p].element_size() for p in imp)
+
+    # the card's leaves are the importer's, in the tree's dtype, bit for bit
+    for path, t in imp.items():
+        if not torch.equal(flat[path].cpu(), t.to(flat[path].dtype)):
+            raise AssertionError(f"import: {path} on the card differs from the importer's")
+        if path not in RESAMPLED_LEAVES and t.dtype != flat[path].dtype:
+            raise AssertionError(f"import: copied leaf {path} is {t.dtype}, the tree's "
+                                 f"{flat[path].dtype}")
+    # every copied leaf is its source, transposed where HF stores (out, in)
+    copied = 0
+
+    def same(path, src, transpose):
+        nonlocal copied
+        src = src.T if transpose else src
+        if not torch.equal(flat[path].cpu(), src):
+            raise AssertionError(f"import: {path} is not bit-equal to its source")
+        copied += 1
+
+    for path, fmt, tr in COGVLM_LAYER_COPIES:
+        for li in range(IMPORT_LAYERS):
+            src = sd[fmt.format(li)]
+            if not torch.equal(flat[f"cogvlm/{path}"][li].cpu(), src.T if tr else src):
+                raise AssertionError(f"import: cogvlm/{path} layer {li} is not its source")
+            copied += 1
+    for path, key, tr in COGVLM_COPIES:
+        same(f"cogvlm/{path}", sd[key], tr)
+    for path, fmt, tr in SAM_LAYER_COPIES:
+        for li in range(cfg.sam.encoder_num_layers):
+            src = sam_sd[fmt.format(li)]
+            if not torch.equal(flat[f"sam/{path}"][li].cpu(), src.T if tr else src):
+                raise AssertionError(f"import: sam/{path} layer {li} is not its source")
+            copied += 1
+    vp = "model.vision.patch_embedding."
+    emb, head = flat["cogvlm/llm/embed_tokens"].cpu(), flat["cogvlm/llm/lm_head"].cpu()
+    if not (torch.equal(emb[:base_vocab], sd["model.embed_tokens.weight"])
+            and torch.equal(head[:, :base_vocab], sd["lm_head.weight"].T)
+            and torch.equal(flat["cogvlm/vision/patch/cls_pos"].cpu(),
+                            sd[vp + "position_embedding.weight"][:1])
+            and torch.equal(flat["cogvlm/vision/patch/cls"].cpu()[0], sd[vp + "cls_embedding"])):
+        raise AssertionError("import: the embeddings, head or cls leaves are not their source")
+    copied += 4
+    # the resampled leaves against F.interpolate
+    h0, w0 = vlm.vision.pt_pos_embed_shape
+    grid = sd[vp + "position_embedding.weight"][1:].reshape(h0, w0, -1).permute(2, 0, 1)[None]
+    want_pos = _plain_resample(grid, vlm.vision.pos_embed_shape[1:])[:, :, None].expand(
+        -1, -1, vlm.vision.pos_embed_shape[0], -1, -1)
+    want_proj = _plain_resample(sd[vp + "proj.weight"], vlm.vision.patch_size[1:], scale=True)
+    want_proj = (want_proj[:, :, None] / vlm.vision.patch_size[0]).expand(
+        -1, -1, vlm.vision.patch_size[0], -1, -1)
+    c = cfg.sam.embed_dim
+    pw = sam_sd["image_encoder.patch_embedding.patch_embeddings.1.weight"].reshape(
+        c, *SEGVOL_PT_PATCH, 1).permute(0, 4, 1, 2, 3)
+    want_sam_proj = _plain_resample(pw, cfg.sam.patch_size, scale=True).repeat(
+        1, cfg.sam.in_channels, 1, 1, 1) / cfg.sam.in_channels
+    spos = sam_sd["image_encoder.patch_embedding.position_embeddings"].reshape(
+        *SEGVOL_PT_POS, c).permute(3, 0, 1, 2)[None]
+    want_sam_pos = _plain_resample(spos, cfg.sam.pos_embed_shape)
+    resampled = {}
+    for path, want in (("cogvlm/vision/patch/pos", want_pos),
+                       ("cogvlm/vision/patch/proj_w", want_proj),
+                       ("sam/encoder/patch/proj_w", want_sam_proj),
+                       ("sam/encoder/patch/pos", want_sam_pos)):
+        resampled[path] = err = max_err(imp[path], want)
+        check(f"import {path} {tuple(want.shape)} against F.interpolate", err, 1e-6)
+    out = {"layers": IMPORT_LAYERS, "source_bytes": src_bytes, "tree_bytes_imported": out_bytes,
+           "make_state_dicts_s": make_s, "import_s": import_s, "merge_to_card_s": merge_s,
+           "leaves_imported": len(imp), "copies_checked": copied,
+           "resampled_max_abs_err": resampled}
+    log(f"  import at full width, {IMPORT_LAYERS} LLM and ViT layers: {src_bytes / 2**30:.3f} GiB "
+        f"of HF state dicts ({len(sd)} + {len(sam_sd)} tensors, made in {make_s:.3f} s) -> "
+        f"{len(imp)} leaves in {import_s:.3f} s on the host, merged onto the card "
+        f"({out_bytes / 2**30:.3f} GiB) in {merge_s:.3f} s; {copied} copies bit-equal")
+    return out
+
+
+def _run_counted(fn, *a, **kw):
+    """``fn`` with every launch counter at 0 before it: (result, seconds,
+    launches (non-zero), launches by form, peak GiB)."""
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+
+    for kern in KERNELS.values():
+        kern.reset()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = fn(*a, **kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    launches = {n: k.launches for n, k in KERNELS.items() if k.launches}
+    forms = {n: dict(k.forms) for n, k in KERNELS.items() if k.forms}
+    return res, sec, launches, forms, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _expect(label: str, launches: dict, forms: dict, want: dict, want_forms: dict) -> None:
+    if launches != {k: v for k, v in want.items() if v} or forms != want_forms:
+        raise AssertionError(f"{label}: launches {launches} by form {forms}, expected {want} "
+                             f"by form {want_forms}")
+
+
+def peft_round_trip(params, tmp: Path) -> dict:
+    """``export_peft_adapter`` then ``import_peft_adapter`` of a seeded LoRA
+    tree at conf/lora.yaml's rank over the flagship's full depth (``b``
+    non-zero); every factor must come back bit for bit."""
+    from mmmm_tpu_torch.peft import LoraConfig, lora_init
+    from mmmm_tpu_torch.train.peft_export import export_peft_adapter, import_peft_adapter
+
+    lcfg = LoraConfig(**LORA_YAML)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    lora = lora_init(gen, params, lcfg)
+    def flat(t, pre=""):  # path -> {"a", "b"}
+        out = {}
+        for k, v in t.items():
+            out.update(flat(v, f"{pre}{k}/") if "a" not in v else {f"{pre}{k}": v})
+        return out
+
+    for ab in flat(lora).values():
+        ab["b"].normal_(generator=gen).mul_(0.01)
+    factor_bytes = sum(t.numel() * t.element_size() for ab in flat(lora).values()
+                       for t in ab.values())
+    t0 = time.perf_counter()
+    export_peft_adapter(tmp / "peft", lora, lcfg)
+    export_s = time.perf_counter() - t0
+    file_bytes = (tmp / "peft" / "adapter_model.safetensors").stat().st_size
+    t0 = time.perf_counter()
+    back, bcfg = import_peft_adapter(tmp / "peft", MODEL_YAML["vlm"]["num_hidden_layers"],
+                                     MODEL_YAML["vlm"]["vision"]["num_hidden_layers"])
+    import_s = time.perf_counter() - t0
+    mine, theirs = flat(lora["cogvlm"], "cogvlm/"), flat(back)
+    if mine.keys() != theirs.keys() or bcfg != lcfg:
+        raise AssertionError(f"PEFT round trip: {sorted(set(mine) ^ set(theirs))}, {bcfg}")
+    for path, ab in mine.items():
+        for k in ("a", "b"):
+            if not torch.equal(ab[k].cpu(), theirs[path][k]):
+                raise AssertionError(f"PEFT round trip: {path}/{k} changed")
+    out = {"factors": len(mine), "factor_bytes": factor_bytes, "file_bytes": file_bytes,
+           "export_s": export_s, "import_s": import_s}
+    log(f"  PEFT round trip, r {lcfg.r}, {len(mine)} factor pairs at full depth: "
+        f"{file_bytes / 2**30:.3f} GiB of safetensors ({factor_bytes} bytes of factors) "
+        f"written in {export_s:.3f} s, read in {import_s:.3f} s, bit-equal")
+    return out
+
+
+def _direct_grounded(loaded, args, tokens_of):
+    """``generate_grounded`` on the inputs ``cmd_demo`` makes for ``args``."""
+    from mmmm_tpu_torch import generate_grounded
+    from mmmm_tpu_torch import cli
+    from mmmm_tpu_torch.data import ConvTurn, prepare_vlm_inputs
+
+    model, params, tok, cfg = loaded
+    image, gimg, patch, pool, n = cli.prepare_image(args.image, cli._data_conf(cfg))
+    inputs, _ = prepare_vlm_inputs([ConvTurn(args.question, "")], tok, n, inference=True,
+                                   grounding=args.grounding)
+    res = generate_grounded(
+        params, model.cfg, tok, np.asarray(inputs.input_ids)[None],
+        np.asarray(inputs.token_type_ids)[None], np.asarray(inputs.position_ids)[None],
+        np.asarray([len(inputs.input_ids)]), image[None], patch, pool,
+        max_new_tokens=args.max_new_tokens, grounding_image=gimg[None], instance=args.instance,
+        kv_cache_dtype=args.kv_cache, spec_draft_len=args.speculate, device="cuda")
+    if not np.array_equal(res.tokens, tokens_of):
+        raise AssertionError(f"demo: tokens differ from generate_grounded's at "
+                             f"{first_difference(res.tokens[0], tokens_of[0])}")
+    return res
+
+
+def demo_run(label: str, loaded, argv: list) -> dict:
+    """``cmd_demo`` over ``loaded`` (counted, timed, its stdout kept), then
+    ``generate_grounded`` on the same inputs: the same tokens. Launches
+    exact: K4 63 (the ViT) + 12 (the SAM encoder, where a target was
+    grounded), K3 32 (the prefill), K1 32 x 128 in its fused form (greedy)
+    or K6 32 x the verify steps (speculative)."""
+    from mmmm_tpu_torch import cli
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+
+    args = cli.parse_args(argv)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        (res,), sec, launches, forms, peak = _run_counted(cli.cmd_demo, args, loaded=loaded)
+    grounded = bool(res.target_valid is not None and res.target_valid.any())
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({"K4": VIT_LAYERS + SAM_LAYERS * grounded, "K3": LAYERS})
+    if args.speculate:
+        n = LAYERS * res.spec_stats["iters"]
+        want["K6"], want_forms = n, {"K6": {"append": n}}
+    else:
+        want["K1"] = LAYERS * args.max_new_tokens
+        want_forms = {"K1": {"append": want["K1"]}}
+    _expect(f"demo {label}", launches, forms, want, want_forms)
+    _direct_grounded(loaded, args, res.tokens)
+    lines = text.getvalue().splitlines()
+    r = {"argv": argv[1:], "s": sec, "peak_mem_gib": peak, "launches": launches,
+         "launches_by_form": forms, "num_generated": int(res.num_generated[0]),
+         "targets": None if res.targets[0] is None else len(res.targets[0]),
+         "grounded_lines": [ln for ln in lines if ln.startswith("target ")][:8],
+         "spec_stats": res.spec_stats}
+    log(f"  demo {label}: {sec:.3f} s (B = 1, {args.max_new_tokens} new tokens), peak "
+        f"{peak:.2f} GiB, launches {launches}, targets {r['targets']}, "
+        f"{r['grounded_lines'][:2]}; tokens equal to generate_grounded's")
+    return r
+
+
+def predict_runs(loaded, tmp: Path) -> dict:
+    """``cmd_predict`` over ``PREDICT_ITEMS`` synthetic ``.pt`` report items
+    (conf/phase-vlm's image geometry), batched (``--batch 4``: one
+    ``generate_grounded`` a batch) and ``--continuous`` (a
+    ``GroundedServer`` of 4 slots), counted and timed; then ``cmd_evaluate
+    --suite all`` on each CSV."""
+    from mmmm_tpu_torch import cli
+    from mmmm_tpu_torch.models import serving
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+
+    ds = write_vl_dataset(tmp / "CT-RATE", PREDICT_ITEMS, FIT_VOLUME, report_chars=400, seed=1,
+                          vqa=False)
+    (ds / "train-processed.json").rename(ds / "test-processed.json")
+    servers = []
+
+    class Recorded(serving.GroundedServer):  # keeps each server to read its stats
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            servers.append(self)
+
+    out = {}
+    real = serving.GroundedServer
+    serving.GroundedServer = Recorded
+    try:
+        for label, extra in (("batched", []), ("continuous", ["--continuous"])):
+            csv_path = tmp / f"pred_{label}.csv"
+            argv = ["predict", "-c", "conf/phase-vlm/fit.yaml", "--task", "report",
+                    "--dataset-dir", str(ds), "--output", str(csv_path), "--max-new-tokens",
+                    str(NEW), "--batch", str(PREDICT_BATCH), *extra]
+            with contextlib.redirect_stdout(io.StringIO()):  # its progress lines
+                rows, sec, launches, forms, peak = _run_counted(
+                    cli.cmd_predict, cli.parse_args(argv), loaded=loaded)
+            want = dict.fromkeys(KERNELS, 0)
+            if label == "batched":
+                calls = -(-PREDICT_ITEMS // PREDICT_BATCH)
+                want.update({"K4": VIT_LAYERS * calls, "K3": LAYERS * calls,
+                             "K1": LAYERS * NEW * calls})
+                stats = {"generate_calls": calls}
+            else:
+                stats = dict(servers[-1].stats)
+                want.update({"K4": VIT_LAYERS * stats["refills"],
+                             "K3": LAYERS * stats["refills"],
+                             "K1": LAYERS * servers[-1].chunk * stats["chunks"]})
+            _expect(f"predict {label}", launches, forms, want, {"K1": {"append": want["K1"]}})
+            if len(rows) != PREDICT_ITEMS or any(not isinstance(r["prediction"], str)
+                                                 for r in rows):
+                raise AssertionError(f"predict {label}: rows {rows}")
+            ev = cli.parse_args(["evaluate", "--input", str(csv_path), "--suite", "all",
+                                 "--output", str(tmp / f"metrics_{label}.json")])
+            with contextlib.redirect_stdout(io.StringIO()):  # its progress lines
+                t0 = time.perf_counter()
+                metrics = cli.cmd_evaluate(ev)
+                ev_s = time.perf_counter() - t0
+            for k in ("bleu1", "rougeL", "meteor", "chexpert_micro_f1_14", "radgraph_f1"):
+                if not np.isfinite(metrics[k]):
+                    raise AssertionError(f"evaluate {label}: {k} = {metrics[k]}")
+            out[label] = {"s": sec, "requests_per_s": PREDICT_ITEMS / sec, "peak_mem_gib": peak,
+                          "launches": launches, "stats": stats,
+                          "smax": servers[-1].smax if label == "continuous" else None,
+                          "predictions": [r["prediction"] for r in rows],
+                          "evaluate_s": ev_s, "metrics": metrics}
+            log(f"  predict {label}: {PREDICT_ITEMS} report items in {sec:.3f} s "
+                f"({PREDICT_ITEMS / sec:.4f} requests/s), peak {peak:.2f} GiB, launches "
+                f"{launches}, {stats}; evaluate --suite all {ev_s:.3f} s: bleu1 "
+                f"{metrics['bleu1']}, radgraph_f1 {metrics['radgraph_f1']} "
+                f"({metrics['radgraph_annotator']})")
+    finally:
+        serving.GroundedServer = real
+    # bf16 sums round otherwise in the two paths: the server's cache has more
+    # slots (K1 gives each warp ceil(Smax / 8) of them) and it routes the
+    # vision span statically; tokens near a tie part (the fp32 CPU tests
+    # hold the two paths token for token)
+    a, b = out["batched"]["predictions"], out["continuous"]["predictions"]
+    out["first_difference"] = first = [first_difference(x.encode(), y.encode())
+                                       for x, y in zip(a, b)]
+    log(f"  predict batched vs continuous: {first.count(-1)} of {PREDICT_ITEMS} predictions "
+        f"equal; first differing byte {first} (the server's cache "
+        f"{out['continuous']['smax']} slots)")
+    return out
+
+
+def prompted_sam_check(params, cfg, gen) -> dict:
+    """``sam_forward_prompted`` at the flagship SAM on a grounding image of
+    run (a)'s shape (``ENTRY_GIMAGE``) with a point, a box and a mask
+    prompt together: the card against the CPU within ``masks_tol``, 12 K4
+    launches (the encoder) and no other."""
+    from mmmm_tpu_torch.models.segvol import sam_forward_prompted
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+
+    dev = torch.device("cuda")
+    gimg = torch.randn(ENTRY_GIMAGE, generator=gen, device=dev)
+    d, h, w = ENTRY_GIMAGE[2:]
+    grid = tuple(s // p for s, p in zip((d, h, w), ENTRY_PATCH))
+    prompts = {"points": (torch.tensor([[w / 2, h * 3 / 8, d / 2], [w / 6, h * 3 / 4, d / 4]],
+                                       device=dev), torch.tensor([1, 0], device=dev)),
+               "boxes": torch.tensor([[w / 4, h / 4, d / 8, w * 3 / 4, h * 5 / 8, d * 7 / 8]],
+                                     device=dev),
+               "mask": (torch.rand((1, *(4 * g for g in grid)), generator=gen, device=dev)
+                        > 0.5).float()}
+    with torch.inference_mode():
+        (full, low), sec, launches, forms, _ = _run_counted(
+            sam_forward_prompted, params, cfg.sam, gimg, ENTRY_PATCH, **prompts)
+        want = dict.fromkeys(KERNELS, 0)
+        want["K4"] = SAM_LAYERS
+        _expect("sam_forward_prompted", launches, forms, want, {})
+        cpu = lambda x: tuple(cpu(t) for t in x) if isinstance(x, tuple) else x.cpu()
+        t0 = time.perf_counter()
+        cfull, clow = sam_forward_prompted(_tree_to(params, "cpu"), cfg.sam, gimg.cpu(),
+                                           ENTRY_PATCH, **{k: cpu(v) for k, v in prompts.items()})
+        cpu_s = time.perf_counter() - t0
+    if tuple(full.shape) != (d, h, w) or not torch.isfinite(full).all():
+        raise AssertionError(f"sam_forward_prompted: {tuple(full.shape)} or non-finite")
+    errs = {}
+    for name, got, ref in (("full", full, cfull), ("low", low, clow)):
+        errs[name] = err = max_err(got.cpu(), ref)
+        check(f"sam_forward_prompted {name} {tuple(ref.shape)} card vs CPU", err, masks_tol(ref))
+    out = {"s": sec, "cpu_s": cpu_s, "launches": launches, "max_abs_err": errs,
+           "tol": masks_tol(cfull), "logit_range": [cfull.min().item(), cfull.max().item()]}
+    log(f"  sam_forward_prompted (point, box, mask): {sec:.3f} s on the card, {cpu_s:.3f} s on "
+        f"the CPU, launches {launches}")
+    return out
+
+
+def padded_heads_check(params, cfg, gen, peaks) -> dict:
+    """The flagship ViT (63 layers, bf16) with ``pad_attention_heads`` (D 112
+    -> 128) against itself unpadded, both against the same tower in fp32:
+    the padded tower may be no farther from fp32 than 1.5x the unpadded one.
+    Launches: 63 K4 each. Then K4 at D = 128 beside D = 112 at run (a)'s
+    ViT shape (4, 1153, 16, D), each with its plain version and SDPA."""
+    from mmmm_tpu_torch.models.cogvlm.vit import pad_attention_heads, vit_forward
+    from mmmm_tpu_torch.ops import dense_attn as da
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+
+    bw, bf16_rate, _, _ = peaks
+    vis, vcfg = params["cogvlm"]["vision"], cfg.vlm
+    heads = vcfg.vision.num_heads
+    image = torch.randn(ENTRY_IMAGE, generator=gen, device="cuda")
+    padded = pad_attention_heads(vis, heads)
+    run = lambda p, img: vit_forward(p, vcfg, img, ENTRY_PATCH, ENTRY_POOL)
+    out = {}
+    with torch.inference_mode():
+        ref, sec_u, l_u, _, _ = _run_counted(run, vis, image.bfloat16())
+        pad, sec_p, l_p, _, _ = _run_counted(run, padded, image.bfloat16())
+        for label, l in (("unpadded", l_u), ("padded", l_p)):
+            want = dict.fromkeys(KERNELS, 0)
+            want["K4"] = VIT_LAYERS
+            _expect(f"ViT {label}", l, {}, want, {})
+        del padded
+        fp32 = lambda t: {k: fp32(v) for k, v in t.items()} if isinstance(t, dict) else t.float()
+        f32 = fp32(vis)
+        want32 = run(f32, image)
+        del f32
+    d_u, d_p, d_pu = max_err(ref, want32), max_err(pad, want32), max_err(pad, ref)
+    scale = want32.abs().max().item()
+    out["launches"] = l_p
+    out["vit"] = {"unpadded_s": sec_u, "padded_s": sec_p, "max_abs_unpadded_vs_fp32": d_u,
+                  "max_abs_padded_vs_fp32": d_p, "max_abs_padded_vs_unpadded": d_pu,
+                  "fp32_max_abs": scale, "ratio_limit": 1.5}
+    log(f"  ViT {VIT_LAYERS} layers bf16, padded heads vs not: max |padded - unpadded| {d_pu:.4e}; against "
+        f"fp32 {d_p:.4e} padded, {d_u:.4e} unpadded (largest |fp32| {scale:.3e}); "
+        f"{sec_p:.3f} s padded, {sec_u:.3f} s unpadded")
+    if not d_p <= 1.5 * d_u:
+        raise AssertionError(f"padded ViT: {d_p} from fp32, > 1.5 x the unpadded {d_u}")
+    rows = []
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
+    for d in (112, 128):
+        q, k, v = (rnd(B, 1153, 16, d) for _ in range(3))
+        scale_ = 112 ** -0.5  # the tower keeps the true head dim's scale
+        err = max_err(da.dense_attention(q, k, v, scale_), da.dense_attention_plain(q, k, v, scale_))
+        check(f"K4 ViT (4, 1153, 16, {d}) bf16", err, 2e-2)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        bms, by = bound(4 * q.numel() * 2, 4 * B * 16 * 1153 * 1153 * d, bf16_rate, bw)
+        row = {"shape": [B, 1153, 16, d], "dtype": "bfloat16", "phase": "entry",
+               "padded_heads": d == 128, "max_abs_err": err,
+               "ms": time_ms(lambda: da.dense_attention(q, k, v, scale_)),
+               "plain_ms": time_ms(lambda: da.dense_attention_plain(q, k, v, scale_), inner=2),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                            scale=scale_)),
+               "bound_ms": bms, "bound_by": by}
+        log(f"  K4 D={d}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+            f"{row['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+        rows.append(row)
+    out["k4_rows"] = rows
+    return out
+
+
+def entry_phase(adapter: Path, peaks) -> tuple[dict, dict]:
+    """Phase 8, the entry points at the flagship's full width: the import
+    check (``import_check``, 2 layers); then the flagship at full depth
+    loaded by ``build.load_model_with_adapter`` from ``PHASE_VLM_FIT`` with
+    the ``adapter.npz`` that phase 7's fit wrote (``save_adapter``), its
+    LLM and ViT in bf16; the PEFT round trip at full depth; ``demo`` on a ``.pt`` CT
+    volume, greedy with 128 new tokens; ``predict`` batched and
+    continuous and ``evaluate``; ``pad_attention_heads`` with K4 at D = 128;
+    ``sam_forward_prompted``; then the LLM quantized in place to W8A16
+    (what ``--quantize`` loads) and ``demo --speculate 7 --quantize``.
+    Returns the results and each counted run's launches."""
+    import tempfile
+    from mmmm_tpu_torch.build import load_model_with_adapter
+    from mmmm_tpu_torch.ops.quant import quantize_llm_for_serving
+
+    log("entry points: import, PEFT, demo, predict, evaluate, prompted SAM, padded heads")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_entry_"))
+    out, launches = {}, {}
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        t0 = time.perf_counter()
+        loaded = load_model_with_adapter(PHASE_VLM_FIT, str(adapter), device="cuda",
+                                         dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        model, params, tok, cfg = loaded
+        out["adapter_bytes"] = adapter.stat().st_size
+        log(f"  flagship loaded with the fit's adapter ({out['adapter_bytes'] / 2**30:.3f} GiB) "
+            f"in {out['load_s']:.3f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        out["import"] = import_check(model.cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["peft"] = peft_round_trip(params, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        vol = tmp / "ct.pt"
+        torch.save(torch.from_numpy(np.random.default_rng(2).integers(
+            0, 256, size=FIT_VOLUME, dtype=np.uint8)), vol)
+        demo = ["demo", "-c", "conf/phase-vlm/fit.yaml", "--adapter", str(adapter), "--image",
+                str(vol), "--max-new-tokens", str(NEW)]
+        out["demo_greedy"] = demo_run("greedy", loaded, demo)
+        launches["entry_demo_greedy"] = out["demo_greedy"]["launches"]
+        out["predict"] = predict_runs(loaded, tmp)
+        for label in ("batched", "continuous"):
+            launches[f"entry_predict_{label}"] = out["predict"][label]["launches"]
+        out["padded_heads"] = padded_heads_check(params, model.cfg, gen, peaks)
+        launches["entry_vit_padded"] = out["padded_heads"]["launches"]
+        out["sam_prompted"] = prompted_sam_check(params["sam"], model.cfg, gen)
+        launches["entry_sam_prompted"] = out["sam_prompted"]["launches"]
+        t0 = time.perf_counter()
+        params["cogvlm"] = quantize_llm_for_serving(params["cogvlm"])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out["quantize_s"] = time.perf_counter() - t0
+        out["demo_spec7_w8a16"] = demo_run("--speculate 7 --quantize", loaded,
+                                           demo + ["--speculate", str(DRAFT), "--quantize"])
+        launches["entry_demo_spec7_w8a16"] = out["demo_spec7_w8a16"]["launches"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, launches
+
 
 # profiler spans of generate_grounded's stages (record_function names)
 STAGES = ("vit", "llm_prefill", "decode", "sam")
@@ -3478,8 +4183,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     results["train_routes"] = phase("train_routes", train_route_phase)
     torch.cuda.empty_cache()
-    results["flagship_fit"] = phase("flagship_fit", flagship_fit_phase,
-                                    results["flagship_train"]["modes"]["none"]["steady_step_s"])
+    import tempfile
+    keep = Path(tempfile.mkdtemp(prefix="chip_smoke_adapter_"))
+    try:
+        results["flagship_fit"] = phase(
+            "flagship_fit", flagship_fit_phase,
+            results["flagship_train"]["modes"]["none"]["steady_step_s"], keep / "adapter.npz")
+        gc.collect()
+        torch.cuda.empty_cache()
+        results["entry"], entry_launches = phase("entry", entry_phase, keep / "adapter.npz", peaks)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    launches.update(entry_launches)
+    results["kernels"]["K4"]["variants"].extend(results["entry"]["padded_heads"]["k4_rows"])
 
     # each K11 row's launches on its own weight shape, read from the counter
     by_shape = results["flagship"]["runs"][KERNEL_RUN["K11"]]["k11_launches_by_shape"]
@@ -3501,6 +4217,9 @@ def main() -> int:
         entry["launches_serving"] = {label: v["launches"].get(counter, 0) for label, v in
                                      results["flagship"]["serving"].items()
                                      if isinstance(v, dict) and "launches" in v}
+        # phase 8's counted runs (demo, predict, the padded ViT, prompted SAM)
+        entry["launches_entry"] = {label: n.get(counter, 0) for label, n in
+                                   entry_launches.items()}
         entry.update({k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")})
         entry.update({k: v for k, v in r.items() if k not in entry})

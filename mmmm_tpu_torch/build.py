@@ -67,31 +67,53 @@ def build_dataset(cfg: dict, tokenizer: MMMMTokenizer, conf_dir: Path):
                         skip_missing=bool(cfg.get("skip_missing", True)))
 
 
-def load_model_with_adapter(config_path: str, adapter: str | None, quantize: bool = False,
-                            device: str | torch.device = "cuda"):
-    """Config (and an optional ``adapter.npz`` of either package) ->
-    ``(model, params on device, tokenizer, config dict)``. The base weights
-    are ``model.init(0)`` in fp32; the adapter's finetuned leaves replace
-    theirs and its LoRA factors are merged in (``W + scale * A @ B``).
-    ``quantize=True`` then makes the LLM W8A16 (``quantize_llm_for_serving``)."""
+def load_model_with_adapter(config: str | Path | dict, adapter: str | None,
+                            quantize: bool = False, device: str | torch.device = "cuda",
+                            dtype: torch.dtype = torch.float32):
+    """Config (a YAML path, or a config dict already loaded) and an optional
+    ``adapter.npz`` of either package -> ``(model, params on device,
+    tokenizer, config dict)``. The base weights are ``model.init(0)`` in
+    ``dtype`` (the grounding heads stay fp32); the adapter's finetuned
+    leaves replace theirs, cast to their dtype, and its LoRA factors are
+    merged into each targeted weight in place, a layer at a time
+    (``W += (A @ B * scale)`` cast to W's dtype, as ``lora_merge``), so no
+    second copy of the model is made. ``quantize=True`` then makes the LLM
+    W8A16 (``quantize_llm_for_serving``)."""
     from .ops.quant import quantize_llm_for_serving
-    from .peft import LoraConfig, lora_merge, materialize, merge_trainable, split_trainable
+    from .peft import LoraConfig
     from .train.checkpoint import load_adapter
 
-    cfg = load_yaml(config_path)
+    cfg = load_yaml(config) if isinstance(config, (str, Path)) else config
     tokenizer = build_tokenizer(cfg.get("tokenizer"))
     model = build_model(cfg.get("model"), tokenizer)
-    params = model.init(0, device=device)
+    params = model.init(0, dtype=dtype, device=device)
     if adapter:
-        dev = params["vg_proj"]["w1"].device
-        to_dev = lambda tree: {k: to_dev(v) if isinstance(v, dict) else v.to(dev)
-                               for k, v in tree.items()}
-        trainable = to_dev(load_adapter(adapter))
-        _, frozen = split_trainable(params)
-        params = merge_trainable(trainable["ft"], frozen)
-        lora_cfg = build(LoraConfig, cfg.get("lora") or {})
-        params = materialize(lora_merge(params, trainable["lora"], lora_cfg))
+        params = merge_adapter(params, load_adapter(adapter),
+                               build(LoraConfig, cfg.get("lora") or {}))
     if quantize:
         params = dict(params)
         params["cogvlm"] = quantize_llm_for_serving(params["cogvlm"])
     return model, params, tokenizer, cfg
+
+
+def merge_adapter(params: dict, trainable: dict, lora_cfg) -> dict:
+    """``params`` with an adapter's ``ft`` leaves in place of theirs (on their
+    device, in their dtype) and its ``lora`` factors merged into the
+    targeted weights in place."""
+    from .peft.lora import flatten, unflatten
+
+    flat = flatten(params)
+    for path, t in flatten(trainable.get("ft") or {}).items():
+        flat[path] = t.to(device=flat[path].device, dtype=flat[path].dtype) if path in flat \
+            else t
+    factors: dict = {}
+    for path, t in flatten(trainable.get("lora") or {}).items():
+        base, name = path.rsplit("/", 1)
+        factors.setdefault(base, {})[name] = t
+    for path, ab in factors.items():
+        w = flat[path]
+        a, b = ab["a"].to(w.device), ab["b"].to(w.device)
+        pairs = [(w, a, b)] if a.dim() == 2 else [(w[i], a[i], b[i]) for i in range(a.shape[0])]
+        for wi, ai, bi in pairs:
+            wi.add_((torch.matmul(ai, bi) * lora_cfg.scale).to(wi.dtype))
+    return unflatten(flat)

@@ -1,5 +1,5 @@
 """EVA2-CLIP 3-D vision tower, the port of ``mmmm_tpu/models/cogvlm/vit.py``
-(``vit_forward``).
+(``vit_forward``, ``pad_attention_heads``).
 
 Patch embed with the runtime-collapsed z kernel, the 3-D position embedding
 resampled to the token grid, a cls token, post-norm layers
@@ -45,6 +45,36 @@ def _vit_layer(x, lp, *, num_heads: int, eps: float, segments, attn_impl: str):
     h = gelu(_dot(x, lp["fc1_w"]) + lp["fc1_b"])
     h = _dot(h, lp["fc2_w"]) + lp["fc2_b"]
     return x + layer_norm(h, lp["ln2_w"], lp["ln2_b"], eps)
+
+
+def pad_attention_heads(vit_params: dict, num_heads: int, target: int = 128) -> dict:
+    """Pad every attention head from its width (the flagship's 1792 / 16 =
+    112) to ``target`` lanes with zeros in the weights: the q/k/v columns of
+    ``qkv_w`` and ``qkv_b`` and the matching rows of ``dense_w``.
+
+    Zero q/k lanes leave the logits unchanged (``_vit_layer`` keeps the
+    scale of the true width), zero v lanes give zero output lanes that the
+    zero ``dense_w`` rows ignore; the forward is the same up to the
+    products' rounding. The attention kernel then runs at D = ``target``
+    with no per-call pad (``ops/attention.py with_padded_head``)."""
+    p = dict(vit_params)
+    layers = dict(p["layers"])
+    ell, c, _ = layers["qkv_w"].shape
+    d = c // num_heads
+    if d == target:
+        return vit_params
+
+    def pad_last(a, shape_head):
+        lead = a.shape[:-1]
+        a = a.reshape(*lead, *shape_head, d)
+        return F.pad(a, (0, target - d)).reshape(*lead, -1)
+
+    layers["qkv_w"] = pad_last(layers["qkv_w"], (3, num_heads))
+    layers["qkv_b"] = pad_last(layers["qkv_b"], (3, num_heads))
+    dw = layers["dense_w"].reshape(ell, num_heads, d, c)
+    layers["dense_w"] = F.pad(dw, (0, 0, 0, target - d)).reshape(ell, num_heads * target, c)
+    p["layers"] = layers
+    return p
 
 
 def _max_pool(x: torch.Tensor, pool_size: tuple[int, int, int]) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""SAM prompt encoder (text path) and two-way mask decoder, the port of
+"""SAM prompt encoder and two-way mask decoder, the port of
 ``mmmm_tpu/models/segvol/decoder.py`` (``dense_pe``, ``encode_text_prompt``,
+the point, box and mask prompts with ``encode_prompts``,
 ``two_way_forward``, ``mask_decoder_forward``).
 
 The JAX package runs the mask decoder per (sample, target) under ``vmap``;
@@ -41,6 +42,101 @@ def encode_text_prompt(params: dict, text_embedding: torch.Tensor, grid_shape):
     sparse = text_embedding[..., None, :]
     dense = params["no_mask_embed"].reshape(-1, 1, 1, 1).expand(
         text_embedding.shape[-1], *grid_shape)
+    return sparse, dense
+
+
+def _pe_with_coords(params, coords, image_size):
+    """Random-Fourier encoding of un-normalized (x, y, z) point coords against
+    an (H, W, D) image size (ref ``forward_with_coords``,
+    ``prompt_encoder.py:191-200``: x/=W, y/=H, z/=D)."""
+    h, w, d = image_size
+    norm = coords / torch.tensor([w, h, d], dtype=coords.dtype, device=coords.device)
+    norm = 2 * norm - 1
+    proj = 2 * math.pi * (norm @ params["pe_gaussian"].to(norm.dtype))
+    return torch.cat([proj.sin(), proj.cos()], dim=-1)
+
+
+def encode_point_prompt(params: dict, points: torch.Tensor, labels: torch.Tensor,
+                        image_size: tuple[int, int, int], pad: bool = True) -> torch.Tensor:
+    """Point prompts (N, 3) un-normalized (x, y, z), labels (N,) 1 positive,
+    0 negative, -1 padding -> (N[+1], C) sparse embeddings.
+
+    As ``_embed_points`` (``prompt_encoder.py:66-83``): +0.5 pixel-center
+    shift, a padding point appended when no box accompanies the points,
+    label identity embeddings (padding points drop their encoding and take
+    ``not_a_point_embed``)."""
+    points = points + 0.5
+    if pad:
+        points = torch.cat([points, points.new_zeros((1, 3))])
+        labels = torch.cat([labels, labels.new_full((1,), -1)])
+    pe = _pe_with_coords(params, points, image_size)
+    lab = labels[:, None]
+    pe = torch.where(lab == -1, params["not_a_point_embed"][None], pe)
+    pe = pe + torch.where(lab == 0, params["point_embeddings"][0][None], 0.0)
+    return pe + torch.where(lab == 1, params["point_embeddings"][1][None], 0.0)
+
+
+def encode_box_prompt(params: dict, boxes: torch.Tensor,
+                      image_size: tuple[int, int, int]) -> torch.Tensor:
+    """Box prompts (N, 6) un-normalized (x0, y0, z0, x1, y1, z1) -> (N * 2, C):
+    two encoded corners with their identity embeddings (ref ``_embed_boxes``,
+    ``prompt_encoder.py:85-92``)."""
+    corners = (boxes + 0.5).reshape(-1, 2, 3)
+    pe = _pe_with_coords(params, corners, image_size)
+    pe = pe + params["point_embeddings"][2:4][None]
+    return pe.reshape(-1, pe.shape[-1])
+
+
+def _ln_channels_last(p, x, eps=1e-6):
+    m = x.mean(-1, keepdim=True)
+    v = ((x - m) ** 2).mean(-1, keepdim=True)
+    return (x - m) * torch.rsqrt(v + eps) * p["scale"] + p["bias"]
+
+
+def _conv3d(x, w, b, stride: int):
+    """VALID conv of (N, C, D, H, W) by a channels-last (kD, kH, kW, in, out)
+    weight."""
+    return F.conv3d(x, w.permute(4, 3, 0, 1, 2), b, stride=stride)
+
+
+def encode_mask_prompt(params: dict, mask: torch.Tensor) -> torch.Tensor:
+    """(1, D, H, W) input mask -> dense (C, D/4, H/4, W/4) embedding: the 3-D
+    working equivalent of the reference's (dead-code 2-D) mask downscaling
+    stack, conv (stride 2) + LayerNorm + exact GELU twice, then a 1x1
+    projection."""
+    p = params["mask_down"]
+    x = mask[None].to(p["conv1_w"].dtype)  # (1, 1, D, H, W)
+
+    def ln_gelu(x, q):
+        return gelu(_ln_channels_last(q, x.permute(0, 2, 3, 4, 1))).permute(0, 4, 1, 2, 3)
+
+    x = ln_gelu(_conv3d(x, p["conv1_w"], p["conv1_b"], 2), p["ln1"])
+    x = ln_gelu(_conv3d(x, p["conv2_w"], p["conv2_b"], 2), p["ln2"])
+    return _conv3d(x, p["conv3_w"], p["conv3_b"], 1)[0]  # (C, d, h, w)
+
+
+def encode_prompts(params: dict, grid_shape: tuple[int, int, int],
+                   image_size: tuple[int, int, int], *, points=None, boxes=None, mask=None,
+                   text_embedding=None):
+    """The prompt encoder's forward (ref ``prompt_encoder.py:123-151``): the
+    point, box and text sparse embeddings concatenated in that order; dense
+    is the mask's embedding, or the no-mask embedding broadcast over the
+    grid. ``points`` is a (coords, labels) pair."""
+    parts = []
+    if points is not None:
+        parts.append(encode_point_prompt(params, *points, image_size, pad=boxes is None))
+    if boxes is not None:
+        parts.append(encode_box_prompt(params, boxes, image_size))
+    if text_embedding is not None:
+        parts.append(text_embedding[None, :])
+    if not parts:
+        raise ValueError("at least one prompt type is required")
+    sparse = torch.cat(parts, dim=0)
+    if mask is not None:
+        dense = encode_mask_prompt(params, mask)
+    else:
+        dense = params["no_mask_embed"].reshape(-1, 1, 1, 1).expand(sparse.shape[-1],
+                                                                    *grid_shape)
     return sparse, dense
 
 

@@ -1,5 +1,6 @@
 """SAM forward passes over a fixed-size target axis, the port of
 ``_decode_all_targets``, ``sam_forward`` (semantic: masks),
+``sam_forward_prompted`` (point, box and mask prompts),
 ``instance_sam_forward`` and ``InstanceSamOutput`` (instance: masks, boxes
 and presence logits) in ``mmmm_tpu/models/segvol/sam.py``."""
 from __future__ import annotations
@@ -11,7 +12,7 @@ import torch.nn.functional as F
 
 from ...ops.resample import trilinear_resize
 from .config import SamConfig
-from .decoder import dense_pe, encode_text_prompt, mask_decoder_forward
+from .decoder import dense_pe, encode_prompts, encode_text_prompt, mask_decoder_forward
 from .encoder import encoder_forward
 
 
@@ -44,6 +45,32 @@ def sam_forward(params: dict, cfg: SamConfig, image: torch.Tensor,
     if not upsample_to_image:
         return semantic_low, semantic_low
     return trilinear_resize(semantic_low, tuple(image.shape[2:])), semantic_low
+
+
+def sam_forward_prompted(params: dict, cfg: SamConfig, image: torch.Tensor,
+                         patch_size: tuple[int, int, int], *, points=None, boxes=None,
+                         mask=None, text_embedding=None, upsample_to_image: bool = True,
+                         attn_impl: str = "auto"):
+    """Interactive segmentation of one sample (1, C, D, H, W) from point,
+    box and mask (and optionally text) prompts, the SegVol prompt modes
+    beside MMMM's text path (ref ``prompt_encoder.py:123-151`` and the
+    ``sam.py`` forward). ``points`` is ((N, 3) un-normalized (x, y, z)
+    against the (H, W, D) input size, (N,) labels); ``boxes`` (N, 6) as
+    (x0, y0, z0, x1, y1, z1); ``mask`` (1, 4 gd, 4 gh, 4 gw) over the
+    encoder's grid. Returns (mask logits (D, H, W), low-res logits)."""
+    embeds = encoder_forward(params["encoder"], cfg, image, patch_size, attn_impl=attn_impl)
+    grid = tuple(embeds.shape[2:])
+    d, h, w = image.shape[2:]
+    sparse, dense = encode_prompts(params["prompt"], grid, (h, w, d), points=points,
+                                   boxes=boxes, mask=mask, text_embedding=text_embedding)
+    pe = dense_pe(params["prompt"], grid)
+    text = None if text_embedding is None else text_embedding[None]
+    masks, _ = mask_decoder_forward(params["decoder"], cfg, embeds, pe, sparse[None], dense,
+                                    text, patch_size[0])
+    low = masks[0, 0]  # the semantic mask token
+    if not upsample_to_image:
+        return low, low
+    return trilinear_resize(low, tuple(image.shape[2:])), low
 
 
 @dataclasses.dataclass

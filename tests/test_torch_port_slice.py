@@ -204,7 +204,9 @@ def test_port_imports_no_jax_and_no_library_kernels():
     files = sorted((ROOT / "mmmm_tpu_torch").rglob("*.py"))
     assert len(files) > 15
     for rel in (("ops", "w4_matmul.py"), ("ops", "flash.py"), ("peft", "lora.py"),
-                ("train", "step.py"), ("train", "optim.py")):
+                ("train", "step.py"), ("train", "optim.py"), ("train", "import_torch.py"),
+                ("train", "peft_export.py"), ("data", "infer_transform.py"),
+                ("eval", "metrics.py"), ("eval", "models.py"), ("eval", "radgraph.py")):
         assert ROOT.joinpath("mmmm_tpu_torch", *rel) in files
     scripts = [ROOT / n for n in ("chip_smoke.py", "time_decode_reads.py",
                                   "time_flagship_runs.py")]
@@ -221,15 +223,19 @@ def test_port_imports_no_jax_and_no_library_kernels():
 
 def test_import_leaves_jax_out():
     """Importing every module of the port, and chip_smoke.py, loads no JAX,
-    and none of ``zstandard``, ``PIL`` and ``yaml``, which the card's
-    machine lacks (each is imported where a file that needs it is read)."""
+    and none of ``zstandard``, ``PIL``, ``yaml``, ``safetensors`` and
+    ``transformers``, which the card's machine lacks (each is imported where
+    a file or a scorer that needs it is used; the port reads and writes
+    safetensors files itself)."""
     code = ("import importlib, pkgutil, sys, mmmm_tpu_torch, chip_smoke\n"
             "for m in pkgutil.walk_packages(mmmm_tpu_torch.__path__, 'mmmm_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
-            "for m in ('jax', 'zstandard', 'PIL', 'yaml'):\n"
+            "for m in ('jax', 'zstandard', 'PIL', 'yaml', 'safetensors', 'transformers'):\n"
             "    assert m not in sys.modules, m + ' imported'\n"
             "for m in ('ops.w4_matmul', 'peft.lora', 'train.step', 'train.optim',\n"
-            "          'train.trainer', 'data.dataset', 'utils.io', 'models.align', 'cli'):\n"
+            "          'train.trainer', 'data.dataset', 'utils.io', 'models.align', 'cli',\n"
+            "          'train.import_torch', 'train.peft_export', 'data.infer_transform',\n"
+            "          'eval.models', 'eval.radgraph', 'models.segvol.sam'):\n"
             "    assert 'mmmm_tpu_torch.' + m in sys.modules, m")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                        timeout=120)
