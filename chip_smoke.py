@@ -10,8 +10,9 @@ Phases, in order; any failure exits non-zero before the result lines:
  1. print the card's name and power limit (``nvidia-smi``);
  2. build the CUDA kernels from ``mmmm_tpu_torch/csrc`` (``nvcc``, sm_90a)
     and print the registers, shared memory and spill bytes of every K3/K4
-    (``attn_fwd_*``, with P1's form), K6 tensor-core, K11 decode-row,
-    K11mma, K7, K9, K10 and K1 kernel (failing if one spills);
+    (``attn_fwd_*``, with P1's form and K4's fast softmax), K6 tensor-core,
+    K11 decode-row, K11mma, K7, K9 (its bf16-cast form too), K10 and K1
+    kernel (failing if one spills);
  3. hold each kernel (K1-K11, K7delta, K12 = K4's kernel, probe P1) against
     its plain PyTorch version on the card, at the grounded path's and the
     training step's shapes and at edge cases (K1 and its fused form with
@@ -44,9 +45,14 @@ Phases, in order; any failure exits non-zero before the result lines:
     S, K3 over packed segments with fully masked rows, both twice at the
     LLM site, bit for bit; K3, K4 and K7 at head dims 100 in bf16 and 90 in
     fp32, which they take through zero lanes, and K1, K6, K9 and K10 at
-    90, K1 and K6 there beside SDPA), and time the kernel, the plain version
-    and one PyTorch library call (CUDA events, medians); time the W8A16,
-    W8A8 and W4A16 ``qdot`` against a bf16 ``torch.matmul`` at decode rows;
+    90, K1 and K6 there beside SDPA; the kernel forms of the reference's
+    numeric switches: K4's fast softmax at the ViT's and the SAM encoder's
+    shapes, K9's bf16 cast at kv_len 1, 193, 256, 320 and 0 over Smax 320
+    and 321 and its fused form at every write-index edge, each twice bit
+    for bit and timed beside its default form), and time the kernel, the
+    plain version and one PyTorch library call (CUDA events, medians); time
+    the W8A16, W8A8 and W4A16 ``qdot`` against a bf16 ``torch.matmul`` at
+    decode rows;
  4. run ``generate_grounded`` on the card and on the CPU (plain versions)
     and require the same tokens, masks, boxes and presence logits: at
     ``MMMMConfig.tiny()`` in fp32 greedy and n-gram speculative (3, 7 and
@@ -57,7 +63,10 @@ Phases, in order; any failure exits non-zero before the result lines:
     servers card vs CPU at the tiny config (``TextServer`` greedy with
     refills mid-flight, with the prefix cache's suffix windows of 16-32
     tokens, speculative over W8A16; ``GroundedServer`` greedy and
-    speculative): the same texts, stats and masks;
+    speculative): the same texts, stats and masks; and at the tiny config over an int8 KV
+    cache the switches ``q8_cast="bf16"``, ``dense_fast_softmax=True`` and
+    ``gelu_mode`` ``"tanh"`` then ``"erf"``, card vs CPU, every K4 launch
+    in its form "fast" and every K9 launch in "bf16";
  5. run the grounded report path at the flagship width (CogVLM-17B +
     SegVol SAM, bf16 LLM/ViT, fp32 SAM, random weights from a seed): B=4,
     prompt 192 with 146 vision tokens, 128 new tokens, 4 targets, as four
@@ -91,10 +100,19 @@ Phases, in order; any failure exits non-zero before the result lines:
     counts per step, the third profiled by stage (vit, llm_forward, ce,
     sam_loss, backward, optimizer), peak memory; and one ``"xla"`` step
     from the semantic state before step 3, whose loss and gradient norm
-    must agree; then, at full width and 8 LLM and ViT layers and
+    must agree; three semantic steps under ``remat="attn"`` from the state
+    before step 3 (K3 182, each K7 107; the loss and gradient norm those of
+    ``remat=True``; step time and peak memory beside it); then, at full
+    width and 8 LLM and ViT layers and
     over four seeds, the gradients of the ``"pallas"`` and ``"xla"`` routes
     held to each other in fp32, and each route's bf16 gradients measured
     against fp32, the kernels' route held to the plain route's distance;
+    one semantic step under ``remat="dots"`` at 8 LLM and ViT layers (at
+    full depth its kept products pass 80 GB) beside ``remat=True`` from one
+    state; the ``finetune`` command warm-started from an ``adapter.npz``
+    under ``remat="attn"``: at the tiny config card vs CPU, and at full
+    width with 2 LLM and 2 ViT layers over a VQA set of CT volumes (step
+    time, exact launches, the export);
  7. the training loop (``Trainer.fit``): at conf/tiny/fit.yaml's values in
     fp32 over a synthetic vision-language dataset of ``.pt`` volumes, 4
     steps then a resumed run to 6, on the card and on the CPU from one
@@ -494,6 +512,7 @@ def kernel_phase(peaks, gen):
     spec_kernel_phase(peaks, gen, out)
     capacity_kernel_phase(peaks, gen, out)
     train_kernel_phase(peaks, gen, out)
+    switch_kernel_rows(peaks, gen, out)
     torch.cuda.synchronize()
     for name in ("K4", "K3", "K1", "K2", "K5", "K6", "K7dq", "K7dkv", "K7delta", "K8", "K9",
                  "K10", "K11", "K11mma", "K12", "P1"):
@@ -1024,14 +1043,14 @@ def decode_d90_row(kid, peaks, gen, kernel, plain, *, window=0, sdpa=False, int8
     return row
 
 
-def q8_append_check(kid, cache, q, kn, vn, widx, lens):
+def q8_append_check(kid, cache, q, kn, vn, widx, lens, cast="f32"):
     """K9's or K10's (``kid``) fused form at one set of write indices and
     lengths: the caches bit-equal to the plain sequence's (``quantize_kv``,
     ``kv_append_q8_plain``) and to ``quantize_kv`` then K8's, so the
     in-launch quantization gives ``quantize_kv``'s bits; the output
     bit-equal to K8 then the read's, twice; one launch of the read in its
-    form "append", none of K8. Returns the error against the plain
-    version."""
+    form "append", none of K8. K9 with its products in ``cast``. Returns the
+    error against the plain version."""
     from mmmm_tpu_torch.ops import decode_kernel as dk
     from mmmm_tpu_torch.ops.quant import quantize_kv
 
@@ -1041,15 +1060,15 @@ def q8_append_check(kid, cache, q, kn, vn, widx, lens):
     w = torch.tensor(widx, dtype=torch.int32, device=dev)
     n = torch.tensor(lens, dtype=torch.int32, device=dev)
     plain = {k: t.clone() for k, t in cache.items()}
-    ref = dk.decode_attention_q8_append_plain(q, plain, kn, vn, w, n, q8_mxu=mxu)
+    ref = dk.decode_attention_q8_append_plain(q, plain, kn, vn, w, n, q8_mxu=mxu, cast=cast)
     seq = {k: t.clone() for k, t in cache.items()}
     dk.kv_append_q8(seq, *quantize_kv(kn.transpose(1, 2)), *quantize_kv(vn.transpose(1, 2)), w)
-    want = dk.decode_attention_q8(q, *(seq[k] for k in dk.Q8_LEAVES), n, q8_mxu=mxu)
+    want = dk.decode_attention_q8(q, *(seq[k] for k in dk.Q8_LEAVES), n, q8_mxu=mxu, cast=cast)
     outs = []
     for _ in range(2):
         got = {k: t.clone() for k, t in cache.items()}
         before = (kern.launches, kern.forms.get("append", 0), dk.K8.launches)
-        outs.append(dk.decode_attention_q8_append(q, got, kn, vn, w, n, q8_mxu=mxu))
+        outs.append(dk.decode_attention_q8_append(q, got, kn, vn, w, n, q8_mxu=mxu, cast=cast))
         if (kern.launches, kern.forms.get("append", 0), dk.K8.launches) != (
                 before[0] + 1, before[1] + 1, before[2]):
             raise AssertionError(f"{kid} fused: not one launch of its form 'append'")
@@ -1177,6 +1196,158 @@ def q8_fused_rows(kid, peaks, gen) -> list:
         rows.append(row)
         del steps, caches
     return rows
+
+
+# K4's fast softmax is held to dense_attention_fast_tiles: the same roundings
+# in the kernel's order of key tiles (its running max). What is left: fp32
+# sums in other orders, and a logit within fp32 noise of a bf16 boundary of
+# s - m that rounds to the other neighbour (one probability moves by up to
+# 2^-8 |s - m| p). On the CPU, fp64 against fp32 logits moved the outputs by
+# 1.4e-7 / 2.1e-7 in the mean and 9.8e-4 (one bf16 step) / 2.3e-4 at most,
+# bf16 / fp32, at these shapes. The limits: 1e-5 in the mean, and 2^-7 (two
+# steps of the largest bf16 output) / 1e-3 of the largest output at most.
+# The exact softmax sits 1.3e-4 to 3.8e-4 away in the mean, so the default
+# form fails the mean limit: checked on the default K4's own output.
+FAST_TOL = {torch.bfloat16: 2 ** -7, torch.float32: 1e-3}
+FAST_MEAN_TOL = 1e-5
+
+
+def switch_kernel_rows(peaks, gen, out) -> None:
+    """The kernel forms of the reference's non-default numeric switches,
+    each held to its plain version and timed beside its default form:
+    K4's fast softmax (``MMMM_DENSE_FAST_SOFTMAX``; K12 is the same kernel;
+    held to the plain fast form in the kernel's order of key tiles, and the
+    default form shown to miss that check)
+    at the ViT's (B, 1153, 16, 112) bf16 and the SAM encoder's (B, 512, 12,
+    64) fp32 shapes, twice bit for bit; K9's bf16 cast (``MMMM_Q8_CAST``)
+    at H = 32, D = 128 for kv_len 1, 193, 256, 320 and 0 over Smax 320 and
+    321, q in bf16 and fp32, twice bit for bit, its fused form at every
+    write-index edge (caches bit-equal to the appends', the output K8 then
+    the bf16 read's), both timed at kv_len 256, B = 4 and 1. The rows go to
+    ``out["K4"]["variants"]`` and ``out["K9"]["variants"]``."""
+    from mmmm_tpu_torch.ops import decode_kernel as dk
+    from mmmm_tpu_torch.ops import dense_attn as da
+    from mmmm_tpu_torch.ops.quant import quantize_kv
+
+    bw, bf16_rate, fp32_rate, _ = peaks
+    dev = torch.device("cuda")
+    rnd = lambda *s, dt=torch.bfloat16: torch.randn(*s, generator=gen, device=dev).to(dt)
+    log("K4 fast softmax (the reference's MMMM_DENSE_FAST_SOFTMAX; K12 runs the same kernel)")
+    for label, (b, s, h, d, dt) in {"vit": (B, 1153, 16, 112, torch.bfloat16),
+                                    "sam": (B, 512, 12, 64, torch.float32)}.items():
+        q, k, v = (rnd(b, s, h, d, dt=dt) for _ in range(3))
+        scale = d ** -0.5
+        fast = lambda: da.dense_attention(q, k, v, scale, fast_softmax=True)
+        got = fast()
+        ref = da.dense_attention_fast_tiles(q, k, v, scale)
+        top = ref.float().abs().max().item()
+        err = max_err(got, ref)
+        check(f"K4 fast {label} {tuple(q.shape)} {dt} (largest output {top:.3f})", err,
+              FAST_TOL[dt] * top)
+        mean = (got.float() - ref.float()).abs().mean().item()
+        default_mean = (da.dense_attention(q, k, v, scale).float()
+                        - ref.float()).abs().mean().item()
+        log(f"  K4 fast {label}: mean_abs_err {mean:.3e} (tol {FAST_MEAN_TOL:g}); the default "
+            f"form's {default_mean:.3e}")
+        if not mean <= FAST_MEAN_TOL:
+            raise AssertionError(f"K4 fast {label}: mean_abs_err {mean} > {FAST_MEAN_TOL}")
+        if not default_mean > 4 * FAST_MEAN_TOL:
+            raise AssertionError(f"K4 fast {label}: the default form is {default_mean} from the "
+                                 "fast form, too close for the check to tell them apart")
+        if not torch.equal(got, fast()):
+            raise AssertionError(f"K4 fast {label}: two runs differ")
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        bms, by = bound(4 * q.numel() * q.element_size(), 4 * b * h * s * s * d,
+                        bf16_rate if dt == torch.bfloat16 else fp32_rate, bw)
+        row = {"form": "fast", "site": label, "shape": [b, s, h, d],
+               "dtype": str(dt).split(".")[-1], "max_abs_err": err, "mean_abs_err": mean,
+               "default_form_mean_abs_err": default_mean, "ms": time_ms(fast),
+               "default_form_ms": time_ms(lambda: da.dense_attention(q, k, v, scale)),
+               "plain_ms": time_ms(lambda: da.dense_attention_plain(q, k, v, scale,
+                                                                    fast_softmax=True), inner=2),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                            scale=scale)),
+               "bound_ms": bms, "bound_by": by}
+        log(f"  K4 fast {label}: kernel {row['ms']:.4f} ms (default form "
+            f"{row['default_form_ms']:.4f}), plain {row['plain_ms']:.4f} ms, library "
+            f"{row['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+        out["K4"]["variants"].append(row)
+
+    log("K9 bf16 cast (the reference's MMMM_Q8_CAST=bf16 on its ragged route)")
+    h, d = 32, 128
+
+    def cache(b, smax):
+        kq, ks = quantize_kv(rnd(b, h, smax, d))
+        vq, vs = quantize_kv(rnd(b, h, smax, d))
+        return [kq, ks, vq, vs]
+
+    for smax in (PROMPT + NEW, PROMPT + NEW + 1):
+        leaves = cache(5, smax)
+        lens = torch.tensor([1, PROMPT + 1, 256, PROMPT + NEW, 0], dtype=torch.int32, device=dev)
+        for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+            q = rnd(5, 1, h, d, dt=dt)
+            got = dk.decode_attention_q8(q, *leaves, lens, cast="bf16")
+            check(f"K9 bf16 (5, {h}, {smax}, {d}) q {dt} kv_len {lens.tolist()}",
+                  max_err(got, dk.decode_attention_q8_plain(q, *leaves, lens, cast="bf16")), tol)
+            if not torch.all(got[4] == 0) or not torch.equal(
+                    got, dk.decode_attention_q8(q, *leaves, lens, cast="bf16")):
+                raise AssertionError("K9 bf16: kv_len 0 is not zeros, or two runs differ")
+        kq, ks = quantize_kv(rnd(B, h, smax, d))
+        vq, vs = quantize_kv(rnd(B, h, smax, d))
+        qkv = rnd(B, 1, 3 * h, d)
+        q, kn, vn = qkv[:, :, :h].contiguous(), qkv[:, :, h:2 * h], qkv[:, :, 2 * h:]
+        step = {"kq": kq, "ks": ks, "vq": vq, "vs": vs}
+        errs = [q8_append_check("K9", step, q, kn, vn, widx, n, cast="bf16") for widx, n in (
+            ([PROMPT, 0, smax - 1, smax + 7], [PROMPT + 1, 1, smax, smax]),
+            ([-1, 5, 300, -400], [smax, 6, 301, 256]),
+            ([256, 200, 10, smax - 1], [PROMPT + 1, 0, 5, 256]))]
+        one = {k: t[:1] for k, t in step.items()}
+        errs += [q8_append_check("K9", one, q[:1], kn[:1], vn[:1], [w], [n], cast="bf16")
+                 for w, n in ((255, 256), (smax - 1, 0), (-3, smax))]
+        check(f"K9 bf16 fused (B, {h}, {smax}, {d}): caches as quantize_kv then K8, output as "
+              "K8 then the bf16 read, bit for bit", max(errs), 2e-2)
+    for b in (B, 1):
+        smax, n = PROMPT + NEW, 256
+        rot = Rotating([cache(b, smax) for _ in range(8)])
+        lens = torch.full((b,), n, dtype=torch.int32, device=dev)
+        q = rnd(b, 1, h, d)
+        err = max_err(dk.decode_attention_q8(q, *rot.copies[0], lens, cast="bf16"),
+                      dk.decode_attention_q8_plain(q, *rot.copies[0], lens, cast="bf16"))
+        check(f"K9 bf16 timed row B={b} kv_len {n}", err, 2e-2)
+        bms, by = bound(2 * b * n * h * (d + 2) + 2 * q.numel() * 2, 4 * b * n * h * d,
+                        bf16_rate, bw)
+        row = {"form": "bf16", "shape": [b, h, smax, d], "kv_len": n,
+               "dtype": "int8 KV, bf16 q, bf16 products", "max_abs_err": err,
+               "ms": time_ms(lambda: dk.decode_attention_q8(q, *rot.next(), lens, cast="bf16")),
+               "default_form_ms": time_ms(lambda: dk.decode_attention_q8(q, *rot.next(), lens)),
+               "plain_ms": time_ms(lambda: dk.decode_attention_q8_plain(q, *rot.next(), lens,
+                                                                        cast="bf16")),
+               "library_ms": None, "bound_ms": bms, "bound_by": by}
+        log(f"  K9 bf16 B={b} kv_len {n}: kernel {row['ms']:.4f} ms (fp32 form "
+            f"{row['default_form_ms']:.4f}), plain {row['plain_ms']:.4f} ms, bound {bms:.5f} ms")
+        out["K9"]["variants"].append(row)
+        steps = [{k: t for k, t in zip(dk.Q8_LEAVES, c)} for c in rot.copies]
+        caches = Rotating(steps)
+        qkv = rnd(b, 1, 3 * h, d)
+        q, kn, vn = qkv[:, :, :h].contiguous(), qkv[:, :, h:2 * h], qkv[:, :, 2 * h:]
+        w = lens - 1
+        fused = lambda cast: (lambda: dk.decode_attention_q8_append(q, caches.next(), kn, vn, w,
+                                                                     lens, cast=cast))
+        err = q8_append_check("K9", steps[0], q, kn, vn, w.tolist(), lens.tolist(), cast="bf16")
+        new_bytes = 2 * b * h * d * 2 + 2 * b * h * (d + 2)
+        bms, by = bound(2 * b * (n - 1) * h * (d + 2) + 2 * q.numel() * 2 + new_bytes,
+                        4 * b * n * h * d, bf16_rate, bw)
+        row = {"form": "append, bf16", "shape": [b, h, smax, d], "kv_len": n,
+               "write_index": n - 1, "dtype": "int8 KV, bf16 q and new rows, bf16 products",
+               "max_abs_err": err, "ms": time_ms(fused("bf16")),
+               "default_form_ms": time_ms(fused("f32")),
+               "plain_ms": time_ms(lambda: dk.decode_attention_q8_append_plain(
+                   q, caches.next(), kn, vn, w, lens, cast="bf16")),
+               "library_ms": None, "bound_ms": bms, "bound_by": by}
+        log(f"  K9 bf16 fused B={b} kv_len {n}: kernel {row['ms']:.4f} ms (fp32 form "
+            f"{row['default_form_ms']:.4f}), plain {row['plain_ms']:.4f} ms, bound {bms:.5f} ms")
+        out["K9"]["variants"].append(row)
+        del rot, steps, caches
 
 
 def window_append_check(kc, vc, q, kn, vn, widx) -> float:
@@ -1910,6 +2081,55 @@ def tiny_reference_phase():
             check(f"tiny {label}: tokens equal, masks (card vs CPU)", r["masks_max_abs_err"], tol)
         out[label] = r
     out["greedy B = 1, split decode"] = tiny_split_decode(cfg, params, args, kw)
+    out["switches"] = tiny_switches(params, args, kw)
+    return out
+
+
+SWITCHES_RUN = "int8 KV, q8_cast bf16, fast softmax, gelu tanh"
+
+
+def tiny_switches(params, args, kw) -> dict:
+    """The reference's non-default numeric switches through
+    ``generate_grounded`` at the tiny config over an int8 KV cache, card
+    vs CPU: ``q8_cast="bf16"``, ``dense_fast_softmax=True`` and
+    ``gelu_mode`` ``"tanh"``, then ``"erf"``: the same tokens, masks within
+    2e-4. Each card run is counted from 0: it launches K4 and K9 as often as
+    the run with the switches off, every K4 launch in its form "fast" and
+    every K9 launch in its forms "append" and "bf16"."""
+    from mmmm_tpu_torch import generate_grounded
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+
+    gparams = _tree_to(params, "cuda")
+    out, base = {}, None
+    for label, extra in [("int8 KV, switches off", {}),
+                         (SWITCHES_RUN,
+                          dict(q8_cast="bf16", dense_fast_softmax=True, gelu_mode="tanh")),
+                         ("int8 KV, q8_cast bf16, fast softmax, gelu erf",
+                          dict(q8_cast="bf16", dense_fast_softmax=True, gelu_mode="erf"))]:
+        ref = generate_grounded(params, *args, device="cpu", kv_cache_dtype="int8", **kw,
+                                **extra)
+        for kern in KERNELS.values():
+            kern.reset()
+        got = generate_grounded(gparams, *args, device="cuda", kv_cache_dtype="int8", **kw,
+                                **extra)
+        torch.cuda.synchronize()
+        launches = {n: k.launches for n, k in KERNELS.items() if k.launches}
+        forms = {n: dict(k.forms) for n, k in KERNELS.items() if k.forms}
+        if not np.array_equal(got.tokens, ref.tokens):
+            raise AssertionError(f"tiny {label}: tokens differ\n{got.tokens}\n{ref.tokens}")
+        err = max_err(got.masks.cpu(), ref.masks)
+        check(f"tiny {label}: tokens equal, masks (card vs CPU)", err, 2e-4)
+        if base is None:
+            base = launches
+            if not (base.get("K4") and base.get("K9")):
+                raise AssertionError(f"tiny {label}: K4 or K9 not launched: {launches}")
+        elif (launches != base or forms.get("K4") != {"fast": base["K4"]} or
+              forms.get("K9") != {"append": base["K9"], "bf16": base["K9"]}):
+            raise AssertionError(f"tiny {label}: launches {launches}, forms {forms}; with the "
+                                 f"switches off {base}")
+        out[label] = {"tokens_equal": True, "masks_max_abs_err": err, "launches": launches,
+                      "launches_by_form": forms}
+        log(f"  tiny {label}: launches {launches}, by form {forms}")
     return out
 
 
@@ -2634,6 +2854,7 @@ def flagship_train_phase(gen):
             f"{r['busy_share_steady']:.4f} of the steady step, backward kernels "
             f"{prof['backward_kernels_ms']:.1f} ms")
         if mode == "semantic":
+            attn_state = _state_to(snapshot, "cuda")
             xla_step = make_train_step(cfg, opt, lcfg, vg_mode=mode, bf16_vlm=True,
                                        attn_impl="xla", remat=True, vis_span="auto",
                                        device="cuda")
@@ -2656,11 +2877,117 @@ def flagship_train_phase(gen):
             check("xla vs pallas step gradient norm (relative)",
                   r["xla_step"]["grad_norm_rel_err"], 5e-2)
             del snapshot
+            r["remat_attn"] = remat_attn_steps(cfg, opt, lcfg, attn_state, frozen, batch,
+                                               r["steps"][-1]["logs"], r)
+            del attn_state
         out["modes"][mode] = r
         launches_by_mode[f"train_{mode}"] = r["steps"][1]["launches"]
         del batch
         torch.cuda.empty_cache()
     return out, launches_by_mode
+
+
+def remat_attn_steps(cfg, opt, lcfg, state, frozen, batch, true_logs, true_run) -> dict:
+    """Three semantic steps under ``remat="attn"`` from the state before
+    ``remat=True``'s third step: launches exact every step (K3 once at each
+    of the 32 LLM sites and twice at the 63 + 12 others: 182; K7dq, K7dkv
+    and K7delta 107 each); the first step's loss and gradient norm those of
+    the ``remat=True`` step from the same state (a policy only decides what
+    the backward keeps: the loss within 1e-6, the gradient norm within 1e-5,
+    room for CUDA's atomic sums in backward kernels such as the
+    upsamplings'); the steady (second) step's time and the peak memory
+    beside ``remat=True``'s."""
+    from mmmm_tpu_torch import make_train_step
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+
+    step = make_train_step(cfg, opt, lcfg, vg_mode="semantic", bf16_vlm=True,
+                           attn_impl="pallas", remat="attn", vis_span="auto", device="cuda")
+    want = fit_launches_expected(cfg, "semantic", "attn")
+    out = {"steps": []}
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_STEPS):
+        for kern in KERNELS.values():
+            kern.reset()
+        logs, wall = _timed_step(step, state, frozen, batch)
+        launches = {name: kern.launches for name, kern in KERNELS.items()}
+        if {n: launches[n] for n in want} != want:
+            raise AssertionError(f"train semantic, remat attn, step {i + 1}: launches "
+                                 f"{launches}, expected {want}")
+        vals = {k: float(v) for k, v in logs.items()}
+        out["steps"].append({"wall_s": wall, "logs": vals,
+                             "launches": {k: v for k, v in launches.items() if v}})
+        log(f"  train semantic, remat \"attn\", step {i + 1}: {wall:.3f} s, {vals}, launches "
+            f"{out['steps'][-1]['launches']}")
+    first = out["steps"][0]["logs"]
+    out["loss_rel_err"] = abs(first["loss"] - true_logs["loss"]) / abs(true_logs["loss"])
+    out["grad_norm_rel_err"] = (abs(first["grad_norm"] - true_logs["grad_norm"])
+                                / abs(true_logs["grad_norm"]))
+    check("remat attn vs True step loss (relative)", out["loss_rel_err"], 1e-6)
+    check("remat attn vs True step gradient norm (relative)", out["grad_norm_rel_err"], 1e-5)
+    out["steady_step_s"] = out["steps"][1]["wall_s"]
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["true_steady_step_s"] = true_run["steady_step_s"]
+    out["true_peak_mem_gib"] = true_run["peak_mem_gib"]
+    log(f"  remat \"attn\": steady step {out['steady_step_s']:.3f} s (True "
+        f"{out['true_steady_step_s']:.3f} s), peak {out['peak_mem_gib']:.2f} GiB (True "
+        f"{out['true_peak_mem_gib']:.2f} GiB)")
+    return out
+
+
+def remat_dots_phase() -> dict:
+    """One semantic step under ``remat="dots"`` at the flagship's full width
+    with its depth cut to 8 LLM and 8 ViT layers (all 12 SAM encoder
+    layers): ``"dots"`` keeps every product with no batch dimension, the
+    per-layer LoRA merges' ``a @ b`` included, which at full depth is about
+    69 GB of fp32 deltas on top of the 45.6 GiB state (``PERF.md``; 15 GB
+    at 8 layers). From one state, a ``remat=True`` step then a ``"dots"``
+    step (the trainable tree and Adam's state copied back between them):
+    the loss within 1e-6 and the gradient norm within 1e-5 (as
+    ``remat_attn_steps``), launches exact (K3 twice a site under both),
+    step time and peak memory of each."""
+    import dataclasses
+    from mmmm_tpu_torch import (LoraConfig, MMMMConfig, OptimizerConfig, init_train_state,
+                                make_optimizer, make_train_step)
+    from mmmm_tpu_torch.models.cogvlm import CogVLMConfig
+    from mmmm_tpu_torch.models.segvol import SamConfig
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+
+    log(f"remat \"dots\" at full width, {ROUTE_LAYERS} LLM and ViT layers")
+    v = CogVLMConfig.cogvlm17b()
+    cfg = MMMMConfig(vlm=dataclasses.replace(
+        v, num_hidden_layers=ROUTE_LAYERS,
+        vision=dataclasses.replace(v.vision, num_hidden_layers=ROUTE_LAYERS)), sam=SamConfig())
+    opt = make_optimizer(OptimizerConfig(lr=5e-5, warmup_steps=1, max_steps=1000))
+    lcfg = LoraConfig(r=64, alpha=8.0)
+    state, frozen = init_train_state(cfg, opt, lcfg, seed=0, frozen_vlm_bf16=True, device="cuda")
+    start = _state_to(state, "cuda")
+    batch = flagship_train_batch("semantic", torch.Generator(device="cuda").manual_seed(0))
+    out = {"layers": ROUTE_LAYERS}
+    for remat in (True, "dots"):
+        run = _state_to(start, "cuda")
+        step = make_train_step(cfg, opt, lcfg, vg_mode="semantic", bf16_vlm=True,
+                               attn_impl="pallas", remat=remat, vis_span="auto", device="cuda")
+        for kern in KERNELS.values():
+            kern.reset()
+        torch.cuda.reset_peak_memory_stats()
+        logs, wall = _timed_step(step, run, frozen, batch)
+        launches = {name: kern.launches for name, kern in KERNELS.items()}
+        want = fit_launches_expected(cfg, "semantic", remat)
+        if {n: launches[n] for n in want} != want:
+            raise AssertionError(f"remat {remat} step: launches {launches}, expected {want}")
+        out[str(remat)] = {"wall_s": wall, "logs": {k: float(x) for k, x in logs.items()},
+                           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                           "launches": {k: n for k, n in launches.items() if n}}
+        log(f"  remat {remat!r}: {wall:.3f} s, peak {out[str(remat)]['peak_mem_gib']:.2f} GiB, "
+            f"{out[str(remat)]['logs']}, launches {out[str(remat)]['launches']}")
+        del run, step
+        torch.cuda.empty_cache()
+    a, b = out["True"]["logs"], out["dots"]["logs"]
+    for key, tol in (("loss", 1e-6), ("grad_norm", 1e-5)):
+        check(f"remat dots vs True step {key} (relative)", abs(b[key] - a[key]) / abs(a[key]),
+              tol)
+    del state, frozen, start, batch
+    return out
 
 
 ROUTE_LAYERS = 8  # LLM and ViT layers of train_route_phase's cut-depth flagship
@@ -2929,23 +3256,28 @@ def count_fit_steps(trainer) -> list:
     return record
 
 
-def fit_launches_expected(model_cfg, mode: str) -> dict:
-    """A step's launches under ``attn_impl="pallas"`` with ``remat``: K3
-    twice and K7dq, K7dkv and K7delta once at every flash site (the LLM's
-    and the ViT's layers, and the SAM encoder's with grounding)."""
+def fit_launches_expected(model_cfg, mode: str, remat=True) -> dict:
+    """A step's launches under ``attn_impl="pallas"``: K7dq, K7dkv and
+    K7delta once at every flash site (the LLM's and the ViT's layers, and the
+    SAM encoder's with grounding), K3 twice under ``remat`` True or
+    ``"dots"`` (the forward, then the recompute in the backward), once at
+    the LLM's sites and twice at the others' under ``"attn"`` (the LLM
+    layers keep K3's output for K7), once under False."""
     from mmmm_tpu_torch.ops._cuda import KERNELS
 
-    sites = model_cfg.vlm.num_hidden_layers + model_cfg.vlm.vision.num_hidden_layers
+    llm = model_cfg.vlm.num_hidden_layers
+    sites = llm + model_cfg.vlm.vision.num_hidden_layers
     if mode != "none":
         sites += model_cfg.sam.encoder_num_layers
+    k3 = {True: 2 * sites, "dots": 2 * sites, "attn": 2 * sites - llm, False: sites}[remat]
     want = {name: 0 for name in KERNELS}
-    want.update({"K3": 2 * sites, "K7dq": sites, "K7dkv": sites, "K7delta": sites})
+    want.update({"K3": k3, "K7dq": sites, "K7dkv": sites, "K7delta": sites})
     return want
 
 
-def check_fit_launches(label: str, model_cfg, record: list) -> None:
+def check_fit_launches(label: str, model_cfg, record: list, remat=True) -> None:
     for i, r in enumerate(record):
-        want = fit_launches_expected(model_cfg, r["mode"])
+        want = fit_launches_expected(model_cfg, r["mode"], remat)
         got = {name: r["launches"].get(name, 0) for name in want}
         if got != want:
             raise AssertionError(f"{label} step {i + 1} ({r['mode']}, S {r['seq']}): launches "
@@ -3180,6 +3512,145 @@ def flagship_fit_phase(train_none_step_s: float | None, keep_adapter: Path | Non
             shutil.move(tmp / "run" / "adapter.npz", keep_adapter)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# ---- the finetune command (scripts/finetune/cli.py) ----------------------------------
+# conf/finetune/mmmm-vqa.yaml as load_yaml resolves it, less its model and LoRA
+# (../model.yaml, ../lora.yaml: the flagship and LORA_YAML), held to the file
+# by tests/test_torch_port_finetune.py
+FT_VQA = {"tokenizer": {"path": None},
+          "data": {"conf": {"max_seq_len": 1024},
+                   "vl_trans": {"max_tokens": 256, "max_tokens_z": 4}},
+          "optimizer": {"lr": 5.0e-5, "weight_decay": 0.01, "warmup_steps": 0,
+                        "max_steps": 2000, "grad_clip_norm": 1.0},
+          "trainer": {"max_steps": 2000, "ckpt_every": 500, "batch_size": 8,
+                      "out_dir": "runs/finetune-vqa"}}
+FT_STEPS, FT_LAYERS = 3, 2
+
+
+def finetune_phase() -> dict:
+    """The ``finetune`` command (``cli.cmd_finetune``) over a synthetic VQA
+    set, warm-started (``--init-adapter``) from an ``adapter.npz`` that
+    ``save_adapter`` wrote, under ``trainer.remat="attn"``:
+
+      - at conf/tiny/fit.yaml's model in fp32, 3 steps, on the card and on
+        the CPU from one CPU-made state: each step's ``lm_loss`` and
+        ``grad_norm`` within 1e-5 relative; launches exact (a VQA step is
+        ``"none"``: K3 once at the LLM's layers and twice at the ViT's);
+      - at the flagship's full width with 2 LLM and 2 ViT layers (bf16
+        CogVLM, conf/lora.yaml, conf/finetune/mmmm-vqa.yaml's data,
+        optimizer and trainer values at B = 4, one patch depth) over four
+        constant (1, 64, 320, 320) CT volumes: step time (median of steps 2-3), launches
+        exact, the adapter export's bytes and seconds. The finetuned SAM,
+        instance SAM, ``vg_proj`` and ``embed_tokens`` are 396 M fp32
+        parameters at any depth, so the adapter is 1.70 GB."""
+    import dataclasses
+    import tempfile
+    from mmmm_tpu_torch import cli, init_train_state
+    from mmmm_tpu_torch.models.cogvlm import CogVLMConfig
+    from mmmm_tpu_torch.models.mmmm import MMMMConfig
+    from mmmm_tpu_torch.models.segvol import SamConfig
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+    from mmmm_tpu_torch.peft.lora import flatten
+    from mmmm_tpu_torch.train.checkpoint import save_adapter
+
+    log("finetune: the finetune command, warm-started, remat \"attn\"")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_finetune_"))
+    out = {}
+
+    def run(cfg, ds, adapter, dev, state):
+        args = cli.parse_args(["finetune", "-c", "conf/finetune/mmmm-vqa.yaml", "--dataset-dir",
+                               str(ds), "--init-adapter", str(adapter), "--device", dev])
+        for kern in KERNELS.values():
+            kern.reset()
+        t0 = time.perf_counter()
+        trainer = cli.cmd_finetune(args, cfg=cfg, state=state)
+        wall = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in KERNELS.items() if k.launches}
+        metrics = _metrics(Path(cfg["trainer"]["out_dir"]))
+        if [m["step"] for m in metrics] != list(range(1, FT_STEPS + 1)):
+            raise AssertionError(f"finetune {dev}: steps {[m['step'] for m in metrics]}")
+        if dev == "cuda":
+            want = fit_launches_expected(trainer.model.cfg, "none", "attn")
+            want = {n: FT_STEPS * c for n, c in want.items() if c}
+            if launches != want:
+                raise AssertionError(f"finetune: launches {launches}, {FT_STEPS} VQA steps "
+                                     f"under remat attn launch {want}")
+        return trainer, metrics, launches, wall
+
+    try:
+        ds = write_vl_dataset(tmp / "VQASet", 4, (1, 8, 32, 32), report_chars=120, seed=3)
+        tiny = with_keys(TINY_FIT, data__vl_trans={"max_tokens": 64, "max_tokens_z": 4},
+                         trainer__bf16_vlm=False, trainer__frozen_vlm_bf16=False,
+                         trainer__remat="attn", trainer__max_steps=FT_STEPS,
+                         optimizer__max_steps=FT_STEPS)
+        made = build_trainer(with_keys(tiny, trainer__out_dir=str(tmp / "init"), data__datasets=[
+            {"name": "VQASet", "type": "vl", "dir": str(ds)}]), "cpu")
+        state0, frozen0 = init_train_state(made.model.cfg, made.optimizer, made.lora_cfg,
+                                           seed=5, device="cpu")
+        g = torch.Generator().manual_seed(5)  # a trained-looking adapter: b nonzero
+        with torch.no_grad():
+            for path, t in flatten(state0.trainable).items():
+                if path.endswith("/b"):
+                    t.normal_(std=0.02, generator=g)
+        save_adapter(tmp / "tiny_adapter.npz", state0.trainable)
+        metrics = {}
+        for dev in ("cuda", "cpu"):
+            cfg = with_keys(tiny, trainer__out_dir=str(tmp / f"tiny_{dev}"))
+            _, metrics[dev], launches, _ = run(cfg, ds, tmp / "tiny_adapter.npz", dev,
+                                               (_state_to(state0, dev), _tree_to(frozen0, dev)))
+            if dev == "cuda":
+                out["tiny_launches"] = launches
+        rel = lambda a, b: abs(a - b) / abs(b)
+        for key in ("lm_loss", "grad_norm"):
+            errs = [rel(g_[key], c[key]) for g_, c in zip(metrics["cuda"], metrics["cpu"])]
+            out[f"tiny_{key}_rel_err"] = errs
+            check(f"finetune tiny {key} card vs CPU, steps 1-{FT_STEPS} (relative)", max(errs),
+                  1e-5)
+        out["tiny_metrics"] = metrics["cuda"]
+        log(f"  finetune tiny: launches {out['tiny_launches']} over {FT_STEPS} steps")
+
+        v = CogVLMConfig.cogvlm17b()
+        model = dataclasses.asdict(MMMMConfig(vlm=dataclasses.replace(
+            v, num_hidden_layers=FT_LAYERS,
+            vision=dataclasses.replace(v.vision, num_hidden_layers=FT_LAYERS)), sam=SamConfig()))
+        ds = write_vl_dataset(tmp / "VQA-CT", 4, FIT_VOLUME, report_chars=120, seed=4,
+                              constant=True)
+        full = with_keys(FT_VQA, model=model, lora=LORA_YAML,
+                         data__vl_trans={**FT_VQA["data"]["vl_trans"], "log2_patch_size_z_std": 0},
+                         optimizer__max_steps=FT_STEPS, trainer__max_steps=FT_STEPS,
+                         trainer__batch_size=4, trainer__log_every=1, trainer__seed=0,
+                         trainer__remat="attn", trainer__out_dir=str(tmp / "full"))
+        made = build_trainer(with_keys(full, trainer__out_dir=str(tmp / "full_init"),
+                                       data__datasets=[]), "cuda")
+        state, frozen = init_train_state(made.model.cfg, made.optimizer, made.lora_cfg, seed=0,
+                                         frozen_vlm_bf16=True, device="cuda")
+        save_adapter(tmp / "full_adapter.npz", state.trainable)
+        del made
+        torch.cuda.reset_peak_memory_stats()
+        trainer, fm, launches, wall = run(full, ds, tmp / "full_adapter.npz", "cuda",
+                                          (state, frozen))
+        step_s = [1.0 / m["steps_per_sec"] for m in fm]
+        out.update({"full_layers": FT_LAYERS, "full_metrics": fm, "full_step_s": step_s,
+                    "full_steady_step_s": statistics.median(step_s[1:]),
+                    "full_launches": launches, "full_wall_s": wall,
+                    "full_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "full_adapter_bytes": (tmp / "full" / "adapter.npz").stat().st_size,
+                    "full_export_s": trainer.seconds["export"],
+                    "full_checkpoint_s": trainer.seconds["checkpoint"],
+                    "full_data_s": trainer.seconds["data"]})
+        if not all(np.isfinite(m["lm_loss"]) for m in fm):
+            raise AssertionError(f"finetune at full width: bad metrics {fm}")
+        log(f"  finetune full width, {FT_LAYERS} LLM and ViT layers: steps "
+            f"{['%.3f' % x for x in step_s]} s, launches {launches}, peak "
+            f"{out['full_peak_mem_gib']:.2f} GiB, adapter {out['full_adapter_bytes'] / 2**30:.3f} "
+            f"GiB in {out['full_export_s']:.3f} s, checkpoints {trainer.seconds['checkpoint']} s, "
+            f"whole command {wall:.1f} s")
+        del trainer, state, frozen
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3999,17 +4470,20 @@ def redesigned_kernel_resources(build_log: str, lib) -> list:
             rows.append(_k1_resource_row(e, lib))
             continue
         if kname.startswith("attn_fwd"):
-            # bf16 <MASKED, DP, KT (keys a tile), NOSM>, fp32 <MASKED, NJ, stages>: K3
-            # is the masked form, K4 (and P1) the other
-            t = re.search(r"ILb([01])ELi(\d+)ELi(\d+)E(?:Lb([01])E)?", e["symbol"])
+            # bf16 <MASKED, DP, KT (keys a tile), NOSM, FAST>, fp32 <MASKED, NJ,
+            # stages, FAST>: K3 is the masked form, K4 (and P1) the other; FAST
+            # is K4's fast softmax
+            t = re.search(r"ILb([01])ELi(\d+)ELi(\d+)E(?:Lb([01])E)?(?:Lb([01])E)?",
+                          e["symbol"])
             targ, kt = int(t.group(2)), int(t.group(3))
             bf16 = kname.endswith("_wgmma")
+            fast = (t.group(5) if bf16 else t.group(4)) == "1"
             # the smem query takes a key count that selects the tile of kt keys
             dyn = (lib.mmmm_attn_fwd_smem(1, targ, 512 if kt == 128 else 64) if bf16
                    else lib.mmmm_attn_fwd_smem(0, 16 * targ, 64))
             label = (f"{kname}<{'K3' if t.group(1) == '1' else 'K4'}, "
-                     + (f"DP={targ}, KT={kt}{', NOSM' if t.group(4) == '1' else ''}>" if bf16
-                        else f"NJ={targ}, stages={kt}>"))
+                     + (f"DP={targ}, KT={kt}{', NOSM' if t.group(4) == '1' else ''}" if bf16
+                        else f"NJ={targ}, stages={kt}") + (", fast softmax>" if fast else ">"))
             rows.append(_resource_row(label, e, dyn))
             continue
         t = re.search(r"ILi(\d+)E", e["symbol"])
@@ -4043,6 +4517,13 @@ def redesigned_kernel_resources(build_log: str, lib) -> list:
     for kname in ("decode_window_mma_kernel", "decode_q8_kernel", "decode_q8_mxu_kernel"):
         if not any(r["kernel"].startswith(kname) and "fused" in r["kernel"] for r in rows):
             raise AssertionError(f"no fused {kname} in the build log")
+    for kname in ("attn_fwd_wgmma", "attn_fwd_f32"):
+        if not any(r["kernel"].startswith(kname) and "fast softmax" in r["kernel"] for r in rows):
+            raise AssertionError(f"no {kname} with the fast softmax in the build log")
+    for fused in (False, True):
+        if not any(r["kernel"].startswith("decode_q8_kernel") and "bf16 products" in r["kernel"]
+                   and ("fused" in r["kernel"]) == fused for r in rows):
+            raise AssertionError(f"no decode_q8_kernel in bf16 (fused: {fused}) in the build log")
     return rows
 
 
@@ -4054,8 +4535,9 @@ def _q8_resource_row(kname: str, e: dict, lib) -> dict:
     shared memory passes the plan's allowance for it, ``Q8_STATIC_SMEM``."""
     from mmmm_tpu_torch.ops import decode_kernel as dk
 
-    t = re.search(r"I(13__nv_bfloat16|f)Li(\d+)ELb([01])ELb([01])E", e["symbol"])
+    t = re.search(r"I(13__nv_bfloat16|f)Li(\d+)ELb([01])ELb([01])E(?:Lb([01])E)?", e["symbol"])
     lps, vec, fused = int(t.group(2)), t.group(3) == "1", t.group(4) == "1"
+    bf16_cast = t.group(5) == "1"  # K9's <..., BF16>: the reference's cast="bf16"
     d, smax, mxu = 16 * lps, PROMPT + NEW, kname == "decode_q8_mxu_kernel"
     chunk, stages = dk.q8_stage_plan(smax, d, mxu=mxu)
     dyn = (lib.mmmm_decode_q8_mxu_smem(chunk, stages, d, smax, 1) if mxu
@@ -4066,8 +4548,8 @@ def _q8_resource_row(kname: str, e: dict, lib) -> dict:
         raise AssertionError(f"{kname}: {e['static_smem']} bytes of static shared memory, past "
                              f"the plan's {dk.Q8_STATIC_SMEM}")
     label = (f"{kname}<{'bf16' if t.group(1) != 'f' else 'fp32'}, LPS={lps}, VEC={int(vec)}"
-             f"{', fused: K8 and quantize_kv' if fused else ''}; {stages} stages of {chunk} "
-             "slots>")
+             f"{', fused: K8 and quantize_kv' if fused else ''}"
+             f"{', bf16 products' if bf16_cast else ''}; {stages} stages of {chunk} slots>")
     return _resource_row(label, e, dyn)
 
 
@@ -4183,6 +4665,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     results["train_routes"] = phase("train_routes", train_route_phase)
     torch.cuda.empty_cache()
+    results["remat_dots"] = phase("remat_dots", remat_dots_phase)
+    torch.cuda.empty_cache()
+    results["finetune"] = phase("finetune", finetune_phase)
+    torch.cuda.empty_cache()
     import tempfile
     keep = Path(tempfile.mkdtemp(prefix="chip_smoke_adapter_"))
     try:
@@ -4196,6 +4682,14 @@ def main() -> int:
         shutil.rmtree(keep, ignore_errors=True)
     launches.update(entry_launches)
     results["kernels"]["K4"]["variants"].extend(results["entry"]["padded_heads"]["k4_rows"])
+    # the switches' kernel forms: launches of phase 4's counted run with them on
+    switched = results["tiny_reference"]["switches"][SWITCHES_RUN]["launches_by_form"]
+    for kid, form in (("K4", "fast"), ("K9", "bf16")):
+        for row in results["kernels"][kid]["variants"]:
+            if form in row.get("form", ""):
+                # the decode step takes K9's fused form: the read alone runs 0 times
+                row["launches"] = (switched[kid][form] if row["form"] != "bf16" else 0)
+                row["launches_in_run"] = f"tiny {SWITCHES_RUN} (phase 4)"
 
     # each K11 row's launches on its own weight shape, read from the counter
     by_shape = results["flagship"]["runs"][KERNEL_RUN["K11"]]["k11_launches_by_shape"]
@@ -4220,6 +4714,11 @@ def main() -> int:
         # phase 8's counted runs (demo, predict, the padded ViT, prompted SAM)
         entry["launches_entry"] = {label: n.get(counter, 0) for label, n in
                                    entry_launches.items()}
+        # a steady semantic step under remat "attn" (phase 6), and the
+        # finetune command's three steps at full width (FT_LAYERS layers)
+        entry["launches_remat_attn"] = results["flagship_train"]["modes"]["semantic"][
+            "remat_attn"]["steps"][1]["launches"].get(counter, 0)
+        entry["launches_finetune"] = results["finetune"]["full_launches"].get(counter, 0)
         entry.update({k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")})
         entry.update({k: v for k, v in r.items() if k not in entry})

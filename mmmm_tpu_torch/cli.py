@@ -3,6 +3,8 @@ package's ``scripts/cli.py fit``, ``scripts/align_sam.py``,
 ``scripts/demo.py`` and ``scripts/evaluate/cli.py predict`` / ``evaluate``:
 
     python -m mmmm_tpu_torch.cli fit -c conf/<phase>/fit.yaml [--no-resume] [--device cpu] [k=v ...]
+    python -m mmmm_tpu_torch.cli finetune -c conf/finetune/mmmm-vqa.yaml --dataset-dir DIR
+        [--task vqa|report] [--init-adapter adapter.npz] [--device cpu] [k=v ...]
     python -m mmmm_tpu_torch.cli align-sam -c conf/align-sam/fit.yaml [--instance] [--device cpu] [k=v ...]
     python -m mmmm_tpu_torch.cli demo -c conf/tiny/fit.yaml [--image path] [--adapter adapter.npz]
         [--question ...] [--max-new-tokens N] [--instance] [--quantize] [--kv-cache int8]
@@ -14,6 +16,10 @@ package's ``scripts/cli.py fit``, ``scripts/align_sam.py``,
 The same YAML configs, dotted ``k=v`` overrides (applied before ``${...}``
 interpolation) and builders. Every command runs on the card unless
 ``--device cpu``. ``fit`` needs ``trainer.mesh_*`` at 1 (one device);
+``finetune`` (``scripts/finetune/cli.py``) is ``fit`` over the one
+vision-language dataset in ``--dataset-dir``, with the task's transform
+ratios, warm-started from an ``adapter.npz`` (the JAX package's
+``save_adapter`` writes one too) with a fresh optimizer state;
 ``align-sam`` writes ``metrics.jsonl`` and ``sam_aligned.npz`` (the SAM
 tree, in the JAX package's adapter layout) under ``trainer.out_dir``.
 ``demo`` prints the report of one image (a synthetic one without
@@ -60,6 +66,59 @@ def cmd_fit(args):
                       build(TrainerConfig, cfg.get("trainer") or {}), device=args.device)
     print(f"device: {trainer.device}", flush=True)
     trainer.fit(resume=not args.no_resume)
+
+
+def finetune_config(cfg: dict, dataset_dir, task: str) -> dict:
+    """``cfg`` (a resolved config dict) with its ``data`` section set to
+    finetune on the vision-language dataset in ``dataset_dir``: VQA only
+    (``report_ratio`` and ``ac_ratio`` 0) for ``task="vqa"``, reports only
+    (``report_ratio`` 1) for ``"report"``; a ratio the config sets is kept."""
+    data_cfg = cfg.setdefault("data", {})
+    ds_dir = Path(dataset_dir)
+    data_cfg["datasets"] = [{"name": ds_dir.name, "type": "vl", "dir": str(ds_dir)}]
+    vt = data_cfg.setdefault("vl_trans", {})
+    if task == "vqa":
+        vt.setdefault("report_ratio", 0.0)
+        vt.setdefault("ac_ratio", 0.0)
+    elif task == "report":
+        vt.setdefault("report_ratio", 1.0)
+    else:
+        raise ValueError(f"task must be 'vqa' or 'report', got {task!r}")
+    return cfg
+
+
+def cmd_finetune(args, cfg: dict | None = None, state=None):
+    """Downstream VQA or report finetuning: ``fit`` over one
+    vision-language dataset. With ``--init-adapter`` the adapter (trainable
+    tree) and a fresh optimizer state are written as the step-0 checkpoint
+    of ``trainer.out_dir``, and the fit resumes from it; without, it starts
+    fresh. ``cfg`` is the config as a dict, in place of ``-c`` and the
+    overrides; ``state`` a ``(TrainState, frozen)`` pair to start from
+    (``Trainer.fit``). Returns the ``Trainer``."""
+    from .build import build_dataset, build_model, build_tokenizer
+    from .config import build
+    from .peft import LoraConfig
+    from .peft.lora import flatten
+    from .train import OptimizerConfig
+    from .train.checkpoint import CheckpointManager, load_adapter
+    from .train.trainer import Trainer, TrainerConfig
+
+    cfg = finetune_config(_load_config(args) if cfg is None else cfg, args.dataset_dir,
+                          args.task)
+    tokenizer = build_tokenizer(cfg.get("tokenizer"))
+    model = build_model(cfg.get("model"), tokenizer)
+    dataset = build_dataset(cfg["data"], tokenizer, Path(args.config).parent)
+    trainer = Trainer(model, dataset, build(OptimizerConfig, cfg.get("optimizer") or {}),
+                      build(LoraConfig, cfg.get("lora") or {}),
+                      build(TrainerConfig, cfg.get("trainer") or {}), device=args.device)
+    print(f"device: {trainer.device}", flush=True)
+    if args.init_adapter:
+        warm = load_adapter(args.init_adapter)
+        ckpt = CheckpointManager(Path(trainer.cfg.out_dir) / "ckpt", 1)
+        ckpt.maybe_save(0, {"trainable": warm, "opt_state": trainer.optimizer.init(flatten(warm))})
+        ckpt.wait()
+    trainer.fit(resume=bool(args.init_adapter), state=state)
+    return trainer
 
 
 def cmd_align_sam(args):
@@ -486,6 +545,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     fit.add_argument("--device", default="cuda")
     fit.add_argument("overrides", nargs="*", help="dotted key=value overrides")
     fit.set_defaults(func=cmd_fit)
+    ft = sub.add_parser("finetune", help="downstream VQA or report finetuning")
+    ft.add_argument("-c", "--config", required=True)
+    ft.add_argument("--dataset-dir", required=True)
+    ft.add_argument("--task", choices=["vqa", "report"], default="vqa")
+    ft.add_argument("--init-adapter", help="adapter.npz to warm-start from")
+    ft.add_argument("--device", default="cuda")
+    ft.add_argument("overrides", nargs="*", help="dotted key=value overrides")
+    ft.set_defaults(func=cmd_finetune)
     align = sub.add_parser("align-sam", help="stage-0 SAM alignment")
     align.add_argument("-c", "--config", required=True)
     align.add_argument("--instance", action="store_true")

@@ -13,7 +13,10 @@
 // i >= j; a row with no valid key gives out = 0 and lse = 0. Unmasked (K4):
 // every key < Skv is valid. NOSM (P1, bf16 only) replaces the softmax by one
 // multiply, P = (S * scale) * 1e-4 with keys past Skv at 0, and writes the
-// unnormalized PV.
+// unnormalized PV. FAST (K4 only; the reference's MMMM_DENSE_FAST_SOFTMAX=1,
+// `_softmax_rows(fast=True)`) takes p = bf16(exp(bf16(s - m))) and sums the
+// bf16 p; m is the running max here where the reference subtracts the row's
+// (ops/dense_attn.py dense_attention_plain says how far that moves p).
 //
 // bf16 (Hopper, warp-specialized; attn_fwd_wgmma): a block is 3 warpgroups
 // and owns 128 query rows, 64 to each of two consumer warpgroups. One
@@ -59,6 +62,14 @@ namespace mmmm {
 // shared memory allows.
 template <int KT>
 constexpr int fwd_stages() { return KT == 128 ? 2 : 4; }
+
+// FAST's probabilities of two natural-log logits less the max, t <= 0:
+// bf16(exp(bf16(t))), as the reference's bf16 exp of a bf16 operand; each
+// rounding one packed conversion for the pair.
+__device__ __forceinline__ float2 fast_exp2(float t0, float t1) {
+  const float2 tb = bf16r2(t0, t1);
+  return bf16r2(exp2f(tb.x * kLog2e), exp2f(tb.y * kLog2e));
+}
 inline bool fwd_long_keys(int Skv) { return Skv >= 512; }
 
 template <int DP, int KT>
@@ -74,7 +85,7 @@ struct FwdSmem {
 // q, out: (B, Sq, H, D); k, v: (B, Skv, H, D), bf16 through the tensor maps
 // (q tiles of kOwn rows, k and v of KT); `scale_log2` = scale * log2(e) (the
 // plain scale under NOSM).
-template <bool MASKED, int DP, int KT, bool NOSM>
+template <bool MASKED, int DP, int KT, bool NOSM, bool FAST>
 __global__ void __launch_bounds__(kWgThreads, 1)
 attn_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                const __grid_constant__ CUtensorMap vmap, const int* __restrict__ qseg,
@@ -232,15 +243,29 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
           alpha[rh] = exp2f(m[rh] - m_new);
           m[rh] = m_new;
           float p_sum = 0.f;
+          if constexpr (FAST) {
 #pragma unroll
-          for (int j = 0; j < KT / 8; ++j) {
+            for (int j = 0; j < KT / 8; ++j) {  // the row's pair of keys together
+              const int e = 4 * j + 2 * rh;
+              float2 p = fast_exp2((sc[e] - m_new) * kLn2, (sc[e + 1] - m_new) * kLn2);
+              if (masked && !(sc[e] > 0.5f * kNegInf)) p.x = 0.f;
+              if (masked && !(sc[e + 1] > 0.5f * kNegInf)) p.y = 0.f;
+              sc[e] = p.x;
+              sc[e + 1] = p.y;
+              p_sum += p.x;
+              p_sum += p.y;
+            }
+          } else {
 #pragma unroll
-            for (int e = 2 * rh; e < 2 * rh + 2; ++e) {
-              // masked logits are exactly kNegInf; valid ones are far above it
-              const float x = sc[4 * j + e];
-              const float p = (!masked || x > 0.5f * kNegInf) ? exp2f(x - m_new) : 0.f;
-              sc[4 * j + e] = p;
-              p_sum += p;
+            for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+              for (int e = 2 * rh; e < 2 * rh + 2; ++e) {
+                // masked logits are exactly kNegInf; valid ones are far above it
+                const float x = sc[4 * j + e];
+                const float p = (!masked || x > 0.5f * kNegInf) ? exp2f(x - m_new) : 0.f;
+                sc[4 * j + e] = p;
+                p_sum += p;
+              }
             }
           }
           l[rh] = l[rh] * alpha[rh] + p_sum;  // this thread's share of the row sum
@@ -310,7 +335,7 @@ constexpr int fwd_f32_blocks() {
 }
 
 // q, k, v, out (B, S, H, D) fp32 as attn_fwd_wgmma's; full fp32.
-template <bool MASKED, int NJ, int STAGES>
+template <bool MASKED, int NJ, int STAGES, bool FAST>
 __global__ void __launch_bounds__(kF32Threads, (fwd_f32_blocks<NJ, STAGES>()))
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const int* __restrict__ qseg,
@@ -399,11 +424,22 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       const float alpha = expf(m[i] - m_new);
       m[i] = m_new;
       float ps = 0.f;
+      if constexpr (FAST) {  // the row's two keys together
+        const float2 f = fast_exp2(sc[i][0] - m_new, sc[i][1] - m_new);
+        const float p[2] = {sc[i][0] > 0.5f * kNegInf ? f.x : 0.f,
+                            sc[i][1] > 0.5f * kNegInf ? f.y : 0.f};
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float p = sc[i][j] > 0.5f * kNegInf ? expf(sc[i][j] - m_new) : 0.f;
-        P[(ty + 16 * i) * LP + tx + 16 * j] = p;
-        ps += p;
+        for (int j = 0; j < 2; ++j) {
+          P[(ty + 16 * i) * LP + tx + 16 * j] = p[j];
+          ps += p[j];
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float p = sc[i][j] > 0.5f * kNegInf ? expf(sc[i][j] - m_new) : 0.f;
+          P[(ty + 16 * i) * LP + tx + 16 * j] = p;
+          ps += p;
+        }
       }
 #pragma unroll
       for (int o = 1; o < 16; o <<= 1) ps += __shfl_xor_sync(0xffffffffu, ps, o);
@@ -455,7 +491,7 @@ inline size_t fwd_smem(int is_bf16, int D, int Skv) {
   }
 }
 
-template <bool MASKED, int DP, int KT, bool NOSM>
+template <bool MASKED, int DP, int KT, bool NOSM, bool FAST>
 cudaError_t fwd_wgmma_run(const void* q, const void* k, const void* v, const int* qseg,
                           const int* kseg, void* out, float* lse, int B, int Sq, int Skv, int H,
                           int D, float scale_log2, int causal, cudaStream_t st) {
@@ -464,73 +500,73 @@ cudaError_t fwd_wgmma_run(const void* q, const void* k, const void* v, const int
         bshd_map(&m[2], v, B, Skv, H, D, KT)))
     return cudaErrorInvalidValue;
   constexpr size_t smem = FwdSmem<DP, KT>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_wgmma<MASKED, DP, KT, NOSM>,
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_wgmma<MASKED, DP, KT, NOSM, FAST>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kOwn - 1) / kOwn, H, B);
-  attn_fwd_wgmma<MASKED, DP, KT, NOSM><<<grid, kWgThreads, smem, st>>>(
+  attn_fwd_wgmma<MASKED, DP, KT, NOSM, FAST><<<grid, kWgThreads, smem, st>>>(
       m[0], m[1], m[2], qseg, kseg, static_cast<__nv_bfloat16*>(out), lse, Sq, Skv, H, D,
       scale_log2, causal);
   return cudaGetLastError();
 }
-template <bool MASKED, int DP, bool NOSM>
+template <bool MASKED, int DP, bool NOSM, bool FAST>
 cudaError_t fwd_wgmma_dp(const void* q, const void* k, const void* v, const int* qseg,
                          const int* kseg, void* out, float* lse, int B, int Sq, int Skv, int H,
                          int D, float scale_log2, int causal, cudaStream_t st) {
   if (fwd_long_keys(Skv))
-    return fwd_wgmma_run<MASKED, DP, 128, NOSM>(q, k, v, qseg, kseg, out, lse, B, Sq, Skv, H, D,
-                                                scale_log2, causal, st);
-  return fwd_wgmma_run<MASKED, DP, 64, NOSM>(q, k, v, qseg, kseg, out, lse, B, Sq, Skv, H, D,
-                                             scale_log2, causal, st);
+    return fwd_wgmma_run<MASKED, DP, 128, NOSM, FAST>(q, k, v, qseg, kseg, out, lse, B, Sq, Skv,
+                                                      H, D, scale_log2, causal, st);
+  return fwd_wgmma_run<MASKED, DP, 64, NOSM, FAST>(q, k, v, qseg, kseg, out, lse, B, Sq, Skv, H,
+                                                   D, scale_log2, causal, st);
 }
 
 // bf16 forward: q (B, Sq, H, D), k, v (B, Skv, H, D), out like q, lse (B, H,
 // Sq) fp32 or null; segment ids (B, Sq), (B, Skv) int32 when MASKED.
-template <bool MASKED, bool NOSM = false>
+template <bool MASKED, bool NOSM = false, bool FAST = false>
 cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
                              const int* qseg, const int* kseg, int B, int Sq, int Skv, int H,
                              int D, float scale, int causal, cudaStream_t st) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || !fwd_takes(D, 1)) return cudaErrorInvalidValue;
   const float sl2 = NOSM ? scale : scale * kLog2e;
   if (D <= 64)
-    return fwd_wgmma_dp<MASKED, 64, NOSM>(q, k, v, qseg, kseg, out, lse, B, Sq, Skv, H, D, sl2,
-                                          causal, st);
-  return fwd_wgmma_dp<MASKED, 128, NOSM>(q, k, v, qseg, kseg, out, lse, B, Sq, Skv, H, D, sl2,
-                                         causal, st);
+    return fwd_wgmma_dp<MASKED, 64, NOSM, FAST>(q, k, v, qseg, kseg, out, lse, B, Sq, Skv, H, D,
+                                                sl2, causal, st);
+  return fwd_wgmma_dp<MASKED, 128, NOSM, FAST>(q, k, v, qseg, kseg, out, lse, B, Sq, Skv, H, D,
+                                               sl2, causal, st);
 }
 
-template <bool MASKED, int NJ, int STAGES>
+template <bool MASKED, int NJ, int STAGES, bool FAST>
 cudaError_t fwd_f32_run(const void* q, const void* k, const void* v, void* out, float* lse,
                         const int* qseg, const int* kseg, int B, int Sq, int Skv, int H, int D,
                         float scale, int causal, cudaStream_t st) {
   constexpr size_t smem = fwd_f32_smem<NJ, STAGES>();
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_f32<MASKED, NJ, STAGES>,
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_f32<MASKED, NJ, STAGES, FAST>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kF32Own - 1) / kF32Own, H, B);
-  attn_fwd_f32<MASKED, NJ, STAGES><<<grid, kF32Threads, smem, st>>>(
+  attn_fwd_f32<MASKED, NJ, STAGES, FAST><<<grid, kF32Threads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       qseg, kseg, static_cast<float*>(out), lse, Sq, Skv, H, D, scale, causal);
   return cudaGetLastError();
 }
-template <bool MASKED, int NJ>
+template <bool MASKED, int NJ, bool FAST>
 cudaError_t fwd_f32_nj(const void* q, const void* k, const void* v, void* out, float* lse,
                        const int* qseg, const int* kseg, int B, int Sq, int Skv, int H, int D,
                        float scale, int causal, cudaStream_t st) {
-  return fwd_f32_run<MASKED, NJ, fwd_f32_stages(NJ)>(q, k, v, out, lse, qseg, kseg, B, Sq, Skv,
-                                                      H, D, scale, causal, st);
+  return fwd_f32_run<MASKED, NJ, fwd_f32_stages(NJ), FAST>(q, k, v, out, lse, qseg, kseg, B, Sq,
+                                                            Skv, H, D, scale, causal, st);
 }
 
 // fp32 forward, the operands of launch_fwd_wgmma in fp32.
-template <bool MASKED>
+template <bool MASKED, bool FAST = false>
 cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v, void* out, float* lse,
                            const int* qseg, const int* kseg, int B, int Sq, int Skv, int H, int D,
                            float scale, int causal, cudaStream_t st) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || !fwd_takes(D, 0)) return cudaErrorInvalidValue;
 #define MMMM_FWD_F32_CASE(NJ_)                                                               \
   case NJ_:                                                                                  \
-    return fwd_f32_nj<MASKED, NJ_>(q, k, v, out, lse, qseg, kseg, B, Sq, Skv, H, D, scale,   \
-                                   causal, st);
+    return fwd_f32_nj<MASKED, NJ_, FAST>(q, k, v, out, lse, qseg, kseg, B, Sq, Skv, H, D,      \
+                                         scale, causal, st);
   switch ((D + 15) / 16) {
     MMMM_FWD_F32_CASE(1)
     MMMM_FWD_F32_CASE(2)

@@ -23,6 +23,12 @@ __device__ __forceinline__ int append_slot(int w, int Smax, int n = 1) {
   return w < 0 ? 0 : (w > Smax - n ? Smax - n : w);
 }
 
+// (a, b) each rounded to bf16 (to nearest, ties to even), as floats: one
+// packed conversion for the two (cvt.rn.bf16x2.f32), a shift back each.
+__device__ __forceinline__ float2 bf16r2(float a, float b) {
+  return __bfloat1622float2(__floats2bfloat162_rn(a, b));
+}
+
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {

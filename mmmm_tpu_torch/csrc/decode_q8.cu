@@ -8,6 +8,11 @@
 // because a full read overflowed VMEM; one length-aware kernel covers both.
 // It computes what the TPU kernel does, in fp32, as its two-pass softmax:
 //   logits = (q . k_q) * k_s * scale;  out = sum_j p_j * v_s[j] * v_q[j] / l.
+// BF16 is the ragged body's cast="bf16" (MMMM_Q8_CAST=bf16): q rounded to
+// bf16, each product q_d k_q[j, d] rounded to bf16 and summed in fp32; the
+// weight w_j = bf16(p_j * v_s[j]), each w_j v_q[j, d] rounded to bf16 and
+// summed in fp32. p_j is taken against the running max, as the reference's
+// blocks take it (one chunk at the flagship: the row's max).
 //
 // What bounds it on an H100: bytes. A call reads the valid int8 K and V rows
 // and their scales once (about 8.5 MB at B=4, H=32, D=128, kv_len 256),
@@ -53,6 +58,7 @@
 
 namespace {
 
+using mmmm::bf16r2;
 using mmmm::q8::kThreads;
 using mmmm::q8::kWarps;
 
@@ -61,7 +67,7 @@ using mmmm::q8::kWarps;
 // Two blocks an SM (the flagship's plan takes 83 KB of shared memory a
 // block): without the hint ptxas held the fused D <= 16 instance to 80
 // registers, and it spilled.
-template <typename T, int LPS, bool VEC, bool APPEND>
+template <typename T, int LPS, bool VEC, bool APPEND, bool BF16>
 __global__ void __launch_bounds__(kThreads, 2)
 decode_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
                  const __nv_bfloat16* __restrict__ ks, const int8_t* __restrict__ vq,
@@ -86,6 +92,14 @@ decode_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
   const int b = bh / H;
   float qv[16];
   mmmm::q8::load_q16<VEC>(q + (size_t)bh * D + d0, n, qv);  // q: (B, 1, H, D)
+  if constexpr (BF16) {
+#pragma unroll
+    for (int e = 0; e < 16; e += 2) {
+      const float2 r = bf16r2(qv[e], qv[e + 1]);
+      qv[e] = r.x;
+      qv[e + 1] = r.y;
+    }
+  }
   int len = kv_len[b];
   float kx[16], vx[16];  // the fused form's new rows, requested with q and kv_len
   int t = -1;
@@ -150,8 +164,14 @@ decode_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
             float x0 = 0.f, x1 = 0.f;
 #pragma unroll
             for (int e = 0; e < 16; e += 2) {
-              x0 = fmaf(qv[e], kf[e], x0);
-              x1 = fmaf(qv[e + 1], kf[e + 1], x1);
+              if constexpr (BF16) {  // the products are exact in fp32, then rounded
+                const float2 r = bf16r2(qv[e] * kf[e], qv[e + 1] * kf[e + 1]);
+                x0 += r.x;
+                x1 += r.y;
+              } else {
+                x0 = fmaf(qv[e], kf[e], x0);
+                x1 = fmaf(qv[e + 1], kf[e + 1], x1);
+              }
             }
             s[u] = x0 + x1;
           }
@@ -199,13 +219,23 @@ decode_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
       for (int jj = warp * G + g; jj < cnt; jj += kWarps * G) {
         if (n <= 0) break;
         const bool fresh = APPEND && jj == tc;
-        const float w = pw[jj] * __bfloat162float(fresh ? vsn : sc[jj]);
+        float w = pw[jj] * __bfloat162float(fresh ? vsn : sc[jj]);
         float vf[16];
         int4 vr = mmmm::q8::load_row16<VEC>(rows + (size_t)jj * D, d0, D);
         if (fresh) vr = vn;
         mmmm::q8::i8x16_to_f32(vr, vf);
+        if constexpr (BF16) {
+          w = bf16r2(w, 0.f).x;
 #pragma unroll
-        for (int e = 0; e < 16; ++e) acc[e] = fmaf(w, vf[e], acc[e]);
+          for (int e = 0; e < 16; e += 2) {
+            const float2 r = bf16r2(w * vf[e], w * vf[e + 1]);
+            acc[e] += r.x;
+            acc[e + 1] += r.y;
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 16; ++e) acc[e] = fmaf(w, vf[e], acc[e]);
+        }
       }
     }
     __syncthreads();
@@ -257,12 +287,13 @@ struct Args {
   const void *kn, *vn;  // the fused form's new rows, else null
   const int* widx;
   int ksb, ksh, vsb, vsh;
+  bool bf16_cast;
   cudaStream_t st;
 };
 
-template <typename T, int LPS, bool VEC, bool APPEND>
+template <typename T, int LPS, bool VEC, bool APPEND, bool BF16>
 int launch_form(const Args& a) {
-  auto* kern = decode_q8_kernel<T, LPS, VEC, APPEND>;
+  auto* kern = decode_q8_kernel<T, LPS, VEC, APPEND, BF16>;
   const size_t smem = k9_smem(a.C, a.NS, a.D);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -279,11 +310,18 @@ int launch_form(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int LPS, bool BF16>
+int launch_cast(bool vec, const Args& a) {
+  if (a.kn != nullptr)
+    return vec ? launch_form<T, LPS, true, true, BF16>(a)
+               : launch_form<T, LPS, false, true, BF16>(a);
+  return vec ? launch_form<T, LPS, true, false, BF16>(a)
+             : launch_form<T, LPS, false, false, BF16>(a);
+}
+
 template <typename T, int LPS>
 int launch_lps(bool vec, const Args& a) {
-  if (a.kn != nullptr)
-    return vec ? launch_form<T, LPS, true, true>(a) : launch_form<T, LPS, false, true>(a);
-  return vec ? launch_form<T, LPS, true, false>(a) : launch_form<T, LPS, false, false>(a);
+  return a.bf16_cast ? launch_cast<T, LPS, true>(vec, a) : launch_cast<T, LPS, false>(vec, a);
 }
 
 template <typename T>
@@ -310,12 +348,14 @@ int launch(const Args& a) {
 // null for the read alone, or the fused form's new rows ((B, 1, H, D) in
 // q's dtype, strides k_sb, k_sh, v_sb, v_sh elements over b and h, unit
 // stride over D) and (B,) int32 slots, quantized and appended first.
+// bf16_cast: the products in bf16 (the reference's cast="bf16"), else fp32.
 extern "C" int mmmm_decode_attention_q8(const void* q, const void* kq, const void* ks,
                                         const void* vq, const void* vs, const void* kv_len,
                                         void* out, int B, int H, int Smax, int D, float scale,
                                         int is_bf16, int chunk, int stages, const void* k_new,
                                         const void* v_new, const void* write_index, int k_sb,
-                                        int k_sh, int v_sb, int v_sh, void* stream) {
+                                        int k_sh, int v_sb, int v_sh, int bf16_cast,
+                                        void* stream) {
   const bool fused = k_new != nullptr;
   if (B <= 0 || H <= 0 || Smax <= 0 || D <= 0 || D > 128 || chunk < 16 || chunk % 16 ||
       stages < 2 || stages > mmmm::q8::kMaxStages || fused != (v_new != nullptr) ||
@@ -323,7 +363,7 @@ extern "C" int mmmm_decode_attention_q8(const void* q, const void* kq, const voi
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, kq, ks, vq, vs, static_cast<const int*>(kv_len), out, B, H, Smax, D, scale,
                chunk, stages, k_new, v_new, static_cast<const int*>(write_index), k_sb, k_sh,
-               v_sb, v_sh, static_cast<cudaStream_t>(stream)};
+               v_sb, v_sh, bf16_cast != 0, static_cast<cudaStream_t>(stream)};
   return is_bf16 ? launch<__nv_bfloat16>(a) : launch<float>(a);
 }
 

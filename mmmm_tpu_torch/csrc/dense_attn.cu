@@ -20,22 +20,32 @@
 // `_kernel_bshd`) computes K4's function on (B, S, H, D) blocks; this
 // kernel reads that layout natively, so it is K12's counterpart too.
 //
+// The fast softmax (mmmm_tpu/ops/dense_attn.py _softmax_rows(fast=True),
+// selected by MMMM_DENSE_FAST_SOFTMAX in both Pallas bodies) is the FAST
+// form of the same kernels, bf16 and fp32.
+//
 // P1 (scripts/tpu_probes.py nosm_fwd, Pallas body `_kernel_nosm`) is K4 with
 // the softmax replaced by one multiply, a floor for K4's time:
 // mmmm_dense_attention_nosm runs the same bf16 kernel with NOSM.
 #include "attn_fwd.cuh"
 
+// fast: the reference's fast softmax (MMMM_DENSE_FAST_SOFTMAX=1), a
+// compile-time variant of the same kernel (attn_fwd.cuh FAST).
 extern "C" int mmmm_dense_attention(const void* q, const void* k, const void* v,
                                     void* out, int B, int S, int H, int D,
-                                    float scale, int is_bf16, void* stream) {
+                                    float scale, int is_bf16, int fast, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (is_bf16) {
-    err = mmmm::launch_fwd_wgmma<false>(q, k, v, out, nullptr, nullptr, nullptr, B, S, S, H, D,
-                                        scale, 0, st);
+    err = fast ? mmmm::launch_fwd_wgmma<false, false, true>(q, k, v, out, nullptr, nullptr,
+                                                             nullptr, B, S, S, H, D, scale, 0, st)
+               : mmmm::launch_fwd_wgmma<false>(q, k, v, out, nullptr, nullptr, nullptr, B, S, S,
+                                               H, D, scale, 0, st);
   } else {
-    err = mmmm::launch_fwd_f32<false>(q, k, v, out, nullptr, nullptr, nullptr, B, S, S, H, D,
-                                      scale, 0, st);
+    err = fast ? mmmm::launch_fwd_f32<false, true>(q, k, v, out, nullptr, nullptr, nullptr, B, S,
+                                                    S, H, D, scale, 0, st)
+               : mmmm::launch_fwd_f32<false>(q, k, v, out, nullptr, nullptr, nullptr, B, S, S,
+                                             H, D, scale, 0, st);
   }
   return static_cast<int>(err);
 }

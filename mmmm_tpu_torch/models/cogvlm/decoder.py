@@ -21,7 +21,10 @@ callers) stays W8A16 in both.
 
 ``llm_forward`` is the training forward over a full sequence: its causal
 attention goes through ``segment_attention(impl=attn_impl)`` (under
-``"pallas"`` K3 forward and K7 backward), each layer runs inside
+``"pallas"`` K3 forward and K7 backward); under ``remat="attn"`` its
+context is tagged ``"attn_out"`` (the reference's ``checkpoint_name``,
+which that policy keeps: on the flash route K3's output and logsumexp, so
+the backward runs K7 without launching K3 again); each layer runs inside
 ``remat_call`` and merges its LoRA leaves there (``peft/lora.py``).
 
 Prefill attention is kernel K3 (causal, segment ids). Caches are per-layer
@@ -39,7 +42,8 @@ and dispatches as the reference's cache branch does:
                   ``decode_attention_bhsd`` masked by the caller's
                   ``kv_len``, the route the reference leaves to XLA
   int8    1       K9's fused form (K10's with ``q8_mxu=True``, the
-                  reference's ``MMMM_Q8_MXU``, where its condition holds):
+                  reference's ``MMMM_Q8_MXU``, where its condition holds;
+                  K9's products in ``ops/numerics.py``'s ``q8_cast``):
                   ``quantize_kv`` and K8's append inside the read's launch
   int8    > 1     plain: quantize, indexed write, ``dequantize_kv``, then
                   ``decode_attention_bhsd``, as the reference does outside
@@ -58,7 +62,8 @@ from ...ops.decode_kernel import (decode_attention_append, decode_attention_q8_a
 from ...ops.flash import flash_segment_attention
 from ...ops.norm import rms_norm
 from ...ops.quant import dequantize_kv, qdot, quantize_kv
-from ...ops.remat import remat_call
+from ...ops.numerics import current
+from ...ops.remat import ATTN_OUT, remat_call
 from ...ops.rope import apply_rope, rope_cos_sin
 from ...params import layer
 from ...peft.lora import materialize
@@ -131,9 +136,12 @@ def llm_forward(params: dict, cfg: CogVLMConfig, inputs_embeds, token_type_ids, 
                             device=inputs_embeds.device)
     expert_span = None if vis_span is None else (vis_span[0], vis_span[1] - 1)
     seg = segments.to(torch.int32).contiguous()
+    # the context is tagged "attn_out", as the reference's; only "attn" reads
+    # the tag, and off the flash route the tag is a copy
+    name = ATTN_OUT if remat == "attn" else ""
 
     def attend(q, k, v):
-        return segment_attention(q, k, v, seg, causal=True, impl=attn_impl)
+        return segment_attention(q, k, v, seg, causal=True, impl=attn_impl, name=name)
 
     def body(x, lp):
         lp = materialize(lp)
@@ -227,7 +235,7 @@ def _cached_attention(q, k, v, cache, write_index, kv_len, q8_mxu=False):
     if isinstance(cache, dict):
         if sq == 1:
             return decode_attention_q8_append(q, cache, k, v, write_index, kv_len,
-                                              q8_mxu=q8_mxu)
+                                              q8_mxu=q8_mxu, cast=current().q8_cast)
         (kq, ks), (vq, vs) = quantize_kv(k.transpose(1, 2)), quantize_kv(v.transpose(1, 2))
         for key, new in (("kq", kq), ("ks", ks), ("vq", vq), ("vs", vs)):
             dus_rows(cache[key], new, write_index)

@@ -10,8 +10,12 @@ and presence logits) on the grounding image.
 
 The reference's serving switches are keywords here, with its defaults:
 ``w8a8`` (``MMMM_W8A8``), ``w8a8_prefill`` (``MMMM_W8A8_PREFILL``),
-``q8_mxu`` (``MMMM_Q8_MXU``), ``chunk_mode`` (``MMMM_PREFILL_CHUNK_MODE``)
-and ``sam_bf16`` (``MMMM_SAM_BF16``).
+``q8_mxu`` (``MMMM_Q8_MXU``), ``chunk_mode`` (``MMMM_PREFILL_CHUNK_MODE``),
+``sam_bf16`` (``MMMM_SAM_BF16``), and, for the length of the call
+(``ops/numerics.py``), ``gelu_mode`` (``MMMM_GELU``; ``MMMM_FAST_GELU=1``
+is ``"tanh"``), ``dense_fast_softmax`` (``MMMM_DENSE_FAST_SOFTMAX``: K4's
+fast softmax at the ViT and SAM encoder) and ``q8_cast``
+(``MMMM_Q8_CAST`` with ``MMMM_RAGGED_DECODE=1``: K9's products in bf16).
 
 Runs on the card unless the caller passes ``device="cpu"`` (where every
 kernel wrapper takes its plain version); a missing card is an error.
@@ -26,6 +30,7 @@ from torch.profiler import record_function
 
 from ..data.tokenizer import MMMMTokenizer
 from ..ops._cuda import resolve_device
+from ..ops.numerics import numerics
 from .generate import greedy_generate
 from .mmmm import MMMMConfig, vg_project
 from .segvol.sam import instance_sam_forward, sam_forward
@@ -91,7 +96,8 @@ def generate_grounded(params: dict, cfg: MMMMConfig, tokenizer: MMMMTokenizer, i
                       kv_cache_dtype: str = "bf16", spec_draft_len: int = 0,
                       prefill_chunk: int = 0, chunk_mode: str = "all", w8a8: bool = False,
                       w8a8_prefill: bool = False, q8_mxu: bool = False,
-                      sam_bf16: bool = False,
+                      sam_bf16: bool = False, gelu_mode: str = "auto",
+                      dense_fast_softmax: bool = False, q8_cast: str = "f32",
                       device: str | torch.device = "cuda") -> GroundedResult:
     """Generate reports for a right-padded prompt batch and ground them.
 
@@ -106,13 +112,14 @@ def generate_grounded(params: dict, cfg: MMMMConfig, tokenizer: MMMMTokenizer, i
     "all" or "vit"). ``w8a8`` and ``w8a8_prefill`` run the decode and the
     static-span prefill projections of int8 weights W8A8; ``q8_mxu`` reads
     an int8 cache with the split-int8 kernel; ``sam_bf16`` runs the SAM
-    head in bf16."""
+    head in bf16; ``gelu_mode``, ``dense_fast_softmax`` and ``q8_cast`` as
+    in the module's docstring."""
     dev = resolve_device(device)
     ref = params["vg_proj"]["w1"]
     if ref.device.type != dev.type:
         raise ValueError(f"params lie on {ref.device}, the run asks for {dev}")
     to = lambda x: torch.as_tensor(x, device=dev)
-    with torch.inference_mode():
+    with torch.inference_mode(), numerics(gelu_mode, dense_fast_softmax, q8_cast):
         args = (params["cogvlm"], cfg.vlm, to(input_ids), to(token_type_ids), to(position_ids),
                 to(prompt_len))
         kw = dict(max_new_tokens=max_new_tokens, eos_token_id=tokenizer.eos_token_id,

@@ -24,7 +24,12 @@ The reference's chunk is one device program (``lax.scan``); here it is a
 Python loop of ``chunk`` steps with no host sync inside it and one copy to
 the host at its end. The reference's ``attn_impl`` keyword is ``device``:
 the servers run on the card unless the caller passes ``device="cpu"``.
-Completions equal ``greedy_generate``'s and ``generate_grounded``'s.
+Completions equal ``greedy_generate``'s and ``generate_grounded``'s. Of
+the reference's process-wide numeric switches, ``GroundedServer`` takes
+``gelu_mode`` and ``dense_fast_softmax`` (its ViT and SAM read them), in
+force for each ``generate`` call (``ops/numerics.py``). The pools' caches
+are bf16, so ``q8_cast`` (K9's products) has nothing to act on here, and a
+``TextServer`` runs no ViT or SAM: neither server takes the others.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from torch.profiler import record_function
 
 from ..data.tokenizer import MMMMTokenizer
 from ..ops._cuda import resolve_device
+from ..ops.numerics import Numerics, numerics
 from ..ops.quant import qdot
 from .cogvlm import CogVLMConfig
 from .cogvlm.decoder import empty_cache, llm_decode_step
@@ -423,8 +429,10 @@ class GroundedServer:
                  patch_size, pool_size, n_vis: int, n_slots: int = 8,
                  max_new_tokens: int = 128, chunk: int = 16, seq_quant: int = 32,
                  max_prompt_len: int = 256, max_targets: int = 8, speculate: int = 0,
+                 gelu_mode: str = "auto", dense_fast_softmax: bool = False,
                  device: str | torch.device = "cuda"):
         self.dev = _on(params["vg_proj"]["w1"], device)
+        self.numerics = Numerics(gelu_mode, dense_fast_softmax)
         self.params = params
         self.cfg = cfg
         self.tok = tokenizer
@@ -506,7 +514,8 @@ class GroundedServer:
         dict a request, in order: ``text``, ``tokens``, ``targets``, and where
         a grounding image was given ``masks`` (N, D, H, W) logits on the run's
         device and ``target_valid`` (N,)."""
-        with torch.inference_mode():
+        with torch.inference_mode(), numerics(self.numerics.gelu_mode,
+                                              self.numerics.dense_fast_softmax):
             return self._generate(requests)
 
     def _generate(self, requests):

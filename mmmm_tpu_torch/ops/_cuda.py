@@ -10,8 +10,9 @@ import time.
 
 Every launch goes through :class:`Kernel`, which raises on a non-zero return
 and counts the launches it made (all of them, and those of each named form
-of an entry point, such as K1's fused append); ``KERNELS`` maps each
-kernel's ID to it.
+of an entry point, such as K1's fused append; a launch may be of several
+forms, such as K9's fused append in bf16); ``KERNELS`` maps each kernel's ID
+to it.
 """
 from __future__ import annotations
 
@@ -134,7 +135,7 @@ class Kernel:
         self.launches = 0
         self.forms.clear()
 
-    def __call__(self, *args, form: str | None = None) -> None:
+    def __call__(self, *args, form: str | tuple[str, ...] | None = None) -> None:
         if self._fn is None:
             fn = getattr(library(), self.symbol)
             fn.argtypes = self.argtypes
@@ -145,8 +146,8 @@ class Kernel:
             msg = library().mmmm_error_string(err).decode()
             raise RuntimeError(f"{self.name} ({self.symbol}) launch failed: {msg} ({err})")
         self.launches += 1
-        if form is not None:
-            self.forms[form] = self.forms.get(form, 0) + 1
+        for f in (form,) if isinstance(form, str) else form or ():
+            self.forms[f] = self.forms.get(f, 0) + 1
 
 
 KERNELS: dict[str, Kernel] = {}

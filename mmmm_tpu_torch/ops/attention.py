@@ -10,7 +10,9 @@ dispatches as the reference does: ``"pallas"`` to the flash site (K3
 forward, K7 backward), ``"xla"`` to the plain masked attention, ``"auto"``
 on the card to the dense kernel K4 for all-valid encoder sites and to flash
 for causal sites or 128-multiple head dims, and to the plain attention on
-the CPU (the reference's ``"auto"`` off the TPU).
+the CPU (the reference's ``"auto"`` off the TPU; where the card would take
+K4 with its fast softmax, ``ops/numerics.py dense_fast_softmax``, K4's plain
+version of it).
 
 ``kernel_head_dim`` and ``with_padded_head`` are the head-dim rule that the
 attention kernels' wrappers (K3, K4, P1, K7) share.
@@ -88,14 +90,19 @@ def masked_attention(q, k, v, mask, scale: float):
 
 def segment_attention(q, k, v, q_segments, kv_segments=None, *, causal: bool = False,
                       scale: float | None = None, impl: str = "auto",
-                      all_valid: bool = False) -> torch.Tensor:
+                      all_valid: bool = False, name: str = "") -> torch.Tensor:
     """Block-diagonal (optionally causal) attention with segment-id masking.
 
     q: (B, Sq, H, D); k, v: (B, Skv, H, D); segments (B, Sq) / (B, Skv),
     ``kv_segments`` defaulting to ``q_segments``. ``impl`` is ``"auto"``,
     ``"xla"`` or ``"pallas"`` (``"ring"`` waits for the parallel slice);
     ``all_valid`` declares every position a real token of one segment (the
-    encoders), which lets ``"xla"`` skip the mask and ``"auto"`` take K4.
+    encoders), which lets ``"xla"`` skip the mask and ``"auto"`` take K4
+    (with its fast softmax under ``ops/numerics.py``'s
+    ``dense_fast_softmax``; on the CPU its plain version, where the card
+    would take K4). ``name`` tags the output for a selective
+    rematerialization policy (``ops/remat.py``): passed to the flash
+    operator on the ``"pallas"`` route, else through ``checkpoint_name``.
     Returns (B, Sq, H, D) in v's dtype; masked rows are zero. Every route
     is differentiable."""
     if kv_segments is None:
@@ -106,11 +113,16 @@ def segment_attention(q, k, v, q_segments, kv_segments=None, *, causal: bool = F
         raise NotImplementedError("impl='ring' (sequence-parallel ring attention) waits for "
                                   "the parallel slice of the port (ROADMAP Queue 1)")
     if impl == "auto":
-        if q.is_cuda and all_valid and not causal:
-            from .dense_attn import dense_attention_site, fits_dense_kernel
+        if all_valid and not causal:
+            from .dense_attn import dense_attention_plain, dense_attention_site, fits_dense_kernel
+            from .numerics import current
 
+            fast = current().dense_fast_softmax
             if fits_dense_kernel(q.shape[1], q.shape[-1]):
-                return dense_attention_site(q, k, v, scale)
+                if q.is_cuda:
+                    return _named(dense_attention_site(q, k, v, scale, fast_softmax=fast), name)
+                if fast:
+                    return _named(dense_attention_plain(q, k, v, scale, fast_softmax=True), name)
         impl = "pallas" if q.is_cuda and (causal or q.shape[-1] % 128 == 0) else "xla"
     if impl == "pallas":
         from .flash import flash_attention
@@ -118,14 +130,23 @@ def segment_attention(q, k, v, q_segments, kv_segments=None, *, causal: bool = F
         seg = q_segments.to(torch.int32).contiguous()
         kseg = seg if kv_segments is q_segments else kv_segments.to(torch.int32).contiguous()
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), seg, kseg,
-                               causal=causal, scale=scale)
+                               causal=causal, scale=scale, name=name)
     if impl != "xla":
         raise ValueError(f"unknown attention impl {impl!r}")
     if all_valid and not causal:
         from .dense_attn import dense_attention_plain
 
-        return dense_attention_plain(q, k, v, scale)
-    return masked_attention(q, k, v, build_mask(q_segments, kv_segments, causal), scale)[0]
+        return _named(dense_attention_plain(q, k, v, scale), name)
+    return _named(masked_attention(q, k, v, build_mask(q_segments, kv_segments, causal),
+                                   scale)[0], name)
+
+
+def _named(out, name: str):
+    if not name:
+        return out
+    from .remat import checkpoint_name
+
+    return checkpoint_name(out, name)
 
 
 def decode_attention_bhsd(q, k_cache, v_cache, kv_valid, *, scale: float | None = None):

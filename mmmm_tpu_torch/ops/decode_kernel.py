@@ -12,7 +12,13 @@
     which does K5's append in the same launch (the verify step's route);
   - K8 ``kv_append_q8`` (``kv_append_pallas_q8``): the int8 cache;
   - K9 ``decode_attention_q8`` (``decode_attention_pallas_q8``, full and
-    ragged);
+    ragged); ``cast="bf16"`` is the ragged body's ``cast="bf16"``
+    (``MMMM_Q8_CAST=bf16``), a compile-time variant of the kernel counted
+    under its form ``"bf16"``. The reference applies the cast on its ragged
+    route alone, which it takes with ``MMMM_RAGGED_DECODE=1`` (and then not
+    the split-int8 read), and the port has one K9 kernel for both routes:
+    ``cast="bf16"`` here is the reference run with ``MMMM_RAGGED_DECODE=1
+    MMMM_Q8_CAST=bf16``, and it takes K9 whatever ``q8_mxu`` says;
   - K10 ``decode_attention_q8_mxu`` (``decode_attention_pallas_q8_mxu``):
     the int8-cache read as exact split-int8 integer dots, which
     ``decode_attention_q8(q8_mxu=True)`` takes under the reference's own
@@ -74,7 +80,7 @@ K8 = _cuda.register(_cuda.Kernel(
 K9 = _cuda.register(_cuda.Kernel(
     "K9", "mmmm_decode_attention_q8",
     [_cuda.P] * 7 + [_cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.I, _cuda.I, _cuda.I,
-                     _cuda.P, _cuda.P, _cuda.P] + [_cuda.I] * 4 + [_cuda.P],
+                     _cuda.P, _cuda.P, _cuda.P] + [_cuda.I] * 5 + [_cuda.P],
     source="mmmm_tpu_torch/csrc/decode_q8.cu",
     replaces="mmmm_tpu/ops/decode_kernel.py:328 decode_attention_pallas_q8 "
              "(pallas_call :377 via :370; ragged :704 -> :733)",
@@ -499,20 +505,47 @@ def kv_append_q8(cache: dict, kq_new, ks_new, vq_new, vs_new, write_index) -> di
     return cache
 
 
-def decode_attention_q8_plain(q, kq, ks, vq, vs, kv_len, scale: float | None = None):
+def decode_attention_q8_plain(q, kq, ks, vq, vs, kv_len, scale: float | None = None, *,
+                              cast: str = "f32"):
     """Plain version, all fp32 as the TPU kernel is: logits
     ``(q . k_q) * k_s * scale`` over the slots ``< kv_len[b]``, output
-    ``sum_j p_j * v_s[j] * v_q[j]``; a sample with no valid slot gets zeros."""
+    ``sum_j p_j * v_s[j] * v_q[j]``; a sample with no valid slot gets zeros.
+
+    ``cast="bf16"`` (the ragged body's ``cast="bf16"``, with the row's max
+    as the reference's one block of the whole cache has it): q rounded to
+    bf16, each product ``q_d k_q[j, d]`` rounded to bf16 and summed in fp32;
+    ``p_j = exp(s_j - m)``, ``w_j = bf16(p_j v_s[j])``, each ``w_j v_q[j, d]``
+    rounded to bf16 and summed in fp32, over ``sum_j p_j``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     smax = kq.shape[2]
     valid = (torch.arange(smax, device=q.device)[None, :] < kv_len[:, None].long())
     valid = valid[:, None, None, :]  # (B, 1, 1, Smax)
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float().transpose(1, 2), kq.float())
-    logits = logits * ks.float().transpose(-1, -2) * scale
-    w = _masked_softmax(logits, valid) * vs.float().transpose(-1, -2)
-    out = torch.einsum("bhqk,bhkd->bhqd", w, vq.float())
-    return out.transpose(1, 2).to(q.dtype)  # (B, 1, H, D)
+    qh = q.float().transpose(1, 2)  # (B, H, 1, D)
+    if cast == "f32":
+        logits = torch.einsum("bhqd,bhkd->bhqk", qh, kq.float())
+        logits = logits * ks.float().transpose(-1, -2) * scale
+        w = _masked_softmax(logits, valid) * vs.float().transpose(-1, -2)
+        out = torch.einsum("bhqk,bhkd->bhqd", w, vq.float())
+        return out.transpose(1, 2).to(q.dtype)  # (B, 1, H, D)
+    if cast != "bf16":
+        raise ValueError(f"cast must be 'f32' or 'bf16', got {cast!r}")
+    return _q8_bf16_plain(qh, kq, ks, vq, vs, valid, scale).transpose(1, 2).to(q.dtype)
+
+
+def _q8_bf16_plain(qh, kq, ks, vq, vs, valid, scale: float, round_products: bool = True):
+    """``cast="bf16"``'s formula on ``qh`` (B, H, 1, D) and the (B, 1, 1,
+    Smax) ``valid`` mask, out (B, H, 1, D) fp32. ``round_products=False``
+    keeps each product of two bf16 values in fp32, as XLA on the CPU does in
+    the reference's interpret-mode kernel; every other rounding stays."""
+    bf = lambda x: x.to(torch.bfloat16).float()
+    prod = bf if round_products else (lambda x: x)
+    logits = prod(bf(qh) * kq.float()).sum(-1)[:, :, None]  # (B, H, 1, Smax)
+    logits = torch.where(valid, logits * ks.float().transpose(-1, -2) * scale, NEG_INF)
+    p = torch.where(valid, torch.exp(logits - logits.amax(dim=-1, keepdim=True)), 0.0)
+    w = bf(p * vs.float().transpose(-1, -2))  # (B, H, 1, Smax)
+    acc = prod(w.transpose(-1, -2) * vq.float()).sum(-2)[:, :, None]  # (B, H, 1, D)
+    return acc / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
 
 
 def _round16(x: int) -> int:
@@ -580,9 +613,10 @@ def q8_mxu_in_shared(smax: int) -> bool:
     return smax <= Q8_MXU_SHARED_SLOTS
 
 
-def _q8_read(name, kernel, q, kq, ks, vq, vs, kv_len, scale, new=None):
+def _q8_read(name, kernel, q, kq, ks, vq, vs, kv_len, scale, new=None, cast="f32"):
     """Checks K9's or K10's (``kernel``) operands and launches it: the read
-    alone, or with ``new = (k_new, v_new, write_index)`` the fused form."""
+    alone, or with ``new = (k_new, v_new, write_index)`` the fused form; K9
+    with its products in ``cast``."""
     _cuda.check_cuda(name, q, dtypes=(torch.bfloat16, torch.float32))
     _cuda.check_cuda(name, kq, vq, dtypes=(torch.int8,))
     _cuda.check_cuda(name, ks, vs, dtypes=(torch.bfloat16,), align=2)
@@ -610,6 +644,7 @@ def _q8_read(name, kernel, q, kq, ks, vq, vs, kv_len, scale, new=None):
         ptrs = (k_new.data_ptr(), v_new.data_ptr(), write_index.data_ptr())
         strides = (k_new.stride(0), k_new.stride(2), v_new.stride(0), v_new.stride(2))
     mxu = kernel is K10
+    forms = ("append",) * (new is not None) + (cast,) * (cast != "f32")
     out = torch.empty_like(q)
     chunk, stages = q8_stage_plan(smax, d, mxu=mxu)
     args = (q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
@@ -618,59 +653,79 @@ def _q8_read(name, kernel, q, kq, ks, vq, vs, kv_len, scale, new=None):
         ws = None if q8_mxu_in_shared(smax) else torch.empty(
             b * h * 6 * (-(-smax // 4) * 4), dtype=torch.uint8, device=q.device)
         args += (None if ws is None else ws.data_ptr(),)
+    cast_arg = () if mxu else (int(cast == "bf16"),)
     kernel(*args, b, h, smax, d, float(scale), int(q.dtype == torch.bfloat16), chunk, stages,
-           *ptrs, *strides, _cuda.stream_of(q), form=None if new is None else "append")
+           *ptrs, *strides, *cast_arg, _cuda.stream_of(q),
+           form=forms[0] if len(forms) == 1 else forms or None)
     return out
 
 
+def _check_cast(cast: str) -> None:
+    if cast not in ("f32", "bf16"):
+        raise ValueError(f"cast must be 'f32' or 'bf16', got {cast!r}")
+
+
 def decode_attention_q8(q, kq, ks, vq, vs, kv_len, scale: float | None = None, *,
-                        q8_mxu: bool = False):
+                        q8_mxu: bool = False, cast: str = "f32"):
     """One query token per sample against an int8 cache: q (B, 1, H, D) bf16
     or fp32, kq/vq (B, H, Smax, D) int8, ks/vs (B, H, Smax, 1) bf16, kv_len
     (B,) -> (B, 1, H, D) in q's dtype. ``q8_mxu=True`` asks for the
-    split-int8 read (K10), taken where the reference takes it; otherwise K9."""
+    split-int8 read (K10), taken where the reference takes it and ``cast``
+    is ``"f32"``; otherwise K9, its products in ``cast`` (``"f32"`` or
+    ``"bf16"``)."""
+    _check_cast(cast)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q8_mxu and _q8_mxu_eligible(kq.shape[1], kq.shape[2], kq.shape[3]):
+    if _takes_mxu(q8_mxu, cast, kq.shape[1:]):
         return decode_attention_q8_mxu(q, kq, ks, vq, vs, kv_len, scale)
     if _cuda.on_cpu("decode_attention_q8", q):
-        return decode_attention_q8_plain(q, kq, ks, vq, vs, kv_len, scale)
-    return _q8_read("decode_attention_q8", K9, q, kq, ks, vq, vs, kv_len, scale)
+        return decode_attention_q8_plain(q, kq, ks, vq, vs, kv_len, scale, cast=cast)
+    return _q8_read("decode_attention_q8", K9, q, kq, ks, vq, vs, kv_len, scale, cast=cast)
+
+
+def _takes_mxu(q8_mxu: bool, cast: str, hsd) -> bool:
+    """Whether the int8 read is K10's: asked for, under the reference's
+    condition, and not overruled by the bf16 cast (the reference's ragged
+    route, which never takes the split-int8 read)."""
+    return q8_mxu and cast == "f32" and _q8_mxu_eligible(*hsd)
 
 
 def decode_attention_q8_append_plain(q, cache: dict, k_new, v_new, write_index, kv_len,
-                                     scale: float | None = None, *, q8_mxu: bool = False):
+                                     scale: float | None = None, *, q8_mxu: bool = False,
+                                     cast: str = "f32"):
     """Plain version of the fused int8 step: ``quantize_kv`` of the new rows
     (B, 1, H, D), ``kv_append_q8_plain``, then the read's plain version (K10's
-    where ``q8_mxu`` and the reference's condition hold, else K9's)."""
+    where ``decode_attention_q8`` takes it, else K9's in ``cast``)."""
     (kq, ks), (vq, vs) = quantize_kv(k_new.transpose(1, 2)), quantize_kv(v_new.transpose(1, 2))
     kv_append_q8_plain(cache, kq, ks, vq, vs, write_index)
     leaves = [cache[key] for key in Q8_LEAVES]
-    if q8_mxu and _q8_mxu_eligible(*leaves[0].shape[1:]):
+    if _takes_mxu(q8_mxu, cast, leaves[0].shape[1:]):
         return decode_attention_q8_mxu_plain(q, *leaves, kv_len, scale)
-    return decode_attention_q8_plain(q, *leaves, kv_len, scale)
+    return decode_attention_q8_plain(q, *leaves, kv_len, scale, cast=cast)
 
 
 def decode_attention_q8_append(q, cache: dict, k_new, v_new, write_index, kv_len,
-                               scale: float | None = None, *, q8_mxu: bool = False):
+                               scale: float | None = None, *, q8_mxu: bool = False,
+                               cast: str = "f32"):
     """The int8 decode step in one launch: the new K/V rows ``k_new``/``v_new``
     (B, 1, H, D) in q's dtype, as the projection gives them (read with their
     strides), are quantized as ``quantize_kv`` does and go IN PLACE into slot
     ``write_index[b]`` of the cache ``{"kq", "ks", "vq", "vs"}``
     (``dus_rows``' rule), then q (B, 1, H, D) attends to the slots
     ``< kv_len[b]`` -> (B, 1, H, D) in q's dtype: exactly what ``quantize_kv``
-    twice, ``kv_append_q8`` and ``decode_attention_q8(q8_mxu=q8_mxu)`` give.
-    One K9 launch, or K10 where ``decode_attention_q8`` takes it, counted
-    under its form ``"append"``."""
+    twice, ``kv_append_q8`` and ``decode_attention_q8(q8_mxu=q8_mxu,
+    cast=cast)`` give. One K9 launch, or K10 where ``decode_attention_q8``
+    takes it, counted under its form ``"append"`` (and K9's ``"bf16"``)."""
+    _check_cast(cast)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if _cuda.on_cpu("decode_attention_q8_append", q):
         return decode_attention_q8_append_plain(q, cache, k_new, v_new, write_index, kv_len,
-                                                scale, q8_mxu=q8_mxu)
+                                                scale, q8_mxu=q8_mxu, cast=cast)
     leaves = [cache[key] for key in Q8_LEAVES]
-    mxu = q8_mxu and _q8_mxu_eligible(*leaves[0].shape[1:])
+    mxu = _takes_mxu(q8_mxu, cast, leaves[0].shape[1:])
     return _q8_read("decode_attention_q8_append", K10 if mxu else K9, q, *leaves, kv_len, scale,
-                    (k_new, v_new, write_index))
+                    (k_new, v_new, write_index), cast=cast)
 
 
 def q14_split(x: torch.Tensor, amax_dims) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -21,8 +21,9 @@ plain version for CPU tensors and launch ``csrc/flash_fwd.cu`` and
 ``csrc/flash_bwd.cu`` for CUDA tensors, at the head dim
 ``attention.kernel_head_dim`` gives (a head dim the kernels cannot take
 directly is padded with zero lanes, and the outputs sliced back; above 128
-they raise). ``flash_attention`` is the differentiable site
-(:class:`FlashSegmentAttention`): K3 forward, K7 backward.
+they raise). ``flash_attention`` is the differentiable site, the operator
+``mmmm::flash_attention`` that the dispatcher (and so a selective
+rematerialization policy) sees: K3 forward, K7 backward.
 """
 from __future__ import annotations
 
@@ -158,33 +159,44 @@ def flash_segment_attention_bwd(q, k, v, q_segments, kv_segments, out, lse, g, *
     return dq, dk, dv
 
 
-class FlashSegmentAttention(torch.autograd.Function):
-    """K3 forward (saving ``out`` and ``lse``), K7 backward; the segment ids
-    get no gradient."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, q_segments, kv_segments, causal: bool, scale: float):
-        # a head dim K7 cannot take raises here, before any work of the step
-        if (not _cuda.on_cpu("flash_attention", q) and any(ctx.needs_input_grad[:3])
-                and kernel_head_dim(q.shape[-1], q.dtype) is None):
-            raise ValueError(f"flash_attention: K7 does not take head dim {q.shape[-1]} in "
-                             f"{q.dtype}, so this site cannot be differentiated on the card")
-        out, lse = flash_segment_attention(q, k, v, q_segments, kv_segments, causal=causal,
-                                           scale=scale)
-        ctx.save_for_backward(q, k, v, q_segments, kv_segments, out, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, q_segments, kv_segments, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_segment_attention_bwd(q, k, v, q_segments, kv_segments, out, lse,
-                                                 g.contiguous(), causal=ctx.causal,
-                                                 scale=ctx.scale)
-        return dq, dk, dv, None, None, None, None
+@torch.library.custom_op("mmmm::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_segments: torch.Tensor,
+              kv_segments: torch.Tensor, causal: bool, scale: float,
+              name: str) -> tuple[torch.Tensor, torch.Tensor]:
+    return flash_segment_attention(q, k, v, q_segments, kv_segments, causal=causal,
+                                   scale=scale)
 
 
-def flash_attention(q, k, v, q_segments, kv_segments, *, causal: bool, scale: float):
-    """Differentiable :func:`flash_segment_attention` output (K3, then K7 in
-    the backward)."""
-    return FlashSegmentAttention.apply(q, k, v, q_segments, kv_segments, causal, scale)
+def _flash_setup(ctx, inputs, output):
+    q, k, v, q_segments, kv_segments, causal, scale, _ = inputs
+    ctx.save_for_backward(q, k, v, q_segments, kv_segments, *output)
+    ctx.causal, ctx.scale = causal, scale
+
+
+def _flash_backward(ctx, g, g_lse):
+    q, k, v, q_segments, kv_segments, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_segment_attention_bwd(q, k, v, q_segments, kv_segments, out, lse,
+                                             g.contiguous(), causal=ctx.causal,
+                                             scale=ctx.scale)
+    return dq, dk, dv, None, None, None, None, None
+
+
+torch.library.register_autograd("mmmm::flash_attention", _flash_backward,
+                                setup_context=_flash_setup)
+
+
+def flash_attention(q, k, v, q_segments, kv_segments, *, causal: bool, scale: float,
+                    name: str = ""):
+    """Differentiable :func:`flash_segment_attention` output: the operator
+    ``mmmm::flash_attention`` (K3 forward, saving ``out`` and ``lse``; K7
+    backward; the segment ids get no gradient). ``name`` tags its outputs
+    for a selective rematerialization policy (``ops/remat.py``: ``"attn"``
+    keeps the ones named ``"attn_out"``, so that K3 is not launched again
+    in the backward)."""
+    # a head dim K7 cannot take raises here, before any work of the step
+    if (not _cuda.on_cpu("flash_attention", q) and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))
+            and kernel_head_dim(q.shape[-1], q.dtype) is None):
+        raise ValueError(f"flash_attention: K7 does not take head dim {q.shape[-1]} in "
+                         f"{q.dtype}, so this site cannot be differentiated on the card")
+    return _flash_op(q, k, v, q_segments, kv_segments, causal, float(scale), name)[0]

@@ -1,11 +1,20 @@
-"""Exact GELU with the reference's dtype dispatch, the port of
-``mmmm_tpu/ops/gelu.py``: bf16 goes to the fitted tanh-form polynomial
-(fp32 internal math, one final rounding), every other dtype to erf GELU.
-The ``MMMM_GELU`` overrides of the JAX package are not ported."""
+"""Exact GELU with the reference's dtype dispatch and its overrides, the port
+of ``mmmm_tpu/ops/gelu.py``. The mode is ``ops/numerics.py``'s
+``gelu_mode`` (the reference's ``MMMM_GELU``, ``MMMM_FAST_GELU=1`` being
+its legacy alias of ``"tanh"``):
+
+  - ``"auto"`` (the default): bf16 goes to the fitted tanh-form polynomial
+    (fp32 internal math, one final rounding), every other dtype to erf GELU;
+  - ``"fitted"``: the polynomial for every dtype;
+  - ``"tanh"``: the tanh approximation (``jax.nn.gelu(approximate=True)``);
+  - ``"erf"``: erf GELU for every dtype.
+"""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from .numerics import current
 
 # Degree-15 odd minimax fit of artanh(erf(x / sqrt(2))) on [0, 5]; the same
 # float32 coefficients as mmmm_tpu/ops/gelu.py.
@@ -36,8 +45,13 @@ def gelu_fitted(x: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """bf16 -> :func:`gelu_fitted`; other dtypes -> exact erf GELU."""
-    if x.dtype == torch.bfloat16:
+def gelu(x: torch.Tensor, mode: str | None = None) -> torch.Tensor:
+    """GELU under ``mode`` (by default the running call's ``gelu_mode``)."""
+    mode = current().gelu_mode if mode is None else mode
+    if mode == "tanh":
+        return F.gelu(x, approximate="tanh")
+    if mode == "fitted" or (mode == "auto" and x.dtype == torch.bfloat16):
         return gelu_fitted(x)
+    if mode not in ("auto", "erf"):
+        raise ValueError(f"unknown gelu mode {mode!r}")
     return F.gelu(x, approximate="none")

@@ -132,7 +132,11 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
 
 
 def save_adapter(path: str | Path, trainable: dict) -> None:
-    """Flat-npz export of the trainable (LoRA and finetuned) tree."""
+    """Flat-npz export of the trainable (LoRA and finetuned) tree. The
+    members are stored, not deflated as the reference's
+    ``np.savez_compressed`` does: its fp32 factors shrink by 14%, and one
+    thread's zlib took 230-265 s for the flagship's 3.24 GiB (``PERF.md``);
+    ``np.load`` (either package's ``load_adapter``) reads both."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     flat = {}
@@ -146,7 +150,7 @@ def save_adapter(path: str | Path, trainable: dict) -> None:
                 flat[p] = _to_numpy(v)
 
     walk(trainable)
-    np.savez_compressed(path, **flat)
+    np.savez(path, **flat)
 
 
 def load_adapter(path: str | Path) -> dict:

@@ -11,6 +11,13 @@ through the cast; ``frozen_vlm_bf16`` stores the frozen CogVLM base in
 bf16. LoRA merges per layer inside the rematerialized layer
 (``peft/lora.py``).
 
+``remat`` is the reference's policy (``ops/remat.py``): True (recompute
+each layer), False, ``"attn"`` (keep the LLM layers' attention context,
+and on the flash route K3's output for K7) or ``"dots"`` (keep the
+products with no batch dimension). ``gelu_mode`` is the reference's
+``MMMM_GELU`` (``ops/gelu.py``), in force for the step's forward and
+backward.
+
 Profiler spans: ``vit``, ``llm_forward``, ``ce``, ``sam_loss`` (the
 forward), ``backward`` (rematerialized layers recompute in it) and
 ``optimizer``.
@@ -30,6 +37,8 @@ from torch.profiler import record_function
 
 from ..models.mmmm import MMMMConfig, training_step
 from ..ops._cuda import resolve_device
+from ..ops.numerics import Numerics, numerics
+from ..ops.remat import check_policy
 from ..params import init_params
 from ..peft.lora import (LoraConfig, flatten, lora_init, lora_merge, merge_trainable,
                          split_trainable, unflatten)
@@ -89,21 +98,24 @@ def effective_params(trainable: dict, frozen: dict, lora_cfg: LoraConfig, bf16_v
 
 def make_step_fn(cfg: MMMMConfig, optimizer: AdamW, lora_cfg: LoraConfig, *,
                  vg_mode: str = "none", bf16_vlm: bool = False, attn_impl: str = "auto",
-                 remat=True, dropout_seed: int | None = 0,
-                 vis_span: tuple[int, int] | str | None = None):
+                 remat: bool | str = True, dropout_seed: int | None = 0,
+                 vis_span: tuple[int, int] | str | None = None, gelu_mode: str = "auto"):
     """The step_fn(state, frozen, batch) -> (state, logs) over a batch of
     tensors already on the state's device. A fresh LoRA-dropout mask each
     step, deterministic in ``(dropout_seed, step)``."""
     use_dropout = dropout_seed is not None and lora_cfg.dropout > 0.0
+    Numerics(gelu_mode=gelu_mode)  # a bad mode or policy raises here, not in a step
+    check_policy(remat)
 
     def step_fn(state: TrainState, frozen: dict, batch: dict):
         params = effective_params(state.trainable, frozen, lora_cfg, bf16_vlm,
                                   dropout=(dropout_seed, state.step) if use_dropout else None)
-        loss, logs = training_step(params, cfg, batch, vg_mode=vg_mode, attn_impl=attn_impl,
-                                   remat=remat, vis_span=vis_span)
         flat = flatten(state.trainable)
-        with record_function("backward"):
-            grads = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
+        with numerics(gelu_mode=gelu_mode):
+            loss, logs = training_step(params, cfg, batch, vg_mode=vg_mode,
+                                       attn_impl=attn_impl, remat=remat, vis_span=vis_span)
+            with record_function("backward"):
+                grads = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
         logs = {k: v.detach() for k, v in logs.items()}
         with record_function("optimizer"):
             logs["grad_norm"] = optimizer.step(flat, dict(zip(flat, grads)), state.opt_state)
@@ -126,8 +138,8 @@ def batch_to(batch: dict, device: torch.device) -> dict:
 
 def make_train_step(cfg: MMMMConfig, optimizer: AdamW, lora_cfg: LoraConfig, *,
                     vg_mode: str = "none", bf16_vlm: bool = False, attn_impl: str = "auto",
-                    remat=True, mesh=None, dropout_seed: int | None = 0,
-                    vis_span: tuple[int, int] | str | None = None,
+                    remat: bool | str = True, mesh=None, dropout_seed: int | None = 0,
+                    vis_span: tuple[int, int] | str | None = None, gelu_mode: str = "auto",
                     device: str | torch.device = "cuda"):
     """The step(state, frozen, batch) -> (state, logs) on ``device``; the
     batch's arrays are moved there. ``mesh`` (sharded training) waits for
@@ -138,7 +150,7 @@ def make_train_step(cfg: MMMMConfig, optimizer: AdamW, lora_cfg: LoraConfig, *,
     dev = resolve_device(device)
     step_fn = make_step_fn(cfg, optimizer, lora_cfg, vg_mode=vg_mode, bf16_vlm=bf16_vlm,
                            attn_impl=attn_impl, remat=remat, dropout_seed=dropout_seed,
-                           vis_span=vis_span)
+                           vis_span=vis_span, gelu_mode=gelu_mode)
 
     def run(state: TrainState, frozen: dict, batch: dict):
         return step_fn(state, frozen, batch_to(batch, dev))

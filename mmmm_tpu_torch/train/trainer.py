@@ -53,7 +53,11 @@ class TrainerConfig:
     bf16_vlm: bool = True
     # store the frozen CogVLM base in bf16 (the compute dtype under bf16_vlm)
     frozen_vlm_bf16: bool = True
-    remat: bool = True
+    # True, False, "attn" or "dots" (ops/remat.py; YAML and overrides pass
+    # the string as it is, as the reference's)
+    remat: bool | str = True
+    # the reference's MMMM_GELU: "auto", "fitted", "tanh" or "erf"
+    gelu_mode: str = "auto"
     # "pallas" runs K3 and K7 at every flash site; "xla" is the plain
     # PyTorch attention and launches no kernel. Decided on the H100: at the
     # training LLM site K3 takes 0.1538 ms against 4.5285 plain, the whole
@@ -91,7 +95,8 @@ class Trainer:
         self.steps = {
             mode: make_train_step(model.cfg, self.optimizer, lora_cfg, vg_mode=mode,
                                   bf16_vlm=cfg.bf16_vlm, attn_impl=cfg.attn_impl,
-                                  remat=cfg.remat, vis_span=cfg.vis_span, device=self.device)
+                                  remat=cfg.remat, vis_span=cfg.vis_span,
+                                  gelu_mode=cfg.gelu_mode, device=self.device)
             for mode in ("none", "semantic", "instance")
         }
         # host seconds of the last fit: each step's wait for its batch

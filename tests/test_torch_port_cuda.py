@@ -785,33 +785,39 @@ def _q8_step(g, cuda, b, h, smax, d, dtype, rows=None):
     return q.contiguous(), {"kq": kq, "ks": ks, "vq": vq, "vs": vs}, kn, vn
 
 
-def _check_q8_append(cache, q, kn, vn, widx, lens, mxu):
+def _check_q8_append(cache, q, kn, vn, widx, lens, mxu, cast="f32", atol=None):
     """The fused int8 step against the kernels in sequence (``quantize_kv``,
     K8, then K9 or K10) and against the plain sequence: caches bit-equal to
     both, the output bit-equal to the kernels' and twice bit for bit; one
-    launch of the read in its form "append", no K8 launch."""
+    launch of the read in its form "append" (and K9's "bf16" with
+    ``cast="bf16"``), no K8 launch."""
     cuda = q.device
     w = torch.tensor(widx, dtype=torch.int32, device=cuda)
     n = torch.tensor(lens, dtype=torch.int32, device=cuda)
     plain = {k: t.clone() for k, t in cache.items()}
-    ref = pdec.decode_attention_q8_append_plain(q, plain, kn, vn, w, n, q8_mxu=mxu)
+    ref = pdec.decode_attention_q8_append_plain(q, plain, kn, vn, w, n, q8_mxu=mxu, cast=cast)
     seq = {k: t.clone() for k, t in cache.items()}
     pdec.kv_append_q8(seq, *quantize_kv(kn.transpose(1, 2)), *quantize_kv(vn.transpose(1, 2)), w)
-    want = pdec.decode_attention_q8(q, *(seq[k] for k in pdec.Q8_LEAVES), n, q8_mxu=mxu)
-    kern = pdec.K10 if mxu and pdec._q8_mxu_eligible(*cache["kq"].shape[1:]) else pdec.K9
+    want = pdec.decode_attention_q8(q, *(seq[k] for k in pdec.Q8_LEAVES), n, q8_mxu=mxu,
+                                    cast=cast)
+    kern = pdec.K10 if pdec._takes_mxu(mxu, cast, cache["kq"].shape[1:]) else pdec.K9
     outs = []
     for _ in range(2):
         got_cache = {k: t.clone() for k, t in cache.items()}
-        before = (kern.launches, kern.forms.get("append", 0), pdec.K8.launches)
-        outs.append(pdec.decode_attention_q8_append(q, got_cache, kn, vn, w, n, q8_mxu=mxu))
-        assert (kern.launches, kern.forms.get("append", 0), pdec.K8.launches) == (
-            before[0] + 1, before[1] + 1, before[2])
+        before = (kern.launches, kern.forms.get("append", 0), kern.forms.get("bf16", 0),
+                  pdec.K8.launches)
+        outs.append(pdec.decode_attention_q8_append(q, got_cache, kn, vn, w, n, q8_mxu=mxu,
+                                                    cast=cast))
+        assert (kern.launches, kern.forms.get("append", 0), kern.forms.get("bf16", 0),
+                pdec.K8.launches) == (before[0] + 1, before[1] + 1,
+                                      before[2] + (cast == "bf16"), before[3])
         for k in pdec.Q8_LEAVES:
             assert torch.equal(got_cache[k], plain[k]), k
             assert torch.equal(got_cache[k], seq[k]), k
     assert torch.equal(outs[0], want) and torch.equal(outs[0], outs[1])
-    torch.testing.assert_close(outs[0].float(), ref.float(), rtol=0,
-                               atol=2e-2 if q.dtype == torch.bfloat16 else 1e-4)
+    if atol is None:
+        atol = 2e-2 if q.dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(outs[0].float(), ref.float(), rtol=0, atol=atol)
     assert torch.all(outs[0][n <= 0] == 0)
 
 
@@ -1026,3 +1032,107 @@ def test_decode_window_past_eight_on_the_card(cuda):
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
     for tg, tc in zip(got_caches, ref_caches):
         torch.testing.assert_close(tg, tc, atol=1e-4, rtol=0)
+
+
+# ---- the reference's non-default numeric switches: K4's fast softmax, K9's bf16 cast -----
+
+# K4's fast softmax is held to its plain fast form in the kernel's order of
+# key tiles (dense_attention_fast_tiles). fp32 sums in other orders, and a
+# logit within fp32 noise of a bf16 boundary of s - m (one probability moves
+# by up to 2^-8 |s - m| p), move outputs by about 2e-7 in the mean and at
+# most 9.8e-4 (one bf16 step) / 2.3e-4 (fp32 at the SAM shape), measured on
+# the CPU with fp64 against fp32 logits; the limits: FAST_MEAN_TOL in the
+# mean and FAST_TOL of the largest output. The exact softmax sits 1.3e-4 to
+# 3.8e-4 away in the mean, so the default form misses the mean limit.
+FAST_TOL = {torch.bfloat16: 2 ** -7, torch.float32: 1e-3}
+FAST_MEAN_TOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,dtype", [
+    (4, 1153, 16, 112, torch.bfloat16),  # the ViT
+    (4, 512, 12, 64, torch.float32),  # the SAM encoder
+    (2, 77, 4, 88, torch.bfloat16),  # a ragged last tile
+    (2, 33, 2, 8, torch.float32),
+])
+def test_dense_attention_fast_softmax(cuda, b, s, h, d, dtype):
+    """K4's fast-softmax form (and so K12's) against its plain version in
+    the kernel's order of key tiles, within ``FAST_TOL`` of the largest
+    output and ``FAST_MEAN_TOL`` in the mean, twice bit for bit, one launch
+    of form "fast"; the exact form's output misses the mean limit."""
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=cuda).to(dtype) for _ in range(3))
+    scale = d ** -0.5
+    before = (pdense.K4.launches, pdense.K4.forms.get("fast", 0))
+    got = pdense.dense_attention(q, k, v, scale, fast_softmax=True)
+    assert (pdense.K4.launches, pdense.K4.forms.get("fast", 0)) == (before[0] + 1, before[1] + 1)
+    ref = pdense.dense_attention_fast_tiles(q, k, v, scale)
+    top = ref.float().abs().max().item()
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=FAST_TOL[dtype] * top)
+    assert (got.float() - ref.float()).abs().mean().item() <= FAST_MEAN_TOL
+    assert torch.equal(got, pdense.dense_attention(q, k, v, scale, fast_softmax=True))
+    exact = pdense.dense_attention(q, k, v, scale)
+    assert (exact.float() - ref.float()).abs().mean().item() > 4 * FAST_MEAN_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("smax", [320, 321])
+def test_q8_bf16_cast_at_the_flagship_shape(cuda, smax, dtype):
+    """K9 with ``cast="bf16"`` at H = 32, D = 128 for kv_len 1, 193, 256, 320
+    and 0 over Smax 320 and 321 (the whole read: one chunk, so the row's max
+    as the plain version takes it): within 2e-2 (bf16 q) / 1e-4 (fp32 q) of
+    the plain version, zeros at kv_len 0, twice bit for bit, one launch of
+    form "bf16"; the fp32 form differs from it."""
+    g = torch.Generator(device=cuda).manual_seed(smax)
+    b, h, d = 5, 32, 128
+    kq, ks = quantize_kv(torch.randn(b, h, smax, d, generator=g, device=cuda))
+    vq, vs = quantize_kv(torch.randn(b, h, smax, d, generator=g, device=cuda))
+    q = torch.randn(b, 1, h, d, generator=g, device=cuda).to(dtype)
+    kv_len = torch.tensor([1, 193, 256, 320, 0], dtype=torch.int32, device=cuda)
+    before = (pdec.K9.launches, pdec.K9.forms.get("bf16", 0))
+    got = pdec.decode_attention_q8(q, kq, ks, vq, vs, kv_len, cast="bf16", q8_mxu=True)
+    assert (pdec.K9.launches, pdec.K9.forms.get("bf16", 0)) == (before[0] + 1, before[1] + 1)
+    want = pdec.decode_attention_q8_plain(q, kq, ks, vq, vs, kv_len, cast="bf16")
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2e-2 if dtype == torch.bfloat16 else 1e-4)
+    assert torch.all(got[4] == 0)
+    assert torch.equal(got, pdec.decode_attention_q8(q, kq, ks, vq, vs, kv_len, cast="bf16"))
+    assert not torch.equal(got, pdec.decode_attention_q8(q, kq, ks, vq, vs, kv_len))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [128, 90])
+def test_q8_bf16_cast_through_the_ring(cuda, d, dtype):
+    """K9 in bf16 over Smax 4096, where a head streams through the ring in
+    chunks and each chunk's weights round against the running max (the
+    reference's blocks do too): within 2e-2 / 1e-3 of the plain version."""
+    smax = 4096
+    g = torch.Generator(device=cuda).manual_seed(d)
+    b, h = 3, 8
+    kq, ks = quantize_kv(torch.randn(b, h, smax, d, generator=g, device=cuda))
+    vq, vs = quantize_kv(torch.randn(b, h, smax, d, generator=g, device=cuda))
+    q = torch.randn(b, 1, h, d, generator=g, device=cuda).to(dtype)
+    kv_len = torch.tensor([4096, 1000, 3], dtype=torch.int32, device=cuda)
+    got = pdec.decode_attention_q8(q, kq, ks, vq, vs, kv_len, cast="bf16")
+    want = pdec.decode_attention_q8_plain(q, kq, ks, vq, vs, kv_len, cast="bf16")
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2e-2 if dtype == torch.bfloat16 else 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("smax", [320, 321])
+def test_q8_bf16_cast_append_fused(cuda, smax, dtype):
+    """K9's fused form in bf16 at B = 4 and B = 1, H = 32, D = 128, at every
+    write-index edge: caches bit-equal to the appends', the output K8 then
+    the bf16 read's bit for bit, and within the read's tolerance of the
+    plain sequence."""
+    g = torch.Generator(device=cuda).manual_seed(smax + 7)
+    q, cache, kn, vn = _q8_step(g, cuda, 4, 32, smax, 128, dtype)
+    for widx, lens in Q8_EDGES:
+        _check_q8_append(cache, q, kn, vn, widx, lens, False, cast="bf16")
+    for widx, lens in (([255], [256]), ([smax - 1], [0]), ([-3], [smax])):
+        _check_q8_append({k: t[:1] for k, t in cache.items()}, q[:1], kn[:1], vn[:1], widx,
+                         lens, False, cast="bf16")

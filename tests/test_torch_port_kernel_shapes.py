@@ -666,3 +666,49 @@ def test_q8_plain_matches_both_pallas_forms(smax, d, block_s, bf16):
                                                     block_s=block_s, cast="f32")
     for ref in (full, ragged):
         np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), **tol)
+
+
+# ---- the kernel forms of the reference's numeric switches ------------------------------
+
+@pytest.mark.parametrize("b,s,h,d,dtype", [(4, 1153, 16, 112, torch.bfloat16),
+                                           (4, 512, 12, 64, torch.float32),
+                                           (4, 1153, 16, 100, torch.bfloat16)])
+def test_dense_fast_softmax_launch(recorded, monkeypatch, b, s, h, d, dtype):
+    """K4's fast softmax at the ViT's and the SAM encoder's shapes (and
+    through the zero-lane pad): one launch of the same entry point, its
+    ``fast`` argument 1 and its form "fast", at the head dim the kernel
+    takes; the default form passes 0 and no form."""
+    calls = []
+    monkeypatch.setattr(pdense, "K4", lambda *a, **kw: calls.append((*a, kw.get("form"))))
+    q = torch.empty(b, s, h, d, dtype=dtype, device="meta")
+    pdense.dense_attention(q, q, q, 0.1, fast_softmax=True)
+    pdense.dense_attention(q, q, q, 0.1)
+    dp = pattn.kernel_head_dim(d, dtype)
+    assert [c[4:8] for c in calls] == [(b, s, h, dp)] * 2
+    assert [c[-4:] for c in calls] == [(int(dtype == torch.bfloat16), 1, 0, "fast"),
+                                       (int(dtype == torch.bfloat16), 0, 0, None)]
+
+
+def test_q8_bf16_cast_launch(recorded):
+    """K9 with ``cast="bf16"`` at run (c)'s flagship cache (H = 32, Smax
+    320, D = 128): the read alone and the fused step each one launch under
+    the same plan, the cast argument 1, forms "bf16" and ("append",
+    "bf16"); ``q8_mxu`` does not take K10 then (the reference's ragged
+    route never takes the split-int8 read)."""
+    meta = dict(device="meta")
+    h, d = 32, 128
+    q = torch.empty(B, 1, h, d, dtype=torch.bfloat16, **meta)
+    kq = torch.empty(B, h, SMAX_Q8, d, dtype=torch.int8, **meta)
+    ks = torch.empty(B, h, SMAX_Q8, 1, dtype=torch.bfloat16, **meta)
+    n = torch.empty(B, dtype=torch.int32, **meta)
+    pdk.decode_attention_q8(q, kq, ks, kq, ks, n, cast="bf16", q8_mxu=True)
+    pdk.decode_attention_q8_append(q, {"kq": kq, "ks": ks, "vq": kq, "vs": ks}, q, q, n, n,
+                                   cast="bf16", q8_mxu=True)
+    pdk.decode_attention_q8(q, kq, ks, kq, ks, n)
+    assert "K10" not in recorded and len(recorded["K9"]) == 3
+    plan = pdk.q8_stage_plan(SMAX_Q8, d)
+    for args, form, cast in zip(recorded["K9"], ["bf16", ("append", "bf16"), None], [1, 1, 0]):
+        assert args[9:11] == (SMAX_Q8, d) and args[13:15] == plan
+        assert args[-1] == form and args[-3] == cast
+    with pytest.raises(ValueError, match="cast"):
+        pdk.decode_attention_q8(q, kq, ks, kq, ks, n, cast="fp16")
