@@ -141,7 +141,27 @@ Phases, in order; any failure exits non-zero before the result lines:
     D = 128 beside D = 112; ``sam_forward_prompted`` with a point, a box
     and a mask prompt, card vs CPU. Each run counted from 0, launches
     exact;
- 9. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+ 9. the pseudo-box detector and the segmentation ablation: LAP (the
+    rectangular assignment kernel) against its plain version on the card,
+    ``col4row`` bit-equal twice, at the matcher's (32, 24, 100), with
+    padded rows of flat zero, integer costs with ties, K = Q = 8, K = 1
+    and (8, 32, 900), each summed cost scipy's optimum within 1e-5
+    relative, timed beside the plain version and scipy on the host; the
+    detector at ``tests/test_detector.py``'s tiny config card vs CPU
+    (outputs, loss, gradients, three ``train_detector`` steps within 1e-4
+    relative, one LAP launch a loss call); ``train_detector`` at
+    ``DetectorConfig()`` and the command's defaults (image 512, batch 8,
+    20 steps over 32 in-memory cases, LAP launched exactly 20 times) and
+    ``infer_images`` over 32 ``.pt`` images writing ``_box.json``;
+    ``ms_deform_attn`` timed at the encoder's and the decoder's shapes
+    beside ``F.grid_sample``'s formulation; the UNet card vs CPU at a small
+    odd size, then ``run_seg_exp`` at conf/seg-exp/unet.yaml's width (3
+    steps; the largest batch of 8, 6, 4, 2 that fits); the SAM arm at
+    conf/seg-exp/sam.yaml's width (3 steps, K4 launched 6 times a step) and
+    K4 at its (8, 1176, 8, 32) fp32 shape beside SDPA. The ``process``
+    command runs no device work (and reads 2-D images with PIL, which the
+    card's machine lacks), so it is held on the CPU only;
+10. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 ``--log-dir`` keeps the build log and the results as JSON there.
 No JAX and nothing of ``mmmm_tpu`` is imported.
@@ -233,7 +253,7 @@ KERNEL_RUN = {"K1": "a_greedy_bf16", "K2": "a_greedy_bf16", "K3": "a_greedy_bf16
               "K7dq": "train_semantic", "K7dkv": "train_semantic", "K7delta": "train_semantic",
               "K8": "c_int8kv_w8a16", "K9": "c_int8kv_w8a16", "K10": "d_w4_q8mxu_chunk2",
               "K11": "d_w4_q8mxu_chunk2", "K11mma": "d_w4_q8mxu_chunk2",
-              "K12": "d_w4_q8mxu_chunk2", "P1": "d_w4_q8mxu_chunk2"}
+              "K12": "d_w4_q8mxu_chunk2", "P1": "d_w4_q8mxu_chunk2", "LAP": "detector_train"}
 COUNTER = {"K12": "K4"}
 REPLACES = {"K12": "mmmm_tpu/ops/dense_attn.py:156 _dense_fwd_bshd (pallas_call :177, "
                    "_kernel_bshd :121)"}
@@ -4337,6 +4357,514 @@ def entry_phase(adapter: Path, peaks) -> tuple[dict, dict]:
 
 
 # profiler spans of generate_grounded's stages (record_function names)
+# ---- phase 9: the pseudo-box detector, the 3-D UNet and the seg-exp SAM arm --------
+
+LAP_PROBLEMS = {  # label -> (N, K, Q, kind); N = 8 images x 4 heads at the defaults
+    "detector (32, 24, 100)": (32, 24, 100, "random"),
+    "padded rows flat zero": (32, 24, 100, "padded"),
+    "integer costs 0..3 (ties)": (32, 24, 100, "int"),
+    "K = Q = 8": (32, 8, 8, "random"),
+    "K = 1": (32, 1, 100, "random"),
+    "DETR regime (8, 32, 900)": (8, 32, 900, "random"),
+}
+DET_TINY = dict(num_classes=4, d_model=32, n_heads=4, n_points=2, enc_layers=1, dec_layers=2,
+                ffn_dim=64, num_queries=12, backbone_dims=(8, 16, 32, 32), image_size=64,
+                max_gt=4)  # tests/test_detector.py's tiny config
+DET_STEPS, DET_BATCH, DET_CASES = 20, 8, 32  # scripts/data/detector.py's batch
+# conf/seg-exp/{unet,sam}.yaml as dicts (the card has no PyYAML); held to the
+# files by tests/test_torch_port_preprocess.py
+SEG_EXP_UNET = {"model": "unet", "patch": [64, 192, 192], "batch": 8, "steps": 60000,
+                "lr": 3.0e-4, "weight_decay": 5.0e-2, "channels": [32, 64, 128, 256, 320]}
+SEG_EXP_SAM = {"model": "sam", "patch": [48, 224, 224], "batch": 8, "steps": 60000,
+               "lr": 1.0e-4, "weight_decay": 5.0e-2,
+               "sam": {"patch_size": [8, 16, 16], "pos_embed_shape": [6, 14, 14]}}
+SEG_STEPS = 3
+
+
+def _lap_costs(n, k, q, kind, gen):
+    if kind == "int":
+        return torch.randint(0, 4, (n, k, q), generator=gen, device="cuda").float()
+    c = torch.randn(n, k, q, generator=gen, device="cuda")
+    if kind == "padded":
+        c[:, k // 2:] = 0.0
+    return c
+
+
+def lap_phase(peaks, gen) -> dict:
+    """LAP against its plain version on the card (bit-equal ``col4row``,
+    twice) and scipy's optimum, at the matcher's shapes and edge cases;
+    timed at the detector's (32, 24, 100) beside the plain version on the
+    card and scipy on the host (copy included)."""
+    from scipy.optimize import linear_sum_assignment
+
+    from mmmm_tpu_torch.ops import hungarian as hg
+
+    bw = peaks[0]
+    row = None
+    for label, (n, k, q, kind) in LAP_PROBLEMS.items():
+        c = _lap_costs(n, k, q, kind, gen)
+        got, again = hg.lap_rectangular(c), hg.lap_rectangular(c)
+        ref = hg.lap_rectangular_plain(c)
+        if not (torch.equal(got, again) and torch.equal(got, ref)):
+            raise AssertionError(f"LAP {label}: col4row differs from the plain version's "
+                                 "or between runs")
+        cn, col = c.double().cpu().numpy(), got.cpu().numpy()
+        worst = 0.0
+        for i in range(n):
+            r, sc = linear_sum_assignment(cn[i])
+            best = cn[i][r, sc].sum()
+            worst = max(worst, abs(cn[i][np.arange(k), col[i]].sum() - best) / max(1.0, abs(best)))
+        check(f"LAP {label}: summed cost against scipy's optimum (relative)", worst, 1e-5)
+        if row is None:
+            def scipy_host():
+                a = c.cpu().numpy()
+                return [linear_sum_assignment(a[i])[1] for i in range(n)]
+
+            t = time.perf_counter()
+            for _ in range(5):
+                scipy_host()
+            scipy_ms = (time.perf_counter() - t) / 5 * 1e3
+            bms, by = bound(c.numel() * 4 + n * k * 4, 0, 1.0, bw)
+            row = {"shape": [n, k, q], "dtype": "float32", "max_abs_err": 0.0,
+                   "ms": time_ms(lambda: hg.lap_rectangular(c)),
+                   "plain_ms": time_ms(lambda: hg.lap_rectangular_plain(c), reps=3, inner=1),
+                   "library_ms": None, "library": "none (no PyTorch call solves an assignment)",
+                   "scipy_host_ms": scipy_ms, "bound_ms": bms, "bound_by": by,
+                   "dijkstra_steps_at_most": k * (k + 1) // 2,
+                   "checked": list(LAP_PROBLEMS)}
+            log(f"  LAP {label}: kernel {row['ms']:.4f} ms, plain (card) {row['plain_ms']:.3f} "
+                f"ms, scipy (host, copy included) {scipy_ms:.3f} ms, byte bound {bms:.5f} ms; "
+                f"at most {row['dijkstra_steps_at_most']} dependent Dijkstra steps a problem")
+    return row
+
+
+def _det_tree_to(tree, device):
+    from mmmm_tpu_torch.params import map_tree
+
+    return map_tree(lambda t: t.detach().to(device).clone(), tree)
+
+
+def _rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over b's largest entry."""
+    return max_err(a, b) / max(b.float().abs().max().item(), 1e-30)
+
+
+def _grads_rel_err(card: list, cpu: list) -> float:
+    """The largest gradient error, each leaf against its largest entry (at
+    least a hundredth of the tree's largest); a leaf whose gradient is zero
+    by construction (a bias under a norm, a key bias under the softmax)
+    holds rounding noise, and is measured against the tree's largest."""
+    top = max(g.abs().max().item() for g in cpu)
+    errs = []
+    for a, b in zip(card, cpu):
+        m = b.abs().max().item()
+        errs.append(max_err(a.cpu(), b) / (max(m, 1e-2 * top) if m > 1e-5 * top else top))
+    return max(errs)
+
+
+def _det_batch(rng, b, cfg):
+    """Noise images (no near-ties for top_k) and 0..max_gt-1 GT boxes each."""
+    images = rng.random((b, cfg.image_size, cfg.image_size, 1)).astype(np.float32)
+    gb = np.zeros((b, cfg.max_gt, 4), np.float32)
+    gc = np.zeros((b, cfg.max_gt), np.int64)
+    gv = np.zeros((b, cfg.max_gt), bool)
+    for i in range(b):
+        n = int(rng.integers(0, cfg.max_gt))
+        gb[i, :n] = np.concatenate([rng.uniform(0.2, 0.8, (n, 2)), rng.uniform(0.05, 0.3, (n, 2))],
+                                   -1)
+        gc[i, :n] = rng.integers(0, cfg.num_classes, n)
+        gv[i, :n] = True
+    return images, gb, gc, gv
+
+
+def _grad_errs(params, cfg, batch, device):
+    from mmmm_tpu_torch.models.detector import detector_loss
+    from mmmm_tpu_torch.params import _flatten
+
+    flat = _flatten(params)
+    for t in flat.values():
+        t.requires_grad_(True)
+    loss = detector_loss(params, cfg, *(torch.from_numpy(a).to(device) for a in batch))
+    return loss.detach(), dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
+
+
+def detector_tiny_check() -> dict:
+    """The detector at the tiny config, card against CPU from one set of
+    parameters: every forward output, the loss and every gradient within
+    1e-4 relative (a gradient that is zero by construction against the
+    tree's largest), one LAP launch a loss call, and three optimizer steps
+    of ``train_detector``: each step's loss within 1e-4 relative."""
+    from mmmm_tpu_torch.models import detector as det
+    from mmmm_tpu_torch.ops.hungarian import LAP
+    from mmmm_tpu_torch.train.detector import train_detector
+
+    cfg = det.DetectorConfig(**DET_TINY)
+    cpu = det.init_detector_params(cfg, seed=0, device="cpu")
+    card = _det_tree_to(cpu, "cuda")
+    rng = np.random.default_rng(0)
+    batch = _det_batch(rng, 2, cfg)
+    out_c = det.detector_forward(card, cfg, torch.from_numpy(batch[0]).cuda())
+    out_h = det.detector_forward(cpu, cfg, torch.from_numpy(batch[0]))
+    errs = {k: _rel_err(out_c[k].cpu(), out_h[k]) for k in ("class_logits", "boxes",
+                                                             "enc_logits", "enc_boxes")}
+    for k, e in errs.items():
+        check(f"detector tiny {k}, card vs CPU (relative)", e, 1e-4)
+    LAP.reset()
+    loss_c, g_c = _grad_errs(card, cfg, batch, "cuda")
+    if LAP.launches != 1:
+        raise AssertionError(f"detector_loss launched LAP {LAP.launches} times, not once")
+    loss_h, g_h = _grad_errs(cpu, cfg, batch, "cpu")
+    check("detector tiny loss, card vs CPU (relative)", abs(loss_c.item() - loss_h.item())
+          / abs(loss_h.item()), 1e-4)
+    gerr = _grads_rel_err([g_c[k] for k in g_h], list(g_h.values()))
+    check("detector tiny gradients, card vs CPU (relative)", gerr, 1e-4)
+    cases = [tuple(a[0] for a in _det_batch(rng, 1, cfg)) for _ in range(5)]
+    runs = {}
+    for dev, params in (("cuda", _det_tree_to(cpu, "cuda")), ("cpu", _det_tree_to(cpu, "cpu"))):
+        runs[dev] = train_detector(cfg, cases, steps=3, batch=2, lr=1e-3, seed=0, log_every=100,
+                                   eval_frac=0, device=dev, params=params, log=lambda m: None)
+    lerr = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"]["losses"], runs["cpu"]["losses"]))
+    check("detector tiny 3 train_detector steps: losses, card vs CPU (relative)", lerr, 1e-4)
+    return {"forward_rel_err": errs, "loss": [loss_c.item(), loss_h.item()],
+            "grad_rel_err": gerr, "train_losses": {d: r["losses"] for d, r in runs.items()},
+            "train_loss_rel_err": lerr,
+            "lap_launches_a_loss": 1}
+
+
+def _synthetic_xray(rng, size: int, n_boxes: int, max_gt: int, num_classes: int):
+    """A noise X-ray with bright boxes and its case tuple (cxcywh GT)."""
+    img = (rng.random((size, size)) * 0.3).astype(np.float32)
+    gb = np.zeros((max_gt, 4), np.float32)
+    gc = np.zeros((max_gt,), np.int32)
+    gv = np.zeros((max_gt,), bool)
+    for i in range(n_boxes):
+        x0, y0 = rng.integers(0, size * 3 // 4, 2)
+        w, h = rng.integers(size // 16, size // 4, 2)
+        img[y0:y0 + h, x0:x0 + w] += 0.5
+        gb[i] = [(x0 + w / 2) / size, (y0 + h / 2) / size, w / size, h / size]
+        gc[i] = rng.integers(0, num_classes)
+        gv[i] = True
+    return np.clip(img, 0, 1), (np.clip(img, 0, 1)[..., None], gb, gc, gv)
+
+
+def ms_deform_rows(peaks, gen, cfg) -> dict:
+    """``ms_deform_attn`` forward and forward + backward at the encoder's
+    and the decoder's shapes, beside ``F.grid_sample``'s formulation of the
+    same function (the yardstick, checked against it within 1e-5)."""
+    from mmmm_tpu_torch.ops.deform_attn import ms_deform_attn
+
+    bw, _, fp32_rate, _ = peaks
+    b, heads, hd, lv, p = DET_BATCH, cfg.n_heads, cfg.d_model // cfg.n_heads, 3, cfg.n_points
+    shapes = cfg.level_shapes()
+    t_tokens = sum(h * w for h, w in shapes)
+
+    def grid_sample_form(values, locs, weights):
+        out = 0
+        q = locs.shape[1]
+        for lvl, v in enumerate(values):
+            _, h, w, _, _ = v.shape
+            inp = v.permute(0, 3, 4, 1, 2).reshape(b * heads, hd, h, w)
+            grid = 2 * locs[:, :, :, lvl].permute(0, 2, 1, 3, 4).reshape(b * heads, q, p, 2) - 1
+            s = F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
+                              align_corners=False)  # (B heads, hd, Q, P)
+            wl = weights[:, :, :, lvl].permute(0, 2, 1, 3).reshape(b * heads, 1, q, p)
+            out = out + (s * wl).sum(-1)
+        return out.reshape(b, heads, hd, q).permute(0, 3, 1, 2).reshape(b, q, heads * hd)
+
+    rows = {}
+    for label, q in (("encoder", t_tokens), ("decoder", cfg.num_queries)):
+        values = [torch.randn(b, h, w, heads, hd, generator=gen, device="cuda") for h, w in shapes]
+        locs = torch.rand(b, q, heads, lv, p, 2, generator=gen, device="cuda") * 1.2 - 0.1
+        weights = torch.softmax(torch.randn(b, q, heads, lv * p, generator=gen, device="cuda"),
+                                -1).reshape(b, q, heads, lv, p)
+        err = max_err(ms_deform_attn(values, locs, weights), grid_sample_form(values, locs, weights))
+        check(f"ms_deform_attn {label} against the grid_sample formulation", err, 1e-5)
+        leaves = [*values, locs, weights]
+        for t in leaves:
+            t.requires_grad_(True)
+        ct = torch.randn(b, q, heads * hd, generator=gen, device="cuda")
+
+        def fb(fn):
+            g = torch.autograd.grad((fn(values, locs, weights) * ct).sum(), leaves)
+            return g
+
+        with torch.no_grad():
+            fwd = time_ms(lambda: ms_deform_attn(values, locs, weights), reps=5, inner=3)
+            lib = time_ms(lambda: grid_sample_form(values, locs, weights), reps=5, inner=3)
+        # four taps' lerps and the weighted sum: 10 operations a (point, lane)
+        n_pts = b * q * heads * lv * p
+        bms, by = bound(sum(v.numel() for v in values) * 4 + locs.numel() * 4
+                        + weights.numel() * 4 + b * q * heads * hd * 4,
+                        n_pts * hd * 10, fp32_rate, bw)
+        rows[label] = {"shape": {"B": b, "Q": q, "heads": heads, "head_dim": hd, "levels": shapes,
+                                 "points": p},
+                       "forward_ms": fwd, "forward_backward_ms": time_ms(lambda: fb(ms_deform_attn),
+                                                                         reps=5, inner=2),
+                       "grid_sample_forward_ms": lib,
+                       "grid_sample_forward_backward_ms": time_ms(lambda: fb(grid_sample_form),
+                                                                  reps=5, inner=2),
+                       "forward_bound_ms": bms, "forward_bound_by": by, "max_abs_err": err}
+        log(f"  ms_deform_attn {label}: forward {fwd:.3f} ms (grid_sample {lib:.3f} ms, bound "
+            f"{bms:.4f} ms {by}), forward+backward {rows[label]['forward_backward_ms']:.3f} ms "
+            f"(grid_sample {rows[label]['grid_sample_forward_backward_ms']:.3f} ms)")
+    return rows
+
+
+def detector_full_phase(peaks, gen) -> tuple[dict, dict]:
+    """``train_detector`` at ``DetectorConfig()`` and the CLI's defaults
+    (image 512, 3 + 3 layers, 100 queries, max_gt 24, batch 8): 20 steps over
+    32 in-memory cases, LAP launched once a step and exactly 20 times, step
+    times and peak memory; then ``infer_images`` over 32 ``.pt`` images,
+    writing their ``_box.json`` (no LAP launch); the deformable attention's
+    times at the encoder's and the decoder's shapes."""
+    import tempfile
+
+    from mmmm_tpu_torch.models.detector import VINDR_CLASSES
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+    from mmmm_tpu_torch.train.detector import (detector_config, infer_images,
+                                               train_detector)
+
+    cfg = detector_config(512, 3, 100)
+    rng = np.random.default_rng(0)
+    raws, cases = [], []
+    for _ in range(DET_CASES):
+        raw, case = _synthetic_xray(rng, cfg.image_size, int(rng.integers(0, cfg.max_gt + 1)),
+                                    cfg.max_gt, cfg.num_classes)
+        raws.append(raw)
+        cases.append(case)
+    marks = []
+
+    def on_step(it, loss):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), loss.item(), KERNELS["LAP"].launches))
+
+    for kern in KERNELS.values():
+        kern.reset()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train_detector(cfg, cases, steps=DET_STEPS, batch=DET_BATCH, lr=2e-4, seed=0,
+                         log_every=10, eval_frac=0.1, device="cuda", log=log, on_step=on_step)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in KERNELS.items() if k.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches != {"LAP": DET_STEPS}:
+        raise AssertionError(f"detector training launched {launches}, want LAP {DET_STEPS}")
+    if [m[2] for m in marks] != list(range(1, DET_STEPS + 1)):
+        raise AssertionError("LAP was not launched once every step")
+    if not np.isfinite(res["losses"]).all():
+        raise AssertionError(f"detector losses not finite: {res['losses']}")
+    step_s = [b[0] - a[0] for a, b in zip(marks, marks[1:])]
+    log(f"  detector train: {DET_STEPS} steps at batch {DET_BATCH} in {train_s:.2f} s (mAP "
+        f"pass included), steady step {statistics.median(step_s) * 1e3:.1f} ms, first "
+        f"{(marks[0][0] - t0) * 1e3:.1f} ms, peak {peak:.2f} GiB, losses "
+        f"{res['losses'][0]:.4f} -> {res['losses'][-1]:.4f}, mAP@0.5 {res['map']:.4f}, "
+        f"LAP launches {launches['LAP']}")
+    params = res["params"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_det_") as tmp:
+        root = Path(tmp)
+        items = []
+        for i, raw in enumerate(raws):
+            torch.save(torch.from_numpy(np.round(raw * 255).astype(np.uint8))[None, None],
+                       root / f"study{i}.pt")
+            items.append({"image": [f"study{i}.pt"],
+                          "tags": [{"target": VINDR_CLASSES[i % len(VINDR_CLASSES)]},
+                                   {"target": "cardiomegaly"}]})
+        infer_images(params, cfg, items[:2], root / "boxes", image_root=root,
+                     device="cuda")  # warm-up
+        for kern in KERNELS.values():
+            kern.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n = infer_images(params, cfg, items, root / "boxes", image_root=root, device="cuda")
+        torch.cuda.synchronize()
+        infer_s = time.perf_counter() - t
+        infer_launches = {k: v.launches for k, v in KERNELS.items() if v.launches}
+        written = sorted(p.name for p in (root / "boxes").glob("*_box.json"))
+        boxes = [json.loads((root / "boxes" / w).read_text()) for w in written]
+    if n != DET_CASES or len(written) != DET_CASES or infer_launches:
+        raise AssertionError(f"infer wrote {n} files ({len(written)} found), launches "
+                             f"{infer_launches}")
+    for b in boxes:
+        for name, bx in b.items():
+            if name not in VINDR_CLASSES or not all(len(x) == 4 and 0 <= x[0] <= x[2] <= 512
+                                                    and 0 <= x[1] <= x[3] <= 512 for x in bx):
+                raise AssertionError(f"bad _box.json entry {name}: {bx}")
+    log(f"  detector infer: {n} images in {infer_s:.3f} s ({n / infer_s:.1f} images/s), "
+        f"LAP launches 0")
+    import dataclasses
+
+    out = {"config": dataclasses.asdict(cfg), "steps": DET_STEPS, "batch": DET_BATCH,
+           "train_s": train_s, "steady_step_ms": statistics.median(step_s) * 1e3,
+           "first_step_ms": (marks[0][0] - t0) * 1e3, "step_ms": [s * 1e3 for s in step_s],
+           "peak_gib": peak, "losses": res["losses"], "map": res["map"],
+           "launches": launches, "infer_images": n, "infer_s": infer_s,
+           "images_per_s": n / infer_s, "infer_launches": infer_launches,
+           "ms_deform_attn": ms_deform_rows(peaks, gen, cfg)}
+    return out, launches
+
+
+def _seg_cases(rng, n, shape, classes=2):
+    """Noise volumes with a bright box a class, and their masks."""
+    cases = []
+    for _ in range(n):
+        img = (rng.random((1, *shape), dtype=np.float32) * 0.3)
+        m = np.zeros((classes, *shape), bool)
+        for k in range(classes):
+            lo = [int(rng.integers(0, s // 2)) for s in shape]
+            sl = tuple(slice(a, a + s // 3) for a, s in zip(lo, shape))
+            m[(k, *sl)] = True
+            img[(0, *sl)] += 0.4 + 0.2 * k
+        cases.append((img, m))
+    return cases
+
+
+def _seg_run(cfg, cases, label, kernel=None):
+    """``run_seg_exp`` with its steps timed and, with ``kernel``, that
+    kernel's launches a step read from its counter."""
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+    from mmmm_tpu_torch.train.seg_exp import run_seg_exp
+
+    marks = []
+
+    def on_step(it, loss):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), loss.item(),
+                      KERNELS[kernel].launches if kernel else 0))
+
+    for kern in KERNELS.values():
+        kern.reset()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_seg_exp(cfg, cases, device="cuda", log=log, on_step=on_step)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {n: k.launches for n, k in KERNELS.items() if k.launches}
+    times = [marks[0][0] - t0] + [b[0] - a[0] for a, b in zip(marks, marks[1:])]
+    per_step = [marks[0][2]] + [b[2] - a[2] for a, b in zip(marks, marks[1:])]
+    losses = [m[1] for m in marks]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: losses not finite {losses}")
+    log(f"  {label}: {len(marks)} steps at batch {cfg['batch']}, patch {cfg['patch']}: step "
+        f"{[round(t * 1e3, 1) for t in times]} ms, peak {peak:.2f} GiB, losses "
+        f"{[round(x, 4) for x in losses]}, Dice {res['dice']}, launches {launches}")
+    return {"results": res, "step_ms": [t * 1e3 for t in times], "peak_gib": peak,
+            "losses": losses, "launches": launches, "launches_per_step": per_step,
+            "total_s": total}
+
+
+def unet_phase() -> dict:
+    """The UNet card against CPU in fp32 at a small odd size (forward and
+    gradients within 1e-4 relative), then ``run_seg_exp`` at
+    conf/seg-exp/unet.yaml's width: patch (64, 192, 192), channels (32, 64,
+    128, 256, 320), batch 8 (the largest of 8, 6, 4, 2 that fits 80 GB),
+    3 steps."""
+    from mmmm_tpu_torch.models.unet import init_unet_params, unet_forward
+    from mmmm_tpu_torch.params import _flatten
+
+    cpu = init_unet_params(1, 3, (4, 8, 16), seed=0, device="cpu")
+    card = _det_tree_to(cpu, "cuda")
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(1, 1, 5, 12, 10))
+                         .astype(np.float32))
+    grads = {}
+    for dev, params in (("cuda", card), ("cpu", cpu)):
+        flat = _flatten(params)
+        for t in flat.values():
+            t.requires_grad_(True)
+        out = unet_forward(params, x.to(dev))
+        g = torch.autograd.grad((out * out).sum(), list(flat.values()))
+        grads[dev] = (out.detach().cpu(), [t.cpu() for t in g])
+    ferr = _rel_err(grads["cuda"][0], grads["cpu"][0])
+    check("UNet (1, 1, 5, 12, 10) forward, card vs CPU (relative)", ferr, 1e-4)
+    gerr = _grads_rel_err(grads["cuda"][1], grads["cpu"][1])
+    check("UNet (1, 1, 5, 12, 10) gradients, card vs CPU (relative)", gerr, 1e-4)
+    cfg = dict(SEG_EXP_UNET, classes=["liver", "spleen"], steps=SEG_STEPS, val_frac=0.2, seed=0,
+               log_every=1)
+    cases = _seg_cases(np.random.default_rng(1), 3, (72, 208, 208))
+    out = {"small_forward_rel_err": ferr, "small_grad_rel_err": gerr, "cut": None}
+    too_big = []
+    for batch in (8, 6, 4, 2):
+        try:
+            out["full"] = _seg_run(dict(cfg, batch=batch), cases, "seg-exp unet")
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"  seg-exp unet: batch {batch} passes the card's memory ({str(e)[:80]}...)")
+            too_big.append(batch)
+            gc.collect()
+            torch.cuda.empty_cache()
+    else:
+        raise AssertionError("seg-exp unet: no batch of 8/6/4/2 fits the card's memory")
+    if too_big:
+        out["cut"] = f"batches {too_big} ran out of memory; ran batch {batch}"
+    out["batch"] = batch
+    return out
+
+
+def sam_arm_phase(peaks, gen) -> tuple[dict, dict]:
+    """The seg-exp SAM arm at conf/seg-exp/sam.yaml's width (patch (48, 224,
+    224), SAM patch (8, 16, 16), pos-embed (6, 14, 14), embed 256, 6 layers,
+    8 heads, batch 8), 3 steps with K4 launched 6 times a step (the
+    encoder's layers; the backward recomputes through the plain version),
+    and K4 at its (8, 1176, 8, 32) fp32 shape against its plain version,
+    timed beside SDPA."""
+    from mmmm_tpu_torch.ops import dense_attn as da
+
+    bw, _, fp32_rate, _ = peaks
+    cfg = dict(SEG_EXP_SAM, classes=["liver", "spleen"], steps=SEG_STEPS, val_frac=0.2, seed=0,
+               log_every=1)
+    cases = _seg_cases(np.random.default_rng(2), 3, (56, 240, 240))
+    run = _seg_run(cfg, cases, "seg-exp sam", kernel="K4")
+    layers = 6
+    if run["launches_per_step"] != [layers] * SEG_STEPS:
+        raise AssertionError(f"seg-exp sam: K4 launches a step {run['launches_per_step']}, "
+                             f"want {layers}")
+    # the validation pass: one forward a held-out case
+    if run["launches"].get("K4") != layers * SEG_STEPS + layers:
+        raise AssertionError(f"seg-exp sam: K4 launched {run['launches']}")
+    b, s, h, d = 8, 6 * 14 * 14, 8, 32
+    q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda") for _ in range(3))
+    scale = d ** -0.5
+    err = max_err(da.dense_attention(q, k, v, scale), da.dense_attention_plain(q, k, v, scale))
+    check(f"K4 seg-exp SAM arm {(b, s, h, d)} fp32", err, 1e-4)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    bms, by = bound(4 * q.numel() * 4, 4 * b * h * s * s * d, fp32_rate, bw)
+    row = {"shape": [b, s, h, d], "dtype": "float32", "site": "seg-exp SAM arm encoder",
+           "max_abs_err": err, "ms": time_ms(lambda: da.dense_attention(q, k, v, scale)),
+           "plain_ms": time_ms(lambda: da.dense_attention_plain(q, k, v, scale), inner=2),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale)),
+           "bound_ms": bms, "bound_by": by, "launches": layers,
+           "launches_in_run": "one seg-exp SAM arm step (phase 9)"}
+    log(f"  K4 SAM arm: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, SDPA "
+        f"{row['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+    return run, row
+
+
+def pseudo_box_seg_phase(peaks) -> tuple[dict, dict, dict, dict]:
+    """Phase 9: LAP, the detector (tiny card vs CPU, then full width), the
+    UNet and the seg-exp SAM arm. Returns (results, the detector run's
+    launches, LAP's kernel row, K4's SAM-arm row)."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    log("LAP: rectangular assignment")
+    lap_row = lap_phase(peaks, gen)
+    log("detector: tiny config, card vs CPU")
+    out = {"detector_tiny": detector_tiny_check()}
+    log("detector: DetectorConfig() at the CLI's defaults")
+    out["detector"], launches = detector_full_phase(peaks, gen)
+    lap_row["launches"] = launches["LAP"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("UNet: small card vs CPU, then seg-exp at conf/seg-exp/unet.yaml's width")
+    out["unet"] = unet_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("seg-exp SAM arm at conf/seg-exp/sam.yaml's width")
+    out["sam_arm"], k4_row = sam_arm_phase(peaks, gen)
+    return out, launches, lap_row, k4_row
+
+
 STAGES = ("vit", "llm_prefill", "decode", "sam")
 KERNEL_GROUPS = (  # (label, substrings of a kernel name), first match wins
     ("K4 dense attention", ("attn_fwd_wgmma<false", "attn_fwd_f32<false")),
@@ -4682,6 +5210,13 @@ def main() -> int:
         shutil.rmtree(keep, ignore_errors=True)
     launches.update(entry_launches)
     results["kernels"]["K4"]["variants"].extend(results["entry"]["padded_heads"]["k4_rows"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    results["pseudo_box_seg"], det_launches, lap_row, k4_sam_row = phase(
+        "pseudo_box_seg", pseudo_box_seg_phase, peaks)
+    launches["detector_train"] = det_launches
+    results["kernels"]["LAP"] = lap_row
+    results["kernels"]["K4"]["variants"].append(k4_sam_row)
     # the switches' kernel forms: launches of phase 4's counted run with them on
     switched = results["tiny_reference"]["switches"][SWITCHES_RUN]["launches_by_form"]
     for kid, form in (("K4", "fast"), ("K9", "bf16")):

@@ -20,7 +20,12 @@ on the same kernels. The training loop (``train/trainer.py Trainer``, its
 step checkpoints ``CheckpointManager``) streams the data layer's batches
 (``data/``: transforms, sampler, bucketing, ``MultiDataset``; ``utils/io.py``)
 into the training step; ``models/align.py`` is stage-0 SAM alignment;
-``cli.py`` has the ``fit`` and ``align-sam`` commands.
+``cli.py`` has the ``fit`` and ``align-sam`` commands. The pseudo-box
+detector (``models/detector.py``; its matcher ``ops/hungarian.py
+lap_rectangular`` is the kernel LAP on the card), the 3-D UNet
+(``models/unet.py``), the segmentation ablation (``train/seg_exp.py``) and
+dataset processing (``preprocess/``, host only) are the ``detector-train``,
+``detector-infer``, ``seg-exp`` and ``process`` commands.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

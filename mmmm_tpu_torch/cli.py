@@ -12,6 +12,14 @@ package's ``scripts/cli.py fit``, ``scripts/align_sam.py``,
     python -m mmmm_tpu_torch.cli predict -c conf/tiny/fit.yaml --task vqa|report
         --dataset-dir DIR --output pred.csv [--batch N] [--continuous] [--device cpu] ...
     python -m mmmm_tpu_torch.cli evaluate --input pred.csv [--suite generic|cxr|ct|all] ...
+    python -m mmmm_tpu_torch.cli detector-train --data <processed/VinDr-CXR> --out ckpt/
+        [--steps N --batch B --size 512 --layers 3 --queries 100 --lr 2e-4] [--device cpu]
+    python -m mmmm_tpu_torch.cli detector-infer --ckpt ckpt/ --tags vg.json
+        [--images DIR] --out DIR [--device cpu]
+    python -m mmmm_tpu_torch.cli seg-exp [-c conf/seg-exp/unet.yaml] --model unet|sam
+        --data <processed dataset> --classes A B [--steps N ...] [--out res.json] [--device cpu]
+    python -m mmmm_tpu_torch.cli process --layout nnunet|segfolder|boxfolder | --dataset NAME
+        --src RAW --out PROCESSED [--name X] [--limit N]
 
 The same YAML configs, dotted ``k=v`` overrides (applied before ``${...}``
 interpolation) and builders. Every command runs on the card unless
@@ -28,7 +36,12 @@ answers over a VQA or report test set to a CSV, batched or through
 ``GroundedServer`` (``--continuous``); ``evaluate`` scores such a CSV.
 ``demo`` and ``predict`` take the commands' functions ``cmd_demo`` and
 ``cmd_predict`` a model already loaded (``loaded=``), as ``load_model``
-returns it.
+returns it. ``detector-train`` and ``detector-infer`` are
+``scripts/data/detector.py train`` / ``infer`` (the same flags, the same
+``params.npz`` with its ``cfg`` leaf, the mAP@0.5 line, the
+``{stem}_box.json`` files; ``train/detector.py``); ``seg-exp`` is
+``scripts/seg_exp.py`` (``train/seg_exp.py``); ``process`` is
+``scripts/data/process.py`` over ``preprocess/``, host code only.
 """
 from __future__ import annotations
 
@@ -535,6 +548,105 @@ def cmd_evaluate(args) -> dict:
     return out
 
 
+def cmd_detector_train(args) -> dict:
+    """Fit the pseudo-box detector on a processed VinDr-CXR directory and
+    save ``params.npz`` (the parameters and the command's settings)."""
+    from .train.checkpoint import save_params
+    from .train.detector import CaseDirs, detector_config, train_detector
+
+    cfg = detector_config(args.size, args.layers, args.queries)
+    cases = CaseDirs(Path(args.data), cfg)
+    if not len(cases):
+        raise SystemExit(f"no processed cases under {Path(args.data) / 'data'}")
+    print(f"{len(cases)} cases; classes={cfg.num_classes}", flush=True)
+    result = train_detector(cfg, cases, steps=args.steps, batch=args.batch, lr=args.lr,
+                            seed=args.seed, log_every=args.log_every, eval_frac=args.eval_frac,
+                            device=args.device, log=lambda m: print(m, flush=True))
+    cli_cfg = {k: v for k, v in vars(args).items()
+               if isinstance(v, (int, float, str, bool)) and k != "device"}
+    save_params(Path(args.out), {"params": result["params"], "cfg": cli_cfg})
+    print(f"saved detector to {args.out}")
+    return result
+
+
+def cmd_detector_infer(args) -> int:
+    """Write ``{stem}_box.json`` for the images of a tagged-report JSON."""
+    from .params import detector_params_from_jax
+    from .train.checkpoint import load_params
+    from .train.detector import detector_config, infer_images
+
+    cfg = detector_config(args.size, args.layers, args.queries)
+    params = detector_params_from_jax(load_params(Path(args.ckpt))["params"], cfg, args.device)
+    items = json.loads(Path(args.tags).read_text())
+    n = infer_images(params, cfg, items, Path(args.out), image_root=args.images,
+                     score_th=args.score_th, device=args.device)
+    print(f"wrote {n} *_box.json files to {args.out}")
+    return n
+
+
+def seg_exp_config(args) -> dict:
+    """The experiment's settings: the script's defaults, then the ``-c``
+    config's, then the flags given."""
+    from .train.seg_exp import SEG_EXP_DEFAULTS
+
+    cfg = dict(SEG_EXP_DEFAULTS)
+    if args.config:
+        from .config import load_yaml
+
+        cfg.update(load_yaml(args.config))
+    for k in ("model", "data", "classes", "steps", "batch", "patch", "lr", "weight_decay",
+              "channels", "val_frac", "seed", "out", "log_every"):
+        if getattr(args, k, None) is not None:
+            cfg[k] = getattr(args, k)
+    if cfg.get("model") is None or cfg.get("data") is None or cfg.get("classes") is None:
+        raise SystemExit("--model, --data and --classes are required (via flags or -c config)")
+    return cfg
+
+
+def cmd_seg_exp(args) -> dict:
+    """The segmentation ablation: train, print and write the Dice JSON."""
+    from .train.seg_exp import load_cases, run_seg_exp
+
+    cfg = seg_exp_config(args)
+    cases = load_cases(Path(cfg["data"]), cfg["classes"])
+    if len(cases) < 2:
+        raise SystemExit(f"need >= 2 cases with {cfg['classes']}, found {len(cases)}")
+    results = run_seg_exp(cfg, cases, device=args.device, log=lambda m: print(m, flush=True))
+    print(json.dumps(results, indent=2))
+    if cfg.get("out"):
+        Path(cfg["out"]).write_text(json.dumps(results, indent=2))
+    return results
+
+
+def cmd_process(args) -> list:
+    """Offline dataset processing into the processed layout (host only)."""
+    from .preprocess.processor import NNUNetProcessor, ProcessorConfig
+    from .preprocess.seg_folder import SegFolderProcessor
+
+    conf = ProcessorConfig(max_smaller_edge=args.max_smaller_edge)
+    if args.dataset:
+        from .preprocess.registry import build_processor
+
+        proc = build_processor(args.dataset, Path(args.src), Path(args.out), conf)
+    elif args.layout == "boxfolder":
+        from .preprocess.boxes import BoxFolderProcessor, load_box_cases
+
+        proc = BoxFolderProcessor(args.name or "boxes", load_box_cases(Path(args.src)),
+                                  Path(args.out), conf=conf)
+    elif args.layout:
+        cls = {"nnunet": NNUNetProcessor, "segfolder": SegFolderProcessor}[args.layout]
+        proc = cls(Path(args.src), Path(args.out), name=args.name, modality=args.modality,
+                   conf=conf)
+    else:
+        raise SystemExit("one of --dataset or --layout is required")
+    info = proc.process(limit=args.limit)
+    ok = sum(1 for r in info if r["status"] == "ok")
+    exists = sum(1 for r in info if r["status"] == "exists")
+    print(f"{proc.name}: {ok} processed, {exists} existing, "
+          f"{len(info) - ok - exists} failed/skipped")
+    return info
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     """The command line's arguments, ``func`` set to the command's function."""
     parser = argparse.ArgumentParser(prog="mmmm_tpu_torch.cli")
@@ -618,6 +730,63 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help='offline RadGraph-model annotations JSON {"hyp": [...], "ref": [...]}')
     ev.add_argument("--device", default="cuda", help="device of the model-backed scorers")
     ev.set_defaults(func=cmd_evaluate)
+
+    dt = sub.add_parser("detector-train", help="fit the pseudo-box detector")
+    dt.add_argument("--data", required=True, help="processed VinDr-CXR dir")
+    dt.add_argument("--out", required=True)
+    dt.add_argument("--steps", type=int, default=20000)
+    dt.add_argument("--batch", type=int, default=8)
+    dt.add_argument("--size", type=int, default=512)
+    dt.add_argument("--layers", type=int, default=3)
+    dt.add_argument("--queries", type=int, default=100)
+    dt.add_argument("--lr", type=float, default=2e-4)
+    dt.add_argument("--seed", type=int, default=0)
+    dt.add_argument("--log-every", type=int, default=50)
+    dt.add_argument("--eval-frac", type=float, default=0.1,
+                    help="held-out tail fraction for the mAP@0.5 gauge")
+    dt.add_argument("--device", default="cuda")
+    dt.set_defaults(func=cmd_detector_train)
+    di = sub.add_parser("detector-infer", help="write {stem}_box.json for tagged studies")
+    di.add_argument("--ckpt", required=True)
+    di.add_argument("--tags", required=True, help="tagged-report JSON")
+    di.add_argument("--images", help="image root (paths in tags are relative)")
+    di.add_argument("--out", required=True)
+    di.add_argument("--size", type=int, default=512)
+    di.add_argument("--layers", type=int, default=3)
+    di.add_argument("--queries", type=int, default=100)
+    di.add_argument("--score-th", type=float, default=0.1)
+    di.add_argument("--device", default="cuda")
+    di.set_defaults(func=cmd_detector_infer)
+
+    se = sub.add_parser("seg-exp", help="segmentation ablation: UNet or the SAM head")
+    se.add_argument("-c", "--config", help="YAML experiment config (conf/seg-exp/{unet,sam}.yaml); "
+                    "flags override it")
+    se.add_argument("--model", choices=["unet", "sam"])
+    se.add_argument("--data", help="processed dataset dir")
+    se.add_argument("--classes", nargs="+")
+    se.add_argument("--steps", type=int)
+    se.add_argument("--batch", type=int)
+    se.add_argument("--patch", type=int, nargs=3)
+    se.add_argument("--lr", type=float)
+    se.add_argument("--weight-decay", type=float, dest="weight_decay")
+    se.add_argument("--channels", type=int, nargs="+", help="UNet encoder channels per stage")
+    se.add_argument("--val-frac", type=float, dest="val_frac")
+    se.add_argument("--seed", type=int)
+    se.add_argument("--out", help="JSON results path")
+    se.add_argument("--log-every", type=int, dest="log_every")
+    se.add_argument("--device", default="cuda")
+    se.set_defaults(func=cmd_seg_exp)
+
+    pr = sub.add_parser("process", help="offline dataset processing (host only)")
+    pr.add_argument("--layout", choices=["nnunet", "segfolder", "boxfolder"])
+    pr.add_argument("--dataset", help="named recipe from preprocess.registry (e.g. AMOS22)")
+    pr.add_argument("--src", required=True)
+    pr.add_argument("--out", required=True)
+    pr.add_argument("--name")
+    pr.add_argument("--modality", default="CT")
+    pr.add_argument("--limit", type=int)
+    pr.add_argument("--max-smaller-edge", type=int, default=512)
+    pr.set_defaults(func=cmd_process)
     return parser.parse_args(argv)
 
 

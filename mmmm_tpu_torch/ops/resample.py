@@ -6,7 +6,8 @@ half-pixel linear-interpolation matrix per axis, which is exactly
 ``interpolate(align_corners=False)`` without anti-aliasing. The strided
 patch conv and the stride-2 transposed conv stay reshape + one matmul;
 ``nearest_resize`` downsamples instance labels. All are differentiable
-(SAM's patch embedding trains).
+(SAM's patch embedding trains). ``pad_same`` gives XLA's ``"SAME"`` padding
+to the detector's and the UNet's strided convolutions.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def _linear_interp_matrix(old: int, new: int) -> np.ndarray:
@@ -116,3 +118,19 @@ def nearest_resize(x: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
                           * old / new).long()
         x = x.index_select(lead + i, idx)
     return x
+
+
+def same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
+    """XLA's ``"SAME"`` padding (low, high) of one spatial dim."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def pad_same(x, kernel, stride):
+    """(x, conv padding) for XLA's ``"SAME"`` on the trailing dims of ``x``:
+    the convolution pads where every (low, high) split is symmetric, else
+    ``x`` is padded here and the convolution pads nothing."""
+    pads = [same_pads(n, k, stride) for n, k in zip(x.shape[2:], kernel)]
+    if all(lo == hi for lo, hi in pads):
+        return x, [lo for lo, _ in pads]
+    return F.pad(x, [v for lo_hi in reversed(pads) for v in lo_hi]), 0

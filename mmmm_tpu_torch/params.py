@@ -5,7 +5,10 @@ layers of each tower stacked on a leading ``(L, ...)`` axis, the same keys.
 ``param_spec`` is the one description of that tree (shape, initializer,
 precision class per leaf); ``init_params`` fills it from a seeded
 ``torch.Generator`` and ``params_from_jax`` fills it from a JAX tree, leaf by
-leaf, refusing any leaf it does not know and any it leaves unset.
+leaf, refusing any leaf it does not know and any it leaves unset. The
+detector's and the UNet's trees (dicts and lists of :class:`Leaf`) go
+through the same machinery: ``_init_tree``, ``_flatten`` and
+``tree_from_jax``.
 ``train_state_from_jax`` carries a JAX training state (step, trainable
 tree, optax AdamW moments) and its frozen tree over the same way.
 
@@ -30,9 +33,10 @@ if TYPE_CHECKING:  # models.mmmm imports the model functions, which import layer
 @dataclasses.dataclass(frozen=True)
 class Leaf:
     shape: tuple[int, ...]
-    init: str = "normal"  # "normal" | "zeros" | "ones"
+    init: str = "normal"  # "normal" | "zeros" | "ones" | "fill"
     std: float = 0.02
     fp32: bool = False  # True: always fp32 (grounding heads)
+    value: float | tuple | None = None  # "fill": one number, or every value in order
 
 
 def layer(tree: dict, i: int) -> dict:
@@ -174,12 +178,25 @@ def param_spec(cfg: MMMMConfig) -> dict:
     }
 
 
-def _flatten(tree: dict, prefix: str = "") -> dict:
+def map_tree(fn, *trees):
+    """``fn`` over the leaves of parallel trees of dicts and lists (the first
+    one's structure)."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: map_tree(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, list):
+        return [map_tree(fn, *(t[i] for t in trees)) for i in range(len(t0))]
+    return fn(*trees)
+
+
+def _flatten(tree, prefix: str = "", is_leaf=None) -> dict:
+    """``{path: leaf}`` of a tree of dicts and lists (a list item under its
+    index); ``is_leaf`` keeps a dict or list it accepts as one leaf."""
     out = {}
-    for k, v in tree.items():
+    for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
         path = f"{prefix}{k}"
-        if isinstance(v, dict):
-            out.update(_flatten(v, path + "/"))
+        if isinstance(v, (dict, list)) and not (is_leaf is not None and is_leaf(v)):
+            out.update(_flatten(v, path + "/", is_leaf))
         else:
             out[path] = v
     return out
@@ -196,20 +213,25 @@ def _unflatten(flat: dict) -> dict:
     return tree
 
 
-def _init_tree(spec: dict, seed: int, dtype: torch.dtype, device) -> dict:
+def _init_tree(spec, seed: int, dtype: torch.dtype, device):
+    """Fill a spec of :class:`Leaf` (dicts and lists) on ``device`` from a
+    ``torch.Generator`` seeded with ``seed``, drawing in the tree's order."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    flat = {}
-    for path, leaf in _flatten(spec).items():
+
+    def fill(leaf: Leaf) -> torch.Tensor:
         dt = torch.float32 if leaf.fp32 else dtype
         if leaf.init == "normal":
-            t = torch.randn(leaf.shape, generator=gen, dtype=dt, device=dev).mul_(leaf.std)
-        elif leaf.init == "zeros":
-            t = torch.zeros(leaf.shape, dtype=dt, device=dev)
-        else:
-            t = torch.ones(leaf.shape, dtype=dt, device=dev)
-        flat[path] = t
-    return _unflatten(flat)
+            return torch.randn(leaf.shape, generator=gen, dtype=dt, device=dev).mul_(leaf.std)
+        if leaf.init == "zeros":
+            return torch.zeros(leaf.shape, dtype=dt, device=dev)
+        if leaf.init == "ones":
+            return torch.ones(leaf.shape, dtype=dt, device=dev)
+        if isinstance(leaf.value, tuple):
+            return torch.tensor(leaf.value, dtype=dt, device=dev).reshape(leaf.shape)
+        return torch.full(leaf.shape, leaf.value, dtype=dt, device=dev)
+
+    return map_tree(fill, spec)
 
 
 def init_params(cfg: MMMMConfig, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
@@ -350,3 +372,57 @@ def train_state_from_jax(state, frozen: dict, device: str | torch.device = "cuda
     for t in flat.values():
         t.requires_grad_(True)
     return TrainState(step, trainable, {"count": step, **moments}), frozen_t
+
+
+def tree_from_jax(spec, tree, device: str | torch.device, name: str):
+    """Map a JAX parameter tree of dicts and lists (numpy leaves) onto the
+    port's tree of ``spec`` (:class:`Leaf` leaves) on ``device``, lists
+    kept as lists. Raises on a leaf not consumed, a
+    parameter left unset and a wrong shape."""
+    dev = resolve_device(device)
+
+    def take(s, t, path):
+        if isinstance(s, dict):
+            if not isinstance(t, dict):
+                raise ValueError(f"{name}: {path or '/'} is not a dict")
+            unknown, missing = sorted(set(t) - set(s)), sorted(set(s) - set(t))
+            if unknown or missing:
+                raise ValueError(f"{name}: leaves not consumed {[f'{path}/{k}' for k in unknown]}; "
+                                 f"parameters left unset {[f'{path}/{k}' for k in missing]}")
+            return {k: take(s[k], t[k], f"{path}/{k}") for k in s}
+        if isinstance(s, list):
+            if not isinstance(t, (list, tuple)) or len(t) != len(s):
+                raise ValueError(f"{name}: {path} is not a list of {len(s)}")
+            return [take(si, ti, f"{path}/{i}") for i, (si, ti) in enumerate(zip(s, t))]
+        out = _to_tensor(t, dev)
+        if tuple(out.shape) != tuple(s.shape):
+            raise ValueError(f"{name}: {path} has shape {tuple(out.shape)}, "
+                             f"expected {tuple(s.shape)}")
+        return out
+
+    return take(spec, tree, "")
+
+
+def detector_params_from_jax(tree: dict, cfg, device: str | torch.device = "cuda") -> dict:
+    """The JAX package's ``init_detector_params`` tree (or a trained one) as
+    the port's detector parameters for ``cfg`` on ``device``."""
+    from .models.detector import detector_spec
+
+    return tree_from_jax(detector_spec(cfg), tree, device, "detector_params_from_jax")
+
+
+def unet_params_from_jax(tree: dict, device: str | torch.device = "cuda") -> dict:
+    """The JAX package's ``init_unet_params`` tree as the port's UNet
+    parameters on ``device``; the widths are read from the tree's first and
+    last convolutions and every leaf is checked against them."""
+    from .models.unet import unet_spec
+
+    try:
+        enc = tree["enc"]
+        in_ch = int(np.shape(enc[0]["conv1"]["w"])[3])
+        channels = tuple(int(np.shape(b["conv1"]["w"])[4]) for b in enc)
+        classes = int(np.shape(tree["head"]["w"])[4])
+    except (KeyError, IndexError, TypeError) as e:
+        raise ValueError(f"unet_params_from_jax: not a UNet tree ({e!r})") from e
+    return tree_from_jax(unet_spec(in_ch, classes, channels), tree, device,
+                         "unet_params_from_jax")

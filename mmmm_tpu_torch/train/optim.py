@@ -19,6 +19,12 @@ Per step, over the flattened trainable tree (leaf paths as the reference's
 A leaf with no gradient in a step (``None``) takes zeros: it still decays
 and its moments still move, as in the reference where every leaf has a
 gradient. Updates are in place, under ``torch.no_grad``.
+
+The detector and segmentation-ablation commands use optax's other form,
+``OptimizerConfig(form="plain_adamw_cosine")``: ``adamw(cosine_decay_schedule(lr,
+max_steps))`` with no mask, so every leaf decays, and the schedule's count 0
+gives ``lr``, so the first step moves the parameters. ``grad_clip_norm=None``
+drops the clip in either form.
 """
 from __future__ import annotations
 
@@ -36,10 +42,13 @@ class OptimizerConfig:
     warmup_steps: int = 2000
     max_steps: int = 40000
     min_lr_ratio: float = 0.0
-    grad_clip_norm: float = 1.0
+    grad_clip_norm: float | None = 1.0  # None: no clip_by_global_norm
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    # "trainer": warmup_cosine_decay_schedule and the no-decay mask;
+    # "plain_adamw_cosine": cosine_decay_schedule(lr, max_steps), every leaf decays
+    form: str = "trainer"
 
 
 _NO_DECAY = (  # a pattern string: re.match caches its compiled form
@@ -55,7 +64,13 @@ def decays(path: str, leaf: torch.Tensor) -> bool:
 
 def schedule(cfg: OptimizerConfig, count: int) -> float:
     """optax ``warmup_cosine_decay_schedule(0, lr, max(warmup, 1),
-    max(max_steps, warmup + 1), lr * min_lr_ratio)`` at ``count``."""
+    max(max_steps, warmup + 1), lr * min_lr_ratio)`` at ``count``, or in the
+    ``"plain_adamw_cosine"`` form ``cosine_decay_schedule(lr, max_steps)``."""
+    if cfg.form == "plain_adamw_cosine":
+        c = min(count, cfg.max_steps)
+        return cfg.lr * (0.5 * (1 + math.cos(math.pi * c / cfg.max_steps)))
+    if cfg.form != "trainer":
+        raise ValueError(f"unknown optimizer form {cfg.form!r}")
     warmup = max(cfg.warmup_steps, 1)
     decay_steps = max(cfg.max_steps, cfg.warmup_steps + 1) - warmup
     end = cfg.lr * cfg.min_lr_ratio
@@ -72,8 +87,8 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 class AdamW:
-    """``chain(clip_by_global_norm, adamw)`` over a flat ``{path: tensor}``
-    dict; its state is ``{"count": int, "mu": {path: t}, "nu": {path: t}}``."""
+    """``chain(clip_by_global_norm, adamw)`` (or ``adamw`` alone) over a
+    flat ``{path: tensor}`` dict; its state is ``{"count": int, "mu": {path: t}, "nu": {path: t}}``."""
 
     def __init__(self, cfg: OptimizerConfig):
         self.cfg = cfg
@@ -91,18 +106,19 @@ class AdamW:
         grads = {p: torch.zeros_like(t) if grads.get(p) is None else grads[p]
                  for p, t in params.items()}
         g_norm = global_norm(grads.values())
-        clip = g_norm >= cfg.grad_clip_norm
+        clip = None if cfg.grad_clip_norm is None else g_norm >= cfg.grad_clip_norm
         lr = schedule(cfg, state["count"])
         count = state["count"] + 1
         bc1, bc2 = 1 - cfg.b1 ** count, 1 - cfg.b2 ** count
         for path, p in params.items():
             g = grads[path]
-            g = torch.where(clip, (g / g_norm.to(g.dtype)) * cfg.grad_clip_norm, g)
+            if clip is not None:
+                g = torch.where(clip, (g / g_norm.to(g.dtype)) * cfg.grad_clip_norm, g)
             mu, nu = state["mu"][path], state["nu"][path]
             mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
             nu.mul_(cfg.b2).add_((1 - cfg.b2) * g.square())
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
-            if decays(path, p):
+            if cfg.form == "plain_adamw_cosine" or decays(path, p):
                 u = u + cfg.weight_decay * p
             p.add_(u * -lr)
         state["count"] = count

@@ -25,6 +25,7 @@ from pathlib import Path
 
 import torch
 
+from ..params import _flatten as flatten
 from ..peft import LoraConfig
 
 # our stacked path -> HF module format string
@@ -104,15 +105,9 @@ def load_safetensors(path: str | Path) -> dict[str, torch.Tensor]:
     return out
 
 
-def _flatten(tree: dict, prefix: str = "") -> dict:
-    out = {}
-    for k, v in tree.items():
-        p = f"{prefix}/{k}" if prefix else k
-        if isinstance(v, dict) and not ("a" in v and "b" in v):
-            out.update(_flatten(v, p))
-        else:
-            out[p] = v
-    return out
+def _flatten(tree: dict) -> dict:
+    """``{path: {"a", "b"}}``: the LoRA tree down to its factor pairs."""
+    return flatten(tree, is_leaf=lambda v: isinstance(v, dict) and "a" in v and "b" in v)
 
 
 def export_peft_adapter(path: str | Path, lora_tree: dict, cfg: LoraConfig) -> None:

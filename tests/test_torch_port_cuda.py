@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K12, P1) against their plain PyTorch versions
+"""The port's CUDA kernels (K1-K12, P1, LAP) against their plain PyTorch versions
 on the card. Every test is marked ``cuda`` and skips without a GPU.
 
 This file imports neither JAX nor ``mmmm_tpu``, so it also runs where only
@@ -1136,3 +1136,36 @@ def test_q8_bf16_cast_append_fused(cuda, smax, dtype):
     for widx, lens in (([255], [256]), ([smax - 1], [0]), ([-3], [smax])):
         _check_q8_append({k: t[:1] for k, t in cache.items()}, q[:1], kn[:1], vn[:1], widx,
                          lens, False, cast="bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,q,kind", [(32, 24, 100, "random"), (32, 24, 100, "padded"),
+                                        (32, 24, 100, "int"), (32, 8, 8, "random"),
+                                        (32, 1, 100, "random"), (8, 32, 900, "random")])
+def test_lap_kernel(cuda, n, k, q, kind):
+    """LAP's col4row bit-equal to its plain version (twice) on the card."""
+    from mmmm_tpu_torch.ops import hungarian as hg
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    if kind == "int":
+        c = torch.randint(0, 4, (n, k, q), generator=g, device=cuda).float()
+    else:
+        c = torch.randn(n, k, q, generator=g, device=cuda)
+        if kind == "padded":
+            c[:, k // 2:] = 0.0
+    before = hg.LAP.launches
+    got = hg.lap_rectangular(c)
+    assert hg.LAP.launches == before + 1
+    assert torch.equal(got, hg.lap_rectangular(c))
+    assert torch.equal(got, hg.lap_rectangular_plain(c))
+    assert all(len(set(r.tolist())) == k for r in got)
+
+
+@pytest.mark.cuda
+def test_dense_attention_kernel_seg_exp_sam_shape(cuda):
+    """K4 at the seg-exp SAM arm's encoder shape, (8, 1176, 8, 32) fp32."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(8, 1176, 8, 32, generator=g, device=cuda) for _ in range(3))
+    torch.testing.assert_close(pdense.dense_attention(q, k, v, 32 ** -0.5),
+                               pdense.dense_attention_plain(q, k, v, 32 ** -0.5),
+                               atol=1e-4, rtol=0)

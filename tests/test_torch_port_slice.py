@@ -196,6 +196,10 @@ def _imports(tree):
             yield node.module
 
 
+PREPROCESS_MODULES = ("nifti", "dicom", "processor", "seg_folder", "boxes", "registry",
+                      "report", "tagging")
+
+
 def test_port_imports_no_jax_and_no_library_kernels():
     """No module of the port, and neither chip_smoke.py nor the timing
     scripts beside it, imports jax, jaxlib or mmmm_tpu (the ``mmmm_tpu.``
@@ -206,7 +210,10 @@ def test_port_imports_no_jax_and_no_library_kernels():
     for rel in (("ops", "w4_matmul.py"), ("ops", "flash.py"), ("peft", "lora.py"),
                 ("train", "step.py"), ("train", "optim.py"), ("train", "import_torch.py"),
                 ("train", "peft_export.py"), ("data", "infer_transform.py"),
-                ("eval", "metrics.py"), ("eval", "models.py"), ("eval", "radgraph.py")):
+                ("eval", "metrics.py"), ("eval", "models.py"), ("eval", "radgraph.py"),
+                ("ops", "hungarian.py"), ("ops", "deform_attn.py"), ("models", "detector.py"),
+                ("models", "unet.py"), ("train", "detector.py"), ("train", "seg_exp.py"),
+                *(("preprocess", f"{m}.py") for m in PREPROCESS_MODULES)):
         assert ROOT.joinpath("mmmm_tpu_torch", *rel) in files
     scripts = [ROOT / n for n in ("chip_smoke.py", "time_decode_reads.py",
                                   "time_flagship_runs.py")]
@@ -235,7 +242,10 @@ def test_import_leaves_jax_out():
             "for m in ('ops.w4_matmul', 'peft.lora', 'train.step', 'train.optim',\n"
             "          'train.trainer', 'data.dataset', 'utils.io', 'models.align', 'cli',\n"
             "          'train.import_torch', 'train.peft_export', 'data.infer_transform',\n"
-            "          'eval.models', 'eval.radgraph', 'models.segvol.sam'):\n"
+            "          'eval.models', 'eval.radgraph', 'models.segvol.sam', 'ops.hungarian',\n"
+            "          'ops.deform_attn', 'models.detector', 'models.unet', 'train.detector',\n"
+            "          'train.seg_exp', " + ", ".join(f"'preprocess.{m}'" for m in PREPROCESS_MODULES)
+            + "):\n"
             "    assert 'mmmm_tpu_torch.' + m in sys.modules, m")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                        timeout=120)
