@@ -124,7 +124,16 @@ Phases, in order; any failure exits non-zero before the result lines:
     (8 constant (1, 64, 320, 320) CT volumes, S = 1024, B = 4, 6 steps, a
     checkpoint at step 6 and the adapter export): step time, data host time
     a step, tokens/s, peak memory, checkpoint and export bytes and seconds,
-    exact launches every step;
+    exact launches every step; then (7b, ``data_parallel_phase``) the
+    data-parallel route at world size 1: NCCL through ``init_distributed``
+    from the three variables on a loopback port, ZeRO's gather and
+    reduce-scatter over it bit-equal to plain indexing,
+    ``make_train_step(mesh=make_mesh(data=1))`` at full width with 4 LLM
+    and 4 ViT layers against the route without a mesh from one state (3
+    semantic steps each: loss and gradient norm within 1e-6, K3 and K7
+    launches exact and equal), and ``Trainer.fit`` at conf/tiny/fit.yaml
+    with ``trainer.mesh_data=1`` against the same fit without a mesh
+    (every metric within 1e-6); the group is destroyed after;
  8. the entry points at the flagship's full width: the checkpoint
     importers (``train/import_torch.py``) on seeded HF CogVLM and SegVol
     state dicts at 2 LLM and 2 ViT layers into a fresh tree on the card
@@ -161,7 +170,9 @@ Phases, in order; any failure exits non-zero before the result lines:
     K4 at its (8, 1176, 8, 32) fp32 shape beside SDPA. The ``process``
     command runs no device work (and reads 2-D images with PIL, which the
     card's machine lacks), so it is held on the CPU only;
-10. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+10. print the ``{"kernels": [...]}`` line (each kernel's launches on the
+    named runs, ``launches_mesh`` those of phase 7b's steady mesh step beside
+    ``launches_no_mesh_same_depth``), then the ``{"ok": true, ...}`` line.
 
 ``--log-dir`` keeps the build log and the results as JSON there.
 No JAX and nothing of ``mmmm_tpu`` is imported.
@@ -3535,6 +3546,184 @@ def flagship_fit_phase(train_none_step_s: float | None, keep_adapter: Path | Non
     return out
 
 
+# ---- data parallelism (parallel/, make_train_step(mesh=...), Trainer mesh_data) -------
+DP_LAYERS = 4  # LLM and ViT layers of the data-parallel phase's full-width model
+
+
+@contextlib.contextmanager
+def one_process_group():
+    """NCCL at world size 1, joined through ``init_distributed`` from the
+    three variables on a loopback port; the group is destroyed on exit and
+    the environment restored."""
+    import os
+    import socket
+    import torch.distributed as dist
+    from mmmm_tpu_torch.parallel import init_distributed
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    names = ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID")
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ.update(COORDINATOR_ADDRESS=f"127.0.0.1:{port}", NUM_PROCESSES="1",
+                      PROCESS_ID="0")
+    try:
+        if init_distributed() or dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError("init_distributed: expected NCCL at world size 1")
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def data_parallel_phase() -> dict:
+    """The data-parallel route (``parallel/``) on the card at world size 1:
+    NCCL through ``init_distributed`` (``one_process_group``), then the
+    state placed by ``place_state`` and
+    ``make_train_step(mesh=make_mesh(data=1))`` at the flagship's full width
+    with its depth cut to 4 LLM and 4 ViT layers (all 12 SAM encoder
+    layers, ``SamConfig()``), phase 6's recipe and semantic batch: 3 steps
+    from one state with the mesh (its collectives: the global counts, the
+    logs, the replicated gradients' all-reduce, the sharded norm), then 3
+    from a copy without it. Each step's loss and gradient norm within 1e-6
+    relative, K3 and K7 launches exact and equal on both routes. Then
+    ``Trainer.fit`` at conf/tiny/fit.yaml's values (fp32) with
+    ``trainer.mesh_data=1`` against the same fit without a mesh, from one
+    state: every metric within 1e-6 relative, launches equal every step.
+    Returns the results and the steady mesh step's launches."""
+    import dataclasses
+    from mmmm_tpu_torch import (LoraConfig, MMMMConfig, OptimizerConfig, init_train_state,
+                                make_optimizer, make_train_step)
+    from mmmm_tpu_torch.models.cogvlm import CogVLMConfig
+    from mmmm_tpu_torch.models.segvol import SamConfig
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+    from mmmm_tpu_torch.parallel import make_mesh
+    from mmmm_tpu_torch.train.step import place_state
+
+    log(f"data parallel at world size 1 (NCCL): full width, {DP_LAYERS} LLM and ViT layers")
+    v = CogVLMConfig.cogvlm17b()
+    cfg = MMMMConfig(vlm=dataclasses.replace(
+        v, num_hidden_layers=DP_LAYERS,
+        vision=dataclasses.replace(v.vision, num_hidden_layers=DP_LAYERS)), sam=SamConfig())
+    opt = make_optimizer(OptimizerConfig(lr=5e-5, warmup_steps=1, max_steps=1000))
+    lcfg = LoraConfig(r=64, alpha=8.0)
+    want = fit_launches_expected(cfg, "semantic")
+    out = {"layers": DP_LAYERS}
+    with one_process_group():
+        state, frozen = init_train_state(cfg, opt, lcfg, seed=0, frozen_vlm_bf16=True,
+                                         device="cuda")
+        plain_state = _state_to(state, "cuda")
+        batch = flagship_train_batch("semantic", torch.Generator(device="cuda").manual_seed(0))
+        mesh = make_mesh(data=1)
+        out["zero_collectives"] = zero_collectives_check(mesh)
+        state, mesh_frozen = place_state(state, frozen, mesh)
+        runs = {}
+        for label, run_state, run_frozen, kw in (("mesh", state, mesh_frozen, {"mesh": mesh}),
+                                                 ("no_mesh", plain_state, frozen, {})):
+            step = make_train_step(cfg, opt, lcfg, vg_mode="semantic", bf16_vlm=True,
+                                   attn_impl="pallas", remat=True, vis_span="auto",
+                                   device="cuda", **kw)
+            steps = []
+            for i in range(TRAIN_STEPS):
+                for kern in KERNELS.values():
+                    kern.reset()
+                logs, wall = _timed_step(step, run_state, run_frozen, batch)
+                launches = {n: k.launches for n, k in KERNELS.items()}
+                if {n: launches[n] for n in want} != want:
+                    raise AssertionError(f"data parallel {label} step {i + 1}: launches "
+                                         f"{launches}, expected {want}")
+                steps.append({"wall_s": wall, "logs": {k: float(x) for k, x in logs.items()},
+                              "launches": {k: n for k, n in launches.items() if n}})
+                log(f"  {label} step {i + 1}: {wall:.3f} s, {steps[-1]['logs']}, launches "
+                    f"{steps[-1]['launches']}")
+            runs[label] = steps
+            del step
+        del state, plain_state, frozen, mesh_frozen, run_frozen, batch
+        torch.cuda.empty_cache()
+        errs = {}
+        for key in ("loss", "grad_norm"):
+            errs[key] = [abs(a["logs"][key] - b["logs"][key]) / abs(b["logs"][key])
+                         for a, b in zip(runs["mesh"], runs["no_mesh"])]
+            check(f"data parallel mesh vs no mesh {key}, steps 1-3 (relative)", max(errs[key]),
+                  1e-6)
+        if [r["launches"] for r in runs["mesh"]] != [r["launches"] for r in runs["no_mesh"]]:
+            raise AssertionError("data parallel: the routes' launches differ")
+        out.update(steps=runs, rel_err=errs, launches_mesh=runs["mesh"][1]["launches"],
+                   launches_no_mesh=runs["no_mesh"][1]["launches"])
+        out["fit"] = data_parallel_fit()
+    return out, runs["mesh"][1]["launches"]
+
+
+def zero_collectives_check(mesh) -> dict:
+    """ZeRO-3's collectives through NCCL on the card: a ``ZeroLeaf`` over the
+    mesh's data group (world 1) indexed by layer and gathered whole
+    (``all_gather_single``), its backward reduce-scattered
+    (``reduce_scatter_single``): the layer and its gradient bit-equal to
+    plain indexing's."""
+    from mmmm_tpu_torch.parallel import ZeroLeaf
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    w = torch.randn((3, 64, 256), generator=gen, device="cuda", requires_grad=True)
+    g = torch.randn((64, 256), generator=gen, device="cuda")
+    zero = ZeroLeaf(w, 2, w.shape, mesh.get_group("data"), 1, 0)
+    (zero[1].full() * g).sum().backward()
+    got = w.grad.clone()
+    w.grad = None
+    (w[1] * g).sum().backward()
+    same = torch.equal(zero[1].full(), w[1]) and torch.equal(got, w.grad)
+    if not same:
+        raise AssertionError("ZeroLeaf gather or reduce-scatter differs on the card")
+    log("  ZeroLeaf gather and reduce-scatter over NCCL: bit-equal to plain indexing")
+    return {"bit_equal": True}
+
+
+def data_parallel_fit() -> dict:
+    """``Trainer.fit`` at conf/tiny/fit.yaml's values in fp32 on the card,
+    4 steps with ``trainer.mesh_data=1`` and without a mesh from one
+    CPU-made state: every metric (``steps_per_sec`` aside) within 1e-6
+    relative, each step's launches equal and exact."""
+    import tempfile
+    from mmmm_tpu_torch import init_train_state
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_fit_"))
+    try:
+        ds = write_vl_dataset(tmp / "VLSet", 6, (1, 8, 32, 32), report_chars=200, seed=0)
+        base = with_keys(TINY_FIT, data__vl_trans={"max_tokens": 64, "max_tokens_z": 4},
+                         data__datasets=[{"name": "VLSet", "type": "vl", "dir": str(ds)}],
+                         trainer__bf16_vlm=False, trainer__frozen_vlm_bf16=False,
+                         trainer__max_steps=FIT_TINY_STEPS)
+        made = build_trainer(with_keys(base, trainer__out_dir=str(tmp / "init")), "cpu")
+        state0, frozen0 = init_train_state(made.model.cfg, made.optimizer, made.lora_cfg,
+                                           seed=made.cfg.seed, device="cpu")
+        metrics, records = {}, {}
+        for label, extra in (("mesh", {"trainer__mesh_data": 1}), ("no_mesh", {})):
+            trainer = build_trainer(with_keys(base, trainer__out_dir=str(tmp / label), **extra),
+                                    "cuda")
+            if (trainer.mesh is None) != (label == "no_mesh"):
+                raise AssertionError(f"data parallel fit {label}: mesh {trainer.mesh}")
+            records[label] = count_fit_steps(trainer)
+            trainer.fit(resume=False, state=(_state_to(state0, "cuda"), _tree_to(frozen0, "cuda")))
+            metrics[label] = _metrics(tmp / label)
+        check_fit_launches("data parallel fit (mesh)", made.model.cfg, records["mesh"])
+        if [r["launches"] for r in records["mesh"]] != [r["launches"] for r in records["no_mesh"]]:
+            raise AssertionError("data parallel fit: launches differ between the routes")
+        err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                  for a, b in zip(metrics["mesh"], metrics["no_mesh"]) for k in b
+                  if k != "steps_per_sec")
+        if [m["step"] for m in metrics["mesh"]] != list(range(1, FIT_TINY_STEPS + 1)):
+            raise AssertionError(f"data parallel fit: steps {metrics['mesh']}")
+        check("data parallel fit mesh_data=1 vs no mesh, every metric (relative)", err, 1e-6)
+        return {"metrics_rel_err": err, "steps": len(metrics["mesh"]),
+                "launches": [r["launches"] for r in records["mesh"]]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # ---- the finetune command (scripts/finetune/cli.py) ----------------------------------
 # conf/finetune/mmmm-vqa.yaml as load_yaml resolves it, less its model and LoRA
 # (../model.yaml, ../lora.yaml: the flagship and LORA_YAML), held to the file
@@ -5205,6 +5394,9 @@ def main() -> int:
             results["flagship_train"]["modes"]["none"]["steady_step_s"], keep / "adapter.npz")
         gc.collect()
         torch.cuda.empty_cache()
+        results["data_parallel"], mesh_launches = phase("data_parallel", data_parallel_phase)
+        gc.collect()
+        torch.cuda.empty_cache()
         results["entry"], entry_launches = phase("entry", entry_phase, keep / "adapter.npz", peaks)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
@@ -5254,10 +5446,16 @@ def main() -> int:
         entry["launches_remat_attn"] = results["flagship_train"]["modes"]["semantic"][
             "remat_attn"]["steps"][1]["launches"].get(counter, 0)
         entry["launches_finetune"] = results["finetune"]["full_launches"].get(counter, 0)
+        # a steady semantic step of the data-parallel route (mesh data=1, NCCL)
+        # at full width and DP_LAYERS layers, equal to the route without a mesh
+        entry["launches_mesh"] = mesh_launches.get(counter, 0)
+        entry["launches_no_mesh_same_depth"] = results["data_parallel"]["launches_no_mesh"].get(
+            counter, 0)
         entry.update({k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")})
         entry.update({k: v for k, v in r.items() if k not in entry})
         kernels.append(entry)
+    results["kernels_line"] = kernels  # the line below, whole (the tool shows its end)
     if args.log_dir is not None:
         (args.log_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

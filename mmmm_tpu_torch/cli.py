@@ -23,7 +23,12 @@ package's ``scripts/cli.py fit``, ``scripts/align_sam.py``,
 
 The same YAML configs, dotted ``k=v`` overrides (applied before ``${...}``
 interpolation) and builders. Every command runs on the card unless
-``--device cpu``. ``fit`` needs ``trainer.mesh_*`` at 1 (one device);
+``--device cpu``. ``fit`` trains data parallel over N processes, one card
+each (gloo processes with ``--device cpu``), launched with
+``COORDINATOR_ADDRESS=host:port NUM_PROCESSES=N PROCESS_ID=i`` in each
+process's environment (``trainer.mesh_data`` defaults to ``gcd(batch_size,
+N)``, which must be N; ``train/trainer.py``); ``trainer.mesh_model``,
+``mesh_seq`` and ``mesh_pipe`` must be 1 (ROADMAP Queue 1 items 8b, 8c);
 ``finetune`` (``scripts/finetune/cli.py``) is ``fit`` over the one
 vision-language dataset in ``--dataset-dir``, with the task's transform
 ratios, warm-started from an ``adapter.npz`` (the JAX package's
@@ -265,7 +270,7 @@ def _no_tp(n: int) -> None:
     if n != 1:
         raise NotImplementedError(
             f"--tp {n}: tensor-parallel serving is not ported yet (ROADMAP.md Queue 1, "
-            "item 8, parallelism); the port serves on one card")
+            "item 8b, tensor parallelism); the port serves on one card")
 
 
 def cmd_demo(args, loaded=None) -> list:

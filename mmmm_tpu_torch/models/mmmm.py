@@ -18,6 +18,7 @@ from torch.profiler import record_function
 
 from ..ops.fused_ce import fused_weighted_ce_loss
 from ..ops.resample import nearest_resize
+from ..parallel.distributed import all_reduce_sum
 from ..params import init_params
 from ..peft.lora import materialize
 from .cogvlm import CogVLMConfig
@@ -78,8 +79,13 @@ def gather_vg_prompts(params: dict, hidden: torch.Tensor,
 
 def training_step(params: dict, cfg: MMMMConfig, batch: dict, *, vg_mode: str = "none",
                   attn_impl: str = "auto", remat=False,
-                  vis_span: tuple[int, int] | str | None = None):
+                  vis_span: tuple[int, int] | str | None = None, group=None):
     """One loss evaluation; returns ``(loss, logs)``.
+
+    With a data-parallel ``group`` the batch is this process's slice of the
+    global batch, and each mean divides by the global batch's count (tokens,
+    valid targets, samples): the processes' losses and logs sum to the
+    global batch's, as the reference's SPMD step computes them.
 
     ``batch`` holds tensors on the run's device (padded, static shapes):
     input_ids, token_type_ids, position_ids, attention_mask, labels, weight
@@ -88,6 +94,7 @@ def training_step(params: dict, cfg: MMMMConfig, batch: dict, *, vg_mode: str = 
     and per mode: semantic ``masks`` (B, N, D, H, W); instance
     ``boxes_label`` (B, Lmax, 6), ``index_offsets`` (B, N, 2) and optional
     ``masks_label`` (B, Lmax, D, H, W)."""
+    tokens, targets = _global_counts(batch, vg_mode, group)
     hidden, _ = cogvlm_forward(
         params["cogvlm"], cfg.vlm, batch["input_ids"], batch["token_type_ids"],
         batch["position_ids"], batch["attention_mask"], batch.get("image"),
@@ -95,21 +102,43 @@ def training_step(params: dict, cfg: MMMMConfig, batch: dict, *, vg_mode: str = 
         return_logits=False, vis_span=vis_span)
     with record_function("ce"):
         lm_loss = fused_weighted_ce_loss(hidden, materialize(params["cogvlm"]["llm"]["lm_head"]),
-                                         batch["labels"], batch.get("weight"))
+                                         batch["labels"], batch.get("weight"),
+                                         denom=tokens)
     log = {"lm_loss": lm_loss}
     if vg_mode == "none":
         return cfg.lm_loss_weight * lm_loss, log
 
     with record_function("sam_loss"):
-        vg_loss = _grounding_loss(params, cfg, batch, hidden, vg_mode, attn_impl, remat, log)
+        vg_loss = _grounding_loss(params, cfg, batch, hidden, vg_mode, attn_impl, remat, log,
+                                  targets)
     log["vg_loss"] = vg_loss
     total = cfg.lm_loss_weight * lm_loss + vg_loss
     log["loss"] = total
     return total, log
 
 
-def _grounding_loss(params, cfg: MMMMConfig, batch, hidden, vg_mode, attn_impl, remat, log):
-    """The SAM (semantic) or iSAM (instance) pass and its loss; adds the
+def _global_counts(batch, vg_mode: str, group) -> tuple:
+    """``(tokens, targets)``: the global batch's labelled tokens and its
+    valid targets (semantic) or samples (instance; None without grounding),
+    which divide this process's sums, in one all-reduce over the
+    data-parallel ``group``; ``(None, None)`` without a group (each loss
+    divides by its own count)."""
+    if group is None:
+        return None, None
+    labels = batch["labels"]
+    counts = [(labels != -100).sum()]
+    if vg_mode == "semantic":
+        counts.append(batch["vg_valid"].sum())
+    elif vg_mode == "instance":
+        counts.append(torch.tensor(batch["grounding_image"].shape[0], device=labels.device))
+    counts = all_reduce_sum(torch.stack(counts).float(), group).unbind()
+    return counts[0], counts[1] if len(counts) > 1 else None
+
+
+def _grounding_loss(params, cfg: MMMMConfig, batch, hidden, vg_mode, attn_impl, remat, log,
+                    denom=None):
+    """The SAM (semantic) or iSAM (instance) pass and its loss, divided by
+    ``denom`` where given (the global valid targets or samples); adds the
     loss's parts to ``log``."""
     prompts = gather_vg_prompts(params, hidden.float(), batch["vg_positions"])
     g_image = batch["grounding_image"].float()
@@ -119,7 +148,7 @@ def _grounding_loss(params, cfg: MMMMConfig, batch, hidden, vg_mode, attn_impl, 
         masks_logits, _ = sam_forward(params["sam"], cfg.sam, g_image, patch_size, prompts,
                                       attn_impl=attn_impl, remat=remat)
         vg_log = cfg.mask_loss.masked(masks_logits.float(), batch["masks"].float(), valid,
-                                      return_dict=True)
+                                      return_dict=True, denom=denom)
         vg_loss = vg_log.pop("total")
         log.update({f"vg/{k}": v for k, v in vg_log.items()})
     elif vg_mode == "instance":
@@ -141,8 +170,10 @@ def _grounding_loss(params, cfg: MMMMConfig, batch, hidden, vg_mode, attn_impl, 
                 batch["boxes_label"][i], batch["index_offsets"][i], valid[i])
             losses.append(loss_i)
             logs.append(log_i)
-        vg_loss = torch.stack(losses).mean()
-        log.update({f"vg/{k}": torch.stack([lg[k] for lg in logs]).mean() for k in logs[0]})
+        mean = (lambda xs: torch.stack(xs).mean()) if denom is None else \
+            (lambda xs: torch.stack(xs).sum() / denom)
+        vg_loss = mean(losses)
+        log.update({f"vg/{k}": mean([lg[k] for lg in logs]) for k in logs[0]})
     else:
         raise ValueError(f"unknown vg_mode {vg_mode!r}")
     return vg_loss

@@ -21,6 +21,7 @@ from ...ops.gelu import gelu
 from ...ops.norm import layer_norm
 from ...ops.resample import variable_upsample_3d
 from ...params import layer
+from ...peft.lora import materialize
 from .config import SamConfig
 
 
@@ -178,7 +179,7 @@ def two_way_forward(params: dict, cfg: SamConfig, image_embedding, image_pe, poi
     keys = image_embedding
     h = cfg.decoder_num_heads
     for li in range(cfg.decoder_depth):
-        lp = layer(params["layers"], li)
+        lp = materialize(layer(params["layers"], li))
         if li == 0:
             queries = _attn(lp["self_attn"], queries, queries, queries, h)
         else:

@@ -15,10 +15,12 @@ from ...ops.norm import layer_norm
 from ...ops.resample import resample_nd, variable_patch_embed_3d
 from ...ops.remat import remat_call
 from ...params import layer
+from ...peft.lora import materialize
 from .config import SamConfig
 
 
 def _block(x, lp, *, num_heads: int, segments, attn_impl: str):
+    lp = materialize(lp)  # ZeRO-sharded weights are gathered inside the layer
     b, s, c = x.shape
     d = c // num_heads
     h = layer_norm(x, lp["ln1_w"], lp["ln1_b"])

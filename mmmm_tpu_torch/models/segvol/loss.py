@@ -27,10 +27,12 @@ def sigmoid_focal_loss(logits, targets, gamma: float, alpha: float | None = None
     return loss
 
 
-def masked_mean(x, mask, dim=None):
+def masked_mean(x, mask, dim=None, denom=None):
+    """The mean of ``x`` where ``mask`` holds; with ``denom`` (``dim``
+    None) its sum over that count instead of the mask's."""
     mask = mask.to(x.dtype)
     if dim is None:
-        return (x * mask).sum() / mask.sum().clamp_min(1.0)
+        return (x * mask).sum() / (mask.sum() if denom is None else denom).clamp_min(1.0)
     return (x * mask).sum(dim) / mask.sum(dim).clamp_min(1.0)
 
 
@@ -72,10 +74,11 @@ class DiceFocalLoss:
         return (self.dice_weight * self.dice(logits, target)
                 + self.focal_weight * self.focal(logits, target))
 
-    def masked(self, logits, target, valid, return_dict: bool = False):
-        """Masked-mean total over a padded channel axis."""
-        dice = masked_mean(self.dice(logits, target), valid)
-        focal = masked_mean(self.focal(logits, target), valid)
+    def masked(self, logits, target, valid, return_dict: bool = False, denom=None):
+        """Masked-mean total over a padded channel axis (``denom``: the
+        count that divides, where not ``valid``'s)."""
+        dice = masked_mean(self.dice(logits, target), valid, denom=denom)
+        focal = masked_mean(self.focal(logits, target), valid, denom=denom)
         total = self.dice_weight * dice + self.focal_weight * focal
         if return_dict:
             key = "ce" if self.focal_gamma < _EPS else f"focal-{self.focal_gamma:.1f}"

@@ -111,7 +111,7 @@ def segment_attention(q, k, v, q_segments, kv_segments=None, *, causal: bool = F
         scale = q.shape[-1] ** -0.5
     if impl == "ring":
         raise NotImplementedError("impl='ring' (sequence-parallel ring attention) waits for "
-                                  "the parallel slice of the port (ROADMAP Queue 1)")
+                                  "ROADMAP Queue 1 item 8c")
     if impl == "auto":
         if all_valid and not causal:
             from .dense_attn import dense_attention_plain, dense_attention_site, fits_dense_kernel

@@ -81,16 +81,18 @@ def fused_ce(hidden: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor,
 
 def fused_weighted_ce_loss(hidden: torch.Tensor, lm_head: torch.Tensor,
                            labels: torch.Tensor, weight: torch.Tensor | None = None, *,
-                           ignore_index: int = -100, block_v: int = 4096) -> torch.Tensor:
+                           ignore_index: int = -100, block_v: int = 4096,
+                           denom: torch.Tensor | None = None) -> torch.Tensor:
     """``weighted_ce_loss`` fed hidden states (B, S, C) instead of logits:
     the weighted sum of per-token CE over non-ignored tokens, normalized by
-    the COUNT of non-ignored tokens."""
+    the COUNT of non-ignored tokens (``denom`` where given, e.g. a larger
+    batch's count)."""
     b, s, c = hidden.shape
     mask = labels != ignore_index
     safe = torch.where(mask, labels, 0)
     ce = fused_ce(hidden.reshape(b * s, c), lm_head, safe.reshape(-1), block_v).reshape(b, s)
     ce = torch.where(mask, ce, 0.0)
-    denom = mask.sum().clamp_min(1)
+    denom = (mask.sum() if denom is None else denom).clamp_min(1)
     if weight is None:
         return ce.sum() / denom
     return (ce * weight.to(ce.dtype)).sum() / denom

@@ -34,6 +34,7 @@ import re
 
 import torch
 
+from ..parallel.zero import whole
 from ..params import _flatten as flatten
 from ..params import _unflatten as unflatten
 
@@ -66,8 +67,10 @@ class LoraLeaf:
     """A targeted weight and its factors, merged on :meth:`merge`.
 
     ``keep`` is the dropout mask of ``a``'s fan-in rows (``(.., in, 1)``
-    bool) or None. Indexing takes one layer of stacked leaves, as
-    ``params.layer`` does for tensors."""
+    bool) or None, made over the whole leaf's shape where ``a`` is sharded.
+    Indexing takes one layer of stacked leaves, as ``params.layer`` does
+    for tensors; the parts may be ZeRO-sharded (``parallel/zero.py``) and
+    are gathered on :meth:`merge`."""
 
     def __init__(self, base, a, b, scale: float, keep=None, p: float = 0.0):
         self.base, self.a, self.b, self.scale, self.keep, self.p = base, a, b, scale, keep, p
@@ -77,18 +80,19 @@ class LoraLeaf:
         return LoraLeaf(self.base[i], self.a[i], self.b[i], self.scale, keep, self.p)
 
     def merge(self) -> torch.Tensor:
-        a = self.a
+        base, a, b = whole(self.base), whole(self.a), whole(self.b)
         if self.keep is not None:
             a = a * self.keep.to(a.dtype) / (1.0 - self.p)
-        delta = torch.matmul(a, self.b) * self.scale
-        return self.base + delta.to(self.base.dtype)
+        delta = torch.matmul(a, b) * self.scale
+        return base + delta.to(base.dtype)
 
 
 def materialize(tree):
-    """The tree with every :class:`LoraLeaf` merged (tensors pass through)."""
+    """The tree with every :class:`LoraLeaf` merged and every ZeRO-sharded
+    leaf (``parallel/zero.py``) gathered whole; tensors pass through."""
     if isinstance(tree, dict):
         return {k: materialize(v) for k, v in tree.items()}
-    return tree.merge() if isinstance(tree, LoraLeaf) else tree
+    return tree.merge() if isinstance(tree, LoraLeaf) else whole(tree)
 
 
 def default_lora_targets(params: dict) -> list[str]:

@@ -91,7 +91,7 @@ negated, absent, or uncertain). Keep laterality modifiers inside the phrase \
 when they localize the structure. Do not change any other text.
 Targets: {targets}"""
 
-_FILTER_INSTRUCTIONS = """You are a radiology annotation checker. The given \
+_FILTER_INSTRUCTIONS = """You are a radiology annotation reviewer. The given \
 report contains [<phrase>](<target>) annotations. Remove the brackets from \
 any annotation that is wrong — negated or uncertain findings, targets too \
 vague to localize, or phrases mapped to the wrong target — keeping only the \

@@ -32,53 +32,80 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 class CheckpointManager:
-    def __init__(self, directory: str | Path, save_every: int, keep: int | None = None):
+    """Step checkpoints in ``directory``. With a data-parallel ``group``
+    every process calls each method at the same steps, and rank 0 of the
+    group alone reads and writes ``directory``, which need not be shared:
+    the others learn the steps on disk from it when the manager is made,
+    every process then keeps the same list as it saves (so every process
+    decides alike whether a step saves), a save's tree comes whole (its
+    ZeRO shards gathered, ``state`` a callable that every process runs),
+    and :meth:`restore` hands every process rank 0's checkpoint, so a
+    checkpoint resumes at any number of processes."""
+
+    def __init__(self, directory: str | Path, save_every: int, keep: int | None = None, *,
+                 group=None):
         self.directory = Path(directory).absolute()
-        self.directory.mkdir(parents=True, exist_ok=True)
         self.save_every = save_every
         self.keep = keep
+        self.group = group
+        self.writer = group is None or dist.get_rank(group) == 0
+        steps = [None]
+        if self.writer:
+            self.directory.mkdir(parents=True, exist_ok=True)
+            steps = [sorted(int(p.name) for p in self.directory.iterdir()
+                            if p.is_dir() and p.name.isdigit())]
+        if group is not None:
+            dist.broadcast_object_list(steps, src=dist.get_global_rank(group, 0), group=group)
+        self._steps = steps[0]
 
     def all_steps(self) -> list[int]:
-        return sorted(int(p.name) for p in self.directory.iterdir()
-                      if p.is_dir() and p.name.isdigit())
+        return list(self._steps)
 
     def latest_step(self) -> int | None:
-        steps = self.all_steps()
-        return steps[-1] if steps else None
+        return self._steps[-1] if self._steps else None
 
     def should_save(self, step: int) -> bool:
-        steps = self.all_steps()
+        steps = self._steps
         if steps and steps[-1] >= step:
             return False
         return step % self.save_every == 0 or not steps
 
-    def maybe_save(self, step: int, state: dict) -> bool:
-        """Save ``state`` (a dict of trees of tensors and numbers) when the
-        interval policy says so; returns whether it saved."""
+    def maybe_save(self, step: int, state) -> bool:
+        """Save ``state`` (a dict of trees of tensors and numbers, or a
+        callable that returns one) when the interval policy says so; returns
+        whether it saved."""
         if not self.should_save(step):
             return False
         self._save(step, state)
         return True
 
-    def force_save(self, step: int, state: dict) -> None:
+    def force_save(self, step: int, state) -> None:
         """Unconditional save (the preemption path), ignoring the interval;
         no-op when the step is already on disk."""
-        if step not in self.all_steps():
+        if step not in self._steps:
             self._save(step, state)
 
-    def _save(self, step: int, state: dict) -> None:
-        tmp = self.directory / f".tmp-{step}"
-        shutil.rmtree(tmp, ignore_errors=True)
-        tmp.mkdir()
-        for key, tree in state.items():
-            torch.save(_map_tensors(tree, lambda t: t.detach().cpu()), tmp / f"{key}.pt")
-        os.replace(tmp, self.directory / str(step))
-        if self.keep is not None:
-            for old in self.all_steps()[:-self.keep]:
-                shutil.rmtree(self.directory / str(old))
+    def _save(self, step: int, state) -> None:
+        if callable(state):
+            state = state()
+        self._steps = sorted({*self._steps, step})
+        old, self._steps = (self._steps[:-self.keep], self._steps[-self.keep:]) \
+            if self.keep is not None else ([], self._steps)
+        if self.writer:
+            tmp = self.directory / f".tmp-{step}"
+            shutil.rmtree(tmp, ignore_errors=True)
+            tmp.mkdir()
+            for key, tree in state.items():
+                torch.save(_map_tensors(tree, lambda t: t.detach().cpu()), tmp / f"{key}.pt")
+            os.replace(tmp, self.directory / str(step))
+            for s in old:
+                shutil.rmtree(self.directory / str(s))
+        if self.group is not None:  # the step is on disk when any process goes on
+            dist.barrier(group=self.group)
 
     def restore(self, state_like: dict):
         """``(step, state)`` of the latest checkpoint, each tensor on the
@@ -87,11 +114,41 @@ class CheckpointManager:
         step = self.latest_step()
         if step is None:
             return None, None
-        out = {}
-        for key, like in state_like.items():
-            tree = torch.load(self.directory / str(step) / f"{key}.pt", weights_only=True)
-            out[key] = _place_like(tree, like, key)
+        out, error = None, None
+        if self.writer:
+            try:
+                out = {key: _place_like(
+                    torch.load(self.directory / str(step) / f"{key}.pt", weights_only=True),
+                    like, key) for key, like in state_like.items()}
+            except ValueError as e:
+                if self.group is None:
+                    raise
+                error = str(e)
+        if self.group is not None:
+            out = self._from_writer(out, error, state_like)
         return step, out
+
+    def _from_writer(self, tree, error, like):
+        """Rank 0's restored ``tree`` (or its ``error``, raised) on every
+        process of the group: the non-tensor leaves in one message, then
+        each tensor broadcast into a buffer like its counterpart in ``like``."""
+        src = dist.get_global_rank(self.group, 0)
+        head = [error, None if tree is None else _map_tensors(tree, lambda t: None)]
+        dist.broadcast_object_list(head, src=src, group=self.group)
+        if head[0] is not None:
+            raise ValueError(head[0])
+
+        def fill(skeleton, node, like_node):
+            if isinstance(like_node, dict):
+                return {k: fill(skeleton[k], None if node is None else node[k], like_node[k])
+                        for k in like_node}
+            if isinstance(like_node, torch.Tensor):
+                buf = torch.empty_like(like_node) if node is None else node
+                dist.broadcast(buf, src=src, group=self.group)
+                return buf
+            return skeleton
+
+        return fill(head[1], tree, like)
 
     def wait(self) -> None:
         """Saves are synchronous: nothing to wait for."""

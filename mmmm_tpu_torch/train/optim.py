@@ -33,6 +33,7 @@ import math
 import re
 
 import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,9 +82,22 @@ def schedule(cfg: OptimizerConfig, count: int) -> float:
     return cfg.lr * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * c / decay_steps)) + alpha)
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over every tensor, fp32, on the device."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+def global_norm(tensors, sharded=(), group=None) -> torch.Tensor:
+    """sqrt of the sum of squares over every tensor, fp32, on the device.
+    With a data-parallel ``group``, ``sharded`` are this process's chunks of
+    ZeRO-sharded tensors, whose squares are summed over the group; the
+    replicated ``tensors`` count once."""
+    total = sum(t.float().square().sum() for t in tensors)
+    if group is not None:
+        part = sum((t.float().square().sum() for t in sharded),
+                   torch.zeros((), device=_device(tensors, sharded)))
+        dist.all_reduce(part, group=group)
+        total = total + part
+    return torch.sqrt(total)
+
+
+def _device(*seqs) -> torch.device:
+    return next(t.device for seq in seqs for t in seq)
 
 
 class AdamW:
@@ -99,13 +113,31 @@ class AdamW:
                 "nu": {p: torch.zeros_like(t) for p, t in params.items()}}
 
     @torch.no_grad()
-    def step(self, params: dict, grads: dict, state: dict) -> torch.Tensor:
+    def step(self, params: dict, grads: dict, state: dict, *, sharded=frozenset(),
+             group=None) -> torch.Tensor:
         """Update ``params`` and ``state`` in place; returns the global norm
-        of the gradients before clipping."""
+        of the gradients before clipping.
+
+        Data parallel (``group``): ``params``, their moments and the
+        gradients of the paths in ``sharded`` are this process's ZeRO-3
+        chunks, their gradients already summed over the group (the gather's
+        backward reduce-scatters); the other gradients are all-reduced here
+        with SUM, in one flat buffer. Every process issues the same
+        collectives: a gradient that is None enters as zeros."""
         cfg = self.cfg
         grads = {p: torch.zeros_like(t) if grads.get(p) is None else grads[p]
                  for p, t in params.items()}
-        g_norm = global_norm(grads.values())
+        if group is None:
+            g_norm = global_norm(grads.values())
+        else:
+            replicated = [p for p in grads if p not in sharded]
+            if replicated:
+                flat = torch.cat([grads[p].reshape(-1) for p in replicated])
+                dist.all_reduce(flat, group=group)
+                for p, g in zip(replicated, flat.split([grads[p].numel() for p in replicated])):
+                    grads[p] = g.view_as(grads[p])
+            g_norm = global_norm([grads[p] for p in replicated],
+                                 [g for p, g in grads.items() if p in sharded], group)
         clip = None if cfg.grad_clip_norm is None else g_norm >= cfg.grad_clip_norm
         lr = schedule(cfg, state["count"])
         count = state["count"] + 1

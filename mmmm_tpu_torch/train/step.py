@@ -31,8 +31,8 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from ..models.mmmm import MMMMConfig, training_step
@@ -42,6 +42,9 @@ from ..ops.remat import check_policy
 from ..params import init_params
 from ..peft.lora import (LoraConfig, flatten, lora_init, lora_merge, merge_trainable,
                          split_trainable, unflatten)
+from ..parallel.distributed import batch_to, global_batch
+from ..parallel.sharding import axis_sizes
+from ..parallel.zero import ZeroLeaf, gather_unstacked, local_tensor, place_tree
 from .optim import AdamW
 
 
@@ -89,20 +92,26 @@ def effective_params(trainable: dict, frozen: dict, lora_cfg: LoraConfig, bf16_v
                      dropout: tuple[int, int] | None = None) -> dict:
     """The model's parameters: frozen + finetuned, the CogVLM cast to bf16
     with ``bf16_vlm``, LoRA leaves to merge where used (``dropout=(seed,
-    step)`` for LoRA dropout)."""
+    step)`` for LoRA dropout). ZeRO-sharded leaves (``parallel/zero.py``)
+    are gathered whole here, except the stacked layers', which each layer
+    gathers when it runs."""
     base = merge_trainable(trainable["ft"], frozen)
     if bf16_vlm:
         base = _cast_vlm(base, torch.bfloat16)
-    return lora_merge(base, trainable["lora"], lora_cfg, dropout=dropout)
+    return lora_merge(gather_unstacked(base), trainable["lora"], lora_cfg, dropout=dropout)
 
 
 def make_step_fn(cfg: MMMMConfig, optimizer: AdamW, lora_cfg: LoraConfig, *,
                  vg_mode: str = "none", bf16_vlm: bool = False, attn_impl: str = "auto",
                  remat: bool | str = True, dropout_seed: int | None = 0,
-                 vis_span: tuple[int, int] | str | None = None, gelu_mode: str = "auto"):
+                 vis_span: tuple[int, int] | str | None = None, gelu_mode: str = "auto",
+                 group=None):
     """The step_fn(state, frozen, batch) -> (state, logs) over a batch of
     tensors already on the state's device. A fresh LoRA-dropout mask each
-    step, deterministic in ``(dropout_seed, step)``."""
+    step, deterministic in ``(dropout_seed, step)`` (over each leaf's whole
+    shape, so every process draws the same). With a data-parallel ``group``
+    the batch is this process's slice, the state's and ``frozen``'s leaves
+    may be ZeRO-sharded, and the logs are the global batch's."""
     use_dropout = dropout_seed is not None and lora_cfg.dropout > 0.0
     Numerics(gelu_mode=gelu_mode)  # a bad mode or policy raises here, not in a step
     check_policy(remat)
@@ -110,30 +119,47 @@ def make_step_fn(cfg: MMMMConfig, optimizer: AdamW, lora_cfg: LoraConfig, *,
     def step_fn(state: TrainState, frozen: dict, batch: dict):
         params = effective_params(state.trainable, frozen, lora_cfg, bf16_vlm,
                                   dropout=(dropout_seed, state.step) if use_dropout else None)
-        flat = flatten(state.trainable)
+        leaves = flatten(state.trainable)
+        flat = {p: local_tensor(v) for p, v in leaves.items()}
         with numerics(gelu_mode=gelu_mode):
             loss, logs = training_step(params, cfg, batch, vg_mode=vg_mode,
-                                       attn_impl=attn_impl, remat=remat, vis_span=vis_span)
+                                       attn_impl=attn_impl, remat=remat, vis_span=vis_span,
+                                       group=group)
             with record_function("backward"):
                 grads = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
         logs = {k: v.detach() for k, v in logs.items()}
+        if group is not None:  # each process's logs are its share of the global batch's
+            vals = torch.stack([logs[k].float() for k in sorted(logs)])
+            dist.all_reduce(vals, group=group)
+            logs = dict(zip(sorted(logs), vals.unbind()))
+        opt_state = state.opt_state
+        local_opt = {"count": opt_state["count"],
+                     **{m: {p: local_tensor(t) for p, t in opt_state[m].items()}
+                        for m in ("mu", "nu")}}
         with record_function("optimizer"):
-            logs["grad_norm"] = optimizer.step(flat, dict(zip(flat, grads)), state.opt_state)
+            logs["grad_norm"] = optimizer.step(
+                flat, dict(zip(flat, grads)), local_opt, group=group,
+                sharded={p for p, v in leaves.items() if isinstance(v, ZeroLeaf)})
+        opt_state["count"] = local_opt["count"]
         state.step += 1
         return state, logs
 
     return step_fn
 
 
-def batch_to(batch: dict, device: torch.device) -> dict:
-    """Array leaves (numpy or tensors) on ``device``, dtypes kept;
-    ``patch_size`` / ``pool_size`` and other non-arrays pass through."""
-    out = {}
-    for k, v in batch.items():
-        if isinstance(v, np.ndarray):
-            v = torch.from_numpy(np.ascontiguousarray(v))
-        out[k] = v.to(device) if isinstance(v, torch.Tensor) else v
-    return out
+def place_state(state: TrainState, frozen: dict, mesh) -> tuple[TrainState, dict]:
+    """``(state, frozen)`` placed for the mesh route by ``fsdp_shardings``
+    (ZeRO-3, ``parallel/zero.py place_tree``): each leaf of the trainable
+    tree, the Adam moments and the frozen base of at least ``FSDP_MIN_SIZE``
+    elements keeps this process's chunk (a :class:`ZeroLeaf`), so the whole
+    leaf may be freed; the rest stay whole (replicated). ``state`` is
+    placed in place and returned; placed leaves pass through, so placing
+    twice changes nothing."""
+    opt = state.opt_state
+    state.trainable = place_tree(state.trainable, mesh)
+    state.opt_state = {"count": opt["count"], "mu": place_tree(opt["mu"], mesh),
+                       "nu": place_tree(opt["nu"], mesh)}
+    return state, place_tree(frozen, mesh)
 
 
 def make_train_step(cfg: MMMMConfig, optimizer: AdamW, lora_cfg: LoraConfig, *,
@@ -142,17 +168,40 @@ def make_train_step(cfg: MMMMConfig, optimizer: AdamW, lora_cfg: LoraConfig, *,
                     vis_span: tuple[int, int] | str | None = None, gelu_mode: str = "auto",
                     device: str | torch.device = "cuda"):
     """The step(state, frozen, batch) -> (state, logs) on ``device``; the
-    batch's arrays are moved there. ``mesh`` (sharded training) waits for
-    the parallel slice of the port."""
-    if mesh is not None:
-        raise NotImplementedError("make_train_step(mesh=...) waits for the parallel slice "
-                                  "of the port (ROADMAP Queue 1)")
-    dev = resolve_device(device)
-    step_fn = make_step_fn(cfg, optimizer, lora_cfg, vg_mode=vg_mode, bf16_vlm=bf16_vlm,
-                           attn_impl=attn_impl, remat=remat, dropout_seed=dropout_seed,
-                           vis_span=vis_span, gelu_mode=gelu_mode)
+    batch's arrays are moved there.
 
-    def run(state: TrainState, frozen: dict, batch: dict):
-        return step_fn(state, frozen, batch_to(batch, dev))
+    With ``mesh`` (``parallel/mesh.py make_mesh``, the reference's sharded
+    step): data parallelism over the mesh's ``data`` axis, this process on
+    its device (the mesh's; ``device`` must be of its type). The batch is
+    this process's slice of the global batch (``scheduled_batches(rank=,
+    world_size=)``); the step gives what one process gives on the global
+    batch. The caller places the state and ``frozen`` once with
+    :func:`place_state` (ZeRO-3); a leaf left whole trains as a replicated
+    one. ``model``, ``seq`` or ``pipe`` above 1 raise (ROADMAP Queue 1
+    items 8b, 8c)."""
+    step_kw = dict(vg_mode=vg_mode, bf16_vlm=bf16_vlm, attn_impl=attn_impl, remat=remat,
+                   dropout_seed=dropout_seed, vis_span=vis_span, gelu_mode=gelu_mode)
+    if mesh is None:
+        dev = resolve_device(device)
+        step_fn = make_step_fn(cfg, optimizer, lora_cfg, **step_kw)
 
-    return run
+        def run(state: TrainState, frozen: dict, batch: dict):
+            return step_fn(state, frozen, batch_to(batch, dev))
+
+        return run
+
+    sizes = axis_sizes(mesh)
+    for axis, item in (("model", "8b"), ("seq", "8c"), ("pipe", "8c")):
+        if sizes.get(axis, 1) > 1:
+            raise NotImplementedError(
+                f"make_train_step: mesh axis {axis}={sizes[axis]}; the port trains data "
+                f"parallel only, {axis} parallelism waits for ROADMAP Queue 1 item {item}")
+    if resolve_device(device).type != mesh.device_type:
+        raise ValueError(f"make_train_step: device {device} is not the mesh's "
+                         f"{mesh.device_type}")
+    step_fn = make_step_fn(cfg, optimizer, lora_cfg, group=mesh.get_group("data"), **step_kw)
+
+    def run_sharded(state: TrainState, frozen: dict, batch: dict):
+        return step_fn(state, frozen, global_batch(batch, mesh))
+
+    return run_sharded

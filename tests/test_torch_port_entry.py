@@ -245,7 +245,7 @@ def test_evaluate_matches_jax_script(runs, suite):
 
 
 def test_tp_above_one_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 8b"):
         pcli.main(["demo", "-c", str(TINY), "--tp", "2", "--device", "cpu"])
 
 

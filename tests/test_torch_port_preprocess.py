@@ -261,6 +261,35 @@ def test_report_and_tagging_match_jax():
     assert ttag.parse_linked_report(text, linked) == jtag.parse_linked_report(text, linked)
 
 
+@pytest.mark.parametrize("with_examples", [False, True])
+def test_llm_tagger_prompts_match_jax(with_examples):
+    """Both packages' ``LLMTagger`` hand a recording ``generate_fn`` the same
+    prompts, byte for byte, in the tagging pass and in the filter pass, with
+    and without few-shot ``examples``; the tags parsed from its answers are
+    the same."""
+    text = jreport.build_processed_report(**{
+        k: v for k, v in jreport.extract_findings_impression(REPORT).items()
+        if k in ("findings", "impression")})
+    targets = ["heart", "left pleural effusion", "pneumothorax"]
+    examples = ([("Mild cardiomegaly.", "Mild [cardiomegaly](heart).")] if with_examples
+                else None)
+    answer = text.replace("cardiomegaly", "[cardiomegaly](heart)", 1)
+    prompts = {}
+    for name, mod in (("jax", jtag), ("port", ttag)):
+        seen = prompts[name] = []
+
+        def generate(batch, seen=seen):
+            seen.append(list(batch))
+            return [answer for _ in batch]
+
+        tags = mod.LLMTagger(generate, targets, examples=examples).tag_batch([text, text])
+        assert tags == [jtag.parse_linked_report(text, answer)] * 2
+    assert len(prompts["port"]) == 2  # the tagging pass, then the filter pass
+    assert [[p.encode() for p in b] for b in prompts["port"]] == \
+        [[p.encode() for p in b] for b in prompts["jax"]]
+    assert ttag._FILTER_INSTRUCTIONS.encode() == jtag._FILTER_INSTRUCTIONS.encode()
+
+
 def test_chip_smoke_seg_exp_configs_mirror_the_yaml():
     """chip_smoke.py writes conf/seg-exp/{unet,sam}.yaml as dicts (the
     card's machine has no PyYAML)."""

@@ -198,6 +198,7 @@ def _imports(tree):
 
 PREPROCESS_MODULES = ("nifti", "dicom", "processor", "seg_folder", "boxes", "registry",
                       "report", "tagging")
+PARALLEL_MODULES = ("mesh", "sharding", "distributed", "zero", "debug")
 
 
 def test_port_imports_no_jax_and_no_library_kernels():
@@ -213,7 +214,8 @@ def test_port_imports_no_jax_and_no_library_kernels():
                 ("eval", "metrics.py"), ("eval", "models.py"), ("eval", "radgraph.py"),
                 ("ops", "hungarian.py"), ("ops", "deform_attn.py"), ("models", "detector.py"),
                 ("models", "unet.py"), ("train", "detector.py"), ("train", "seg_exp.py"),
-                *(("preprocess", f"{m}.py") for m in PREPROCESS_MODULES)):
+                *(("preprocess", f"{m}.py") for m in PREPROCESS_MODULES),
+                *(("parallel", f"{m}.py") for m in PARALLEL_MODULES)):
         assert ROOT.joinpath("mmmm_tpu_torch", *rel) in files
     scripts = [ROOT / n for n in ("chip_smoke.py", "time_decode_reads.py",
                                   "time_flagship_runs.py")]
@@ -245,7 +247,7 @@ def test_import_leaves_jax_out():
             "          'eval.models', 'eval.radgraph', 'models.segvol.sam', 'ops.hungarian',\n"
             "          'ops.deform_attn', 'models.detector', 'models.unet', 'train.detector',\n"
             "          'train.seg_exp', " + ", ".join(f"'preprocess.{m}'" for m in PREPROCESS_MODULES)
-            + "):\n"
+            + ", " + ", ".join(f"'parallel.{m}'" for m in PARALLEL_MODULES) + "):\n"
             "    assert 'mmmm_tpu_torch.' + m in sys.modules, m")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                        timeout=120)

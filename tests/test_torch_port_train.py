@@ -224,9 +224,11 @@ def test_train_state_from_jax_refuses_a_bad_tree():
     bad = dict(frozen, vg_proj={"w9": np.zeros((2, 2), np.float32)})
     with pytest.raises(ValueError, match="not consumed"):
         train_state_from_jax(states[0], bad, "cpu")
-    with pytest.raises(NotImplementedError):
+    # a mesh trains data parallel (tests/test_torch_port_parallel.py); a
+    # model axis above 1 waits for tensor parallelism
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8b"):
         make_train_step(MMMMConfig.tiny(), make_optimizer(OptimizerConfig()), LoraConfig(),
-                        mesh=object(), device="cpu")
+                        mesh={"data": 1, "model": 2}, device="cpu")
 
 
 def test_lora_merge_matches_jax():

@@ -89,7 +89,7 @@ def test_trainer_matches_jax(fit_data, tmp_path, monkeypatch):
         "trainer.bf16_vlm=false", "trainer.frozen_vlm_bf16=false", "lora.dropout=0",
         "trainer.ckpt_every=2", "data.vl_trans={max_tokens: 64, max_tokens_z: 4}",
         _datasets(fit_data)])
-    # one JAX device, so that its Trainer makes no mesh (the port has none)
+    # one JAX device, so that its Trainer makes no mesh (nor does the port's in one process)
     one = jax.devices()[:1]
     monkeypatch.setattr(jax, "devices", lambda *a, **k: one)
     jtok = jbuild.build_tokenizer(cfg["tokenizer"])
@@ -256,14 +256,22 @@ def test_shipped_config_builds(path):
 
 
 @pytest.mark.parametrize("key,value", [("mesh_model", 4), ("mesh_seq", 2), ("mesh_pipe", 2),
-                                       ("mesh_data", 1)])
+                                       ("mesh_data", 2)])
 def test_mesh_raises_and_entry_points_default_to_the_card(fit_data, tmp_path, key, value):
+    """Tensor, sequence and pipeline parallelism name their ROADMAP items;
+    a data axis of 2 in one process raises the world-size error (the mesh
+    must hold every process; tests/test_torch_port_parallel.py runs it over
+    two)."""
     cfg = _fit_config([f"trainer.out_dir={tmp_path}", _datasets(fit_data, ("VLSet",)),
                        "data.vl_trans={max_tokens: 64, max_tokens_z: 4}"])
     tok = build_tokenizer(cfg["tokenizer"])
     args = (build_model(cfg["model"], tok), build_dataset(cfg["data"], tok, TINY.parent),
             build(OptimizerConfig, cfg["optimizer"]), build(LoraConfig, cfg["lora"]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    error, match = {"mesh_model": (NotImplementedError, "Queue 1 item 8b"),
+                    "mesh_seq": (NotImplementedError, "Queue 1 item 8c"),
+                    "mesh_pipe": (NotImplementedError, "Queue 1 item 8c"),
+                    "mesh_data": (ValueError, "must hold every one of the 1 processes")}[key]
+    with pytest.raises(error, match=match):
         Trainer(*args, build(TrainerConfig, {**cfg["trainer"], key: value}), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(*args, build(TrainerConfig, cfg["trainer"]))
