@@ -89,7 +89,22 @@ Phases, in order; any failure exits non-zero before the result lines:
     tokens a verify step, peak memory) with launch counts exact against
     the server's stats, then profiled; (s1)'s tokens are compared with
     ``generate_grounded``'s and (s2)'s over the same requests (reported,
-    not gated);
+    not gated); then, over the same bf16 weights, ``clean-reports`` and
+    ``tag-reports`` (``data_prep_llm_phase``): MIMIC's two cleaning passes
+    over 8 synthetic studies, then the two tagging passes over their
+    output, 64 new tokens, static, ``--continuous`` and ``--continuous
+    --speculate 7``, every generator call's launches exact (K3 a prefill,
+    K1 or K6 a decode step a layer, fused with their appends), tag offsets
+    inside their reports; the routes' texts compared (reported: they part
+    in bf16); each route's first-token logits of its first call, as the
+    route computed them, held to an fp32 static prefill at full depth
+    (the layers cast one at a time): a bound on each row's largest and
+    relative distance, the argmax equal where fp32's top-2 gap is wide;
+    the same three routes over the first 2 LLM layers cast to fp32,
+    tagging the raw reports too, must give the same texts and files;
+    and the ``clean-reports`` and ``tag-reports`` commands over a
+    ``--params`` file of those layers with ``--config``, their JSON that
+    of ``clean_dataset`` and ``tag_dataset``;
  6. the LoRA training step (``make_train_step``, ``attn_impl="pallas"``:
     K3 forward, K7delta, K7dq and K7dkv backward at every flash site) at the
     tiny config in fp32, 3 steps in each grounding mode, on the card and the
@@ -168,11 +183,24 @@ Phases, in order; any failure exits non-zero before the result lines:
     steps; the largest batch of 8, 6, 4, 2 that fits); the SAM arm at
     conf/seg-exp/sam.yaml's width (3 steps, K4 launched 6 times a step) and
     K4 at its (8, 1176, 8, 32) fp32 shape beside SDPA. The ``process``
-    command runs no device work (and reads 2-D images with PIL, which the
-    card's machine lacks), so it is held on the CPU only;
-10. print the ``{"kernels": [...]}`` line (each kernel's launches on the
+    command runs no device work, so it is held on the CPU only;
+10. data preparation (``data_prep_phase``): the port's native host
+    library built from ``mmmm_tpu_torch/native/mmmm_native.cpp`` with the
+    host's ``g++`` (build time and compiler logged); zstd frames with and
+    without a content size, concatenated with a skippable frame,
+    ``.pt.zst`` and ``.arr.zst`` files and the prefetcher round-trip;
+    ``resize_trilinear_u8`` within 2e-3 of ``F.interpolate``; bench.py's
+    input gauge (decode + resize of (1, 48, 420, 420) uint8 volumes to
+    (32, 384, 384) through the prefetcher: volumes/s, a host figure); then
+    the ``self-label`` command at ``SamConfig()`` with its defaults over 4
+    (1, 48, 320, 320) CT volumes written as ``.pt.zst``, on the card (K4
+    exactly 12 a case) and at ``--device cpu``: probabilities within ``masks_tol``,
+    masks equal wherever |p - 0.5| exceeds it, and ``data/grg.py`` reads
+    the masks back;
+11. print the ``{"kernels": [...]}`` line (each kernel's launches on the
     named runs, ``launches_mesh`` those of phase 7b's steady mesh step beside
-    ``launches_no_mesh_same_depth``), then the ``{"ok": true, ...}`` line.
+    ``launches_no_mesh_same_depth``, ``launches_data_prep`` those of the
+    data-preparation runs), then the ``{"ok": true, ...}`` line.
 
 ``--log-dir`` keeps the build log and the results as JSON there.
 No JAX and nothing of ``mmmm_tpu`` is imported.
@@ -182,6 +210,7 @@ from __future__ import annotations
 import argparse
 import bisect
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -2580,6 +2609,7 @@ def flagship_phase(gen, expect: bool = True, serving: bool = False):
         all_launches[label] = launches
         if serving and label == "a_greedy_bf16":
             out["serving"] = flagship_serving_phase(params, cfg, tok, gen)
+            out["data_prep"] = data_prep_llm_phase(params, cfg)
     return out, all_launches
 
 
@@ -5054,6 +5084,680 @@ def pseudo_box_seg_phase(peaks) -> tuple[dict, dict, dict, dict]:
     return out, launches, lap_row, k4_row
 
 
+# ---- data preparation: the native library, clean/tag-reports, self-label ----
+
+DP_REPORTS, DP_NEW, DP_TEXT_CHUNK = 8, 64, 16  # the LLM routes' reports, new tokens, chunk
+DP_LAYERS = 2  # LLM layers of the fp32 cut and of the tag-reports CLI's --params file
+DP_TAX = ("lung nodule", "left lung", "right lung", "cardiomegaly", "pleural effusion",
+          "atelectasis", "pneumothorax", "pulmonary edema", "pulmonary consolidation",
+          "emphysema", "aorta", "heart")
+DP_WORDS = ("there", "is", "a", "small", "nodule", "in", "the", "left", "lung", "right",
+            "pleural", "effusion", "mild", "cardiomegaly", "no", "pneumothorax", "stable",
+            "compared", "to", "prior", "portable", "view", "atelectasis", "edema", "heart")
+DP_CT_SHAPE = (1, 48, 320, 320)  # self-label's CT volumes (C, D, H, W)
+DP_CASES, DP_CLASSES = 4, ("liver", "spleen", "left kidney", "right kidney", "aorta")
+SL_GRID, SL_PATCH = (4, 16, 16), (8, 16, 16)  # self-label's default --grid and --patch-size
+GAUGE_VOLUME, GAUGE_RESIZE, GAUGE_N = (1, 48, 420, 420), (32, 384, 384), 16  # bench.py:305-347
+
+
+def _dp_tokenizer():
+    """The flagship's ids (specials at 32000-32007) with a decode that is one
+    character a token (U+4E00 + id; specials as their strings), so that two
+    routes' texts are equal only where their tokens are: the byte decoder
+    drops the ids past 258, nearly all of a random model's."""
+    from mmmm_tpu_torch.data.tokenizer import SPECIAL_TOKENS, MMMMTokenizer, _ByteBackend
+
+    class IdBackend(_ByteBackend):
+        def decode(self, ids):
+            return "".join(chr(0x4E00 + i) for i in ids)
+
+    return MMMMTokenizer(IdBackend(), {t: 32000 + i for i, t in enumerate(SPECIAL_TOKENS)})
+
+
+def write_reports(root: Path, n: int, seed: int) -> None:
+    """``n`` MIMIC-style studies (findings and impression) as a processed
+    vision-language dataset's ``train.json``."""
+    rng = np.random.default_rng(seed)
+    words = np.array(DP_WORDS)
+    items = []
+    for i in range(n):
+        findings = " ".join(rng.choice(words, rng.integers(14, 22))).capitalize() + "."
+        impression = " ".join(rng.choice(words, rng.integers(4, 8))).capitalize() + "."
+        items.append({"key": f"s{i}", "image": [f"s{i}.jpg"], "plane": ["PA"],
+                      "findings": findings, "impression": impression})
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "train.json").write_text(json.dumps(items))
+
+
+def _text_launches(kind: str, stats: dict, n_prompts: int, batch: int, layers: int):
+    """The exact launches of one generator call: static, a K3 prefill and
+    ``DP_NEW`` K1 steps a batch; continuous, the shared prefix's K3 prefill
+    (or one a refill without one; a refill's suffix window of 128 tokens or
+    more is the plain route) and ``DP_TEXT_CHUNK`` K1 steps (K6 verify
+    steps under speculation) a chunk, every read fused with its append."""
+    if kind == "static":
+        n = -(-n_prompts // batch)
+        return {"K3": layers * n, "K1": layers * DP_NEW * n}, {"K1": {"append": layers * DP_NEW * n}}
+    read = "K6" if kind == "spec" else "K1"
+    k3 = layers * (1 if stats["prefix_len"] else stats["refills"])
+    n = layers * DP_TEXT_CHUNK * stats["chunks"]
+    return {"K3": k3, read: n}, {read: {"append": n}}
+
+
+def counted_generator(gen, kind: str, layers: int, record: list, tok):
+    """``gen`` with every call counted from 0, its launches held to
+    :func:`_text_launches`; each call's prompts, texts, seconds, stats,
+    launches and the first-token logits its route computed (static: from
+    ``prefill_decode_state``'s last hidden rows; continuous: returned by
+    ``TextServer._prefix_refill``), one row a prompt in the prompts' order
+    (None where a prompt's row was not seen), go to ``record``."""
+    from unittest import mock
+
+    from mmmm_tpu_torch.models import generate
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+    from mmmm_tpu_torch.ops.quant import qdot
+
+    server = getattr(gen, "__self__", None)  # the continuous routes' TextServer
+    seen: list = []  # (rows of token ids, their first-token logits), kept on the card
+
+    if server is None:
+        prefill = generate.prefill_decode_state
+
+        def recorded(params, cfg, input_ids, token_type_ids, position_ids, prompt_len, **kw):
+            st, hidden, last = prefill(params, cfg, input_ids, token_type_ids, position_ids,
+                                       prompt_len, **kw)
+            seen.append((lambda: [input_ids[r, :n].tolist()
+                                  for r, n in enumerate(prompt_len.tolist())],
+                         qdot(last, params["llm"]["lm_head"]).float()))
+            return st, hidden, last
+
+        patch = lambda: mock.patch.object(generate, "prefill_decode_state", recorded)
+    else:
+        refill = server._prefix_refill
+
+        def recorded(prefix_caches, ids, suffix_len, p):
+            st, logits = refill(prefix_caches, ids, suffix_len, p)
+            seen.append((lambda: [(p, ids[r, :n].tolist()) for r, n in enumerate(suffix_len)],
+                         logits))
+            return st, logits
+
+        server._prefix_refill = recorded
+        patch = contextlib.nullcontext
+
+    def first_logits(prompts):
+        ids = [[tok.bos_token_id] + tok.encode(x) for x in prompts]
+        index = {tuple(x): i for i, x in enumerate(ids)}
+        rows = [None] * len(prompts)
+        for row_ids, logits in seen:
+            for r, x in enumerate(row_ids()):
+                if server is not None:  # (prefix length, suffix)
+                    x = ids[0][:x[0]] + x[1]
+                if tuple(x) in index:
+                    rows[index[tuple(x)]] = logits[r].cpu()
+        return rows
+
+    def fn(prompts):
+        for kern in KERNELS.values():
+            kern.reset()
+        if server is not None:
+            server.stats = dict.fromkeys(server.stats, 0)
+        seen.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with patch():
+            texts = gen(prompts)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        stats = dict(server.stats) if server is not None else {}
+        launches = {n: k.launches for n, k in KERNELS.items() if k.launches}
+        forms = {n: dict(k.forms) for n, k in KERNELS.items() if k.forms}
+        want, want_forms = _text_launches(kind, stats, len(prompts), DP_REPORTS, layers)
+        if launches != want or forms != want_forms:
+            raise AssertionError(f"{kind} generator call {len(record)}: launches {launches} by "
+                                 f"form {forms}, expected {want} by form {want_forms}")
+        record.append({"prompts": list(prompts), "texts": list(texts), "s": dt, "stats": stats,
+                       "launches": launches, "first_logits": first_logits(prompts)})
+        return texts
+
+    return fn
+
+
+def run_clean_tag(llm, vcfg, tok, root: Path, kind: str, layers: int, tax: dict,
+                  tag_raw: bool = False) -> dict:
+    """``clean_dataset`` (MIMIC-CXR's two passes) over ``write_reports``'s
+    studies, then ``tag_dataset`` over its output (and, with ``tag_raw``,
+    over the raw reports too: a random model's cleaned reports hold no
+    taxonomy term, the raw ones do), through one route of
+    ``make_text_generator``: the written files, each call's record, the
+    studies whose tags fell back to the taxonomy matcher, and every tag's
+    offsets checked against its report."""
+    from mmmm_tpu_torch.models.llm_batch import make_text_generator
+    from mmmm_tpu_torch.preprocess.clean_reports import clean_dataset
+    from mmmm_tpu_torch.preprocess.tag_reports import tag_dataset
+    from mmmm_tpu_torch.preprocess.tagging import parse_linked_report
+
+    write_reports(root, DP_REPORTS, seed=17)
+    record: list = []
+    gen = counted_generator(make_text_generator(
+        llm, vcfg, tok, max_new_tokens=DP_NEW, batch_size=DP_REPORTS,
+        continuous=kind != "static", speculate=DRAFT if kind == "spec" else 0, device="cuda"),
+        kind, layers, record, tok)
+    t = time.perf_counter()
+    clean_dataset(root, "MIMIC-CXR", "train", gen, cleaner_name="llm")
+    splits = ("train-processed", "train") if tag_raw else ("train-processed",)
+    for split in splits:
+        tag_dataset(root, split, root / "vg", gen, target_tax=tax)
+    wall = time.perf_counter() - t
+    n_tags, fell_back = 0, 0
+    for i, split in enumerate(splits):
+        items = json.loads((root / "vg" / f"{split}.json").read_text())
+        for item in items:
+            for tag in item["tags"]:
+                phrase = item["ref_report"][tag["start"]:tag["end"]]
+                if not 0 <= tag["start"] < tag["end"] <= len(item["ref_report"]) or \
+                        not phrase.strip():
+                    raise AssertionError(f"{kind}: tag {tag} outside its report")
+                n_tags += 1
+        # the filter pass's outputs (calls 3, 5): a study falls back where
+        # its output fails the round trip
+        fell_back += sum(parse_linked_report(item["ref_report"], o.strip()) is None
+                         for item, o in zip(items, record[3 + 2 * i]["texts"]))
+    files = {p.relative_to(root).as_posix(): p.read_bytes()
+             for p in sorted(root.rglob("*")) if p.is_file()}
+    launches: dict = {}
+    for call in record:
+        for k, v in call["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"files": files, "record": record, "fell_back": fell_back, "n_tags": n_tags,
+            "wall_s": wall, "launches": launches,
+            "call_s": [c["s"] for c in record], "stats": [c["stats"] for c in record]}
+
+
+def _first_char_difference(a: str, b: str) -> int:
+    """The first index where two texts differ (-1: equal)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return -1 if len(a) == len(b) else min(len(a), len(b))
+
+
+def _routes_compared(runs: dict) -> dict:
+    """Each route against the static one: the first differing character of
+    every text of every call (-1: equal; one character a token), whether
+    the calls' prompts and the written files are equal."""
+    out = {}
+    for kind in ("continuous", "spec"):
+        firsts = [[_first_char_difference(a, b) for a, b in zip(ca["texts"], cb["texts"])]
+                  for ca, cb in zip(runs["static"]["record"], runs[kind]["record"])]
+        prompts_equal = all(ca["prompts"] == cb["prompts"] for ca, cb in
+                            zip(runs["static"]["record"], runs[kind]["record"]))
+        out[kind] = {"first_difference": firsts, "prompts_equal": prompts_equal,
+                     "files_equal": runs[kind]["files"] == runs["static"]["files"]}
+    return out
+
+
+def _dp_summary(label: str, runs: dict) -> dict:
+    out = {kind: {k: r[k] for k in ("wall_s", "call_s", "launches", "fell_back", "n_tags",
+                                    "stats")} for kind, r in runs.items()}
+    out["compared"] = _routes_compared(runs)
+    for kind, r in runs.items():
+        log(f"  {label} {kind}: {r['wall_s']:.2f} s (calls {[round(x, 3) for x in r['call_s']]}"
+            f" s), launches {r['launches']}, {r['n_tags']} tags, {r['fell_back']} studies fell "
+            f"back to the taxonomy matcher")
+    for kind, c in out["compared"].items():
+        equal = sum(f == -1 for call in c["first_difference"] for f in call)
+        total = sum(len(call) for call in c["first_difference"])
+        log(f"  {label} {kind} vs static: {equal} of {total} texts equal, files equal "
+            f"{c['files_equal']}, prompts equal {c['prompts_equal']}, first differences "
+            f"{c['first_difference']}")
+    return out
+
+
+class _Fp32Layer:
+    """A stacked (L, ...) weight whose layer ``i`` (``params.layer`` indexes
+    each leaf) is read as an fp32 copy: an fp32 pass over the flagship then
+    holds one layer in fp32 at a time beside the bf16 model."""
+
+    def __init__(self, t: torch.Tensor):
+        self.t = t
+
+    def __getitem__(self, i):
+        return self.t[i].float()
+
+
+def fp32_first_logits(llm: dict, vcfg, tok, prompts: list) -> torch.Tensor:
+    """The first-token logits of the static route's prefill
+    (``prefill_decode_state`` over the right-padded prompts) with every
+    weight in fp32, on the CPU: the reference the bf16 routes are held to."""
+    from mmmm_tpu_torch.models.generate import prefill_decode_state
+    from mmmm_tpu_torch.ops.quant import qdot
+    from mmmm_tpu_torch.params import map_tree
+
+    ref = {"llm": {k: map_tree(_Fp32Layer, v) if k == "layers" else v.float()
+                   for k, v in llm["llm"].items()}}
+    dev = llm["llm"]["embed_tokens"].device
+    ids_list = [[tok.bos_token_id] + tok.encode(x) for x in prompts]
+    n, s = len(ids_list), -(-max(map(len, ids_list)) // 128) * 128
+    ids = torch.zeros((n, s), dtype=torch.int32)
+    for i, x in enumerate(ids_list):
+        ids[i, :len(x)] = torch.tensor(x, dtype=torch.int32)
+    ids = ids.to(dev)
+    lens = torch.tensor([len(x) for x in ids_list], dtype=torch.int32, device=dev)
+    pos = torch.arange(s, dtype=torch.int32, device=dev).expand(n, s)
+    with torch.inference_mode():
+        _, _, last = prefill_decode_state(ref, vcfg, ids, torch.zeros_like(ids), pos, lens,
+                                          smax=s, eos_token_id=tok.eos_token_id)
+        return qdot(last, ref["llm"]["lm_head"]).float().cpu()
+
+
+# the most a bf16 route's first-token logit may lie from the fp32 static
+# prefill's at the flagship's 32 random layers, and the most its distance
+# may be as a share of the fp32 row's spread (the RMS of the difference over
+# the RMS of the centred fp32 row); the H100's readings were 15.2 and 0.085
+# (PERF.md §6). A route that lost its positions or its prefix would sit
+# near 1.4, as two unrelated rows do. DP_ARGMAX_SIGMAS: a route's argmax
+# must be fp32's where fp32's top-2 gap exceeds that many times the static
+# bf16 route's RMS distance on the row
+DP_LOGIT_BOUND, DP_LOGIT_REL_BOUND, DP_ARGMAX_SIGMAS = 24.0, 0.2, 4.0
+
+
+def first_token_gate(runs: dict, ref: torch.Tensor) -> dict:
+    """Each bf16 route's first-token logits in its first call (MIMIC's
+    first cleaning pass over the studies), as the route computed them, held
+    to the fp32 static prefill's ``ref``: every row within
+    ``DP_LOGIT_BOUND`` and ``DP_LOGIT_REL_BOUND``; every route's argmax
+    equal to fp32's wherever fp32's top-2 gap exceeds ``DP_ARGMAX_SIGMAS``
+    times bf16's spread on that row (the static bf16 route's RMS distance,
+    measured here). Logs the readings before it checks them."""
+    top2 = ref.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    centred = (ref - ref.mean(-1, keepdim=True)).norm(dim=-1)
+    logits = {}
+    for kind in ("static", "continuous", "spec"):
+        rows = runs[kind]["record"][0]["first_logits"]
+        if any(r is None for r in rows):
+            raise AssertionError(f"{kind}: the route's first-token logits of "
+                                 f"{sum(r is None for r in rows)} prompts were not seen")
+        logits[kind] = torch.stack(rows)
+    out = {"fp32_top2_gap": gap.tolist(), "fp32_argmax": ref.argmax(-1).tolist(),
+           "fp32_logit_std": ref.std().item()}
+    for kind, l in logits.items():
+        out[kind] = {"max_abs_vs_fp32": (l - ref).abs().amax(-1).tolist(),
+                     "rel_vs_fp32": ((l - ref).norm(dim=-1) / centred).tolist(),
+                     "argmax": l.argmax(-1).tolist()}
+    out["static_vs_prefix_max_abs"] = (logits["continuous"] - logits["static"]).abs().amax(
+        -1).tolist()
+    spread = (logits["static"] - ref).pow(2).mean(-1).sqrt()
+    out["bf16_rms_spread"] = spread.tolist()
+    out["argmax_checked_rows"] = (gap > DP_ARGMAX_SIGMAS * spread).nonzero().flatten().tolist()
+    log(f"  first-token logits vs the fp32 static prefill (32 layers): {json.dumps(out)}")
+    for kind in logits:
+        r = out[kind]
+        if max(r["max_abs_vs_fp32"]) > DP_LOGIT_BOUND or \
+                max(r["rel_vs_fp32"]) > DP_LOGIT_REL_BOUND:
+            raise AssertionError(f"{kind}: first-token logits {r['max_abs_vs_fp32']} (relative "
+                                 f"{r['rel_vs_fp32']}) from fp32's, bounds {DP_LOGIT_BOUND} "
+                                 f"({DP_LOGIT_REL_BOUND})")
+        wrong = [i for i in out["argmax_checked_rows"] if r["argmax"][i] != out["fp32_argmax"][i]]
+        if wrong:
+            raise AssertionError(f"{kind}: argmax differs from fp32's in rows {wrong}, where "
+                                 f"fp32's top-2 gap exceeds {DP_ARGMAX_SIGMAS} x bf16's spread")
+    return out
+
+
+def data_prep_llm_phase(params, cfg) -> dict:
+    """clean-reports then tag-reports at the flagship's full width and
+    depth over phase 5's bf16 weights (before they are quantized): 8
+    MIMIC-style studies, 64 new tokens, static, ``--continuous`` and
+    ``--continuous --speculate 7``, each call's launches exact; the routes'
+    texts and files compared (recorded: bf16 rounding differs between the
+    routes' kernels and batch shapes, PERF.md §6), and their first call's
+    first-token logits held to an fp32 static prefill at full depth
+    (:func:`first_token_gate`). Then the same three routes over the first 2
+    LLM layers cast to fp32, where the texts and files must be equal; and
+    the ``clean-reports`` (static) and ``tag-reports`` (``--continuous``)
+    commands end to end (``--params`` written from those fp32 layers,
+    ``--config``) against ``clean_dataset`` and ``tag_dataset`` over the
+    same generators."""
+    import tempfile
+
+    from mmmm_tpu_torch import cli
+    from mmmm_tpu_torch.data.target_tax import get_target_tax
+    from mmmm_tpu_torch.data.tokenizer import MMMMTokenizer
+    from mmmm_tpu_torch.models.cogvlm import CogVLMConfig
+    from mmmm_tpu_torch.models.llm_batch import make_text_generator
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+    from mmmm_tpu_torch.params import map_tree
+    from mmmm_tpu_torch.preprocess.clean_reports import clean_dataset
+    from mmmm_tpu_torch.preprocess.tag_reports import tag_dataset
+    from mmmm_tpu_torch.train.checkpoint import save_adapter
+
+    log("data preparation: clean-reports and tag-reports at the flagship")
+    t0 = time.perf_counter()
+    tok = _dp_tokenizer()
+    tax = {k: v for k, v in get_target_tax().items() if v.name in DP_TAX}
+    out: dict = {"new_tokens": DP_NEW, "reports": DP_REPORTS, "taxonomy": sorted(DP_TAX)}
+    with tempfile.TemporaryDirectory() as td:
+        td = Path(td)
+        runs = {kind: run_clean_tag(params["cogvlm"], cfg.vlm, tok, td / "bf16" / kind, kind,
+                                    LAYERS, tax) for kind in ("static", "continuous", "spec")}
+        out["flagship_bf16"] = _dp_summary("flagship bf16", runs)
+        t = time.perf_counter()
+        ref = fp32_first_logits(params["cogvlm"], cfg.vlm, tok,
+                                runs["static"]["record"][0]["prompts"])
+        out["first_token"] = first_token_gate(runs, ref)
+        out["first_token"]["fp32_prefill_s"] = time.perf_counter() - t
+        del runs, ref
+        torch.cuda.empty_cache()
+        # the first DP_LAYERS layers in fp32: a copy of 4.3 GB beside the model
+        llm = params["cogvlm"]["llm"]
+        llm32 = {"llm": {k: (map_tree(lambda t: t[:DP_LAYERS].float(), v) if k == "layers"
+                             else v.float()) for k, v in llm.items()}}
+        vcfg32 = dataclasses.replace(cfg.vlm, num_hidden_layers=DP_LAYERS)
+        runs = {kind: run_clean_tag(llm32, vcfg32, tok, td / "fp32" / kind, kind, DP_LAYERS, tax,
+                                    tag_raw=True) for kind in ("static", "continuous", "spec")}
+        out["cut_fp32"] = _dp_summary("cut_fp32", runs)
+        for kind in ("continuous", "spec"):
+            cmp = out["cut_fp32"]["compared"][kind]
+            if not (cmp["files_equal"] and cmp["prompts_equal"]
+                    and all(f == -1 for call in cmp["first_difference"] for f in call)):
+                raise AssertionError(f"fp32 cut: {kind} differs from static: {cmp}")
+
+        # the clean-reports and tag-reports commands over a --params file of
+        # the fp32 layers
+        t = time.perf_counter()
+        save_adapter(td / "lm.npz", llm32)
+        default = CogVLMConfig()  # the LLM's fields that differ from the defaults
+        conf = {f.name: getattr(vcfg32, f.name) for f in dataclasses.fields(vcfg32)
+                if f.name != "vision" and getattr(vcfg32, f.name) != getattr(default, f.name)}
+        (td / "lm.json").write_text(json.dumps(conf))
+        write_s = time.perf_counter() - t
+        lm = ["--params", str(td / "lm.npz"), "--config", str(td / "lm.json"),
+              "--max-new-tokens", str(DP_NEW)]
+        byte_tok = MMMMTokenizer.byte_fallback()
+        commands = {
+            "clean_reports": (
+                ["clean-reports", "--dir", str(td / "cli_clean"), "--dataset", "MIMIC-CXR", *lm],
+                lambda gen: clean_dataset(td / "ref_clean", "MIMIC-CXR", "train", gen,
+                                          cleaner_name="llm"),
+                False, ("cli_clean", "ref_clean")),
+            "tag_reports": (
+                ["tag-reports", "--dir", str(td / "fp32" / "static"), "--split",
+                 "train-processed", "--out", str(td / "cli"), *lm, "--continuous"],
+                lambda gen: tag_dataset(td / "fp32" / "static", "train-processed", td / "ref",
+                                        gen),
+                True, ("cli", "ref"))}
+        write_reports(td / "cli_clean", DP_REPORTS, seed=17)
+        write_reports(td / "ref_clean", DP_REPORTS, seed=17)
+        out["cli"] = {"params_bytes": (td / "lm.npz").stat().st_size, "write_s": write_s}
+        for label, (argv, direct, continuous, (got_dir, want_dir)) in commands.items():
+            for kern in KERNELS.values():
+                kern.reset()
+            t = time.perf_counter()
+            cli.main(argv)
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t
+            cli_launches = {n: k.launches for n, k in KERNELS.items() if k.launches}
+            direct(make_text_generator(llm32, vcfg32, byte_tok, max_new_tokens=DP_NEW,
+                                       continuous=continuous, device="cuda"))
+            got, want = [(td / d / "train-processed.json").read_bytes()
+                         for d in (got_dir, want_dir)]
+            if got != want:
+                raise AssertionError(f"{label} --params: its JSON differs from the library "
+                                     "call's over the same generator")
+            if cli_launches.get("K3", 0) < DP_LAYERS or cli_launches.get("K1", 0) < DP_LAYERS:
+                raise AssertionError(f"{label} --params launched {cli_launches}")
+            out["cli"][label] = {"command_s": cli_s, "launches": cli_launches,
+                                 "studies": len(json.loads(got))}
+            log(f"  {label} --params ({out['cli']['params_bytes'] / 2**30:.2f} GiB written in "
+                f"{write_s:.1f} s){' --continuous' if continuous else ''}: {cli_s:.1f} s, "
+                f"launches {cli_launches}, JSON equal to the library call's")
+        del llm32
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _gauge_volumes(root: Path, n: int = 4) -> list:
+    """bench.py's input-gauge volumes: smooth CT-like (1, 48, 420, 420)
+    uint8 ramps with noise (real volumes compress about 2x), as ``.pt.zst``."""
+    from mmmm_tpu_torch.utils.io import save_pt_zst
+
+    rng = np.random.default_rng(0)
+    z = np.linspace(0, 1, GAUGE_VOLUME[1])[:, None, None]
+    y = np.linspace(0, 1, GAUGE_VOLUME[2])[None, :, None]
+    x = np.linspace(0, 1, GAUGE_VOLUME[3])[None, None, :]
+    base = z * 80 + y * 60 + x * 40
+    paths = []
+    for k in range(n):
+        vol = (base + rng.normal(0, 2, base.shape)).clip(0, 255).astype(np.uint8)[None]
+        paths.append(root / f"vol{k}.pt.zst")
+        save_pt_zst(vol, paths[-1])
+    return paths
+
+
+def native_phase(tmp: Path) -> dict:
+    """The port's native library built on this machine from the checkout's
+    source: zstd round trips (a frame with its content size, one without,
+    the two concatenated, a skippable frame), ``.pt.zst`` and ``.arr.zst``
+    files, ``resize_trilinear_u8`` against ``F.interpolate`` (trilinear,
+    ``align_corners=False``) within 2e-3, the prefetcher over a few files;
+    then the decode plus resize of (1, 48, 420, 420) volumes to (32, 384,
+    384) through the prefetcher, bench.py's input gauge (host time)."""
+    from mmmm_tpu_torch.utils import native
+    from mmmm_tpu_torch.utils.io import (load_array_zst, load_pt_zst, save_array_zst,
+                                         save_pt_zst)
+
+    log("data preparation: the native library")
+    t = time.perf_counter()
+    so = native.build()
+    build_s = time.perf_counter() - t
+    cxx = native.compiler()
+    version = subprocess.run([cxx, "--version"], capture_output=True, text=True,
+                             check=True).stdout.splitlines()[0]
+    log(f"  built {so.name} in {build_s:.2f} s with {cxx} ({version})")
+    rng = np.random.default_rng(0)
+    data = rng.integers(0, 16, 3_000_000, dtype=np.uint8).tobytes()
+    sized, unsized = native.zstd_compress(data, 3), native.zstd_compress(data, 19, False)
+    skippable = b"\x50\x2a\x4d\x18" + (4).to_bytes(4, "little") + b"skip"
+    checks = {"sized": (sized, data), "unsized": (unsized, data),
+              "concatenated": (sized + skippable + unsized, data + data)}
+    for label, (frame, want) in checks.items():
+        if native.zstd_decompress(frame) != want:
+            raise AssertionError(f"native zstd: the {label} frame does not round-trip")
+    fhd = unsized[4]  # frame header descriptor: no content-size field, not single-segment
+    if fhd >> 6 or fhd & 0x20 or not (sized[4] >> 6 or sized[4] & 0x20):
+        raise AssertionError("native zstd: a frame's content size is not as asked")
+    tree = {"image": rng.integers(0, 255, (1, 8, 32, 32), dtype=np.uint8),
+            "meta": {"n": 3, "mask": rng.random((2, 4)) > 0.5}}
+    save_pt_zst(tree, tmp / "t.pt.zst")
+    got = load_pt_zst(tmp / "t.pt.zst")
+    arr = rng.normal(size=(3, 5, 7)).astype(np.float32)
+    save_array_zst(arr, tmp / "a.arr.zst")
+    if (not np.array_equal(got["image"], tree["image"]) or got["meta"]["n"] != 3
+            or not np.array_equal(got["meta"]["mask"], tree["meta"]["mask"])
+            or not np.array_equal(load_array_zst(tmp / "a.arr.zst"), arr)):
+        raise AssertionError("native zstd: .pt.zst or .arr.zst does not round-trip")
+    resize_err = 0.0
+    for shape_in, shape_out in (((2, 4, 10, 12), (6, 20, 24)), ((2, 6, 20, 24), (4, 13, 11)),
+                                ((1, 48, 64, 64), (32, 96, 96))):
+        vol = rng.integers(0, 255, size=shape_in, dtype=np.uint8)
+        want = F.interpolate(torch.from_numpy(vol.astype(np.float32) / 255.0)[None],
+                             size=shape_out, mode="trilinear", align_corners=False)[0].numpy()
+        resize_err = max(resize_err, float(np.abs(native.resize_trilinear_u8(vol, shape_out)
+                                                  - want).max()))
+    check("native resize_trilinear_u8 vs F.interpolate", resize_err, 2e-3)
+    blobs = [rng.integers(0, 255, 50_000 + i, dtype=np.uint8).tobytes() for i in range(6)]
+    for i, b in enumerate(blobs):
+        (tmp / f"f{i}.zst").write_bytes(native.zstd_compress(b, 3, i % 2 == 0))
+    with native.NativePrefetcher(n_threads=3) as pf:
+        jobs = [pf.submit(tmp / f"f{i}.zst") for i in range(6)]
+        if [pf.wait(j) for j in reversed(jobs)] != blobs[::-1]:
+            raise AssertionError("native prefetcher: wrong bytes")
+
+    # bench.py's gauge: read + decode on the prefetcher's threads, unpickle
+    # and resize on this one
+    paths = _gauge_volumes(tmp)
+    with native.NativePrefetcher(n_threads=2) as pf:
+        pf.wait(pf.submit(paths[0]))
+        t = time.perf_counter()
+        jobs = [pf.submit(paths[k % len(paths)]) for k in range(GAUGE_N)]
+        for j in jobs:
+            vol = torch.load(io.BytesIO(pf.wait(j)), weights_only=False).numpy()
+            native.resize_trilinear_u8(vol, GAUGE_RESIZE)
+        gauge_s = time.perf_counter() - t
+    out = {"build_s": build_s, "compiler": f"{cxx}: {version}", "library": so.name,
+           "resize_max_abs_err": resize_err, "gauge_volumes": GAUGE_N,
+           "gauge_s": gauge_s, "volumes_per_s": GAUGE_N / gauge_s,
+           "gauge_file_bytes": paths[0].stat().st_size}
+    log(f"  zstd frames (sized, unsized, concatenated with a skippable one), .pt.zst, .arr.zst "
+        f"and the prefetcher round-trip; resize max |err| {resize_err:.3g}; gauge "
+        f"{GAUGE_VOLUMES_TEXT}: {GAUGE_N} volumes in {gauge_s:.3f} s, "
+        f"{out['volumes_per_s']:.2f} volumes/s (host)")
+    return out
+
+
+GAUGE_VOLUMES_TEXT = (f"decode + resize of {GAUGE_VOLUME} uint8 to {GAUGE_RESIZE} through the "
+                      "prefetcher (2 threads)")
+
+
+def _self_label_cases(vg: Path, rng) -> None:
+    """``DP_CASES`` CT volumes of ``DP_CT_SHAPE`` as ``.pt.zst`` (written
+    here) and their visual-grounding ``train.json``, 2-4 targets a case."""
+    from mmmm_tpu_torch.utils.io import save_pt_zst
+
+    vg.mkdir(parents=True)
+    z = np.linspace(0, 1, DP_CT_SHAPE[1])[:, None, None]
+    yx = np.hypot(*np.meshgrid(np.linspace(-1, 1, DP_CT_SHAPE[2]),
+                               np.linspace(-1, 1, DP_CT_SHAPE[3]), indexing="ij"))
+    items = []
+    for k in range(DP_CASES):
+        vol = (120 + 80 * np.cos(3 * yx + k) * (0.5 + z) + rng.normal(0, 8, (DP_CT_SHAPE[1:])))
+        save_pt_zst(vol.clip(0, 255).astype(np.uint8)[None], vg / f"ct{k}.pt.zst")
+        names = rng.choice(DP_CLASSES, 2 + k % 3, replace=False)
+        report = " ".join(f"The {n} is seen." for n in names)
+        tags, pos = [], 0
+        for n in names:
+            start = report.index(n, pos)
+            tags.append({"start": start, "end": start + len(n), "target": str(n)})
+            pos = start + len(n)
+        items.append({"key": f"ct{k}", "image": [f"ct{k}.pt.zst"], "ref_report": report,
+                      "tags": tags})
+    (vg / "train.json").write_text(json.dumps(items))
+
+
+def self_label_phase(tmp: Path) -> tuple[dict, dict]:
+    """The ``self-label`` command at ``SamConfig()``'s full width (12
+    layers, fp32) with its defaults (patch (8, 16, 16), grid (4, 16, 16),
+    threshold 0.5) over 4 (1, 48, 320, 320) CT volumes with 2-4 targets
+    each, seeded SAM weights and prompt embeddings saved as the command
+    reads them: on the card (K4 exactly 12 a case) and with ``--device
+    cpu``, the probabilities (read at the command's resize back to the
+    volume's shape) within ``masks_tol`` (2e-4), the written masks equal
+    wherever |p - 0.5| exceeds it; then the masks read back through
+    ``data/grg.py``'s ``GRGTransform``. Returns the results and the card
+    run's launches."""
+    from unittest import mock
+
+    from mmmm_tpu_torch import cli
+    from mmmm_tpu_torch.data.grg import GRGTransConf, GRGTransform, get_grg_data_list
+    from mmmm_tpu_torch.data.local import DatasetConf
+    from mmmm_tpu_torch.data.tokenizer import MMMMTokenizer
+    from mmmm_tpu_torch.models.segvol import SamConfig
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+    from mmmm_tpu_torch.params import init_sam_params
+    from mmmm_tpu_torch.preprocess import self_label as sl_module
+    from mmmm_tpu_torch.train.checkpoint import save_adapter
+    from mmmm_tpu_torch.utils.io import load_pt_zst
+
+    log("data preparation: self-label at SamConfig()")
+    cfg = SamConfig()
+    rng = np.random.default_rng(3)
+    save_adapter(tmp / "sam.npz", init_sam_params(cfg, seed=0, device="cpu"))
+    np.savez(tmp / "embeds.npz", **{n: rng.normal(size=cfg.embed_dim).astype(np.float32)
+                                    for n in DP_CLASSES})
+    dirs = {dev: tmp / f"vg_{dev}" for dev in ("cuda", "cpu")}
+    for d in dirs.values():
+        _self_label_cases(d, np.random.default_rng(5))
+    keys = [item["key"] for item in json.loads((dirs["cpu"] / "train.json").read_text())]
+    sam_shape = tuple(g * p for g, p in zip(SL_GRID, SL_PATCH))
+    probs, secs, launches = {}, {}, {}
+    for dev, d in dirs.items():
+        got, resize = [], sl_module.resize_3d
+
+        def recorded(x, shape, got=got):
+            out = resize(x, shape)
+            if tuple(x.shape[1:]) == sam_shape:  # the probabilities, back to the volume's shape
+                got.append(np.asarray(out))
+            return out
+
+        for kern in KERNELS.values():
+            kern.reset()
+        t = time.perf_counter()
+        with mock.patch.object(sl_module, "resize_3d", recorded):
+            cli.main(["self-label", "--vg-dir", str(d), "--sam", str(tmp / "sam.npz"),
+                      "--embeddings", str(tmp / "embeds.npz"), "--device", dev])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs[dev] = time.perf_counter() - t
+        launches[dev] = {k: v.launches for k, v in KERNELS.items() if v.launches}
+        labeled = [k for k in keys if (d / f"{k}_seg.pt.zst").exists()]
+        if len(got) != DP_CASES or labeled != keys:
+            raise AssertionError(f"self-label on {dev}: {len(labeled)} of {DP_CASES} cases "
+                                 f"labeled, {len(got)} probabilities seen")
+        probs[dev] = dict(zip(keys, got))
+    err, tol_used = 0.0, []
+    for key, p_card in probs["cuda"].items():
+        p_cpu = torch.from_numpy(probs["cpu"][key])
+        tol = masks_tol(p_cpu)
+        tol_used.append(tol)
+        e = max_err(torch.from_numpy(p_card), p_cpu)
+        check(f"self-label {key} probabilities card vs CPU", e, tol)
+        err = max(err, e)
+        m_card = load_pt_zst(dirs["cuda"] / f"{key}_seg.pt.zst")
+        m_cpu = load_pt_zst(dirs["cpu"] / f"{key}_seg.pt.zst")
+        far = np.abs(probs["cpu"][key] - 0.5) > tol
+        if m_card.dtype != np.bool_ or m_card.shape != p_card.shape or \
+                not np.array_equal(m_card[far], m_cpu[far]):
+            raise AssertionError(f"self-label {key}: masks differ where |p - 0.5| > {tol}")
+        if (dirs["cuda"] / f"{key}_seg.json").read_text() != \
+                (dirs["cpu"] / f"{key}_seg.json").read_text():
+            raise AssertionError(f"self-label {key}: target lists differ")
+    # the written masks feed data/grg.py, as the trainer reads them
+    conf = DatasetConf(max_targets=8, max_instances=8)
+    conf.grg_trans = GRGTransConf(grounding_prob=1.0)
+    tf = GRGTransform(conf, MMMMTokenizer.byte_fallback(), seed=0)
+    read = []
+    for item in get_grg_data_list(dirs["cuda"]):
+        dp = tf(item)
+        targets = json.loads((dirs["cuda"] / f"{item['key']}_seg.json").read_text())
+        shape = None if dp["masks"] is None else tuple(dp["masks"].shape)
+        if shape is None or not dp["grounding"] or shape[0] != len(targets):
+            raise AssertionError(f"grg: {item['key']} masks {shape} for {len(targets)} targets")
+        read.append([int(s) for s in dp["masks"].shape])
+    out = {"cases": DP_CASES, "volume": list(DP_CT_SHAPE), "grid": list(SL_GRID),
+           "patch": list(SL_PATCH), "card_s": secs["cuda"], "cpu_s": secs["cpu"],
+           "probs_max_abs_err": err, "tol": tol_used, "launches": launches["cuda"],
+           "grg_masks": read,
+           "fg_voxels": {k: int(load_pt_zst(dirs["cuda"] / f"{k}_seg.pt.zst").sum())
+                         for k in probs["cuda"]}}
+    log(f"  self-label: {DP_CASES} cases, the command on the card {secs['cuda']:.2f} s (--device cpu "
+        f"{secs['cpu']:.2f} s), probabilities max |err| {err:.3g}, launches "
+        f"{launches['cuda']}; grg read the masks back {read}")
+    return out, launches["cuda"]
+
+
+def data_prep_phase() -> tuple[dict, dict]:
+    """The native library, then ``self-label``, in a temporary directory."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as td:
+        (Path(td) / "native").mkdir()
+        native = native_phase(Path(td) / "native")
+        label, launches = self_label_phase(Path(td))
+    return {"native": native, "self_label": label}, launches
+
+
 STAGES = ("vit", "llm_prefill", "decode", "sam")
 KERNEL_GROUPS = (  # (label, substrings of a kernel name), first match wins
     ("K4 dense attention", ("attn_fwd_wgmma<false", "attn_fwd_f32<false")),
@@ -5409,6 +6113,21 @@ def main() -> int:
     launches["detector_train"] = det_launches
     results["kernels"]["LAP"] = lap_row
     results["kernels"]["K4"]["variants"].append(k4_sam_row)
+    gc.collect()
+    torch.cuda.empty_cache()
+    results["data_prep"], self_label_launches = phase("data_prep", data_prep_phase)
+    dp_llm = results["flagship"]["data_prep"]
+    results["phase_s"]["data_prep_llm (within flagship)"] = dp_llm["seconds"]
+    # the data-preparation runs' launches (phase 5's clean/tag routes, the
+    # tag-reports command, self-label), each counted from 0
+    dp_launches = {f"{label}_{kind}": dp_llm[label][kind]["launches"]
+                   for label in ("flagship_bf16", "cut_fp32")
+                   for kind in ("static", "continuous", "spec")}
+    dp_launches["clean_reports_cli"] = dp_llm["cli"]["clean_reports"]["launches"]
+    dp_launches["tag_reports_cli"] = dp_llm["cli"]["tag_reports"]["launches"]
+    dp_launches["self_label"] = self_label_launches
+    log(f"data preparation launches: {dp_launches}; phase {results['phase_s']['data_prep']:.1f}"
+        f" s + {dp_llm['seconds']:.1f} s within phase 5 ({card})")
     # the switches' kernel forms: launches of phase 4's counted run with them on
     switched = results["tiny_reference"]["switches"][SWITCHES_RUN]["launches_by_form"]
     for kid, form in (("K4", "fast"), ("K9", "bf16")):
@@ -5451,6 +6170,9 @@ def main() -> int:
         entry["launches_mesh"] = mesh_launches.get(counter, 0)
         entry["launches_no_mesh_same_depth"] = results["data_parallel"]["launches_no_mesh"].get(
             counter, 0)
+        # the data-preparation runs (clean/tag-reports routes, self-label)
+        entry["launches_data_prep"] = {label: n.get(counter, 0) for label, n in
+                                       dp_launches.items()}
         entry.update({k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")})
         entry.update({k: v for k, v in r.items() if k not in entry})

@@ -20,6 +20,22 @@ package's ``scripts/cli.py fit``, ``scripts/align_sam.py``,
         --data <processed dataset> --classes A B [--steps N ...] [--out res.json] [--device cpu]
     python -m mmmm_tpu_torch.cli process --layout nnunet|segfolder|boxfolder | --dataset NAME
         --src RAW --out PROCESSED [--name X] [--limit N]
+    python -m mmmm_tpu_torch.cli clean-reports --dir DIR --dataset MIMIC-CXR|CT-RATE|OpenI|ROCOv2
+        [--split S] (--rule-based | --params lm.npz [--config lm.yaml] [--tokenizer DIR]
+        [--max-new-tokens N] [--continuous] [--speculate K] [--device cpu])
+    python -m mmmm_tpu_torch.cli tag-reports --dir DIR [--split S] --out VG_DIR
+        (--taxonomy-only | --params lm.npz ... as clean-reports)
+    python -m mmmm_tpu_torch.cli self-label --vg-dir VG_DIR --sam sam_aligned.npz
+        --embeddings embeds.npz [--threshold 0.5] [--patch-size 8 16 16] [--grid 4 16 16]
+        [--sam-config sam.yaml] [--limit N] [--device cpu]
+    python -m mmmm_tpu_torch.cli compress-vl --data DIR --out DIR [--image-root R]
+        [--splits train validate test] [--workers 4]
+    python -m mmmm_tpu_torch.cli convert-vl --format vqa-json|report-folder|mimic-cxr|ct-rate|
+        label|openi|rocov2|pmc-oa|radiopaedia|vqa-med --src RAW --out DIR [...]
+    python -m mmmm_tpu_torch.cli predict-baseline --model NAME --checkpoint DIR
+        --task vqa|report --dataset-dir DIR --output pred.csv [--device cpu]
+    python -m mmmm_tpu_torch.cli finetune-baseline --model NAME --checkpoint DIR
+        --dataset-dir DIR --out DIR [--task vqa|report] [--steps N] [--device cpu]
 
 The same YAML configs, dotted ``k=v`` overrides (applied before ``${...}``
 interpolation) and builders. Every command runs on the card unless
@@ -47,6 +63,14 @@ returns it. ``detector-train`` and ``detector-infer`` are
 ``{stem}_box.json`` files; ``train/detector.py``); ``seg-exp`` is
 ``scripts/seg_exp.py`` (``train/seg_exp.py``); ``process`` is
 ``scripts/data/process.py`` over ``preprocess/``, host code only.
+``clean-reports``, ``tag-reports``, ``self-label``, ``compress-vl`` and
+``convert-vl`` are ``scripts/data/*.py`` (``preprocess/``): the LLM routes
+run ``models/llm_batch.py make_text_generator`` on the card, ``self-label``
+SAM; ``compress-vl`` and ``convert-vl`` are host code (no ``--device``).
+``predict-baseline`` is ``scripts/evaluate/cli.py predict-baseline``
+(``eval/baselines.py``) and ``finetune-baseline`` is
+``scripts/finetune/baselines.py`` (``train/baselines.py``): HF models from
+local checkpoints, which need ``transformers``.
 """
 from __future__ import annotations
 
@@ -652,6 +676,173 @@ def cmd_process(args) -> list:
     return info
 
 
+def _text_generator(args):
+    """``make_text_generator`` over the ``--params`` CogVLM tree (a
+    ``save_params`` file of either package) and ``--config`` (CogVLMConfig
+    fields, YAML or JSON) on ``--device``: the LLM route of
+    ``clean-reports`` and ``tag-reports``."""
+    from .config import build, load_yaml
+    from .data.tokenizer import MMMMTokenizer
+    from .models.cogvlm import CogVLMConfig
+    from .models.llm_batch import make_text_generator
+    from .ops._cuda import resolve_device
+    from .params import map_tree
+    from .train.checkpoint import load_params
+
+    cfg = build(CogVLMConfig, load_yaml(args.config) if args.config else {})
+    tok = (MMMMTokenizer.from_pretrained(args.tokenizer) if args.tokenizer
+           else MMMMTokenizer.byte_fallback())
+    dev = resolve_device(args.device)
+    params = map_tree(lambda t: t.to(dev) if isinstance(t, torch.Tensor) else t,
+                      load_params(args.params))
+    return make_text_generator(params, cfg, tok, max_new_tokens=args.max_new_tokens,
+                               continuous=args.continuous, speculate=args.speculate,
+                               device=dev)
+
+
+def cmd_clean_reports(args) -> Path:
+    """``scripts/data/clean_reports.py``: the dataset's cleaning prompts
+    through the LLM (``--params``) or the rule-based cleaner."""
+    from .preprocess.clean_reports import _rule_based_fn, clean_dataset
+
+    if args.rule_based:
+        fn, name = _rule_based_fn, "rule-based"
+    elif args.params:
+        fn, name = _text_generator(args), "llm"
+    else:
+        raise SystemExit("pass --rule-based or --params")
+    return clean_dataset(Path(args.dir), args.dataset, args.split, fn, cleaner_name=name)
+
+
+def cmd_tag_reports(args) -> Path:
+    """``scripts/data/tag_reports.py``: ``<p>`` phrase tags through the
+    two-pass LLM tagger (``--params``) or the taxonomy matcher."""
+    from .preprocess.tag_reports import tag_dataset
+
+    if args.taxonomy_only:
+        fn = None
+    elif args.params:
+        fn = _text_generator(args)
+    else:
+        raise SystemExit("pass --params (local LM checkpoint) or --taxonomy-only")
+    return tag_dataset(Path(args.dir), args.split, Path(args.out), fn)
+
+
+def cmd_self_label(args) -> int:
+    """``scripts/data/self_label.py``: pseudo-masks of the tagged targets
+    through the aligned SAM head; returns the number of cases labeled."""
+    from .config import build, load_yaml
+    from .models.segvol import SamConfig
+    from .preprocess.self_label import sam_probabilities, self_label
+    from .train.checkpoint import load_adapter
+
+    cfg = build(SamConfig, load_yaml(args.sam_config)) if args.sam_config else SamConfig()
+    embeds_npz = np.load(args.embeddings)
+    embeddings = {k: np.asarray(embeds_npz[k], np.float32) for k in embeds_npz.files}
+    patch = tuple(args.patch_size)
+    shape = tuple(g * p for g, p in zip(args.grid, patch))
+    probs = sam_probabilities(load_adapter(args.sam), cfg, patch, args.device)
+    return self_label(Path(args.vg_dir), probs, embeddings, shape=shape, split=args.split,
+                      threshold=args.threshold, max_targets=args.max_targets,
+                      limit=args.limit)
+
+
+def cmd_compress_vl(args) -> dict:
+    """``scripts/data/compress_vl.py`` (host only)."""
+    from .preprocess.compress_vl import compress_dataset
+
+    return compress_dataset(Path(args.data), Path(args.out),
+                            Path(args.image_root) if args.image_root else None,
+                            args.splits, args.workers)
+
+
+def cmd_convert_vl(args) -> None:
+    """``scripts/data/convert_vl.py`` (host only; ``--format label`` with
+    ``--chexbert-ckpt`` runs CheXbert on the card)."""
+    from .preprocess import convert_vl as cv
+
+    src, out = Path(args.src), Path(args.out)
+    if args.format == "vqa-json":
+        cv.convert_vqa_json(
+            src, out, image_field=args.image_field, question_field=args.question_field,
+            answer_field=args.answer_field,
+            image_dir=Path(args.image_dir) if args.image_dir else None,
+            split_field=args.split_field)
+    elif args.format == "mimic-cxr":
+        cv.convert_mimic_cxr(
+            src, out, split_csv=Path(args.split_csv),
+            jpg_root=Path(args.image_dir) if args.image_dir else None,
+            metadata_csv=Path(args.metadata_csv) if args.metadata_csv else None)
+    elif args.format == "ct-rate":
+        cv.convert_ct_rate(
+            src, out, args.split,
+            metadata_csv=Path(args.metadata_csv) if args.metadata_csv else None)
+    elif args.format == "label":
+        cv.label_reports(
+            src, args.split,
+            chexbert_ckpt=Path(args.chexbert_ckpt) if args.chexbert_ckpt else None)
+    elif args.format == "openi":
+        cv.convert_openi(src, out)
+    elif args.format == "rocov2":
+        cv.convert_rocov2(src, out, args.split)
+    elif args.format == "pmc-oa":
+        cv.convert_pmc_oa(src, out, check_image=not args.no_check_image,
+                          num_val=args.num_val or 500)
+    elif args.format == "radiopaedia":
+        cv.convert_radiopaedia(src, out, args.json_file, train_val=args.train_val,
+                               num_val=args.num_val or 250)
+    elif args.format == "vqa-med":
+        cv.convert_vqa_med(src, out)
+    else:
+        cv.convert_report_folder(src, out, args.split)
+
+
+def cmd_predict_baseline(args) -> list:
+    """``scripts/evaluate/cli.py predict-baseline``: a registered baseline
+    VLM over the same test items as ``predict``, the same CSV contract;
+    returns the rows."""
+    from .eval.baselines import build_baseline
+
+    predict = build_baseline(args.model, args.checkpoint, args.tokenizer, device=args.device)
+    dataset_dir = Path(args.dataset_dir)
+    if args.task == "vqa":
+        items = iter_vqa_items(dataset_dir, args.limit)
+    else:
+        items = iter_report_items(dataset_dir, dataset_dir.name, args.limit)
+    rows = []
+    for item in items:
+        img = Path(item["image"])
+        img = img if img.is_absolute() else dataset_dir / img
+        rows.append({"question": item["question"], "answer": item["answer"],
+                     "prediction": predict(str(img), item["question"])})
+        print(f"[{len(rows)}] {rows[-1]['prediction'][:60]!r}", flush=True)
+    _write_predictions(args.output, rows)
+    return rows
+
+
+def cmd_finetune_baseline(args) -> list:
+    """``scripts/finetune/baselines.py``: finetune a baseline HF model on a
+    processed VL dataset (torch's own loop, on ``--device``); returns the
+    logged losses."""
+    from .train.baselines import (EXAMPLE_BUILDERS, finetune_torch_model, iter_report_items,
+                                  iter_vqa_items, load_finetune_model)
+
+    model, processor, freeze_pred = load_finetune_model(args.model, args.checkpoint,
+                                                        args.processor, args.device)
+    iterate = iter_report_items if args.task == "report" else iter_vqa_items
+    losses = finetune_torch_model(
+        model, processor, iterate(Path(args.dataset_dir), args.split),
+        EXAMPLE_BUILDERS[args.model], steps=args.steps, lr=args.lr,
+        grad_accum=args.grad_accum, train_all=args.train_all, freeze_pred=freeze_pred)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    model.save_pretrained(out)
+    processor.save_pretrained(out)
+    (out / "finetune_losses.json").write_text(json.dumps(losses))
+    print(f"saved finetuned {args.model} to {out}")
+    return losses
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     """The command line's arguments, ``func`` set to the command's function."""
     parser = argparse.ArgumentParser(prog="mmmm_tpu_torch.cli")
@@ -792,6 +983,115 @@ def parse_args(argv=None) -> argparse.Namespace:
     pr.add_argument("--limit", type=int)
     pr.add_argument("--max-smaller-edge", type=int, default=512)
     pr.set_defaults(func=cmd_process)
+
+    def llm_options(p):
+        p.add_argument("--params", help="LM params .npz (save_params of the CogVLM tree)")
+        p.add_argument("--config", help="CogVLMConfig yaml/json for --params")
+        p.add_argument("--tokenizer", help="tokenizer path for --params")
+        p.add_argument("--max-new-tokens", type=int, default=1024)
+        p.add_argument("--continuous", action="store_true",
+                       help="slot-pool continuous batching (mid-flight refill, "
+                            "automatic template prefix caching)")
+        p.add_argument("--speculate", type=int, default=0,
+                       help="n-gram speculative draft length (continuous only)")
+        p.add_argument("--device", default="cuda", help="the LLM's device")
+
+    cr = sub.add_parser("clean-reports", help="clean reports through the LLM or the rules")
+    cr.add_argument("--dir", required=True, help="processed VL dataset dir")
+    cr.add_argument("--dataset", required=True,
+                    help="MIMIC-CXR | CT-RATE | OpenI | ROCOv2 | <other>")
+    cr.add_argument("--split", default="train")
+    cr.add_argument("--rule-based", action="store_true",
+                    help="deterministic regex cleaner instead of an LLM")
+    llm_options(cr)
+    cr.set_defaults(func=cmd_clean_reports)
+    tr = sub.add_parser("tag-reports", help="<p> phrase tags into a visual-grounding dataset")
+    tr.add_argument("--dir", required=True, help="processed VL dataset dir")
+    tr.add_argument("--split", default="train")
+    tr.add_argument("--out", required=True, help="visual-grounding output dir")
+    tr.add_argument("--taxonomy-only", action="store_true")
+    llm_options(tr)
+    tr.set_defaults(func=cmd_tag_reports)
+
+    sl = sub.add_parser("self-label", help="pseudo-masks of tagged targets through SAM")
+    sl.add_argument("--vg-dir", required=True)
+    sl.add_argument("--split", default="train")
+    sl.add_argument("--sam", required=True, help="sam params npz (align-sam output)")
+    sl.add_argument("--embeddings", required=True,
+                    help="npz: class name -> (C,) prompt embedding")
+    sl.add_argument("--threshold", type=float, default=0.5)
+    sl.add_argument("--max-targets", type=int, default=8)
+    sl.add_argument("--patch-size", type=int, nargs=3, default=[8, 16, 16])
+    sl.add_argument("--grid", type=int, nargs=3, default=[4, 16, 16],
+                    help="token grid; input resized to grid*patch*pool")
+    sl.add_argument("--sam-config", help="yaml with SamConfig fields (default: flagship)")
+    sl.add_argument("--limit", type=int)
+    sl.add_argument("--device", default="cuda")
+    sl.set_defaults(func=cmd_self_label)
+
+    cv = sub.add_parser("compress-vl", help="crop-resize VL images into .pt.zst (host only)")
+    cv.add_argument("--data", required=True, help="dir holding {split}.json")
+    cv.add_argument("--out", required=True)
+    cv.add_argument("--image-root", help="root for relative image paths")
+    cv.add_argument("--splits", nargs="+", default=["train", "validate", "test"])
+    cv.add_argument("--workers", type=int, default=4)
+    cv.set_defaults(func=cmd_compress_vl)
+
+    co = sub.add_parser("convert-vl", help="raw VQA / report datasets into processed JSON "
+                        "(host only)")
+    co.add_argument("--format", required=True,
+                    choices=["vqa-json", "report-folder", "mimic-cxr", "ct-rate", "label",
+                             "openi", "rocov2", "pmc-oa", "radiopaedia", "vqa-med"])
+    co.add_argument("--json-file", default="radiology_article_npy_train.json",
+                    help="radiopaedia: RadFM csv json under --src")
+    co.add_argument("--train-val", action="store_true",
+                    help="radiopaedia: split train/validate instead of test")
+    co.add_argument("--no-check-image", action="store_true",
+                    help="pmc-oa: skip the per-image decode check")
+    co.add_argument("--num-val", type=int, default=None,
+                    help="pmc-oa/radiopaedia: validate-set size override")
+    co.add_argument("--chexbert-ckpt", help="CheXbert checkpoint for --format label")
+    co.add_argument("--src", required=True)
+    co.add_argument("--out", required=True, help="output dataset dir")
+    co.add_argument("--image-field", default="image_name")
+    co.add_argument("--question-field", default="question")
+    co.add_argument("--answer-field", default="answer")
+    co.add_argument("--split-field", default=None)
+    co.add_argument("--image-dir", default=None)
+    co.add_argument("--split", default="train")
+    co.add_argument("--split-csv", help="mimic-cxr-2.0.0-split.csv")
+    co.add_argument("--metadata-csv", help="mimic-cxr-2.0.0-metadata.csv (planes)")
+    co.set_defaults(func=cmd_convert_vl)
+
+    pb = sub.add_parser("predict-baseline", help="a baseline VLM's answers over a test set")
+    pb.add_argument("--model", required=True,
+                    help="registry name: mmmm|cogvlm|instructblip|llavanext|llavamed|m3d|"
+                         "radfm|r2gengpt")
+    pb.add_argument("--checkpoint", required=True,
+                    help="local checkpoint dir (mmmm: its config file)")
+    pb.add_argument("--tokenizer", help="local tokenizer/processor dir (default: checkpoint)")
+    pb.add_argument("--task", choices=["vqa", "report"], required=True)
+    pb.add_argument("--dataset-dir", required=True)
+    pb.add_argument("--output", required=True)
+    pb.add_argument("--limit", type=int)
+    pb.add_argument("--device", default="cuda")
+    pb.set_defaults(func=cmd_predict_baseline)
+
+    fb = sub.add_parser("finetune-baseline", help="finetune a baseline HF model")
+    fb.add_argument("--model", required=True,
+                    choices=["cogvlm", "instructblip", "llavamed", "llavanext", "m3d"])
+    fb.add_argument("--checkpoint", required=True, help="local HF model dir")
+    fb.add_argument("--processor", help="local HF processor dir (default: checkpoint)")
+    fb.add_argument("--dataset-dir", required=True)
+    fb.add_argument("--task", choices=["vqa", "report"], default="vqa")
+    fb.add_argument("--split", default="train")
+    fb.add_argument("--out", required=True)
+    fb.add_argument("--steps", type=int, default=1000)
+    fb.add_argument("--lr", type=float, default=2e-5)
+    fb.add_argument("--grad-accum", type=int, default=8)
+    fb.add_argument("--train-all", action="store_true")
+    fb.add_argument("--device", default="cuda")
+    fb.set_defaults(func=cmd_finetune_baseline)
     return parser.parse_args(argv)
 
 

@@ -61,9 +61,10 @@ class ChexbertLabeler:
 
     def __init__(self, checkpoint_path: str | Path, tokenizer=None, device: str = "cuda"):
         import torch
-        from transformers import BertConfig, BertModel
 
         ckpt = torch.load(checkpoint_path, map_location="cpu", weights_only=False)
+        from transformers import BertConfig, BertModel
+
         state = ckpt.get("model_state_dict", ckpt)
         state = _strip_prefix(state)
         bert_state = {

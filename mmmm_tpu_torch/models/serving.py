@@ -226,7 +226,8 @@ class TextServer:
         position j seeing the prefix and the window causally; padded tail
         positions clamp their ``kv_len`` to the last real token, and their
         outputs and cache slots (``>= p + suffix_len``, overwritten before
-        any read) are discarded."""
+        any read) are discarded. Returns the sub-batch's decode state and
+        its first-token logits (f, vocab), fp32."""
         llm, dev = self.params["llm"], self.dev
         f, s = ids.shape
         ids_t, sfx = torch.as_tensor(ids, device=dev), torch.as_tensor(suffix_len, device=dev)
@@ -239,11 +240,11 @@ class TextServer:
             hidden, caches = llm_decode_step(llm, self.cfg, llm["embed_tokens"][ids_t], pos,
                                              caches, write, kv_len)
         rows, last = torch.arange(f, device=dev), sfx.long() - 1
-        tok0 = torch.argmax(qdot(hidden[rows, last], llm["lm_head"]).float(),
-                            dim=-1).to(torch.int32)
+        logits = qdot(hidden[rows, last], llm["lm_head"]).float()
+        tok0 = torch.argmax(logits, dim=-1).to(torch.int32)
         plen = sfx.long() + p
         return {"caches": caches, "tok": tok0, "prev_tok": ids_t[rows, last], "pos": plen - 1,
-                "write": plen.to(torch.int32), "done": tok0 == self.tok.eos_token_id}
+                "write": plen.to(torch.int32), "done": tok0 == self.tok.eos_token_id}, logits
 
     def _decode_chunk(self, st: dict):
         """``chunk`` greedy steps over every slot -> (state, (B, chunk)
@@ -343,7 +344,7 @@ class TextServer:
                     suffix = r.ids[pfx_len:]
                     ids[row, : len(suffix)] = suffix
                     sfx[row] = len(suffix)
-                sub = self._prefix_refill(pfx_caches, ids, sfx, pfx_len)
+                sub, _ = self._prefix_refill(pfx_caches, ids, sfx, pfx_len)
             else:
                 s = _bucket(max(len(r.ids) for r in take), self.seq_quant)
                 ids = np.zeros((f, s), np.int32)

@@ -20,6 +20,7 @@ A single-process run skips all of this: with no coordinator anywhere,
 """
 from __future__ import annotations
 
+import atexit
 import os
 
 import numpy as np
@@ -66,7 +67,18 @@ def init_distributed(coordinator_address: str | None = None,
         f"tcp://{coordinator_address}"
     dist.init_process_group("nccl" if card is not None else "gloo", init_method=address,
                             world_size=num_processes, rank=process_id, device_id=card)
+    atexit.register(_destroy_at_exit)
     return dist.get_world_size() > 1
+
+
+def _destroy_at_exit() -> None:
+    """Destroy the process group while the interpreter still runs. A group
+    left to the interpreter's exit has c10d's store and gloo's threads torn down
+    in the exit's own teardown, which aborts a process now and then
+    (``terminate called without an active exception``) after its work is
+    done."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def process_rank() -> tuple[int, int]:

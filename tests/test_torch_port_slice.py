@@ -197,15 +197,18 @@ def _imports(tree):
 
 
 PREPROCESS_MODULES = ("nifti", "dicom", "processor", "seg_folder", "boxes", "registry",
-                      "report", "tagging")
+                      "report", "tagging", "clean_reports", "tag_reports", "self_label",
+                      "compress_vl", "convert_vl")
 PARALLEL_MODULES = ("mesh", "sharding", "distributed", "zero", "debug")
 
 
 def test_port_imports_no_jax_and_no_library_kernels():
     """No module of the port, and neither chip_smoke.py nor the timing
-    scripts beside it, imports jax, jaxlib or mmmm_tpu (the ``mmmm_tpu.``
-    pattern leaves ``mmmm_tpu_torch`` alone), and no module of the port
-    calls SDPA or torch.compile (chip_smoke.py times SDPA as a yardstick)."""
+    scripts beside it, imports jax, jaxlib, mmmm_tpu (the ``mmmm_tpu.``
+    pattern leaves ``mmmm_tpu_torch`` alone) or zstandard (zstd is the
+    port's own native library, with its own copy of the C++ source), and no
+    module of the port calls SDPA or torch.compile (chip_smoke.py times
+    SDPA as a yardstick)."""
     files = sorted((ROOT / "mmmm_tpu_torch").rglob("*.py"))
     assert len(files) > 15
     for rel in (("ops", "w4_matmul.py"), ("ops", "flash.py"), ("peft", "lora.py"),
@@ -214,6 +217,8 @@ def test_port_imports_no_jax_and_no_library_kernels():
                 ("eval", "metrics.py"), ("eval", "models.py"), ("eval", "radgraph.py"),
                 ("ops", "hungarian.py"), ("ops", "deform_attn.py"), ("models", "detector.py"),
                 ("models", "unet.py"), ("train", "detector.py"), ("train", "seg_exp.py"),
+                ("utils", "native.py"), ("utils", "io.py"), ("utils", "viewer.py"),
+                ("eval", "baselines.py"), ("train", "baselines.py"),
                 *(("preprocess", f"{m}.py") for m in PREPROCESS_MODULES),
                 *(("parallel", f"{m}.py") for m in PARALLEL_MODULES)):
         assert ROOT.joinpath("mmmm_tpu_torch", *rel) in files
@@ -223,7 +228,7 @@ def test_port_imports_no_jax_and_no_library_kernels():
         tree = ast.parse(f.read_text(), filename=str(f))
         for mod in _imports(tree):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "mmmm_tpu"), f"{f}: imports {mod}"
+            assert top not in ("jax", "jaxlib", "mmmm_tpu", "zstandard"), f"{f}: imports {mod}"
         if f in scripts:
             continue
         attrs = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
@@ -246,7 +251,8 @@ def test_import_leaves_jax_out():
             "          'train.import_torch', 'train.peft_export', 'data.infer_transform',\n"
             "          'eval.models', 'eval.radgraph', 'models.segvol.sam', 'ops.hungarian',\n"
             "          'ops.deform_attn', 'models.detector', 'models.unet', 'train.detector',\n"
-            "          'train.seg_exp', " + ", ".join(f"'preprocess.{m}'" for m in PREPROCESS_MODULES)
+            "          'train.seg_exp', 'utils.native', 'utils.viewer', 'eval.baselines',\n"
+            "          'train.baselines', " + ", ".join(f"'preprocess.{m}'" for m in PREPROCESS_MODULES)
             + ", " + ", ".join(f"'parallel.{m}'" for m in PARALLEL_MODULES) + "):\n"
             "    assert 'mmmm_tpu_torch.' + m in sys.modules, m")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
