@@ -148,7 +148,20 @@ Phases, in order; any failure exits non-zero before the result lines:
     semantic steps each: loss and gradient norm within 1e-6, K3 and K7
     launches exact and equal), and ``Trainer.fit`` at conf/tiny/fit.yaml
     with ``trainer.mesh_data=1`` against the same fit without a mesh
-    (every metric within 1e-6); the group is destroyed after;
+    (every metric within 1e-6); the group is destroyed after; then (7c,
+    ``tensor_parallel_phase``) tensor parallelism over the ``model`` axis:
+    two worker processes on the one card, joined over gloo (their tensors
+    on the card; gloo's collectives on CUDA tensors checked and an
+    all-reduce timed), ``generate_grounded`` greedy and speculative (7
+    drafts) over ``tp_serving_params(.., 2)`` pieces of the flagship at full
+    width with 4 LLM and 4 ViT layers in bf16 against the route without
+    them (first-token logits of both held to an fp32 prefill by
+    ``first_token_gate``'s bounds), at 2 layers in fp32 (tokens equal,
+    masks within 2e-4), W4A16 greedy over int4 pieces (K11 and K11mma a
+    rank as one rank's; first-token logits within 0.2 relative of one
+    rank's), and one fp32 ``make_train_step(mesh=(1, 2))`` step against
+    the step without a mesh (loss and gradient norm within 1e-5), each
+    rank's K4, K3, K1, K6 and K7 launches exact;
  8. the entry points at the flagship's full width: the checkpoint
     importers (``train/import_torch.py``) on seeded HF CogVLM and SegVol
     state dicts at 2 LLM and 2 ViT layers into a fresh tree on the card
@@ -199,7 +212,8 @@ Phases, in order; any failure exits non-zero before the result lines:
     the masks back;
 11. print the ``{"kernels": [...]}`` line (each kernel's launches on the
     named runs, ``launches_mesh`` those of phase 7b's steady mesh step beside
-    ``launches_no_mesh_same_depth``, ``launches_data_prep`` those of the
+    ``launches_no_mesh_same_depth``, ``launches_tensor_parallel_rank`` a
+    rank's in phase 7c's runs, ``launches_data_prep`` those of the
     data-preparation runs), then the ``{"ok": true, ...}`` line.
 
 ``--log-dir`` keeps the build log and the results as JSON there.
@@ -258,6 +272,14 @@ W4_MMA = LAYERS * 10 * (B // CHUNK)
 W4_SHAPES = ((4096, 12288), (4096, 4096), (4096, 11008), (11008, 4096))
 W4_DECODE_CALLS = {s: (2 if s == (4096, 11008) else 1) * LAYERS * ((B // CHUNK) + NEW)
                    for s in W4_SHAPES}
+# the int4 shapes (K, N) a rank of phase 7c's W4A16 run multiplies by over two
+# ranks (``tp_serving_params(.., 2)``), each with the whole weight it is cut
+# from and the leaf's rule: qkv's and gate/up's columns, dense's and down's
+# rows; down's 43 scale groups are repacked with a 44th of zero weights
+W4_TP_SHAPES = {(4096, 6144): ((4096, 12288), "lang_qkv"),
+                (2048, 4096): ((4096, 4096), "lang_dense"),
+                (4096, 5504): ((4096, 11008), "lang_mlp/gate"),
+                (5632, 4096): ((11008, 4096), "lang_mlp/down")}
 # flagship launches per run; "iters" is scaled by the run's verify steps;
 # "forms": the launches of a kernel's named forms (every other form count 0).
 # Each decode step appends inside its read's launch (the read's "append"
@@ -1519,6 +1541,31 @@ def window_fused_row(peaks, gen, q, rot, t0) -> dict:
     return row
 
 
+def w4_weight(kk: int, nn: int, rnd) -> dict:
+    """A random int4 weight multiplied as (kk, nn): one of run (d)'s, or, at
+    a shape of ``W4_TP_SHAPES``, rank 1's piece (``local_params``) of a
+    whole one over two ranks."""
+    from mmmm_tpu_torch.ops.quant import quantize_int4
+    from mmmm_tpu_torch.parallel.sharding import local_params
+
+    if (kk, nn) not in W4_TP_SHAPES:
+        return quantize_int4(rnd(kk, nn, dt=torch.float32).mul_(0.02))
+    (wk, wn), leaf = W4_TP_SHAPES[(kk, nn)]
+    keys = ("llm", "layers", *leaf.split("/"))
+    tree = node = {}
+    for key in keys[:-1]:
+        node = node.setdefault(key, {})
+    node[keys[-1]] = quantize_int4(rnd(1, wk, wn, dt=torch.float32).mul_(0.02))
+    piece = local_params(tree, ({"model": 2}, 1))
+    for key in keys:
+        piece = piece[key]
+    w = {k: v[0] for k, v in piece.items()}
+    if w["q4"].shape != (kk // 2, nn):
+        raise AssertionError(f"the piece of {leaf} is {tuple(w['q4'].shape)}, not "
+                             f"({kk // 2}, {nn})")
+    return w
+
+
 def capacity_kernel_phase(peaks, gen, out):
     """K10 (the split-int8 read, at K9's shape, at head dims off its 16-byte
     lanes and past its shared memory) and K11 (W4A16: the decode-row kernel
@@ -1628,9 +1675,10 @@ def capacity_kernel_phase(peaks, gen, out):
     # K11 at decode rows (1, 4, 16 in bf16, 4 in fp32), twice bit for bit;
     # K11mma at the row counts W4A16 serving passes (text rows 4 x 46 and
     # vision rows 4 x 145, whole and in chunks of 2), at 4 x 146 and 2 x 146,
-    # and at tile edges; on each of run (d)'s four weight shapes
-    for kk, nn in W4_SHAPES:
-        w = quantize_int4(rnd(kk, nn, dt=torch.float32).mul_(0.02))
+    # and at tile edges; on each of run (d)'s four weight shapes and each
+    # rank's pieces of them in phase 7c
+    for kk, nn in (*W4_SHAPES, *W4_TP_SHAPES):
+        w = w4_weight(kk, nn, rnd)
         for m, dt in ((1, torch.bfloat16), (4, torch.bfloat16), (16, torch.bfloat16),
                       (4, torch.float32), (17, torch.bfloat16),
                       (64, torch.bfloat16), (65, torch.bfloat16), (92, torch.bfloat16),
@@ -1645,13 +1693,12 @@ def capacity_kernel_phase(peaks, gen, out):
         log(f"  K11 {kk}x{nn}: two runs bit-equal at every decode row count")
     # K11mma's two tile widths at the W4A16 prefill's shapes (4 x 145 vision
     # and 4 x 46 text rows, in run (d)'s chunks of 2 and whole, on each of
-    # the five products' weights): each checked, then timed against the
-    # other; mma_tpw picks one
+    # the five products' weights and a rank's pieces of them in phase 7c):
+    # each checked, then timed against the other; mma_tpw picks one
     log("K11mma tile widths at the prefill's shapes (TPW 64-column tiles a warpgroup)")
     tpw_rows = []
-    for kk, nn in ((4096, 12288), (4096, 4096), (4096, 11008), (11008, 4096)):
-        wset = Rotating([quantize_int4(rnd(kk, nn, dt=torch.float32).mul_(0.02))
-                         for _ in range(4)])
+    for kk, nn in (*W4_SHAPES, *W4_TP_SHAPES):
+        wset = Rotating([w4_weight(kk, nn, rnd) for _ in range(4)])
         for m in (B * (N_VIS - 1) // CHUNK, B * (PROMPT - N_VIS) // CHUNK, B * (N_VIS - 1),
                   B * (PROMPT - N_VIS)):
             x = rnd(m, kk)
@@ -1664,15 +1711,16 @@ def capacity_kernel_phase(peaks, gen, out):
                 return y
 
             ref = w4.w4_matmul_plain(x, wset.copies[0]["q4"], wset.copies[0]["s4"])
-            row = {"shape": [m, kk, nn], "picked": w4.mma_tpw(m, nn)}
-            for tpw in (1, 2):
+            row = {"shape": [m, kk, nn], "picked": w4.mma_tpw(m, nn), "tpw2_ms": None}
+            for tpw in (1, 2) if nn % (2 * w4.MMA_BN) == 0 else (1,):  # TPW 2: N % 256
                 check(f"K11mma TPW={tpw} ({m}, {kk}) x {kk}x{nn}",
                       max_err(forced(tpw, wset.copies[0]), ref),
                       2 ** -7 * max(1.0, ref.abs().max().item()))
                 row[f"tpw{tpw}_ms"] = time_ms(lambda: forced(tpw, wset.next()))
             tpw_rows.append(row)
+            two = "not taken (N % 256)" if row["tpw2_ms"] is None else f"{row['tpw2_ms']:.4f} ms"
             log(f"  K11mma ({m}, {kk}) x {kk}x{nn}: TPW=1 {row['tpw1_ms']:.4f} ms, TPW=2 "
-                f"{row['tpw2_ms']:.4f} ms, mma_tpw picks {row['picked']}")
+                f"{two}, mma_tpw picks {row['picked']}")
         del wset
     k, n = 4096, 11008
     wts = [quantize_int4(rnd(k, n, dt=torch.float32).mul_(0.02)) for _ in range(4)]
@@ -3754,6 +3802,390 @@ def data_parallel_fit() -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- tensor parallelism over the model axis: two ranks on one card over gloo ----
+TP_LAYERS = 4  # LLM and ViT layers of the tensor-parallel phase's full-width bf16 model
+TP_FP32_LAYERS = 2  # LLM and ViT layers of its fp32 serving check
+TP_NEW = 64  # new tokens of its serving runs (a decode step's all-reduces cross the host)
+TP_TIMEOUT_S = 240
+
+
+def _tp_model(layers: int):
+    import dataclasses as dc
+    from mmmm_tpu_torch import MMMMConfig
+    from mmmm_tpu_torch.models.cogvlm import CogVLMConfig
+    from mmmm_tpu_torch.models.segvol import SamConfig
+
+    v = CogVLMConfig.cogvlm17b()
+    return MMMMConfig(vlm=dc.replace(v, num_hidden_layers=layers,
+                                     vision=dc.replace(v.vision, num_hidden_layers=layers)),
+                      sam=SamConfig())
+
+
+def _tp_serving_inputs():
+    """Phase 5's grounded batch (B = 4, its prompt, image and grounding
+    image), from a generator of its own: every rank makes the same."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(4, 32000, size=(B, PROMPT)).astype(np.int32)
+    tt = np.zeros((B, PROMPT), np.int32)
+    tt[:, 1:1 + N_VIS] = 1
+    pos = np.concatenate([[0, 1], np.full(N_VIS - 2, 2), [3, 4],
+                          5 + np.arange(PROMPT - N_VIS - 2)]).astype(np.int32)
+    pos = np.broadcast_to(pos, (B, PROMPT)).copy()
+    lens = np.full((B,), PROMPT, np.int32)
+    image = torch.randn((B, 3, 32, 384, 384), generator=gen, device="cuda").to(torch.bfloat16)
+    gimg = torch.randn((B, 3, 32, 256, 256), generator=gen, device="cuda")
+    return ids, tt, pos, lens, image, gimg
+
+
+def tp_worker() -> int:
+    """One rank of ``tensor_parallel_phase`` (argv: results directory, rank,
+    the store's port). It joins a gloo group over the parent's store before
+    any call of the port (``init_distributed`` then returns early), and
+    writes what it saw to ``tp_<rank>.pt``; rank 0 also runs the routes
+    without tensor parallelism (the references)."""
+    import torch.distributed as dist
+    from datetime import timedelta
+    from unittest import mock
+    from mmmm_tpu_torch import (LoraConfig, OptimizerConfig, generate_grounded, init_params,
+                                init_train_state, make_optimizer, make_train_step)
+    from mmmm_tpu_torch.models import generate as generate_mod
+    from mmmm_tpu_torch.data.tokenizer import SPECIAL_TOKENS, MMMMTokenizer, _ByteBackend
+    from mmmm_tpu_torch.models.generate import prefill_decode_state
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+    from mmmm_tpu_torch.ops.quant import qdot, quantize_llm_for_serving
+    from mmmm_tpu_torch.parallel import make_mesh
+    from mmmm_tpu_torch.parallel.distributed import destroy_distributed
+    from mmmm_tpu_torch.parallel.sharding import tp_serving_params
+    from mmmm_tpu_torch.parallel.tensor import set_model_group
+    from mmmm_tpu_torch.params import map_tree
+    from mmmm_tpu_torch.train.step import place_state
+
+    tmp, rank, port = Path(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    store = dist.TCPStore("127.0.0.1", port, 2, False, timedelta(seconds=TP_TIMEOUT_S))
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=2)
+    out = {"rank": rank, "seconds": {}}
+    t_all = time.perf_counter()
+
+    def counted(fn):
+        """``fn()`` counted and timed, with the first-token logits its route
+        computed (the input of its first ``vocab_argmax`` in
+        ``models/generate.py``: the prefill's; this rank's columns)."""
+        seen = []
+        real = generate_mod.vocab_argmax
+
+        def record(logits):
+            if not seen:
+                seen.append(logits.detach().clone())
+            return real(logits)
+
+        for kern in KERNELS.values():
+            kern.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with mock.patch.object(generate_mod, "vocab_argmax", record):
+            res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t, {n: k.launches for n, k in KERNELS.items()
+                                               if k.launches}, seen[0].float().cpu() if seen else None
+
+    # the collectives of the route through gloo on CUDA tensors, and an
+    # all-reduce's time at a decode step's (B, C)
+    dev = torch.device("cuda", 0)
+    probe = {}
+    t = torch.full((3,), rank + 1.0, device=dev, dtype=torch.bfloat16)
+    dist.all_reduce(t)
+    probe["sum_bf16"] = t.float().tolist()
+    t = torch.tensor([float(rank), -float(rank)], device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    probe["max"] = t.tolist()
+    t = torch.tensor([rank, 10 - rank], device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    probe["min_int64"] = t.tolist()
+    g = torch.zeros(4, device=dev)
+    dist.all_gather_into_tensor(g, torch.full((2,), float(rank), device=dev))
+    probe["all_gather"] = g.tolist()
+    for dt in (torch.float32, torch.bfloat16):
+        a = torch.randn((B, 4096), device=dev).to(dt)
+        dist.all_reduce(a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            dist.all_reduce(a)
+        torch.cuda.synchronize()
+        probe[f"all_reduce_{B}x4096_{str(dt)[6:]}_us"] = (time.perf_counter() - t0) / 50 * 1e6
+    out["gloo"] = probe
+
+    tok = MMMMTokenizer(_ByteBackend(), {t: 32000 + i for i, t in enumerate(SPECIAL_TOKENS)})
+    ids, tt, pos, lens, image, gimg = _tp_serving_inputs()
+    args = (ids, tt, pos, lens, image, (16, 16, 16), (2, 2, 2))
+    kw = dict(max_new_tokens=TP_NEW, max_targets=TARGETS, grounding_image=gimg,
+              force_grounding=True, vis_span=(1, 1 + N_VIS), device="cuda")
+    routes = {"greedy": {}, "spec": {"spec_draft_len": DRAFT}}
+
+    def first_logits(params, cfg):
+        with torch.inference_mode():
+            _, _, last = prefill_decode_state(
+                params["cogvlm"], cfg.vlm, *(torch.as_tensor(x, device=dev) for x in args[:4]),
+                image=image, patch_size=(16, 16, 16), pool_size=(2, 2, 2),
+                vis_span=(1, 1 + N_VIS), smax=PROMPT + 1, eos_token_id=tok.eos_token_id)
+            return qdot(last, params["cogvlm"]["llm"]["lm_head"]).float().cpu()
+
+    def serve(params, cfg, label):
+        for name, extra in routes.items():
+            res, sec, launches, first = counted(lambda: generate_grounded(params, cfg, tok, *args,
+                                                                          **kw, **extra))
+            out[f"{label}_{name}"] = {"tokens": torch.as_tensor(res.tokens), "masks":
+                                      res.masks.float().cpu(), "seconds": sec,
+                                      "launches": launches, "first_logits": first,
+                                      "iters": res.spec_stats["iters"] if res.spec_stats
+                                      else TP_NEW}
+
+    # serving: the bf16 model at TP_LAYERS, then fp32 at TP_FP32_LAYERS
+    for dtype, layers, label in ((torch.bfloat16, TP_LAYERS, "bf16"),
+                                 (torch.float32, TP_FP32_LAYERS, "fp32")):
+        t0 = time.perf_counter()
+        cfg = _tp_model(layers)
+        params = init_params(cfg, seed=0, dtype=dtype, device="cuda")
+        head = params["cogvlm"]["llm"]["lm_head"]
+        head[:, tok.bop_token_id] += 3.8  # phase 5's tag bias
+        head[:, tok.eop_token_id] += 3.6
+        set_model_group(None)  # the route without tensor parallelism serves whole weights
+        if rank == 0:
+            serve(params, cfg, f"{label}_tp1")
+            if dtype == torch.bfloat16:
+                as32 = lambda t: t.float()
+                ref = {"cogvlm": map_tree(as32, params["cogvlm"])}
+                out["fp32_first_logits"] = first_logits(ref, cfg)
+                del ref
+        dist.barrier()
+        params, impl = tp_serving_params(params, 2)
+        torch.cuda.empty_cache()
+        serve(params, cfg, f"{label}_tp2")
+        out["attn_impl"] = impl
+        del params, head
+        torch.cuda.empty_cache()
+        out["seconds"][f"serving_{label}"] = time.perf_counter() - t0
+
+    # W4A16 at TP_LAYERS: the row-parallel pieces repacked (down: 43 groups
+    # a rank, padded to 44), K11 and K11mma on each rank's columns and rows
+    t0 = time.perf_counter()
+    cfg = _tp_model(TP_LAYERS)
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    params["cogvlm"] = quantize_llm_for_serving(params["cogvlm"], bits=4)
+    torch.cuda.empty_cache()
+    set_model_group(None)
+    greedy = lambda p: generate_grounded(p, cfg, tok, *args, **kw)
+    if rank == 0:
+        res, sec, launches, first = counted(lambda: greedy(params))
+        out["w4_tp1"] = {"tokens": torch.as_tensor(res.tokens), "seconds": sec,
+                         "launches": launches, "first_logits": first}
+    dist.barrier()
+    params, _ = tp_serving_params(params, 2)
+    torch.cuda.empty_cache()
+    res, sec, launches, first = counted(lambda: greedy(params))
+    out["w4_tp2"] = {"tokens": torch.as_tensor(res.tokens), "seconds": sec,
+                     "launches": launches, "first_logits": first}
+    del params
+    torch.cuda.empty_cache()
+    out["seconds"]["serving_w4"] = time.perf_counter() - t0
+
+    # training: one fp32 step at TP_LAYERS, the semantic batch
+    t0 = time.perf_counter()
+    cfg = _tp_model(TP_LAYERS)
+    opt = make_optimizer(OptimizerConfig(lr=5e-5, warmup_steps=1, max_steps=1000))
+    lcfg = LoraConfig(r=64, alpha=8.0)
+    batch = flagship_train_batch("semantic", torch.Generator(device="cuda").manual_seed(0))
+    step_kw = dict(vg_mode="semantic", attn_impl="pallas", remat=True, vis_span="auto",
+                   device="cuda")
+    if rank == 0:
+        state, frozen = init_train_state(cfg, opt, lcfg, seed=0, device="cuda")
+        step = make_train_step(cfg, opt, lcfg, **step_kw)
+        (_, logs), sec, launches, _ = counted(lambda: step(state, frozen, batch))
+        out["train_tp1"] = {"logs": {k: float(v) for k, v in logs.items()}, "seconds": sec,
+                            "launches": launches}
+        del state, frozen, step
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = make_mesh(data=1, model=2, device="cuda")
+    state, frozen = place_state(*init_train_state(cfg, opt, lcfg, seed=0, device="cuda"), mesh)
+    step = make_train_step(cfg, opt, lcfg, mesh=mesh, **step_kw)
+    (_, logs), sec, launches, _ = counted(lambda: step(state, frozen, batch))
+    out["train_tp2"] = {"logs": {k: float(v) for k, v in logs.items()}, "seconds": sec,
+                        "launches": launches}
+    del state, frozen, step, mesh
+    out["seconds"]["training"] = time.perf_counter() - t0
+    out["seconds"]["worker"] = time.perf_counter() - t_all
+    torch.save(out, tmp / f"tp_{rank}.pt")
+    dist.barrier()
+    destroy_distributed()
+    return 0
+
+
+def tensor_parallel_phase() -> tuple[dict, dict]:
+    """Tensor parallelism over the ``model`` axis on the card: two worker
+    processes (``tp_worker``) on the one H100, each joined to a gloo group
+    over a store that this process serves (NCCL does not put two ranks on
+    one device), their tensors on the card.
+
+      - gloo carries the route's collectives on CUDA tensors (all-reduce of
+        sum, max and min, all-gather), and an all-reduce of a decode step's
+        (4, 4096) is timed;
+      - serving at the flagship's width with TP_LAYERS LLM and ViT layers in
+        bf16 (``SamConfig()``, phase 5's batch of 4): ``generate_grounded``
+        greedy and with ``spec_draft_len=7`` over ``tp_serving_params(.., 2)``
+        pieces against the same route without them (rank 0, the same seeded
+        weights): the first-token logits that each of the four runs
+        computed in its own prefill (a rank's columns joined) held to an
+        fp32 prefill by ``first_token_gate``'s bounds, each rank's launches exact
+        (K4 TP_LAYERS + 12 SAM encoder layers, K3 TP_LAYERS, K1 TP_LAYERS a
+        token, K6 TP_LAYERS a verify step); at TP_FP32_LAYERS layers in fp32
+        the tokens equal and the masks within 2e-4;
+      - training: one fp32 ``make_train_step(mesh=(data 1, model 2))`` step
+        (phase 6's semantic batch, LoRA r 64) against the step without a
+        mesh: loss and gradient norm within 1e-5 relative, each rank's K3
+        and K7 launches exact;
+      - W4A16 greedy at TP_LAYERS over pieces of the int4 weights (a row
+        piece of 43 scale groups repacked with a 44th of zero weights):
+        each rank's K11 / K11mma launches those of one rank, the run's
+        first-token logits within ``DP_LOGIT_REL_BOUND`` of one rank's (K11
+        and K11mma are held to their plain version at these pieces' shapes
+        in phase 3, ``W4_TP_SHAPES``).
+
+    Returns the readings and rank 0's launches of each counted run."""
+    import tempfile
+    from datetime import timedelta
+    import torch.distributed as dist
+
+    log(f"tensor parallel: 2 ranks on one card over gloo, full width, {TP_LAYERS} layers "
+        f"(bf16), {TP_FP32_LAYERS} (fp32)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
+    store = dist.TCPStore("127.0.0.1", 0, 2, True, timedelta(seconds=TP_TIMEOUT_S),
+                          wait_for_workers=False)
+    here = Path(__file__).resolve().parent
+    procs = [subprocess.Popen([sys.executable, "-c",
+                               "import sys, chip_smoke; sys.exit(chip_smoke.tp_worker())",
+                               str(tmp), str(r), str(store.port)], cwd=here,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        errs = []
+        for p in procs:
+            o, e = p.communicate(timeout=TP_TIMEOUT_S)
+            if p.returncode != 0:
+                errs.append(f"rank {procs.index(p)} exit {p.returncode}: {e[-3000:]}")
+        if errs:
+            raise AssertionError("tensor parallel workers failed: " + " | ".join(errs))
+        ranks = [torch.load(tmp / f"tp_{r}.pt", weights_only=False) for r in range(2)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+        del store
+    r0 = ranks[0]
+    res = {"gloo": r0["gloo"], "attn_impl": r0["attn_impl"],
+           "worker_s": [r["seconds"] for r in ranks]}
+    log(f"  gloo on CUDA tensors: {r0['gloo']}")
+    if r0["gloo"]["max"] != [1.0, 0.0] or r0["gloo"]["min_int64"] != [0, 9] or \
+            r0["gloo"]["all_gather"] != [0.0, 0.0, 1.0, 1.0] or r0["gloo"]["sum_bf16"] != [3.0] * 3:
+        raise AssertionError(f"gloo's collectives on CUDA tensors: {r0['gloo']}")
+    if r0["attn_impl"] != "auto":
+        raise AssertionError(f"tp_serving_params: attn_impl {r0['attn_impl']}")
+    # each rank's launches, exact
+    for label, layers in (("bf16", TP_LAYERS), ("fp32", TP_FP32_LAYERS)):
+        for name in ("greedy", "spec"):
+            for route in ("tp1", "tp2"):
+                for r in (ranks if route == "tp2" else ranks[:1]):
+                    run = r[f"{label}_{route}_{name}"]
+                    want = {"K4": layers + SAM_LAYERS, "K3": layers}
+                    want.update({"K1": layers * TP_NEW} if name == "greedy"
+                                else {"K6": layers * run["iters"]})
+                    if run["launches"] != want:
+                        raise AssertionError(f"tensor parallel {label} {route} {name} rank "
+                                             f"{r['rank']}: launches {run['launches']}, "
+                                             f"expected {want}")
+            t1, t2 = r0[f"{label}_tp1_{name}"], r0[f"{label}_tp2_{name}"]
+            same = [bool(torch.equal(r[f"{label}_tp2_{name}"]["tokens"], t2["tokens"]))
+                    for r in ranks]
+            if not all(same):
+                raise AssertionError(f"tensor parallel {label} {name}: the ranks' tokens differ")
+            equal = (t1["tokens"] == t2["tokens"]).float().mean().item()
+            mask_err = max_err(t1["masks"], t2["masks"])
+            res[f"{label}_{name}"] = {
+                "tp1_s": t1["seconds"], "tp2_s": [r[f"{label}_tp2_{name}"]["seconds"]
+                                                  for r in ranks],
+                "tokens_equal_share": equal, "masks_max_abs": mask_err,
+                "launches_rank": [r[f"{label}_tp2_{name}"]["launches"] for r in ranks],
+                "iters": [t1["iters"], t2["iters"]]}
+            log(f"  {label} {name}: tp1 {t1['seconds']:.3f} s, tp2 "
+                f"{[round(x, 3) for x in res[f'{label}_{name}']['tp2_s']]} s, tokens equal "
+                f"{equal:.4f}, masks max |d| {mask_err:.3e}, launches a rank "
+                f"{t2['launches']}")
+            if label == "fp32":
+                if equal != 1.0:
+                    raise AssertionError(f"tensor parallel fp32 {name}: tokens differ")
+                check(f"tensor parallel fp32 {name} masks vs tp1", mask_err, 2e-4)
+    # each bf16 route's first-token logits, as the route computed them in its
+    # run (the two ranks' columns joined), held to the fp32 prefill's
+    ref = r0["fp32_first_logits"]
+    joined = lambda key: torch.cat([r[key]["first_logits"] for r in ranks], dim=-1)
+    firsts = {"tp1_greedy": r0["bf16_tp1_greedy"]["first_logits"],
+              "tp1_spec": r0["bf16_tp1_spec"]["first_logits"],
+              "tp2_greedy": joined("bf16_tp2_greedy"), "tp2_spec": joined("bf16_tp2_spec")}
+    gate_runs = {kind: {"record": [{"first_logits": list(l)}]} for kind, l in firsts.items()}
+    res["first_token_gate"] = first_token_gate(gate_runs, ref, TP_LAYERS)
+    res["first_logits_tp2_vs_tp1_max_abs"] = {
+        name: max_err(firsts[f"tp2_{name}"], firsts[f"tp1_{name}"]) for name in ("greedy", "spec")}
+    # W4A16 at tp=2: each rank's launches those of one rank, and the first-token
+    # logits within the gate's relative bound of one rank's
+    w1, w2 = r0["w4_tp1"], [r["w4_tp2"] for r in ranks]
+    if any(w["launches"] != w1["launches"] for w in w2) or not w1["launches"].get("K11"):
+        raise AssertionError(f"tensor parallel W4A16: launches a rank {[w['launches'] for w in w2]}"
+                             f", one rank {w1['launches']}")
+    lg1 = w1["first_logits"]
+    lg2 = joined("w4_tp2")
+    w4_rel = ((lg2 - lg1).norm(dim=-1) / (lg1 - lg1.mean(-1, keepdim=True)).norm(dim=-1)).max()
+    res["w4_greedy"] = {"tp1_s": w1["seconds"], "tp2_s": [w["seconds"] for w in w2],
+                        "launches_rank": w2[0]["launches"], "first_logits_rel": float(w4_rel),
+                        "tokens_equal_share": (w1["tokens"] == w2[0]["tokens"]).float().mean()
+                        .item()}
+    log(f"  W4A16 greedy: tp1 {w1['seconds']:.3f} s, tp2 {[round(w['seconds'], 3) for w in w2]}"
+        f" s, launches a rank {w2[0]['launches']}, first-token logits relative "
+        f"{float(w4_rel):.4f}, tokens equal {res['w4_greedy']['tokens_equal_share']:.4f}")
+    check("tensor parallel W4A16 first-token logits vs one rank (relative)", float(w4_rel),
+          DP_LOGIT_REL_BOUND)
+    # training
+    a, b = r0["train_tp1"], [r["train_tp2"] for r in ranks]
+    if b[0]["logs"] != b[1]["logs"]:
+        raise AssertionError(f"tensor parallel step: the ranks' logs differ {b}")
+    want = {k: v for k, v in fit_launches_expected(_tp_model(TP_LAYERS), "semantic").items()
+            if v}
+    for r, run in enumerate(b):
+        if run["launches"] != want or a["launches"] != want:
+            raise AssertionError(f"tensor parallel step rank {r}: launches {run['launches']} "
+                                 f"(tp1 {a['launches']}), expected {want}")
+    rel = {k: abs(b[0]["logs"][k] - a["logs"][k]) / abs(a["logs"][k])
+           for k in ("loss", "grad_norm")}
+    res["train"] = {"tp1": a, "tp2": b, "rel_err": rel}
+    log(f"  train step: tp1 {a['seconds']:.3f} s {a['logs']}, tp2 "
+        f"{[round(x['seconds'], 3) for x in b]} s {b[0]['logs']}, launches a rank "
+        f"{b[0]['launches']}")
+    for k, v in rel.items():
+        check(f"tensor parallel step {k} vs tp1 (relative)", v, 1e-5)
+    launches = {f"{label}_{name}": r0[f"{label}_tp2_{name}"]["launches"]
+                for label in ("bf16", "fp32") for name in ("greedy", "spec")}
+    launches["w4_greedy"] = r0["w4_tp2"]["launches"]
+    launches["train_semantic"] = b[0]["launches"]
+    return res, launches
+
+
 # ---- the finetune command (scripts/finetune/cli.py) ----------------------------------
 # conf/finetune/mmmm-vqa.yaml as load_yaml resolves it, less its model and LoRA
 # (../model.yaml, ../lora.yaml: the flagship and LORA_YAML), held to the file
@@ -5361,19 +5793,20 @@ def fp32_first_logits(llm: dict, vcfg, tok, prompts: list) -> torch.Tensor:
 DP_LOGIT_BOUND, DP_LOGIT_REL_BOUND, DP_ARGMAX_SIGMAS = 24.0, 0.2, 4.0
 
 
-def first_token_gate(runs: dict, ref: torch.Tensor) -> dict:
+def first_token_gate(runs: dict, ref: torch.Tensor, layers: int = LAYERS) -> dict:
     """Each bf16 route's first-token logits in its first call (MIMIC's
     first cleaning pass over the studies), as the route computed them, held
     to the fp32 static prefill's ``ref``: every row within
     ``DP_LOGIT_BOUND`` and ``DP_LOGIT_REL_BOUND``; every route's argmax
     equal to fp32's wherever fp32's top-2 gap exceeds ``DP_ARGMAX_SIGMAS``
-    times bf16's spread on that row (the static bf16 route's RMS distance,
-    measured here). Logs the readings before it checks them."""
+    times bf16's spread on that row (the first route's RMS distance, the
+    static bf16 one's, measured here). Logs the readings before it checks
+    them."""
     top2 = ref.topk(2, dim=-1).values
     gap = top2[:, 0] - top2[:, 1]
     centred = (ref - ref.mean(-1, keepdim=True)).norm(dim=-1)
     logits = {}
-    for kind in ("static", "continuous", "spec"):
+    for kind in runs:
         rows = runs[kind]["record"][0]["first_logits"]
         if any(r is None for r in rows):
             raise AssertionError(f"{kind}: the route's first-token logits of "
@@ -5385,12 +5818,13 @@ def first_token_gate(runs: dict, ref: torch.Tensor) -> dict:
         out[kind] = {"max_abs_vs_fp32": (l - ref).abs().amax(-1).tolist(),
                      "rel_vs_fp32": ((l - ref).norm(dim=-1) / centred).tolist(),
                      "argmax": l.argmax(-1).tolist()}
-    out["static_vs_prefix_max_abs"] = (logits["continuous"] - logits["static"]).abs().amax(
-        -1).tolist()
-    spread = (logits["static"] - ref).pow(2).mean(-1).sqrt()
+    if {"static", "continuous"} <= set(logits):
+        out["static_vs_prefix_max_abs"] = (logits["continuous"] - logits["static"]).abs().amax(
+            -1).tolist()
+    spread = (logits[next(iter(logits))] - ref).pow(2).mean(-1).sqrt()
     out["bf16_rms_spread"] = spread.tolist()
     out["argmax_checked_rows"] = (gap > DP_ARGMAX_SIGMAS * spread).nonzero().flatten().tolist()
-    log(f"  first-token logits vs the fp32 static prefill (32 layers): {json.dumps(out)}")
+    log(f"  first-token logits vs the fp32 static prefill ({layers} layers): {json.dumps(out)}")
     for kind in logits:
         r = out[kind]
         if max(r["max_abs_vs_fp32"]) > DP_LOGIT_BOUND or \
@@ -6101,6 +6535,8 @@ def main() -> int:
         results["data_parallel"], mesh_launches = phase("data_parallel", data_parallel_phase)
         gc.collect()
         torch.cuda.empty_cache()
+        results["tensor_parallel"], tp_launches = phase("tensor_parallel",
+                                                        tensor_parallel_phase)
         results["entry"], entry_launches = phase("entry", entry_phase, keep / "adapter.npz", peaks)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
@@ -6170,6 +6606,10 @@ def main() -> int:
         entry["launches_mesh"] = mesh_launches.get(counter, 0)
         entry["launches_no_mesh_same_depth"] = results["data_parallel"]["launches_no_mesh"].get(
             counter, 0)
+        # each rank's launches in phase 7c's counted runs (tensor parallel over
+        # 2 ranks on one card: the bf16 and fp32 serving routes, the fp32 step)
+        entry["launches_tensor_parallel_rank"] = {label: n.get(counter, 0) for label, n in
+                                                  tp_launches.items()}
         # the data-preparation runs (clean/tag-reports routes, self-label)
         entry["launches_data_prep"] = {label: n.get(counter, 0) for label, n in
                                        dp_launches.items()}

@@ -43,8 +43,11 @@ interpolation) and builders. Every command runs on the card unless
 each (gloo processes with ``--device cpu``), launched with
 ``COORDINATOR_ADDRESS=host:port NUM_PROCESSES=N PROCESS_ID=i`` in each
 process's environment (``trainer.mesh_data`` defaults to ``gcd(batch_size,
-N)``, which must be N; ``train/trainer.py``); ``trainer.mesh_model``,
-``mesh_seq`` and ``mesh_pipe`` must be 1 (ROADMAP Queue 1 items 8b, 8c);
+N / mesh_model)``; ``train/trainer.py``), and tensor parallel with
+``trainer.mesh_model`` above 1; ``mesh_seq`` and ``mesh_pipe`` must be 1
+(ROADMAP Queue 1 item 8c); ``demo`` and ``predict`` serve tensor parallel
+over N such processes with ``--tp N`` (``parallel/sharding.py
+tp_serving_params``);
 ``finetune`` (``scripts/finetune/cli.py``) is ``fit`` over the one
 vision-language dataset in ``--dataset-dir``, with the task's transform
 ratios, warm-started from an ``adapter.npz`` (the JAX package's
@@ -290,11 +293,22 @@ def _data_conf(cfg: dict):
     return build(DatasetConf, (cfg.get("data") or {}).get("conf") or {})
 
 
-def _no_tp(n: int) -> None:
-    if n != 1:
-        raise NotImplementedError(
-            f"--tp {n}: tensor-parallel serving is not ported yet (ROADMAP.md Queue 1, "
-            "item 8b, tensor parallelism); the port serves on one card")
+def _tp_params(params: dict, tp: int) -> tuple[dict, bool]:
+    """``--tp``: this process's piece of the weights over ``tp`` processes
+    (``parallel/sharding.py tp_serving_params``; each process runs the same
+    command with ``COORDINATOR_ADDRESS``, ``NUM_PROCESSES`` and
+    ``PROCESS_ID``, one device each; one process with ``--tp 2`` raises and
+    names them), and whether this process prints and writes (global rank
+    0)."""
+    from .parallel import process_rank
+    from .parallel.sharding import tp_serving_params
+
+    params, _ = tp_serving_params(params, tp)
+    return params, process_rank()[0] == 0
+
+
+def _quiet(*args, **kwargs) -> None:
+    """``print`` on the processes that do not print (``--tp``)."""
 
 
 def cmd_demo(args, loaded=None) -> list:
@@ -306,9 +320,10 @@ def cmd_demo(args, loaded=None) -> list:
     from .data.input_builder import prepare_vlm_inputs
     from .models.inference import generate_grounded
 
-    _no_tp(args.tp)
     model, params, tokenizer, cfg = loaded or load_model(args.config, args.adapter,
                                                          args.quantize, args.device)
+    params, writer = _tp_params(params, args.tp)
+    say = print if writer else _quiet
     image, grounding_image, patch, pool, n_tokens = prepare_image(args.image, _data_conf(cfg))
     results = []
 
@@ -323,36 +338,49 @@ def cmd_demo(args, loaded=None) -> list:
             grounding_image=grounding_image[None], instance=args.instance,
             kv_cache_dtype=args.kv_cache, spec_draft_len=args.speculate, device=args.device)
         results.append(res)
-        print("=== generated ===")
-        print(res.text[0])
-        print("=== grounded targets ===")
-        print(res.targets[0])
+        say("=== generated ===")
+        say(res.text[0])
+        say("=== grounded targets ===")
+        say(res.targets[0])
         valid = res.target_valid
         if res.masks is not None and valid is not None and valid.any():
             probs = torch.sigmoid(res.masks[0].float())
             for i in range(int(valid[0].sum())):
-                print(f"target {i}: mask voxels>0.5 = {int((probs[i] > 0.5).sum())}")
+                say(f"target {i}: mask voxels>0.5 = {int((probs[i] > 0.5).sum())}")
         if res.boxes is not None and valid is not None and valid.any():
             disc = torch.sigmoid(res.disc_logit[0]).cpu().numpy()
             boxes = res.boxes[0].cpu().numpy()
             for i in range(int(valid[0].sum())):
                 best = int(np.argmax(disc[i]))
-                print(f"target {i}: best instance p={disc[i, best]:.3f} "
+                say(f"target {i}: best instance p={disc[i, best]:.3f} "
                       f"box={np.round(boxes[i, best], 3)}")
         return res.text[0]
 
     conversation = [ConvTurn(args.question, "")]
     answer = run_turn(conversation)
     if args.interactive:
-        print("(enter follow-up questions; empty line to quit)")
-        for line in sys.stdin:
-            q = line.strip()
+        say("(enter follow-up questions; empty line to quit)")
+        while True:
+            q = _read_question(writer, args.tp)
             if not q:
                 break
             conversation = conversation[:-1] + [ConvTurn(conversation[-1].prompt, answer),
                                                 ConvTurn(q, "")]
             answer = run_turn(conversation)
     return results
+
+
+def _read_question(writer: bool, tp: int) -> str:
+    """The next stripped line of standard input ("" at its end); under
+    ``--tp`` process 0 reads it and every process of the run gets it."""
+    line = (sys.stdin.readline() if writer else "").strip()
+    if tp > 1:
+        import torch.distributed as dist
+
+        box = [line]
+        dist.broadcast_object_list(box, src=0)
+        line = box[0]
+    return line
 
 
 def iter_vqa_items(dataset_dir: Path, limit=None):
@@ -402,9 +430,9 @@ def cmd_predict(args, loaded=None) -> list:
     from .models.inference import generate_grounded
     from .models.serving import GroundedServer
 
-    _no_tp(args.tp)
     model, params, tokenizer, cfg = loaded or load_model(args.config, args.adapter,
                                                          args.quantize, args.device)
+    params, writer = _tp_params(params, args.tp)
     dconf = _data_conf(cfg)
     dataset_dir = Path(args.dataset_dir)
     if args.task == "vqa":
@@ -429,7 +457,8 @@ def cmd_predict(args, loaded=None) -> list:
     def put(i, text):
         item = prepared[i][1]
         rows[i] = {"question": item["question"], "answer": item["answer"], "prediction": text}
-        print(f"[{i}] {text[:60]!r}", flush=True)
+        if writer:
+            print(f"[{i}] {text[:60]!r}", flush=True)
 
     if args.continuous:
         families: dict = {}
@@ -473,7 +502,8 @@ def cmd_predict(args, loaded=None) -> list:
                 for row, i in enumerate(chunk):
                     put(i, res.text[row])
     rows = [r for r in rows if r is not None]
-    _write_predictions(args.output, rows)
+    if writer:
+        _write_predictions(args.output, rows)
     return rows
 
 
@@ -883,7 +913,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                       help="n-gram speculative decoding with K drafts a step (0 = greedy); "
                            "the same tokens as greedy")
     demo.add_argument("--tp", type=int, default=1, metavar="N",
-                      help="tensor-parallel serving over N devices (not ported: 1 only)")
+                      help="tensor-parallel serving over N processes, one device each "
+                           "(COORDINATOR_ADDRESS, NUM_PROCESSES, PROCESS_ID): each holds 1/N "
+                           "of the weights; process 0 prints")
     demo.add_argument("--interactive", action="store_true",
                       help="multi-turn: read follow-up questions from stdin")
     demo.add_argument("--device", default="cuda")
@@ -894,7 +926,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     pred.add_argument("--adapter")
     pred.add_argument("--quantize", action="store_true", help="W8A16 int8 LLM weights")
     pred.add_argument("--tp", type=int, default=1, metavar="N",
-                      help="tensor-parallel serving over N devices (not ported: 1 only)")
+                      help="tensor-parallel serving over N processes, one device each "
+                           "(COORDINATOR_ADDRESS, NUM_PROCESSES, PROCESS_ID): each holds 1/N "
+                           "of the weights; process 0 prints and writes the CSV")
     pred.add_argument("--task", choices=["vqa", "report"], required=True)
     pred.add_argument("--dataset-dir", required=True)
     pred.add_argument("--output", required=True)

@@ -12,6 +12,13 @@ SwiGLU MLP weights). Three routings are kept from the reference:
     language / vision / language runs, each through one expert;
   - ``lang_only`` for decode, where every token is provably language-routed.
 
+Under tensor parallelism (``parallel/tensor.py``, a model group set) each
+process holds whole heads of q, k and v and its columns of the MLP
+(``parallel/sharding.py local_params``): a layer reads its head count from
+its qkv weight, its caches are (B, H / tp, Smax, D), and the row-parallel
+dense and MLP-down products are summed over the group (one all-reduce
+each); the expert routing is the same on every process.
+
 Every projection goes through ``qdot``, so the LLM weights may be plain,
 int8 ``{"q", "s"}`` or int4 ``{"q4", "s4"}`` leaves (``ops/quant.py``). Two
 switches of the reference are keywords here: ``w8a8`` (``MMMM_W8A8``) runs
@@ -65,6 +72,8 @@ from ...ops.quant import dequantize_kv, qdot, quantize_kv
 from ...ops.numerics import current
 from ...ops.remat import ATTN_OUT, remat_call
 from ...ops.rope import apply_rope, rope_cos_sin
+from ...parallel.tensor import (check_local, copy_to_model, local_count, model_group,
+                                reduce_from_model)
 from ...params import layer
 from ...peft.lora import materialize
 from .config import CogVLMConfig
@@ -81,47 +90,57 @@ def vision_expert_mask(token_type_ids: torch.Tensor) -> torch.Tensor:
     return F.pad(m, (0, 1), value=False)
 
 
-def _swiglu(t, mp, qd=qdot):
-    return qd(F.silu(qd(t, mp["gate"])) * qd(t, mp["up"]), mp["down"])
+def _swiglu(t, mp, qd=qdot, qr=qdot):
+    return qr(F.silu(qd(t, mp["gate"])) * qd(t, mp["up"]), mp["down"])
 
 
 def _routing(lp, *, vis_mask=None, expert_span=None, lang_only=False, act_quant=False):
     """(dual, mlp) callables for one layer's expert routing; ``act_quant``
-    (W8A8) applies to the ``lang_only`` and ``expert_span`` routings."""
+    (W8A8) applies to the ``lang_only`` and ``expert_span`` routings, where
+    a row-parallel product (``dual(..., row=True)``, ``down``) takes its
+    activations' scale over the model group."""
     qd = partial(qdot, act_quant=act_quant)
+    qr = partial(qdot, act_quant=act_quant, group=model_group() if act_quant else None)
     if lang_only:
-        return (lambda t, wv, wl: qd(t, wl)), (lambda t: _swiglu(t, lp["lang_mlp"], qd))
+        return ((lambda t, wv, wl, row=False: (qr if row else qd)(t, wl)),
+                (lambda t: _swiglu(t, lp["lang_mlp"], qd, qr)))
     if expert_span is not None:
         lo, hi = expert_span
 
-        def dual(t, wv, wl):
-            return torch.cat([qd(t[:, :lo], wl), qd(t[:, lo:hi], wv), qd(t[:, hi:], wl)], dim=1)
+        def dual(t, wv, wl, row=False):
+            q = qr if row else qd
+            return torch.cat([q(t[:, :lo], wl), q(t[:, lo:hi], wv), q(t[:, hi:], wl)], dim=1)
 
         def mlp(t):
-            return torch.cat([_swiglu(t[:, :lo], lp["lang_mlp"], qd),
-                              _swiglu(t[:, lo:hi], lp["vis_mlp"], qd),
-                              _swiglu(t[:, hi:], lp["lang_mlp"], qd)], dim=1)
+            return torch.cat([_swiglu(t[:, :lo], lp["lang_mlp"], qd, qr),
+                              _swiglu(t[:, lo:hi], lp["vis_mlp"], qd, qr),
+                              _swiglu(t[:, hi:], lp["lang_mlp"], qd, qr)], dim=1)
 
         return dual, mlp
     sel = vis_mask[..., None]
-    return ((lambda t, wv, wl: torch.where(sel, qdot(t, wv), qdot(t, wl))),
+    return ((lambda t, wv, wl, row=False: torch.where(sel, qdot(t, wv), qdot(t, wl))),
             (lambda t: torch.where(sel, _swiglu(t, lp["vis_mlp"]), _swiglu(t, lp["lang_mlp"]))))
 
 
 def _decoder_layer(x, lp, cfg: CogVLMConfig, *, position_ids, cos, sin, attend, routing):
-    """One visual-expert layer; ``attend(q, k, v)`` returns the (B, S, H, D)
+    """One visual-expert layer over this process's heads (all of them
+    without a model group); ``attend(q, k, v)`` returns the (B, S, H, D)
     attention output."""
-    b, s, c = x.shape
-    h, d = cfg.num_attention_heads, cfg.head_dim
+    b, s, _ = x.shape
+    d = cfg.head_dim
     dual, mlp = routing
     residual = x
-    x = rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
+    x = copy_to_model(rms_norm(x, lp["input_ln"], cfg.rms_norm_eps))
     qkv = dual(x, lp["vis_qkv"], lp["lang_qkv"])
-    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(c, dim=-1))
+    h = qkv.shape[-1] // (3 * d)
+    check_local(h, cfg.num_attention_heads, "the LLM's attention heads")
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
     q, k = apply_rope(q, k, cos, sin, position_ids)
     ctx = attend(q.contiguous(), k.contiguous(), v.contiguous())
-    x = residual + dual(ctx.reshape(b, s, c), lp["vis_dense"], lp["lang_dense"])
-    return x + mlp(rms_norm(x, lp["post_ln"], cfg.rms_norm_eps))
+    x = residual + reduce_from_model(dual(ctx.reshape(b, s, h * d), lp["vis_dense"],
+                                          lp["lang_dense"], row=True))
+    return x + reduce_from_model(mlp(copy_to_model(rms_norm(x, lp["post_ln"],
+                                                            cfg.rms_norm_eps))))
 
 
 def llm_forward(params: dict, cfg: CogVLMConfig, inputs_embeds, token_type_ids, position_ids,
@@ -153,6 +172,12 @@ def llm_forward(params: dict, cfg: CogVLMConfig, inputs_embeds, token_type_ids, 
     for li in range(cfg.num_hidden_layers):
         x = remat_call(body, remat, x, layer(params["layers"], li))
     return rms_norm(x, params["norm"], cfg.rms_norm_eps)
+
+
+def cache_heads(cfg: CogVLMConfig) -> int:
+    """The heads of this process's caches: all of them, or its share under a
+    model group."""
+    return local_count(cfg.num_attention_heads, "attention heads")
 
 
 def empty_cache(b: int, h: int, smax: int, d: int, dtype, device, kv_cache_dtype: str):
@@ -195,7 +220,7 @@ def llm_prefill(params: dict, cfg: CogVLMConfig, inputs_embeds, token_type_ids, 
     model's dtype, or with ``kv_cache_dtype="int8"`` a per-slot quantized
     dict (the prefill's own attention reads the unquantized K/V). ``caches``
     gives the per-layer caches to write (views of larger ones, for chunked
-    prefill); by default they are allocated here.
+    prefill); by default they are allocated here, with this process's heads.
 
     ``vis_span=(lo, hi)`` declares every row's vision tokens are [lo, hi),
     so layers take the static span path over [lo, hi - 1) (the off-by-one
@@ -205,7 +230,7 @@ def llm_prefill(params: dict, cfg: CogVLMConfig, inputs_embeds, token_type_ids, 
         raise ValueError(f"kv_cache_dtype must be 'bf16' or 'int8', got {kv_cache_dtype!r}")
     b, d = inputs_embeds.shape[0], cfg.head_dim
     if caches is None:
-        caches = [empty_cache(b, cfg.num_attention_heads, smax, d, inputs_embeds.dtype,
+        caches = [empty_cache(b, cache_heads(cfg), smax, d, inputs_embeds.dtype,
                               inputs_embeds.device, kv_cache_dtype)
                   for _ in range(cfg.num_hidden_layers)]
     cos, sin = rope_cos_sin(cfg.max_position_embeddings, d, device=inputs_embeds.device)

@@ -29,7 +29,9 @@ def cogvlm_forward(params: dict, cfg: CogVLMConfig, input_ids, token_type_ids, p
     full packed sequence. ``vis_span="auto"`` becomes ``(1, 1 + n_vis)``
     when an image is spliced (the data layer's layout) and None without
     one; ``return_logits=False`` skips the dense projection (the training
-    step's fused CE takes the hidden states)."""
+    step's fused CE takes the hidden states). Under a model group
+    (``parallel/tensor.py``) the logits are this process's piece of the
+    vocabulary."""
     emb = params["llm"]["embed_tokens"][input_ids.long()]
     if image is not None:
         with record_function("vit"):

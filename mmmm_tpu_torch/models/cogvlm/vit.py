@@ -9,6 +9,13 @@ output (B, 2 + T', C_llm). The attention is ``segment_attention`` over one
 all-valid segment (``impl="auto"``: kernel K4 on the card; ``"pallas"``:
 K3 forward, K7 backward). Each layer runs inside ``remat_call`` and merges
 its LoRA leaves there; the GLU's are merged where it runs.
+
+Under tensor parallelism (``parallel/tensor.py``) each process holds whole
+heads of the (padded) qkv weight, its columns of ``fc1`` and of the GLU's
+``gate`` / ``h4h`` and the matching rows of ``dense_w``, ``fc2_w`` and
+``4hh``: each of those three products is summed over the model group, and
+its replicated bias is added once, after the sum. The softmax scale stays
+that of the whole head count.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ from ...ops.gelu import gelu
 from ...ops.norm import layer_norm
 from ...ops.resample import resample_nd, variable_patch_embed_3d
 from ...ops.remat import remat_call
+from ...parallel.tensor import check_local, copy_to_model, local_count, reduce_from_model
 from ...params import layer
 from ...peft.lora import materialize
 from .config import CogVLMConfig
@@ -32,18 +40,23 @@ def _dot(x, w):
     return x.to(ct) @ w.to(ct)
 
 
-def _vit_layer(x, lp, *, num_heads: int, eps: float, segments, attn_impl: str):
+def _vit_layer(x, lp, *, num_heads: int, width: int, eps: float, segments, attn_impl: str):
+    """One post-norm layer over this process's heads; ``num_heads`` and
+    ``width`` (the MLP's) are the whole layer's."""
     lp = materialize(lp)
     b, s, c = x.shape
-    head_dim = lp["qkv_w"].shape[-1] // (3 * num_heads)
-    scale = (c // num_heads) ** -0.5
-    qkv = _dot(x, lp["qkv_w"]) + lp["qkv_b"]
-    q, k, v = (t.contiguous() for t in qkv.reshape(b, s, 3 * num_heads, head_dim).chunk(3, dim=2))
+    heads = local_count(num_heads, "ViT heads")
+    check_local(lp["fc1_w"].shape[-1], width, "the ViT's MLP columns")
+    head_dim = lp["qkv_w"].shape[-1] // (3 * heads)
+    scale = (c // num_heads) ** -0.5  # the whole head count's, also on a piece
+    xin = copy_to_model(x)
+    qkv = _dot(xin, lp["qkv_w"]) + lp["qkv_b"]
+    q, k, v = (t.contiguous() for t in qkv.reshape(b, s, 3 * heads, head_dim).chunk(3, dim=2))
     attn = segment_attention(q, k, v, segments, impl=attn_impl, scale=scale, all_valid=True)
-    attn = _dot(attn.reshape(b, s, num_heads * head_dim), lp["dense_w"]) + lp["dense_b"]
-    x = x + layer_norm(attn, lp["ln1_w"], lp["ln1_b"], eps)
-    h = gelu(_dot(x, lp["fc1_w"]) + lp["fc1_b"])
-    h = _dot(h, lp["fc2_w"]) + lp["fc2_b"]
+    attn = reduce_from_model(_dot(attn.reshape(b, s, heads * head_dim), lp["dense_w"]))
+    x = x + layer_norm(attn + lp["dense_b"], lp["ln1_w"], lp["ln1_b"], eps)
+    h = gelu(_dot(copy_to_model(x), lp["fc1_w"]) + lp["fc1_b"])
+    h = reduce_from_model(_dot(h, lp["fc2_w"])) + lp["fc2_b"]
     return x + layer_norm(h, lp["ln2_w"], lp["ln2_b"], eps)
 
 
@@ -101,8 +114,8 @@ def vit_forward(params: dict, cfg: CogVLMConfig, image: torch.Tensor,
     segments = torch.ones(x.shape[:2], dtype=torch.int32, device=x.device)
 
     def body(h, lp):
-        return _vit_layer(h, lp, num_heads=v.num_heads, eps=v.layer_norm_eps,
-                          segments=segments, attn_impl=attn_impl)
+        return _vit_layer(h, lp, num_heads=v.num_heads, width=v.intermediate_size,
+                          eps=v.layer_norm_eps, segments=segments, attn_impl=attn_impl)
 
     for li in range(v.num_hidden_layers):
         x = remat_call(body, remat, x, layer(params["layers"], li))
@@ -112,9 +125,10 @@ def vit_forward(params: dict, cfg: CogVLMConfig, image: torch.Tensor,
         x = _max_pool(x, pool_size).reshape(b, c, -1).transpose(1, 2)
     g = materialize(params["glu"])
     x = _dot(x, g["linear_proj"])
-    x = gelu(layer_norm(x, g["ln_w"], g["ln_b"]))
+    x = copy_to_model(gelu(layer_norm(x, g["ln_w"], g["ln_b"])))
+    check_local(g["gate"].shape[-1], cfg.intermediate_size, "the GLU's columns")
     x = F.silu(_dot(x, g["gate"])) * _dot(x, g["h4h"])
-    x = _dot(x, g["4hh"])
+    x = reduce_from_model(_dot(x, g["4hh"]))
     boi = params["boi"].to(x.dtype)[None, None].expand(b, 1, x.shape[-1])
     eoi = params["eoi"].to(x.dtype)[None, None].expand(b, 1, x.shape[-1])
     return torch.cat([boi, x, eoi], dim=1)

@@ -15,6 +15,10 @@ the device (no host sync per step). Kept from the reference:
   - done/eos masking: after eos every token is eos and is not counted;
   - hidden-state alignment: ``hidden[:, t]`` is the state that produced
     ``tokens[:, t]``, which is what SAM prompting gathers.
+
+Under a model group (``parallel/tensor.py``) the ``lm_head`` is this
+process's piece of the vocabulary and each token is the vocabulary-parallel
+argmax (``vocab_argmax``): every process feeds the same tokens.
 """
 from __future__ import annotations
 
@@ -24,8 +28,9 @@ import torch
 from torch.profiler import record_function
 
 from ..ops.quant import qdot
+from ..parallel.tensor import vocab_argmax
 from .cogvlm import CogVLMConfig
-from .cogvlm.decoder import cache_rows, empty_cache, llm_decode_step, llm_prefill
+from .cogvlm.decoder import cache_heads, cache_rows, empty_cache, llm_decode_step, llm_prefill
 from .cogvlm.model import splice_vision_embeds
 from .cogvlm.vit import vit_forward
 
@@ -67,7 +72,7 @@ def prefill_decode_state(params: dict, cfg: CogVLMConfig, input_ids, token_type_
     rows = torch.arange(b, device=dev)
     last_idx = prompt_len.long() - 1
     last_hidden = hidden[rows, last_idx]  # (B, C)
-    tok0 = torch.argmax(qdot(last_hidden, llm["lm_head"]).float(), dim=-1).to(torch.int32)
+    tok0 = vocab_argmax(qdot(last_hidden, llm["lm_head"]).float()).to(torch.int32)
     state = {
         "caches": caches,
         "tok": tok0,  # token to feed next
@@ -118,7 +123,7 @@ def chunked_prefill_decode_state(params: dict, cfg: CogVLMConfig, input_ids, tok
     ids, tt, pos, plen = pad(input_ids), pad(token_type_ids), pad(position_ids), pad(prompt_len, 1)
     img = None if image is None else pad(image)
     llm = params["llm"]
-    caches = [empty_cache(bp, cfg.num_attention_heads, kw["smax"], cfg.head_dim,
+    caches = [empty_cache(bp, cache_heads(cfg), kw["smax"], cfg.head_dim,
                           llm["embed_tokens"].dtype, ids.device,
                           kw.get("kv_cache_dtype", "bf16"))
               for _ in range(cfg.num_hidden_layers)]
@@ -155,7 +160,7 @@ def greedy_decode_from_state(params: dict, cfg: CogVLMConfig, state: dict, hidde
                                            state["write"], state["write"] + 1, w8a8=w8a8,
                                            q8_mxu=q8_mxu)
         hidden_t = hidden_t[:, 0]
-        next_tok = torch.argmax(qdot(hidden_t, llm["lm_head"]).float(), dim=-1).to(torch.int32)
+        next_tok = vocab_argmax(qdot(hidden_t, llm["lm_head"]).float()).to(torch.int32)
         next_tok = torch.where(state["done"], eos_token_id, next_tok)
         toks.append(tok)
         hids.append(hidden_t)

@@ -19,6 +19,7 @@ from torch.profiler import record_function
 from ..ops.fused_ce import fused_weighted_ce_loss
 from ..ops.resample import nearest_resize
 from ..parallel.distributed import all_reduce_sum
+from ..parallel.tensor import copy_to_model
 from ..params import init_params
 from ..peft.lora import materialize
 from .cogvlm import CogVLMConfig
@@ -79,13 +80,18 @@ def gather_vg_prompts(params: dict, hidden: torch.Tensor,
 
 def training_step(params: dict, cfg: MMMMConfig, batch: dict, *, vg_mode: str = "none",
                   attn_impl: str = "auto", remat=False,
-                  vis_span: tuple[int, int] | str | None = None, group=None):
+                  vis_span: tuple[int, int] | str | None = None, group=None,
+                  model_group=None):
     """One loss evaluation; returns ``(loss, logs)``.
 
     With a data-parallel ``group`` the batch is this process's slice of the
     global batch, and each mean divides by the global batch's count (tokens,
     valid targets, samples): the processes' losses and logs sum to the
-    global batch's, as the reference's SPMD step computes them.
+    global batch's, as the reference's SPMD step computes them. Under a
+    ``model_group`` (the one ``parallel/tensor.py model_parallel`` has set)
+    the parameters are this process's pieces, the CE is
+    vocabulary-parallel, and every process of the group computes the same
+    loss.
 
     ``batch`` holds tensors on the run's device (padded, static shapes):
     input_ids, token_type_ids, position_ids, attention_mask, labels, weight
@@ -101,9 +107,10 @@ def training_step(params: dict, cfg: MMMMConfig, batch: dict, *, vg_mode: str = 
         batch.get("patch_size"), batch.get("pool_size"), attn_impl=attn_impl, remat=remat,
         return_logits=False, vis_span=vis_span)
     with record_function("ce"):
-        lm_loss = fused_weighted_ce_loss(hidden, materialize(params["cogvlm"]["llm"]["lm_head"]),
+        lm_loss = fused_weighted_ce_loss(copy_to_model(hidden),
+                                         materialize(params["cogvlm"]["llm"]["lm_head"]),
                                          batch["labels"], batch.get("weight"),
-                                         denom=tokens)
+                                         denom=tokens, group=model_group)
     log = {"lm_loss": lm_loss}
     if vg_mode == "none":
         return cfg.lm_loss_weight * lm_loss, log

@@ -43,8 +43,9 @@ from ..data.tokenizer import MMMMTokenizer
 from ..ops._cuda import resolve_device
 from ..ops.numerics import Numerics, numerics
 from ..ops.quant import qdot
+from ..parallel.tensor import vocab_argmax
 from .cogvlm import CogVLMConfig
-from .cogvlm.decoder import empty_cache, llm_decode_step
+from .cogvlm.decoder import cache_heads, empty_cache, llm_decode_step
 from .generate import prefill_decode_state
 from .inference import _eop_positions, _ground
 from .mmmm import MMMMConfig
@@ -94,7 +95,7 @@ def _scatter(pool: dict, sub: dict, slots: torch.Tensor) -> None:
 def _pool_state(b: int, cfg: CogVLMConfig, smax: int, dtype, dev) -> dict:
     """An empty pool: zeroed bf16-path caches and every slot done."""
     return {
-        "caches": [empty_cache(b, cfg.num_attention_heads, smax, cfg.head_dim, dtype, dev, "bf16")
+        "caches": [empty_cache(b, cache_heads(cfg), smax, cfg.head_dim, dtype, dev, "bf16")
                    for _ in range(cfg.num_hidden_layers)],
         "tok": torch.zeros((b,), dtype=torch.int32, device=dev),
         "prev_tok": torch.zeros((b,), dtype=torch.int32, device=dev),
@@ -115,7 +116,7 @@ def _greedy_step(llm: dict, cfg: CogVLMConfig, st: dict, smax: int, eos: int, bo
     hidden, _ = llm_decode_step(llm, cfg, llm["embed_tokens"][tok][:, None, :], pos[:, None],
                                 st["caches"], write, write + 1)
     hidden = hidden[:, 0]
-    nxt = torch.argmax(qdot(hidden, llm["lm_head"]).float(), dim=-1).to(torch.int32)
+    nxt = vocab_argmax(qdot(hidden, llm["lm_head"]).float()).to(torch.int32)
     nxt = torch.where(st["done"], eos, nxt)
     new = {"caches": st["caches"], "tok": nxt, "prev_tok": tok, "pos": pos, "write": write + 1,
            "done": st["done"] | (nxt == eos)}
@@ -141,7 +142,7 @@ def _spec_step(llm: dict, cfg: CogVLMConfig, st: dict, k: int, smax: int, room, 
     kv_len = write[:, None] + torch.arange(1, k + 1, dtype=torch.int32, device=dev)
     hidden_w, _ = llm_decode_step(llm, cfg, llm["embed_tokens"][window], pos_w, st["caches"],
                                   write, kv_len)
-    g = torch.argmax(qdot(hidden_w, llm["lm_head"]).float(), dim=-1).to(torch.int32)
+    g = vocab_argmax(qdot(hidden_w, llm["lm_head"]).float()).to(torch.int32)
     match = (window[:, 1:] == g[:, :-1]).long()
     a = torch.cumprod(match, dim=1).sum(dim=1)
     noneos = torch.cumprod((window != eos).long(), dim=1)
@@ -241,7 +242,7 @@ class TextServer:
                                              caches, write, kv_len)
         rows, last = torch.arange(f, device=dev), sfx.long() - 1
         logits = qdot(hidden[rows, last], llm["lm_head"]).float()
-        tok0 = torch.argmax(logits, dim=-1).to(torch.int32)
+        tok0 = vocab_argmax(logits).to(torch.int32)
         plen = sfx.long() + p
         return {"caches": caches, "tok": tok0, "prev_tok": ids_t[rows, last], "pos": plen - 1,
                 "write": plen.to(torch.int32), "done": tok0 == self.tok.eos_token_id}, logits

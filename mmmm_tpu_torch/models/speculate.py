@@ -22,6 +22,7 @@ import torch
 from torch.profiler import record_function
 
 from ..ops.quant import qdot
+from ..parallel.tensor import vocab_argmax
 from .cogvlm import CogVLMConfig
 from .cogvlm.decoder import llm_decode_step
 from .generate import GenerateResult, chunked_prefill_decode_state
@@ -121,7 +122,7 @@ def ngram_speculative_generate(params: dict, cfg: CogVLMConfig, input_ids, token
             kv_len = write[:, None] + torch.arange(1, k + 1, dtype=torch.int32, device=dev)
             hidden_w, _ = llm_decode_step(llm, cfg, llm["embed_tokens"][window], pos_w,
                                           st["caches"], write, kv_len, w8a8=w8a8)
-            g = torch.argmax(qdot(hidden_w, llm["lm_head"]).float(), dim=-1).to(torch.int32)
+            g = vocab_argmax(qdot(hidden_w, llm["lm_head"]).float()).to(torch.int32)
 
             # accept the longest draft prefix matching the model's own argmax;
             # commit window[j] while j <= a and no eos among window[:j + 1]

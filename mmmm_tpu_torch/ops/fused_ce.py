@@ -12,10 +12,20 @@ the vocabulary's remaining columns; the reference pads it to ``block_v``
 with ``NEG_INF`` logits, which add nothing to the max or the sum. The
 reference leaves these products to XLA, so ``torch.matmul`` computes them
 here, on both devices.
+
+Given a model ``group`` of more than one process, the ``lm_head`` is
+this process's contiguous piece of the vocabulary (the reference's
+``P(None, "model")``): each process runs its blocks' ``(max, sumexp)``,
+then the pieces are joined by an all-reduce of the max, one of the
+rescaled sums and one of the target's logit (held by one process). The
+backward stays local: it returns this process's part of ``dh``, which the
+caller's ``copy_to_model`` sums over the group, and its columns of
+``d(lm_head)``.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from .attention import compute_dtype
 
@@ -31,9 +41,11 @@ class FusedCE(torch.autograd.Function):
     """Per-token CE of ``softmax(hidden @ lm_head)`` against ``labels``."""
 
     @staticmethod
-    def forward(ctx, hidden, lm_head, labels, block_v: int):
+    def forward(ctx, hidden, lm_head, labels, block_v: int, group):
         t = hidden.shape[0]
         v = lm_head.shape[1]
+        if group is not None:  # this process's columns [v r, v (r + 1))
+            labels = labels - dist.get_rank(group) * v
         ct = compute_dtype(hidden.dtype)
         m = torch.full((t,), NEG_INF, dtype=ct, device=hidden.device)
         s = torch.zeros((t,), dtype=ct, device=hidden.device)
@@ -47,6 +59,13 @@ class FusedCE(torch.autograd.Function):
             picked = logits.gather(1, local.clamp(0, logits.shape[1] - 1)[:, None])[:, 0]
             tgt = torch.where(in_blk, picked, tgt)
             m = m_new
+        if group is not None:
+            m_all = m.clone()
+            dist.all_reduce(m_all, op=dist.ReduceOp.MAX, group=group)
+            mine = (labels >= 0) & (labels < v)
+            st = torch.stack([s * torch.exp(m - m_all), torch.where(mine, tgt, 0.0)])
+            dist.all_reduce(st, group=group)
+            m, (s, tgt) = m_all, st.unbind()
         ctx.save_for_backward(hidden, lm_head, labels, m, s)
         ctx.block_v = block_v
         return m + torch.log(s.clamp_min(1e-30)) - tgt
@@ -69,28 +88,34 @@ class FusedCE(torch.autograd.Function):
             gtok = ((p - onehot) * g[:, None]).to(hidden.dtype).to(ct)
             dh += gtok @ w_blk.to(ct).T
             dw[:, off:off + block_v] = (hc.T @ gtok).to(lm_head.dtype)
-        return dh.to(hidden.dtype), dw, None, None
+        return dh.to(hidden.dtype), dw, None, None, None
 
 
 def fused_ce(hidden: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor,
-             block_v: int = 4096) -> torch.Tensor:
+             block_v: int = 4096, group=None) -> torch.Tensor:
     """hidden (T, C), lm_head (C, V), labels (T,) int -> CE (T,) fp32.
-    Out-of-range labels give garbage CE that the caller masks."""
-    return FusedCE.apply(hidden, lm_head, labels, block_v)
+    Out-of-range labels give garbage CE that the caller masks. With a model
+    ``group`` of more than one process, ``lm_head`` is this process's piece
+    of the vocabulary (process ``r`` holds columns ``[r V, (r + 1) V)``)."""
+    if group is not None and dist.get_world_size(group) == 1:
+        group = None
+    return FusedCE.apply(hidden, lm_head, labels, block_v, group)
 
 
 def fused_weighted_ce_loss(hidden: torch.Tensor, lm_head: torch.Tensor,
                            labels: torch.Tensor, weight: torch.Tensor | None = None, *,
                            ignore_index: int = -100, block_v: int = 4096,
-                           denom: torch.Tensor | None = None) -> torch.Tensor:
+                           denom: torch.Tensor | None = None, group=None) -> torch.Tensor:
     """``weighted_ce_loss`` fed hidden states (B, S, C) instead of logits:
     the weighted sum of per-token CE over non-ignored tokens, normalized by
     the COUNT of non-ignored tokens (``denom`` where given, e.g. a larger
-    batch's count)."""
+    batch's count); vocabulary-parallel over a model ``group``
+    (:func:`fused_ce`)."""
     b, s, c = hidden.shape
     mask = labels != ignore_index
     safe = torch.where(mask, labels, 0)
-    ce = fused_ce(hidden.reshape(b * s, c), lm_head, safe.reshape(-1), block_v).reshape(b, s)
+    ce = fused_ce(hidden.reshape(b * s, c), lm_head, safe.reshape(-1), block_v,
+                  group).reshape(b, s)
     ce = torch.where(mask, ce, 0.0)
     denom = (mask.sum() if denom is None else denom).clamp_min(1)
     if weight is None:

@@ -18,11 +18,15 @@ byte (``ops/w4_matmul.py``). ``qdot`` takes, as the reference does:
     the product in the reference; here it is ``torch._int_mm`` on the card
     (which needs the weight transposed to K-contiguous, a copy per call)
     and an int32 matmul on the CPU;
-  - ``{"q4", "s4"}`` (W4A16): kernel K11 (``w4_matmul``).
+  - ``{"q4", "s4"}`` (W4A16): kernel K11 (``w4_matmul``); a tensor-parallel
+    row piece of an odd number of scale groups holds one more group of zero
+    weights (``parallel/sharding.py local_params``), and x is padded with
+    zeros to it.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from .w4_matmul import pack_int4, w4_matmul
 
@@ -101,20 +105,29 @@ def _int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(xq, wq.t().contiguous().t())[:m]
 
 
-def qdot(x: torch.Tensor, w, act_quant: bool = False) -> torch.Tensor:
+def qdot(x: torch.Tensor, w, act_quant: bool = False, group=None) -> torch.Tensor:
     """``x @ w`` for a plain weight, a ``{"q", "s"}`` int8 weight (W8A16, or
     W8A8 with ``act_quant=True``) or a ``{"q4", "s4"}`` int4 weight (W4A16,
-    kernel K11); ``act_quant`` applies to int8 weights only."""
+    kernel K11); ``act_quant`` applies to int8 weights only. A row-parallel
+    product passes its model ``group``: ``x`` and ``w`` are then this
+    process's columns and rows of the whole, and W8A8's scale of a token is
+    the largest over the group (the whole row's, as one process takes it)."""
     if not is_quantized(w):
         return x @ w
     if act_quant and "q" in w:
         x2 = x.reshape(-1, x.shape[-1])
-        sx = x2.abs().float().amax(dim=1, keepdim=True).clamp_min(1e-8) / 127.0
+        sx = x2.abs().float().amax(dim=1, keepdim=True)
+        if group is not None and sx.numel():  # every process has the same rows
+            dist.all_reduce(sx, op=dist.ReduceOp.MAX, group=group)
+        sx = sx.clamp_min(1e-8) / 127.0
         xq = torch.round(x2.float() / sx).to(torch.int8)
         y32 = _int8_matmul(xq, w["q"])
         y = (y32.float() * sx * w["s"].squeeze(-2)).to(x.dtype)
         return y.reshape(*x.shape[:-1], y.shape[-1])
     if "q4" in w:
+        k = 2 * w["q4"].shape[-2]
+        if k - x.shape[-1] == k // w["s4"].shape[-2]:  # a row piece padded by a group
+            x = torch.nn.functional.pad(x, (0, k - x.shape[-1]))
         y = w4_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w["q4"], w["s4"])
         return y.reshape(*x.shape[:-1], y.shape[-1])
     y = x @ w["q"].to(x.dtype)

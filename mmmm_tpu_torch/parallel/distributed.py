@@ -67,18 +67,25 @@ def init_distributed(coordinator_address: str | None = None,
         f"tcp://{coordinator_address}"
     dist.init_process_group("nccl" if card is not None else "gloo", init_method=address,
                             world_size=num_processes, rank=process_id, device_id=card)
-    atexit.register(_destroy_at_exit)
+    atexit.register(destroy_distributed)
     return dist.get_world_size() > 1
 
 
-def _destroy_at_exit() -> None:
-    """Destroy the process group while the interpreter still runs. A group
-    left to the interpreter's exit has c10d's store and gloo's threads torn down
-    in the exit's own teardown, which aborts a process now and then
-    (``terminate called without an active exception``) after its work is
-    done."""
+def destroy_distributed() -> None:
+    """Destroy the process groups while the interpreter still runs, then drop
+    the references that the meshes (``mesh.py release_meshes``) and the
+    model group (``tensor.py``) keep to them. A group object left to the
+    interpreter's exit is destroyed in the exit's own teardown, which aborted
+    a process now and then (``terminate called without an active
+    exception``) after its work was done. ``init_distributed`` registers it
+    to run at exit; a process that joined its group itself calls it."""
+    from .mesh import release_meshes
+    from .tensor import set_model_group
+
+    set_model_group(None)
     if dist.is_initialized():
         dist.destroy_process_group()
+    release_meshes()
 
 
 def process_rank() -> tuple[int, int]:

@@ -10,11 +10,16 @@ reference drops its spare devices; a spare process would have no role).
 """
 from __future__ import annotations
 
+import weakref
+
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
 from ..ops._cuda import resolve_device
+
+# the meshes made here, so that the exit's teardown can drop their groups
+_MESHES: list = []
 
 
 def make_mesh(data: int | None = None, model: int = 1, seq: int = 1, pipe: int = 1, *,
@@ -49,4 +54,20 @@ def make_mesh(data: int | None = None, model: int = 1, seq: int = 1, pipe: int =
     if seq > 1:
         shape.append(seq)
         names.append("seq")
-    return init_device_mesh(dev.type, tuple(shape), mesh_dim_names=tuple(names))
+    mesh = init_device_mesh(dev.type, tuple(shape), mesh_dim_names=tuple(names))
+    _MESHES.append(weakref.ref(mesh))
+    return mesh
+
+
+def release_meshes() -> None:
+    """Drop the process groups that the meshes made here still hold (after
+    ``destroy_process_group``). A ``DeviceMesh`` keeps its groups' objects;
+    one that lives until the interpreter's own teardown (a mesh held by a
+    module, a trainer) has its gloo groups destroyed there, which aborted a
+    process now and then after its work was done ("terminate called without
+    an active exception")."""
+    for ref in _MESHES:
+        mesh = ref()
+        if mesh is not None:
+            getattr(mesh, "_pg_registry", {}).clear()
+    _MESHES.clear()

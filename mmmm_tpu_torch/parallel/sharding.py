@@ -19,9 +19,16 @@ to size: the specs of a mesh of 8 come out without 8 processes.
   - the batch dimension of every input array over ``data``.
 
 ``fsdp_shardings`` adds ZeRO-3 over ``data`` (and over ``pipe``) on top.
-The port runs the ``data`` axis (``parallel/zero.py``, ``train/step.py``);
-``model``, ``seq`` and ``pipe`` above 1 wait for ROADMAP Queue 1 items 8b
-and 8c, and their rules are here so that they are held to the reference's.
+The port runs the ``data`` axis (``parallel/zero.py``, ``train/step.py``)
+and the ``model`` axis: :func:`local_params` gives this process its piece
+of every leaf and :func:`join_pieces` / :func:`gather_pieces` put the pieces
+back. The reference shards the fused ``(L, c, 3c)`` qkv weights
+contiguously and lets XLA reshard; a process that runs its share of a layer
+alone needs whole heads of q, k and v, so those leaves are cut
+head-grouped: piece ``r`` of ``[q | k | v]`` is ``[q_r | k_r | v_r]``.
+Stored trees (``params_from_jax``, checkpoints, adapters) keep the
+reference's layout. ``seq`` and ``pipe`` above 1 wait for ROADMAP Queue 1
+item 8c; their rules are here so that they are held to the reference's.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import re
 from collections.abc import Mapping
 
 import torch
+import torch.distributed as dist
 
 from ..params import _flatten
 
@@ -63,6 +71,13 @@ DEFAULT_RULES: tuple[tuple[str, Spec], ...] = (
     (r".*llm/layers/(vis|lang)_dense/q$", (None, "model", None)),
     (r".*llm/layers/(vis|lang)_mlp/(gate|up)/(q|s)$", (None, None, "model")),
     (r".*llm/layers/(vis|lang)_mlp/down/q$", (None, "model", None)),
+    # W4A16 leaves ({"q4", "s4"}, the port's own: the reference replicates
+    # them): packed (K/2, N) int4 and (K/128, N) group scales, cut as their
+    # bf16 original (local_params repacks a row piece)
+    (r".*llm/layers/(vis|lang)_qkv/(q4|s4)$", (None, None, "model")),
+    (r".*llm/layers/(vis|lang)_dense/(q4|s4)$", (None, "model", None)),
+    (r".*llm/layers/(vis|lang)_mlp/(gate|up)/(q4|s4)$", (None, None, "model")),
+    (r".*llm/layers/(vis|lang)_mlp/down/(q4|s4)$", (None, "model", None)),
     # LM head over the vocabulary
     (r".*llm/lm_head$", (None, "model")),
     (r".*llm/lm_head/b$", (None, "model")),
@@ -214,3 +229,186 @@ def batch_shardings(batch, mesh):
         return () if ndim == 0 else ("data", *([None] * (ndim - 1)))
 
     return _map_paths(spec, batch)
+
+
+# the fused q|k|v leaves, cut by whole heads: the weights, their LoRA "b"
+# factors, W8A16 and W4A16 leaves and the ViT's bias
+_HEAD_GROUPED = r".*(llm/layers/(vis|lang)_qkv|vision/layers/qkv_[wb])(/(b|q|s|q4|s4))?$"
+
+
+def model_dim(path: str, shape, n: int, rules: PartitionRules = PartitionRules()):
+    """The dimension of a leaf that tensor parallelism over ``n`` processes
+    cuts (None: the leaf is replicated over ``model``). Raises where the
+    rules shard the leaf over ``model`` but ``n`` does not divide that
+    dimension (``_fit_spec`` would replicate it): that layer cannot run its
+    share on each process."""
+    if n == 1:
+        return None
+    spec = rules.spec_for(path, len(shape))
+    if "model" not in spec:
+        return None
+    d = spec.index("model")
+    if shape[d] % n or (re.match(_HEAD_GROUPED, path) and d == len(shape) - 1
+                        and shape[d] % (3 * n)):
+        raise ValueError(f"{path}: dimension {d} of {tuple(shape)} does not split over "
+                         f"model={n}; tensor parallelism of this layer is impossible")
+    return d
+
+
+def model_paths(flat: dict, rules: PartitionRules = PartitionRules()) -> frozenset:
+    """The paths of a flat tree whose leaves the rules shard over ``model``
+    (under tensor parallelism each is a piece)."""
+    return frozenset(p for p, t in flat.items()
+                     if "model" in rules.spec_for(p, len(getattr(t, "shape", ()))))
+
+
+def _unpack_rows(p: torch.Tensor) -> torch.Tensor:
+    """``ops/w4_matmul.py unpack_int4`` over dim -2 of any rank."""
+    p = p.to(torch.int32)
+    return torch.cat([((p & 0xF) ^ 8) - 8, p >> 4], dim=-2).to(torch.int8)
+
+
+def _pack_rows(q: torch.Tensor) -> torch.Tensor:
+    k = q.shape[-2] // 2
+    lo, hi = q[..., :k, :].to(torch.int32), q[..., k:, :].to(torch.int32)
+    return ((lo & 0xF) | (hi << 4)).to(torch.int8)
+
+
+def _w4_rows(path: str, t: torch.Tensor, s4: torch.Tensor, n: int, r: int) -> torch.Tensor:
+    """Piece ``r`` of ``n`` of a W4A16 leaf (``q4`` or its scales ``s4``)
+    cut along its input rows. The packing pairs row i with row K/2 + i, so
+    a ``q4`` piece is unpacked, cut and packed again; a piece of an odd
+    number of scale groups gets one more group of zero weights (and zero
+    scales), so that each half of its packing holds whole groups, and
+    ``ops/quant.py qdot`` pads x with zeros to match."""
+    groups = s4.shape[-2] // n
+    if s4.shape[-2] % n:
+        raise ValueError(f"{path}: {s4.shape[-2]} scale groups do not split over model={n}; "
+                         "tensor parallelism of this layer is impossible")
+    if path.endswith("/s4"):
+        piece = t.narrow(-2, r * groups, groups)
+        pad = piece.new_zeros((*piece.shape[:-2], groups % 2, piece.shape[-1]))
+        return torch.cat([piece, pad], dim=-2)
+    k = 2 * t.shape[-2] // n
+    q = _unpack_rows(t).narrow(-2, r * k, k)
+    pad = q.new_zeros((*q.shape[:-2], (groups % 2) * (k // groups), q.shape[-1]))
+    return _pack_rows(torch.cat([q, pad], dim=-2))
+
+
+def _piece(path: str, t: torch.Tensor, d, n: int, r: int) -> torch.Tensor:
+    if d is None:
+        return t
+    if re.match(_HEAD_GROUPED, path) and d == t.dim() - 1:
+        x = t.reshape(*t.shape[:-1], 3, n, t.shape[-1] // (3 * n))
+        return x.select(-2, r).reshape(*t.shape[:-1], -1).clone()
+    k = t.shape[d] // n
+    return t.narrow(d, r * k, k).clone()
+
+
+def local_params(tree, mesh, *, cfg=None, rules: PartitionRules = PartitionRules()):
+    """This process's piece of every leaf of ``tree`` (parameters, LoRA
+    factors, optimizer moments; dicts and lists, paths as the reference's)
+    for the mesh's ``model`` axis: the fused qkv leaves by whole heads of q,
+    k and v, every other leaf that the rules shard over ``model``
+    contiguously, the rest as they are. ``mesh`` is a ``DeviceMesh`` or
+    ``(sizes, model rank)``. A leaf that the rules shard but the axis does
+    not divide raises and names it; with ``cfg`` (a ``CogVLMConfig``) so do
+    heads that the axis does not divide. Pieces are copies (the whole tree
+    may be freed), and a piece passes unchanged, so cutting twice changes
+    nothing."""
+    if isinstance(mesh, tuple):
+        sizes, r = mesh
+    else:
+        sizes, r = axis_sizes(mesh), mesh.get_local_rank("model")
+    n = sizes.get("model", 1)
+    if n == 1:
+        return tree
+    flat = _flatten(tree)
+
+    def one(path, leaf):
+        if not isinstance(leaf, torch.Tensor) or getattr(leaf, "tp_piece", False):
+            return leaf
+        d = model_dim(path, leaf.shape, n, rules)
+        if d is None:
+            return leaf
+        if cfg is not None and re.match(_HEAD_GROUPED, path):
+            heads = cfg.vision.num_heads if "vision/" in path else cfg.num_attention_heads
+            if heads % n:
+                raise ValueError(f"{path}: {heads} heads do not split over model={n}")
+        if path.endswith(("/q4", "/s4")) and d == leaf.dim() - 2:
+            out = _w4_rows(path, leaf, flat[path[:-2] + "s4"], n, r)
+        else:
+            out = _piece(path, leaf, d, n, r)
+        out.tp_piece = True  # cutting it again returns it
+        return out
+
+    return _map_paths(one, tree)
+
+
+def join_pieces(path: str, pieces: list, rules: PartitionRules = PartitionRules()):
+    """The whole leaf at ``path`` from the pieces of every process of the
+    ``model`` axis, in rank order: the inverse of :func:`local_params`
+    (W4A16 leaves are serving leaves, never gathered, and raise)."""
+    n = len(pieces)
+    t = pieces[0]
+    spec = rules.spec_for(path, t.dim())
+    if n == 1 or "model" not in spec:
+        return t
+    d = spec.index("model")
+    if path.endswith(("/q4", "/s4")):
+        raise ValueError(f"{path}: W4A16 pieces are not gathered")
+    if re.match(_HEAD_GROUPED, path) and d == t.dim() - 1:
+        x = torch.stack([p.reshape(*p.shape[:-1], 3, -1) for p in pieces], dim=-2)
+        return x.reshape(*t.shape[:-1], -1)
+    return torch.cat(pieces, dim=d)
+
+
+@torch.no_grad()
+def gather_pieces(tree, group, rules: PartitionRules = PartitionRules()):
+    """Every leaf that tensor parallelism cut, gathered whole over the
+    ``model`` ``group`` (every process of it must call this; outside
+    autograd); None or a group of one returns ``tree``."""
+    if group is None or dist.get_world_size(group) == 1:
+        return tree
+    n = dist.get_world_size(group)
+
+    def one(path, leaf):
+        if not isinstance(leaf, torch.Tensor) or "model" not in rules.spec_for(path, leaf.dim()):
+            return leaf
+        parts = [torch.empty_like(leaf) for _ in range(n)]
+        dist.all_gather(parts, leaf.contiguous(), group=group)
+        return join_pieces(path, parts, rules)
+
+    return _map_paths(one, tree)
+
+
+def tp_serving_params(params, tp: int):
+    """Tensor-parallel serving over ``tp`` processes, the reference's
+    ``tp_serving_params``: the processes form a ``(data = world / tp, model
+    = tp)`` mesh (joined first by ``init_distributed`` from
+    ``COORDINATOR_ADDRESS``, ``NUM_PROCESSES`` and ``PROCESS_ID``), the mesh's
+    ``model`` group becomes the process's (``parallel/tensor.py
+    set_model_group``), and this process keeps its piece of the weights
+    (:func:`local_params`). Returns ``(pieces, attn_impl)``. ``attn_impl``
+    is ``"auto"`` (the kernels run on each process's heads), where the
+    reference returns ``"xla"``: its Pallas kernels have no GSPMD rule.
+    ``tp <= 1`` returns ``params`` and leaves the process no model group:
+    it serves whole weights."""
+    from .distributed import init_distributed
+    from .mesh import make_mesh
+    from .tensor import set_model_group
+
+    if tp <= 1:
+        set_model_group(None)
+        return params, "auto"
+
+    dev = next(t.device for t in _flatten(params).values() if isinstance(t, torch.Tensor))
+    init_distributed(device=dev)
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if n % tp:
+        raise ValueError(f"tp={tp} does not divide {n} processes: tensor-parallel serving runs "
+                         "one process a device, each started with COORDINATOR_ADDRESS, "
+                         "NUM_PROCESSES and PROCESS_ID (parallel/distributed.py)")
+    mesh = make_mesh(data=n // tp, model=tp, device=dev)
+    set_model_group(mesh.get_group("model"))
+    return local_params(params, mesh), "auto"

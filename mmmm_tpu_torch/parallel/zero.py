@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from .sharding import fsdp_shardings
+from .sharding import axis_sizes, fsdp_shardings, local_params
 
 # ZeRO-3 shards every leaf of at least this many elements over the data axis
 # (fsdp_shardings' min_size); read when a tree is placed
@@ -127,11 +127,15 @@ def shard_tree(tree, specs, axis: str, group, world: int, rank: int):
 
 
 def place_tree(tree, mesh, axis: str = "data"):
-    """``tree`` placed by ``fsdp_shardings(tree, mesh, min_size=FSDP_MIN_SIZE)``:
-    each leaf that the specs shard over ``axis`` becomes this process's
-    :class:`ZeroLeaf` chunk (a :class:`ZeroLeaf` passes); the rest stay as
-    they are (replicated)."""
+    """``tree`` placed by ``fsdp_shardings(tree, mesh, min_size=FSDP_MIN_SIZE)``
+    (the specs of the whole leaves): with a ``model`` axis above 1 each leaf
+    is first cut to this process's tensor-parallel piece
+    (``sharding.local_params``); then each leaf that the specs shard over
+    ``axis`` becomes this process's :class:`ZeroLeaf` chunk of it (a
+    :class:`ZeroLeaf` passes); the rest stay as they are (replicated)."""
     specs = fsdp_shardings(tree, mesh, axis=axis, min_size=FSDP_MIN_SIZE)
+    if axis_sizes(mesh).get("model", 1) > 1:
+        tree = local_params(tree, mesh)
     return shard_tree(tree, specs, axis, mesh.get_group(axis), mesh.size(
         mesh.mesh_dim_names.index(axis)), mesh.get_local_rank(axis))
 

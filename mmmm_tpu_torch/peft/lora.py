@@ -23,7 +23,9 @@ by ``1/(1-p)``. Each leaf's mask comes from a generator seeded by
 ``(dropout_seed, step, index of the leaf in sorted path order)``, as the
 reference folds the leaf index into the step's key; a seeded mask, not a
 stateful draw, keeps a recomputed layer identical. The bits differ from
-JAX's.
+JAX's. Under tensor parallelism (``parallel/tensor.py``) a factor ``a``
+cut over ``model`` takes its piece of the whole leaf's mask, so that every
+number of processes draws the same masks.
 """
 from __future__ import annotations
 
@@ -34,6 +36,8 @@ import re
 
 import torch
 
+from ..parallel.sharding import PartitionRules
+from ..parallel.tensor import model_rank, model_world
 from ..parallel.zero import whole
 from ..params import _flatten as flatten
 from ..params import _unflatten as unflatten
@@ -131,6 +135,21 @@ def dropout_keep(seed: int, step: int, index: int, shape, p: float,
     return (torch.rand(shape, generator=gen) < 1.0 - p).to(device)
 
 
+def _keep_piece(dropout: tuple[int, int], index: int, path: str, a, p: float):
+    """The keep mask of factor ``a`` (at ``path``): the whole leaf's, cut to
+    this process's piece where tensor parallelism cuts ``a``'s fan-in rows."""
+    shape = [*a.shape[:-1], 1]
+    n = model_world()
+    spec = PartitionRules().spec_for(path, len(shape))
+    if n == 1 or "model" not in spec:
+        return dropout_keep(*dropout, index, tuple(shape), p, a.device)
+    d = spec.index("model")
+    k = shape[d]
+    shape[d] *= n
+    return dropout_keep(*dropout, index, tuple(shape), p, a.device).narrow(
+        d, model_rank() * k, k)
+
+
 def lora_merge(params: dict, lora: dict, cfg: LoraConfig, *,
                dropout: tuple[int, int] | None = None) -> dict:
     """``params`` with each factored weight replaced by a :class:`LoraLeaf`
@@ -145,8 +164,7 @@ def lora_merge(params: dict, lora: dict, cfg: LoraConfig, *,
     for i, (path, w) in enumerate(sorted(flatten(params).items())):
         if path in flat_lora:
             a, b = flat_lora[path]["a"], flat_lora[path]["b"]
-            keep = (dropout_keep(*dropout, i, (*a.shape[:-1], 1), p, a.device)
-                    if p > 0.0 else None)
+            keep = _keep_piece(dropout, i, f"{path}/a", a, p) if p > 0.0 else None
             w = LoraLeaf(w, a, b, cfg.scale, keep, p)
         merged[path] = w
     return unflatten(merged)

@@ -36,13 +36,15 @@ import torch.distributed as dist
 
 
 class CheckpointManager:
-    """Step checkpoints in ``directory``. With a data-parallel ``group``
-    every process calls each method at the same steps, and rank 0 of the
-    group alone reads and writes ``directory``, which need not be shared:
+    """Step checkpoints in ``directory``. With a ``group`` (the trainer's:
+    every process of its mesh) every process calls each method at the same
+    steps, and rank 0 of the group alone reads and writes ``directory``,
+    which need not be shared:
     the others learn the steps on disk from it when the manager is made,
     every process then keeps the same list as it saves (so every process
     decides alike whether a step saves), a save's tree comes whole (its
-    ZeRO shards gathered, ``state`` a callable that every process runs),
+    ZeRO shards and tensor-parallel pieces gathered, ``state`` a callable
+    that every process runs),
     and :meth:`restore` hands every process rank 0's checkpoint, so a
     checkpoint resumes at any number of processes."""
 

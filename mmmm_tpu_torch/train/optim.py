@@ -82,18 +82,28 @@ def schedule(cfg: OptimizerConfig, count: int) -> float:
     return cfg.lr * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * c / decay_steps)) + alpha)
 
 
-def global_norm(tensors, sharded=(), group=None) -> torch.Tensor:
-    """sqrt of the sum of squares over every tensor, fp32, on the device.
-    With a data-parallel ``group``, ``sharded`` are this process's chunks of
-    ZeRO-sharded tensors, whose squares are summed over the group; the
-    replicated ``tensors`` count once."""
-    total = sum(t.float().square().sum() for t in tensors)
+def global_norm(grads: dict, sharded=frozenset(), group=None, model_sharded=frozenset(),
+                model_group=None) -> torch.Tensor:
+    """sqrt of the sum of squares over every gradient of ``grads`` (a
+    ``{path: tensor}`` dict), fp32, on the device. Each leaf's squares are
+    summed over the groups that cut it: the paths in ``sharded`` are this
+    process's ZeRO chunks over the data ``group``, those in
+    ``model_sharded`` its pieces over ``model_group``. A leaf that a group
+    does not cut is the same on each of its processes and counts once."""
+    parts = [torch.zeros((), device=_device(grads.values()))] * 4
+    for p, g in grads.items():  # [replicated, data, model, both]
+        i = (p in sharded) + 2 * (p in model_sharded)
+        parts[i] = parts[i] + g.float().square().sum()
+    parts = torch.stack(parts)
     if group is not None:
-        part = sum((t.float().square().sum() for t in sharded),
-                   torch.zeros((), device=_device(tensors, sharded)))
-        dist.all_reduce(part, group=group)
-        total = total + part
-    return torch.sqrt(total)
+        cut = parts[1::2].clone()
+        dist.all_reduce(cut, group=group)
+        parts[1::2] = cut
+    if model_group is not None:
+        cut = parts[2:].clone()
+        dist.all_reduce(cut, group=model_group)
+        parts[2:] = cut
+    return torch.sqrt(parts.sum())
 
 
 def _device(*seqs) -> torch.device:
@@ -114,7 +124,7 @@ class AdamW:
 
     @torch.no_grad()
     def step(self, params: dict, grads: dict, state: dict, *, sharded=frozenset(),
-             group=None) -> torch.Tensor:
+             group=None, model_sharded=frozenset(), model_group=None) -> torch.Tensor:
         """Update ``params`` and ``state`` in place; returns the global norm
         of the gradients before clipping.
 
@@ -123,21 +133,21 @@ class AdamW:
         chunks, their gradients already summed over the group (the gather's
         backward reduce-scatters); the other gradients are all-reduced here
         with SUM, in one flat buffer. Every process issues the same
-        collectives: a gradient that is None enters as zeros."""
+        collectives: a gradient that is None enters as zeros.
+
+        Tensor parallel (``model_group``): the paths in ``model_sharded``
+        are this process's pieces over the ``model`` axis (``global_norm``
+        sums their squares over that group)."""
         cfg = self.cfg
         grads = {p: torch.zeros_like(t) if grads.get(p) is None else grads[p]
                  for p, t in params.items()}
-        if group is None:
-            g_norm = global_norm(grads.values())
-        else:
-            replicated = [p for p in grads if p not in sharded]
-            if replicated:
-                flat = torch.cat([grads[p].reshape(-1) for p in replicated])
-                dist.all_reduce(flat, group=group)
-                for p, g in zip(replicated, flat.split([grads[p].numel() for p in replicated])):
-                    grads[p] = g.view_as(grads[p])
-            g_norm = global_norm([grads[p] for p in replicated],
-                                 [g for p, g in grads.items() if p in sharded], group)
+        replicated = [p for p in grads if p not in sharded]
+        if group is not None and replicated:
+            flat = torch.cat([grads[p].reshape(-1) for p in replicated])
+            dist.all_reduce(flat, group=group)
+            for p, g in zip(replicated, flat.split([grads[p].numel() for p in replicated])):
+                grads[p] = g.view_as(grads[p])
+        g_norm = global_norm(grads, sharded, group, model_sharded, model_group)
         clip = None if cfg.grad_clip_norm is None else g_norm >= cfg.grad_clip_norm
         lr = schedule(cfg, state["count"])
         count = state["count"] + 1

@@ -43,7 +43,8 @@ from ..params import init_params
 from ..peft.lora import (LoraConfig, flatten, lora_init, lora_merge, merge_trainable,
                          split_trainable, unflatten)
 from ..parallel.distributed import batch_to, global_batch
-from ..parallel.sharding import axis_sizes
+from ..parallel.sharding import axis_sizes, model_paths
+from ..parallel.tensor import model_parallel
 from ..parallel.zero import ZeroLeaf, gather_unstacked, local_tensor, place_tree
 from .optim import AdamW
 
@@ -105,28 +106,39 @@ def make_step_fn(cfg: MMMMConfig, optimizer: AdamW, lora_cfg: LoraConfig, *,
                  vg_mode: str = "none", bf16_vlm: bool = False, attn_impl: str = "auto",
                  remat: bool | str = True, dropout_seed: int | None = 0,
                  vis_span: tuple[int, int] | str | None = None, gelu_mode: str = "auto",
-                 group=None):
+                 group=None, model_group=None):
     """The step_fn(state, frozen, batch) -> (state, logs) over a batch of
     tensors already on the state's device. A fresh LoRA-dropout mask each
     step, deterministic in ``(dropout_seed, step)`` (over each leaf's whole
     shape, so every process draws the same). With a data-parallel ``group``
     the batch is this process's slice, the state's and ``frozen``'s leaves
-    may be ZeRO-sharded, and the logs are the global batch's."""
+    may be ZeRO-sharded, and the logs are the global batch's. With a
+    ``model_group`` the leaves are this process's tensor-parallel pieces
+    (``place_state``), the forward and backward run under that group, and
+    the gradients of the LoRA factors that the group's processes all use
+    whole beside a cut partner (``a`` of a column-parallel weight, ``b``
+    of a row-parallel one) are summed over it: each process holds its
+    share."""
     use_dropout = dropout_seed is not None and lora_cfg.dropout > 0.0
     Numerics(gelu_mode=gelu_mode)  # a bad mode or policy raises here, not in a step
     check_policy(remat)
 
     def step_fn(state: TrainState, frozen: dict, batch: dict):
-        params = effective_params(state.trainable, frozen, lora_cfg, bf16_vlm,
-                                  dropout=(dropout_seed, state.step) if use_dropout else None)
         leaves = flatten(state.trainable)
         flat = {p: local_tensor(v) for p, v in leaves.items()}
-        with numerics(gelu_mode=gelu_mode):
+        with model_parallel(model_group), numerics(gelu_mode=gelu_mode):
+            params = effective_params(state.trainable, frozen, lora_cfg, bf16_vlm,
+                                      dropout=(dropout_seed, state.step) if use_dropout else None)
             loss, logs = training_step(params, cfg, batch, vg_mode=vg_mode,
                                        attn_impl=attn_impl, remat=remat, vis_span=vis_span,
-                                       group=group)
+                                       group=group, model_group=model_group)
             with record_function("backward"):
                 grads = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
+        grads = dict(zip(flat, grads))
+        cut = frozenset()
+        if model_group is not None:
+            cut = model_paths(leaves)
+            _sum_partials(grads, flat, cut, model_group)
         logs = {k: v.detach() for k, v in logs.items()}
         if group is not None:  # each process's logs are its share of the global batch's
             vals = torch.stack([logs[k].float() for k in sorted(logs)])
@@ -138,8 +150,9 @@ def make_step_fn(cfg: MMMMConfig, optimizer: AdamW, lora_cfg: LoraConfig, *,
                         for m in ("mu", "nu")}}
         with record_function("optimizer"):
             logs["grad_norm"] = optimizer.step(
-                flat, dict(zip(flat, grads)), local_opt, group=group,
-                sharded={p for p, v in leaves.items() if isinstance(v, ZeroLeaf)})
+                flat, grads, local_opt, group=group,
+                sharded={p for p, v in leaves.items() if isinstance(v, ZeroLeaf)},
+                model_sharded=cut, model_group=model_group)
         opt_state["count"] = local_opt["count"]
         state.step += 1
         return state, logs
@@ -147,12 +160,30 @@ def make_step_fn(cfg: MMMMConfig, optimizer: AdamW, lora_cfg: LoraConfig, *,
     return step_fn
 
 
+def _sum_partials(grads: dict, flat: dict, cut, group) -> None:
+    """Sum over the model ``group``, in place and in one buffer, the
+    gradients of the LoRA factors that are whole on each process while their
+    partner factor is cut (each process's gradient is its pieces' share)."""
+    partial = [p for p in flat if p.endswith(("/a", "/b")) and p not in cut
+               and p[:-1] + ("b" if p.endswith("a") else "a") in cut]
+    if not partial:
+        return
+    parts = [grads[p] if grads[p] is not None else torch.zeros_like(flat[p]) for p in partial]
+    buf = torch.cat([g.reshape(-1) for g in parts])
+    dist.all_reduce(buf, group=group)
+    for p, g, like in zip(partial, buf.split([g.numel() for g in parts]), parts):
+        grads[p] = g.view_as(like)
+
+
 def place_state(state: TrainState, frozen: dict, mesh) -> tuple[TrainState, dict]:
     """``(state, frozen)`` placed for the mesh route by ``fsdp_shardings``
-    (ZeRO-3, ``parallel/zero.py place_tree``): each leaf of the trainable
-    tree, the Adam moments and the frozen base of at least ``FSDP_MIN_SIZE``
-    elements keeps this process's chunk (a :class:`ZeroLeaf`), so the whole
-    leaf may be freed; the rest stay whole (replicated). ``state`` is
+    (ZeRO-3, ``parallel/zero.py place_tree``): with a ``model`` axis above 1
+    each leaf that the rules shard over it is first cut to this process's
+    piece (``parallel/sharding.py local_params``); then each leaf of the
+    trainable tree, the Adam moments and the frozen base of at least
+    ``FSDP_MIN_SIZE`` elements keeps this process's chunk (a
+    :class:`ZeroLeaf`) of its piece over ``data``, so the whole leaf may be
+    freed; the rest stay whole (replicated). ``state`` is
     placed in place and returned; placed leaves pass through, so placing
     twice changes nothing."""
     opt = state.opt_state
@@ -177,8 +208,11 @@ def make_train_step(cfg: MMMMConfig, optimizer: AdamW, lora_cfg: LoraConfig, *,
     world_size=)``); the step gives what one process gives on the global
     batch. The caller places the state and ``frozen`` once with
     :func:`place_state` (ZeRO-3); a leaf left whole trains as a replicated
-    one. ``model``, ``seq`` or ``pipe`` above 1 raise (ROADMAP Queue 1
-    items 8b, 8c)."""
+    one. Tensor parallelism over the mesh's ``model`` axis: the processes
+    of a ``model`` group hold the pieces of one replica (``place_state``)
+    and feed the same slice of the batch; their logs are the same. ``seq``
+    or ``pipe`` above 1 raise (ROADMAP Queue 1 item 8c), and ``pipe`` with
+    ``model`` as the reference's pipeline does."""
     step_kw = dict(vg_mode=vg_mode, bf16_vlm=bf16_vlm, attn_impl=attn_impl, remat=remat,
                    dropout_seed=dropout_seed, vis_span=vis_span, gelu_mode=gelu_mode)
     if mesh is None:
@@ -191,15 +225,20 @@ def make_train_step(cfg: MMMMConfig, optimizer: AdamW, lora_cfg: LoraConfig, *,
         return run
 
     sizes = axis_sizes(mesh)
-    for axis, item in (("model", "8b"), ("seq", "8c"), ("pipe", "8c")):
+    if sizes.get("pipe", 1) > 1 and sizes.get("model", 1) > 1:
+        raise ValueError("pipeline parallelism does not compose with tensor parallelism in one "
+                         "mesh; use model>1 XOR pipe>1")
+    for axis in ("seq", "pipe"):
         if sizes.get(axis, 1) > 1:
             raise NotImplementedError(
-                f"make_train_step: mesh axis {axis}={sizes[axis]}; the port trains data "
-                f"parallel only, {axis} parallelism waits for ROADMAP Queue 1 item {item}")
+                f"make_train_step: mesh axis {axis}={sizes[axis]}; the port trains data and "
+                f"tensor parallel, {axis} parallelism waits for ROADMAP Queue 1 item 8c")
     if resolve_device(device).type != mesh.device_type:
         raise ValueError(f"make_train_step: device {device} is not the mesh's "
                          f"{mesh.device_type}")
-    step_fn = make_step_fn(cfg, optimizer, lora_cfg, group=mesh.get_group("data"), **step_kw)
+    model_group = mesh.get_group("model") if sizes["model"] > 1 else None
+    step_fn = make_step_fn(cfg, optimizer, lora_cfg, group=mesh.get_group("data"),
+                           model_group=model_group, **step_kw)
 
     def run_sharded(state: TrainState, frozen: dict, batch: dict):
         return step_fn(state, frozen, global_batch(batch, mesh))

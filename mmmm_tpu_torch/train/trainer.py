@@ -23,8 +23,16 @@ writes ``metrics.jsonl`` and ``adapter.npz`` and reads and writes the
 checkpoints (whole tensors, gathered; ``out_dir`` need not be shared). Under ``MMMM_DEBUG`` every batch is checked for even
 slices and, every ``log_every`` steps, the step and the replicated
 trainable leaves for equality across processes (``parallel/debug.py``).
-``mesh_model``, ``mesh_seq`` or ``mesh_pipe`` above 1 raise: tensor,
-sequence and pipeline parallelism wait for ROADMAP Queue 1 items 8b and 8c.
+
+Tensor parallel (the reference's ``mesh_model``): the processes form a
+``(data, model)`` mesh, ``data`` being ``mesh_data`` or ``gcd(batch_size,
+processes / mesh_model)``; the processes of a ``model`` group hold the
+pieces of one replica (``place_state``) and read the same slice of every
+batch. Checkpoints and the adapter hold whole tensors, gathered over
+``model`` as well, so a run resumes at any number of processes; the
+checkpoints and flags go over every process, and the process of global
+rank 0 alone writes. ``mesh_seq`` or ``mesh_pipe`` above 1 raise: sequence
+and pipeline parallelism wait for ROADMAP Queue 1 item 8c.
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ from ..ops._cuda import resolve_device
 from ..parallel.debug import assert_replicated_equal, check_batch_uniform
 from ..parallel.distributed import init_distributed, mesh_device, process_rank
 from ..parallel.mesh import make_mesh
+from ..parallel.sharding import gather_pieces
 from ..parallel.zero import gather_tree
 from ..peft.lora import LoraConfig, flatten
 from .checkpoint import CheckpointManager, save_adapter
@@ -94,11 +103,11 @@ class Trainer:
     def __init__(self, model: MMMMModel, dataset: MultiDataset, opt_cfg: OptimizerConfig,
                  lora_cfg: LoraConfig, cfg: TrainerConfig,
                  device: str | torch.device = "cuda"):
-        for key, item in (("mesh_model", "8b"), ("mesh_seq", "8c"), ("mesh_pipe", "8c")):
+        for key in ("mesh_seq", "mesh_pipe"):
             if getattr(cfg, key) > 1:
                 raise NotImplementedError(
-                    f"Trainer: {key}={getattr(cfg, key)}; the port trains data parallel only, "
-                    f"this parallelism waits for ROADMAP Queue 1 item {item}")
+                    f"Trainer: {key}={getattr(cfg, key)}; the port trains data and tensor "
+                    "parallel, this parallelism waits for ROADMAP Queue 1 item 8c")
         self.model = model
         self.dataset = dataset
         self.opt_cfg = opt_cfg
@@ -109,19 +118,24 @@ class Trainer:
         self.out_dir = Path(cfg.out_dir)
         self.out_dir.mkdir(parents=True, exist_ok=True)
         init_distributed(device=self.device)
-        self.mesh, self.group, self.host_group = None, None, None
+        self.mesh, self.group, self.model_group, self.all_group, self.host_group = \
+            None, None, None, None, None
         self.rank, self.world = 0, 1
-        _, world = process_rank()
-        if cfg.mesh_data is not None or world > 1:
-            data = cfg.mesh_data or math.gcd(cfg.batch_size, world)
-            self.mesh = make_mesh(data=data, device=self.device)
+        global_rank, world = process_rank()
+        self.writer = global_rank == 0
+        if cfg.mesh_data is not None or world > 1 or cfg.mesh_model > 1:
+            data = cfg.mesh_data or math.gcd(cfg.batch_size, max(world // cfg.mesh_model, 1))
+            self.mesh = make_mesh(data=data, model=cfg.mesh_model, device=self.device)
             self.device = mesh_device(self.mesh)
             self.group = self.mesh.get_group("data")
+            if cfg.mesh_model > 1:
+                self.model_group = self.mesh.get_group("model")
             self.rank, self.world = self.mesh.get_local_rank("data"), data
-            # host-side flags travel over gloo, so that reading one never waits
-            # for the card's queue
-            self.host_group = self.group if dist.get_backend(self.group) == "gloo" else \
-                dist.new_group(dist.get_process_group_ranks(self.group), backend="gloo")
+            # checkpoints and flags over every process; host-side flags travel
+            # over gloo, so that reading one never waits for the card's queue
+            self.all_group = dist.group.WORLD
+            self.host_group = self.all_group if dist.get_backend() == "gloo" else \
+                dist.new_group(list(range(world)), backend="gloo")
         self.steps = {
             mode: make_train_step(model.cfg, self.optimizer, lora_cfg, vg_mode=mode,
                                   bf16_vlm=cfg.bf16_vlm, attn_impl=cfg.attn_impl,
@@ -135,7 +149,7 @@ class Trainer:
         self.seconds: dict = {"data": [], "checkpoint": [], "export": 0.0}
 
     def _log(self, step: int, logs: dict):
-        if self.rank != 0:  # every process holds the global batch's logs
+        if not self.writer:  # every process holds the global batch's logs
             return
         rec = {"step": step, **{k: float(v) for k, v in logs.items()}}
         with (self.out_dir / "metrics.jsonl").open("a") as f:
@@ -161,10 +175,10 @@ class Trainer:
             return {"trainable": s.trainable, "opt_state": s.opt_state}
 
         def whole_tree(s: TrainState):
-            return lambda: gather_tree(tree(s))
+            return lambda: self._whole(tree(s))
 
         ckpt = CheckpointManager(self.out_dir / "ckpt", cfg.ckpt_every, cfg.keep_ckpts,
-                                 group=self.group)
+                                 group=self.all_group)
         start_step = 0
         if resume:
             step, restored = ckpt.restore(tree(state))
@@ -256,11 +270,16 @@ class Trainer:
                 signal.signal(sig, h)
         ckpt.wait()
         t_export = time.perf_counter()
-        trainable = gather_tree(state.trainable)
-        if self.rank == 0:
+        trainable = self._whole(state.trainable)
+        if self.writer:
             save_adapter(self.out_dir / "adapter.npz", trainable)
         self.seconds["export"] = time.perf_counter() - t_export
         return state
+
+    def _whole(self, tree: dict) -> dict:
+        """``tree`` with its ZeRO chunks and tensor-parallel pieces gathered
+        whole (every process calls it)."""
+        return gather_pieces(gather_tree(tree), self.model_group)
 
     def _any_process(self, flag: bool) -> bool:
         """``flag`` on any process (a signal reaches one process; every

@@ -38,6 +38,7 @@ from mmmm_tpu_torch.models.segvol import SamConfig
 from mmmm_tpu_torch.params import init_sam_params
 from mmmm_tpu_torch.peft.lora import flatten, unflatten
 from test_data_pipeline import _make_seg_case
+from test_torch_port_models import one_thread  # noqa: F401
 
 C2I = {"liver": 0, "nodule": 1, "spleen": 2, "pleural effusion": 3}
 PATCH = dict(patch_shape=(4, 16, 16), patch_size_z=2, max_classes=3, num_neg=1)

@@ -52,7 +52,7 @@ from mmmm_tpu_torch.models.segvol import sam as psam
 from mmmm_tpu_torch.ops import decode_kernel as pdec
 from mmmm_tpu_torch.ops import dense_attn as pdense
 from test_torch_port_decode import _t
-from test_torch_port_models import numpy_params
+from test_torch_port_models import numpy_params, one_thread  # noqa: F401
 from test_torch_port_slice import N_VIS, PATCH, POOL, _ground_head, _prompts
 from test_torch_port_w4 import w4_config
 

@@ -33,6 +33,7 @@ from mmmm_tpu.ops import decode_kernel as jdec
 from mmmm_tpu.ops import quant as jquant
 from mmmm_tpu_torch.ops import decode_kernel as pdec
 from mmmm_tpu_torch.ops.quant import quantize_kv
+from test_torch_port_models import one_thread  # noqa: F401
 
 FP32 = dict(atol=2e-5, rtol=0)
 BF16 = dict(atol=0.05, rtol=0)

@@ -41,6 +41,7 @@ from mmmm_tpu_torch.data.local import DatasetConf, LocalTransConf
 from mmmm_tpu_torch.models.mmmm import MMMMModel
 from mmmm_tpu_torch.params import _flatten, _unflatten, params_from_jax
 from mmmm_tpu_torch.peft import default_lora_targets, split_trainable
+from test_torch_port_models import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 TINY = ROOT / "conf" / "tiny" / "fit.yaml"
@@ -245,8 +246,13 @@ def test_evaluate_matches_jax_script(runs, suite):
 
 
 def test_tp_above_one_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 8b"):
-        pcli.main(["demo", "-c", str(TINY), "--tp", "2", "--device", "cpu"])
+    """``--tp 2`` runs over two processes
+    (tests/test_torch_port_tensor_parallel.py); one process alone raises
+    and names the variables that join the others, in both commands."""
+    for cmd in (["demo"], ["predict", "--task", "vqa", "--dataset-dir", ".", "--output",
+                           "unused.csv"]):
+        with pytest.raises(ValueError, match="COORDINATOR_ADDRESS, NUM_PROCESSES and PROCESS_ID"):
+            pcli.main([*cmd, "-c", str(TINY), "--tp", "2", "--device", "cpu"])
 
 
 def _tag_chain(params, tok) -> None:

@@ -24,6 +24,19 @@ TOL = dict(atol=1e-4, rtol=0)
 PATCH = (4, 4, 4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for a module's tiny tensors (the modules that
+    import this fixture): the suite runs six workers on the host's cores,
+    where each worker's default thread pool oversubscribes them
+    (tests/test_torch_port_remat.py measured a port step about ten times
+    slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def numpy_params(cfg, seed):
     """A random fp32 tree in the JAX layout, initialized as the JAX init
     does (normal * std, zeros, ones); test_torch_port_slice.py holds the

@@ -36,17 +36,18 @@ training against the JAX package's, on the CPU.
     and restores rank 0's checkpoint.
   - ``check_batch_uniform`` and ``assert_replicated_equal`` raise on an
     uneven batch and a perturbed replica; ``init_distributed`` without its
-    variables makes no group; the tensor, sequence and pipeline axes raise
-    and name their ROADMAP items.
+    variables makes no group; the sequence and pipeline axes raise and name
+    their ROADMAP item, and pipeline with tensor parallelism raises (the
+    tensor axis runs: tests/test_torch_port_tensor_parallel.py).
 
 Each multi-process case spawns 2 processes with ``OMP_NUM_THREADS=1`` and a
-timeout of its own.
+timeout of its own, around a rendezvous store that this process serves.
 """
 import json
 import os
-import socket
 import subprocess
 import sys
+from datetime import timedelta
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -55,6 +56,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.distributed import TCPStore
 
 import chip_smoke
 from mmmm_tpu.models import MMMMConfig as JaxConfig
@@ -163,24 +165,24 @@ def test_rules_match_jax_specs(case, dmp):
 
 # ---- processes ----
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def start_processes(argv_of_rank, n: int = 2, cwd=None) -> list:
     """Start ``n`` processes of ``argv_of_rank(rank)`` joined by the three
-    variables (gloo over a loopback port)."""
-    port = _free_port()
+    variables (gloo over loopback). Their rendezvous store is served from
+    this process, on a port the system picks as it binds it, and lives until
+    the processes are done (it rides on the first one): no port is handed
+    out between a probe and its use, and no rank's exit takes the store
+    from the others (torch's agent-store mode: every rank is a client)."""
+    store = TCPStore("127.0.0.1", 0, n, is_master=True, wait_for_workers=False,
+                     timeout=timedelta(seconds=TIMEOUT_S))
     procs = []
     for rank in range(n):
         env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT),
-                   COORDINATOR_ADDRESS=f"127.0.0.1:{port}", NUM_PROCESSES=str(n),
-                   PROCESS_ID=str(rank))
+                   COORDINATOR_ADDRESS=f"127.0.0.1:{store.port}", NUM_PROCESSES=str(n),
+                   PROCESS_ID=str(rank), TORCHELASTIC_USE_AGENT_STORE="True")
         procs.append(subprocess.Popen([sys.executable, *argv_of_rank(rank)], env=env, cwd=cwd,
                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                       text=True))
+    procs[0].store = store
     return procs
 
 
@@ -540,12 +542,17 @@ def test_init_distributed_without_variables_makes_no_group(monkeypatch):
 
 
 def test_tensor_sequence_pipeline_axes_name_their_roadmap_items():
+    """The sequence and pipeline axes name item 8c; the model axis runs
+    (tests/test_torch_port_tensor_parallel.py), and with a pipeline axis it
+    raises as the reference's pipeline does."""
     from mmmm_tpu_torch import LoraConfig, OptimizerConfig, make_optimizer, make_train_step
 
     opt = make_optimizer(OptimizerConfig())
-    for sizes, item in (({"data": 1, "model": 2}, "8b"), ({"data": 1, "model": 1, "seq": 2}, "8c"),
-                        ({"pipe": 2, "data": 1, "model": 1}, "8c")):
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+    for sizes, error, match in (
+            ({"data": 1, "model": 1, "seq": 2}, NotImplementedError, "Queue 1 item 8c"),
+            ({"pipe": 2, "data": 1, "model": 1}, NotImplementedError, "Queue 1 item 8c"),
+            ({"pipe": 2, "data": 1, "model": 2}, ValueError, "model>1 XOR pipe>1")):
+        with pytest.raises(error, match=match):
             make_train_step(MMMMConfig.tiny(), opt, LoraConfig(), mesh=sizes, device="cpu")
     q = torch.zeros((1, 4, 2, 8))
     with pytest.raises(NotImplementedError, match="Queue 1 item 8c"):

@@ -27,7 +27,7 @@ from mmmm_tpu_torch.data.tokenizer import MMMMTokenizer
 from mmmm_tpu_torch.models.llm_batch import make_text_generator
 from mmmm_tpu_torch.models.serving import GroundedServer, TextServer
 from test_serving import N_VIS, _grounded_reqs
-from test_torch_port_models import numpy_params
+from test_torch_port_models import numpy_params, one_thread  # noqa: F401
 from test_torch_port_slice import _ground_head
 
 TEMPLATE = "You are a radiology assistant. Extract findings from: "

@@ -31,7 +31,7 @@ from mmmm_tpu_torch.data.tokenizer import MMMMTokenizer
 from mmmm_tpu_torch.models.cogvlm import CogVLMConfig
 from mmmm_tpu_torch.models.segvol import SamConfig
 from mmmm_tpu_torch.params import _flatten, param_spec
-from test_torch_port_models import numpy_params
+from test_torch_port_models import numpy_params, one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 N_VIS = 1 * 4 * 4 + 2  # (3, 4, 16, 16) image, patch 4, pool 1 -> 16 tokens + boi/eoi
@@ -199,7 +199,7 @@ def _imports(tree):
 PREPROCESS_MODULES = ("nifti", "dicom", "processor", "seg_folder", "boxes", "registry",
                       "report", "tagging", "clean_reports", "tag_reports", "self_label",
                       "compress_vl", "convert_vl")
-PARALLEL_MODULES = ("mesh", "sharding", "distributed", "zero", "debug")
+PARALLEL_MODULES = ("mesh", "sharding", "distributed", "zero", "debug", "tensor")
 
 
 def test_port_imports_no_jax_and_no_library_kernels():

@@ -28,7 +28,7 @@ from mmmm_tpu_torch import MMMMConfig, generate_grounded, params_from_jax
 from mmmm_tpu_torch.data.tokenizer import MMMMTokenizer
 from mmmm_tpu_torch.models.generate import greedy_generate
 from mmmm_tpu_torch.models.speculate import ngram_draft, ngram_speculative_generate
-from test_torch_port_models import numpy_params
+from test_torch_port_models import numpy_params, one_thread  # noqa: F401
 from test_torch_port_slice import N_VIS, PATCH, POOL, _ground_head, _prompts
 
 MAX_NEW = 8

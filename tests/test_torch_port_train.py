@@ -44,7 +44,7 @@ from mmmm_tpu_torch import (LoraConfig, MMMMConfig, OptimizerConfig, make_optimi
 from mmmm_tpu_torch.peft import lora as plora
 from mmmm_tpu_torch.peft.lora import flatten
 from mmmm_tpu_torch.train import optim as poptim
-from test_torch_port_models import numpy_params
+from test_torch_port_models import numpy_params, one_thread  # noqa: F401
 
 B, S, N_VIS, TARGETS, LMAX = 2, 32, 18, 2, 6
 LR = 1e-3
@@ -224,11 +224,12 @@ def test_train_state_from_jax_refuses_a_bad_tree():
     bad = dict(frozen, vg_proj={"w9": np.zeros((2, 2), np.float32)})
     with pytest.raises(ValueError, match="not consumed"):
         train_state_from_jax(states[0], bad, "cpu")
-    # a mesh trains data parallel (tests/test_torch_port_parallel.py); a
-    # model axis above 1 waits for tensor parallelism
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8b"):
+    # a mesh trains data and tensor parallel (tests/test_torch_port_parallel.py,
+    # tests/test_torch_port_tensor_parallel.py); a model axis with a pipeline
+    # axis raises, as the reference's pipeline does
+    with pytest.raises(ValueError, match="model>1 XOR pipe>1"):
         make_train_step(MMMMConfig.tiny(), make_optimizer(OptimizerConfig()), LoraConfig(),
-                        mesh={"data": 1, "model": 2}, device="cpu")
+                        mesh={"pipe": 2, "data": 1, "model": 2}, device="cpu")
 
 
 def test_lora_merge_matches_jax():

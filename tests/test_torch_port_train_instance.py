@@ -5,8 +5,10 @@ the batch, steps and tolerances of tests/test_torch_port_train.py. The
 Hungarian match may pick another of two tied negative columns; losses and
 gradients do not depend on which."""
 import pytest
+import torch
 
 from test_torch_port_train import check_steps, jax_run, port_step, train_batch
+from test_torch_port_models import one_thread  # noqa: F401
 
 # each JAX reference (one compile each) is held against all four port
 # combinations of attention route and remat

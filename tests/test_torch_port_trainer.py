@@ -57,6 +57,7 @@ from mmmm_tpu_torch.train import OptimizerConfig
 from mmmm_tpu_torch.train.checkpoint import CheckpointManager
 from mmmm_tpu_torch.train.trainer import Trainer, TrainerConfig
 from test_data_pipeline import _make_box_case, _make_seg_case
+from test_torch_port_models import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 TINY = ROOT / "conf" / "tiny" / "fit.yaml"
@@ -258,16 +259,16 @@ def test_shipped_config_builds(path):
 @pytest.mark.parametrize("key,value", [("mesh_model", 4), ("mesh_seq", 2), ("mesh_pipe", 2),
                                        ("mesh_data", 2)])
 def test_mesh_raises_and_entry_points_default_to_the_card(fit_data, tmp_path, key, value):
-    """Tensor, sequence and pipeline parallelism name their ROADMAP items;
-    a data axis of 2 in one process raises the world-size error (the mesh
-    must hold every process; tests/test_torch_port_parallel.py runs it over
-    two)."""
+    """Sequence and pipeline parallelism name their ROADMAP item; a data
+    axis of 2 or a model axis of 4 in one process raises the world-size
+    error (the mesh must hold every process; tests/test_torch_port_parallel.py
+    and tests/test_torch_port_tensor_parallel.py run them over several)."""
     cfg = _fit_config([f"trainer.out_dir={tmp_path}", _datasets(fit_data, ("VLSet",)),
                        "data.vl_trans={max_tokens: 64, max_tokens_z: 4}"])
     tok = build_tokenizer(cfg["tokenizer"])
     args = (build_model(cfg["model"], tok), build_dataset(cfg["data"], tok, TINY.parent),
             build(OptimizerConfig, cfg["optimizer"]), build(LoraConfig, cfg["lora"]))
-    error, match = {"mesh_model": (NotImplementedError, "Queue 1 item 8b"),
+    error, match = {"mesh_model": (ValueError, "must hold every one of the 1 processes"),
                     "mesh_seq": (NotImplementedError, "Queue 1 item 8c"),
                     "mesh_pipe": (NotImplementedError, "Queue 1 item 8c"),
                     "mesh_data": (ValueError, "must hold every one of the 1 processes")}[key]

@@ -26,7 +26,7 @@ from mmmm_tpu_torch.models.segvol import SamConfig
 from mmmm_tpu_torch.ops import quant as pquant
 from mmmm_tpu_torch.ops import w4_matmul as pw4
 from mmmm_tpu_torch.params import _flatten
-from test_torch_port_models import numpy_params
+from test_torch_port_models import numpy_params, one_thread  # noqa: F401
 
 FP32 = dict(atol=1e-5, rtol=0)
 BF16_STEP = dict(atol=2 ** -7, rtol=2 ** -8)
