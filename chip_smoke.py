@@ -68,7 +68,9 @@ Phases, in order; any failure exits non-zero before the result lines:
     ``gelu_mode`` ``"tanh"`` then ``"erf"``, card vs CPU, every K4 launch
     in its form "fast" and every K9 launch in "bf16";
  5. run the grounded report path at the flagship width (CogVLM-17B +
-    SegVol SAM, bf16 LLM/ViT, fp32 SAM, random weights from a seed): B=4,
+    SegVol SAM, bf16 LLM/ViT, fp32 SAM, random weights from a seed; the
+    LLM cut to its first ``FLAGSHIP_LAYERS`` = 16 of 32 layers, the ViT and
+    SAM whole, to keep the script inside its time): B=4,
     prompt 192 with 146 vision tokens, 128 new tokens, 4 targets, as four
     runs: (a) greedy, bf16 weights and KV cache; then, with the LLM
     quantized in place to W8A16, (b) speculative with 7 drafts and a bf16
@@ -97,7 +99,7 @@ Phases, in order; any failure exits non-zero before the result lines:
     K1 or K6 a decode step a layer, fused with their appends), tag offsets
     inside their reports; the routes' texts compared (reported: they part
     in bf16); each route's first-token logits of its first call, as the
-    route computed them, held to an fp32 static prefill at full depth
+    route computed them, held to an fp32 static prefill at the same depth
     (the layers cast one at a time): a bound on each row's largest and
     relative distance, the argmax equal where fp32's top-2 gap is wide;
     the same three routes over the first 2 LLM layers cast to fp32,
@@ -159,9 +161,23 @@ Phases, in order; any failure exits non-zero before the result lines:
     ``first_token_gate``'s bounds), at 2 layers in fp32 (tokens equal,
     masks within 2e-4), W4A16 greedy over int4 pieces (K11 and K11mma a
     rank as one rank's; first-token logits within 0.2 relative of one
-    rank's), and one fp32 ``make_train_step(mesh=(1, 2))`` step against
+    rank's; phase 3 holds both kernels at a rank's piece shapes over 2 and
+    over 4 ranks, ``W4_TP_SHAPES``: over 4, gate/up's 2,752 columns end in
+    a partial K11mma tile and down's piece holds 22 scale groups), and one
+    fp32 ``make_train_step(mesh=(1, 2))`` step against
     the step without a mesh (loss and gradient norm within 1e-5), each
-    rank's K4, K3, K1, K6 and K7 launches exact;
+    rank's K4, K3, K1, K6 and K7 launches exact; then (7d,
+    ``seq_pipe_phase``) sequence and pipeline parallelism, two workers on
+    the one card over gloo again: ring attention at the flagship LLM's
+    (4, 1024, 32, 128) bf16 causal over ``seq=2`` against K3 and K7 on the
+    whole sequence (output and dq, dk, dv within 0.05; rank 0 launches K3
+    and each K7 kernel once, rank 1 twice), one hop of a (4, 512, 32, 128)
+    K/V shard timed, and one fp32 ``make_train_step`` at full width with 2
+    LLM and 2 ViT layers on ``make_mesh(data=1, seq=2)`` (``"ring"``) and
+    on ``make_mesh(data=1, pipe=2)`` (1 layer a stage, 2 microbatches)
+    against the step without a mesh (loss, gradient norm and the norm of
+    each rank's chunk of each leaf's gradient within 1e-5), each rank's K3,
+    K4 and K7 launches exact;
  8. the entry points at the flagship's full width: the checkpoint
     importers (``train/import_torch.py``) on seeded HF CogVLM and SegVol
     state dicts at 2 LLM and 2 ViT layers into a fresh tree on the card
@@ -260,26 +276,38 @@ TRAIN_SEQ, TRAIN_STEPS, LMAX = 1024, 3, 6
 DRAFT = 7  # the reference bench's spec default: verify windows of 8
 WINDOW = DRAFT + 1
 LAYERS = 32
+# the LLM layers of phase 5 (runs (a)-(d), the servers, clean/tag-reports):
+# the flagship's first 16, at full width; its host-bound decode loops took
+# a third of the script at 32
+FLAGSHIP_LAYERS = 16
 VIT_LAYERS, SAM_LAYERS = 63, 12
 CHUNK = 2  # run (d)'s prefill chunk: 2 chunks of 2 samples
 # run (d)'s int4 products a layer: 5 projections (qkv, dense, gate, up, down)
 # per routed span; prefill spans of a chunk: 2 x 1 language rows (GEMV),
 # 2 x 145 vision and 2 x 46 language rows (tensor-core tiles); decode: 4 rows
-W4_GEMV = LAYERS * 5 * (B // CHUNK) + LAYERS * 5 * NEW
-W4_MMA = LAYERS * 10 * (B // CHUNK)
+W4_GEMV = FLAGSHIP_LAYERS * 5 * (B // CHUNK) + FLAGSHIP_LAYERS * 5 * NEW
+W4_MMA = FLAGSHIP_LAYERS * 10 * (B // CHUNK)
 # run (d)'s int4 weight shapes (K, N): qkv, dense, gate and up, down; the K11
 # launches a batch should count on each (gate and up share a shape)
 W4_SHAPES = ((4096, 12288), (4096, 4096), (4096, 11008), (11008, 4096))
-W4_DECODE_CALLS = {s: (2 if s == (4096, 11008) else 1) * LAYERS * ((B // CHUNK) + NEW)
-                   for s in W4_SHAPES}
-# the int4 shapes (K, N) a rank of phase 7c's W4A16 run multiplies by over two
-# ranks (``tp_serving_params(.., 2)``), each with the whole weight it is cut
-# from and the leaf's rule: qkv's and gate/up's columns, dense's and down's
-# rows; down's 43 scale groups are repacked with a 44th of zero weights
-W4_TP_SHAPES = {(4096, 6144): ((4096, 12288), "lang_qkv"),
-                (2048, 4096): ((4096, 4096), "lang_dense"),
-                (4096, 5504): ((4096, 11008), "lang_mlp/gate"),
-                (5632, 4096): ((11008, 4096), "lang_mlp/down")}
+W4_DECODE_CALLS = {s: (2 if s == (4096, 11008) else 1) * FLAGSHIP_LAYERS
+                   * ((B // CHUNK) + NEW) for s in W4_SHAPES}
+# the int4 shapes (K, N) a rank multiplies by under tensor parallelism, over
+# two ranks (phase 7c's W4A16 run, ``tp_serving_params(.., 2)``) and over
+# four, each with the whole weight it is cut from, the leaf's rule (qkv's and
+# gate/up's columns, dense's and down's rows), the ranks and the rank whose
+# piece is checked: over two, down's 43 scale groups are repacked with a 44th
+# of zero weights; over four, gate/up's 2,752 columns end in a partial
+# 128-column tile of K11mma, and rank 1's piece of down holds the 22 scale
+# groups its 2,752 rows touch, 64 zero rows in front
+W4_TP_SHAPES = {(4096, 6144): ((4096, 12288), "lang_qkv", 2, 1),
+                (2048, 4096): ((4096, 4096), "lang_dense", 2, 1),
+                (4096, 5504): ((4096, 11008), "lang_mlp/gate", 2, 1),
+                (5632, 4096): ((11008, 4096), "lang_mlp/down", 2, 1),
+                (4096, 3072): ((4096, 12288), "lang_qkv", 4, 1),
+                (1024, 4096): ((4096, 4096), "lang_dense", 4, 1),
+                (4096, 2752): ((4096, 11008), "lang_mlp/gate", 4, 1),
+                (2816, 4096): ((11008, 4096), "lang_mlp/down", 4, 1)}
 # flagship launches per run; "iters" is scaled by the run's verify steps;
 # "forms": the launches of a kernel's named forms (every other form count 0).
 # Each decode step appends inside its read's launch (the read's "append"
@@ -287,21 +315,24 @@ W4_TP_SHAPES = {(4096, 6144): ((4096, 12288), "lang_qkv"),
 # runs (c) and (d) quantize their row and append it inside K9's and K10's;
 # so the stand-alone appends K2, K5 and K8 launch 0 times
 RUNS = {
-    "a_greedy_bf16": dict(kw={}, launches={"K4": 63 + 12, "K3": LAYERS, "K1": LAYERS * NEW},
-                          forms={"K1": {"append": LAYERS * NEW}}),
+    "a_greedy_bf16": dict(kw={}, launches={"K4": 63 + 12, "K3": FLAGSHIP_LAYERS,
+                                           "K1": FLAGSHIP_LAYERS * NEW},
+                          forms={"K1": {"append": FLAGSHIP_LAYERS * NEW}}),
     "b_spec7_w8a16": dict(kw=dict(spec_draft_len=DRAFT),
-                          launches={"K4": 63 + 12, "K3": LAYERS, "K6": "iters"},
+                          launches={"K4": 63 + 12, "K3": FLAGSHIP_LAYERS, "K6": "iters"},
                           forms={"K6": {"append": "iters"}}),
     "c_int8kv_w8a16": dict(kw=dict(kv_cache_dtype="int8"),
-                           launches={"K4": 63 + 12, "K3": LAYERS, "K9": LAYERS * NEW},
-                           forms={"K9": {"append": LAYERS * NEW}}),
+                           launches={"K4": 63 + 12, "K3": FLAGSHIP_LAYERS,
+                                     "K9": FLAGSHIP_LAYERS * NEW},
+                           forms={"K9": {"append": FLAGSHIP_LAYERS * NEW}}),
     # chunking runs the ViT, the LLM prefill and the SAM encoder once a chunk
     "d_w4_q8mxu_chunk2": dict(kw=dict(kv_cache_dtype="int8", q8_mxu=True, prefill_chunk=CHUNK,
                                       instance=True),
                               launches={"K4": (VIT_LAYERS + SAM_LAYERS) * (B // CHUNK),
-                                        "K3": LAYERS * (B // CHUNK), "K10": LAYERS * NEW,
+                                        "K3": FLAGSHIP_LAYERS * (B // CHUNK),
+                                        "K10": FLAGSHIP_LAYERS * NEW,
                                         "K11": W4_GEMV, "K11mma": W4_MMA},
-                              forms={"K10": {"append": LAYERS * NEW}}),
+                              forms={"K10": {"append": FLAGSHIP_LAYERS * NEW}}),
 }
 # kernel -> (run whose launch count it reports, the counter it reads); K12 is
 # K4's kernel; P1 is a probe that no run launches; a train_* run is one
@@ -1543,20 +1574,20 @@ def window_fused_row(peaks, gen, q, rot, t0) -> dict:
 
 def w4_weight(kk: int, nn: int, rnd) -> dict:
     """A random int4 weight multiplied as (kk, nn): one of run (d)'s, or, at
-    a shape of ``W4_TP_SHAPES``, rank 1's piece (``local_params``) of a
-    whole one over two ranks."""
+    a shape of ``W4_TP_SHAPES``, a rank's piece (``local_params``) of a
+    whole one over its ranks."""
     from mmmm_tpu_torch.ops.quant import quantize_int4
     from mmmm_tpu_torch.parallel.sharding import local_params
 
     if (kk, nn) not in W4_TP_SHAPES:
         return quantize_int4(rnd(kk, nn, dt=torch.float32).mul_(0.02))
-    (wk, wn), leaf = W4_TP_SHAPES[(kk, nn)]
+    (wk, wn), leaf, tp, rank = W4_TP_SHAPES[(kk, nn)]
     keys = ("llm", "layers", *leaf.split("/"))
     tree = node = {}
     for key in keys[:-1]:
         node = node.setdefault(key, {})
     node[keys[-1]] = quantize_int4(rnd(1, wk, wn, dt=torch.float32).mul_(0.02))
-    piece = local_params(tree, ({"model": 2}, 1))
+    piece = local_params(tree, ({"model": tp}, rank))
     for key in keys:
         piece = piece[key]
     w = {k: v[0] for k, v in piece.items()}
@@ -1717,10 +1748,14 @@ def capacity_kernel_phase(peaks, gen, out):
                       max_err(forced(tpw, wset.copies[0]), ref),
                       2 ** -7 * max(1.0, ref.abs().max().item()))
                 row[f"tpw{tpw}_ms"] = time_ms(lambda: forced(tpw, wset.next()))
+            row["bound_ms"], row["bound_by"] = bound(
+                m * kk * 2 + kk // 2 * nn + kk // 128 * nn * 4 + m * nn * 2, 2 * m * kk * nn,
+                bf16_rate, bw)
             tpw_rows.append(row)
             two = "not taken (N % 256)" if row["tpw2_ms"] is None else f"{row['tpw2_ms']:.4f} ms"
             log(f"  K11mma ({m}, {kk}) x {kk}x{nn}: TPW=1 {row['tpw1_ms']:.4f} ms, TPW=2 "
-                f"{two}, mma_tpw picks {row['picked']}")
+                f"{two}, mma_tpw picks {row['picked']}, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})")
         del wset
     k, n = 4096, 11008
     wts = [quantize_int4(rnd(k, n, dt=torch.float32).mul_(0.02)) for _ in range(4)]
@@ -2526,7 +2561,8 @@ def flagship_phase(gen, expect: bool = True, serving: bool = False):
     from mmmm_tpu_torch.ops.quant import quantize_llm_for_serving
 
     log("flagship grounded report path")
-    cfg = MMMMConfig(vlm=CogVLMConfig.cogvlm17b(), sam=SamConfig())
+    cfg = MMMMConfig(vlm=dataclasses.replace(CogVLMConfig.cogvlm17b(),
+                                             num_hidden_layers=FLAGSHIP_LAYERS), sam=SamConfig())
     tok = MMMMTokenizer(_ByteBackend(), {t: 32000 + i for i, t in enumerate(SPECIAL_TOKENS)})
     def make_params():
         params = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
@@ -2608,7 +2644,7 @@ def flagship_phase(gen, expect: bool = True, serving: bool = False):
         log(f"    steady run: {steady_s:.3f} s, {B / steady_s:.4f} reports/s, "
             f"tokens_per_step {tps:.4f} ({iters} decode steps), peak memory "
             f"{peak / 2**30:.2f} GiB, launches {launches}, by form {forms}")
-        per_run = lambda v: LAYERS * iters if v == "iters" else v
+        per_run = lambda v: FLAGSHIP_LAYERS * iters if v == "iters" else v
         want = {name: 0 for name in KERNELS}
         want.update({k: per_run(v) for k, v in spec["launches"].items()})
         for name, n in want.items():
@@ -2734,7 +2770,7 @@ def first_difference(a, b) -> int:
 
 
 def flagship_serving_phase(params, cfg, tok, gen) -> dict:
-    """The servers at the flagship's full width and depth over run (a)'s
+    """The servers at the flagship's full width (FLAGSHIP_LAYERS) over run (a)'s
     bf16 params: (s1) ``GroundedServer`` greedy, 4 slots, 8 requests of run
     (a)'s shape, 128 new tokens, chunks of 16, 4 targets; (s2) the same
     with 7 drafts a step; (s3) ``TextServer`` with 8 slots over 16 prompts
@@ -2764,8 +2800,8 @@ def flagship_serving_phase(params, cfg, tok, gen) -> dict:
         def want(stats, res):
             # each SAM pass's masks are rows of one tensor
             passes = len({r["masks"].untyped_storage().data_ptr() for r in res})
-            n = LAYERS * SERVE_CHUNK * stats["chunks"]
-            return ({"K3": LAYERS * stats["refills"],
+            n = FLAGSHIP_LAYERS * SERVE_CHUNK * stats["chunks"]
+            return ({"K3": FLAGSHIP_LAYERS * stats["refills"],
                      "K4": VIT_LAYERS * stats["refills"] + SAM_LAYERS * passes, read: n},
                     {read: {"append": n}})
         return want
@@ -2815,8 +2851,8 @@ def flagship_serving_phase(params, cfg, tok, gen) -> dict:
                         chunk=SERVE_CHUNK, seq_quant=64, max_prompt_len=PROMPT, device="cuda")
 
     def text_want(stats, res):
-        n = LAYERS * SERVE_CHUNK * stats["chunks"]
-        return {"K3": LAYERS, "K1": n}, {"K1": {"append": n}}
+        n = FLAGSHIP_LAYERS * SERVE_CHUNK * stats["chunks"]
+        return {"K3": FLAGSHIP_LAYERS, "K1": n}, {"K1": {"append": n}}
 
     res, r = _serve_run("s3_text_prefix_cache", server, (prompts, budgets), text_want)
     if (len(res) != TEXT_REQS or r["stats"]["refilled_mid_flight"] < 1
@@ -4183,6 +4219,286 @@ def tensor_parallel_phase() -> tuple[dict, dict]:
                 for label in ("bf16", "fp32") for name in ("greedy", "spec")}
     launches["w4_greedy"] = r0["w4_tp2"]["launches"]
     launches["train_semantic"] = b[0]["launches"]
+    return res, launches
+
+
+# LLM and ViT layers of the sequence/pipeline phase's full-width fp32 model: 2, not
+# 4, so that the phase (whose hops and gathers cross the host under gloo) and
+# the script stay inside their time (PERF.md, the sequence/pipeline entry)
+SP_LAYERS = 2
+SP_RING = (4, 1024, 32, 128)  # the flagship LLM's attention (B, S, H, D), over seq=2
+SP_TIMEOUT_S = 240
+
+
+def _sp_expected(kind: str, rank: int) -> dict:
+    """Each rank's launches of phase 7d's fp32 step on ``kind``'s mesh (or
+    without one): ``attn_impl`` ``"ring"`` on ``seq``, ``"auto"`` else;
+    remat recomputes each layer, so K3 and K4 launch twice a site. The ViT's
+    577 tokens do not split over ``seq``: its sites take ``"auto"``, K4
+    forward and a plain backward. On ``seq`` the LLM's causal ring runs
+    ``rank + 1`` blocks a site; on ``pipe`` a stage runs its SP_LAYERS / 2
+    layers once a microbatch (2)."""
+    blocks = {"none": SP_LAYERS, "seq": SP_LAYERS * (rank + 1),
+              "pipe": SP_LAYERS // 2 * 2}[kind]
+    return {"K4": 2 * SP_LAYERS, "K3": 2 * blocks, "K7dq": blocks, "K7dkv": blocks,
+            "K7delta": blocks}
+
+
+def sp_worker() -> int:
+    """One rank of ``seq_pipe_phase`` (argv: results directory, rank, the
+    store's port): joins a gloo group of two over the parent's store, its
+    tensors on the one card, and writes what it saw to ``sp_<rank>.pt``;
+    rank 0 also runs the references without a mesh."""
+    import torch.distributed as dist
+    from datetime import timedelta
+    from mmmm_tpu_torch import (LoraConfig, OptimizerConfig, init_train_state, make_optimizer,
+                                make_train_step)
+    from mmmm_tpu_torch.ops._cuda import KERNELS
+    from mmmm_tpu_torch.ops.flash import flash_attention
+    from mmmm_tpu_torch.parallel import make_mesh
+    from mmmm_tpu_torch.parallel.distributed import destroy_distributed
+    from mmmm_tpu_torch.parallel.pipeline import set_pipe_context
+    from mmmm_tpu_torch.parallel.ring_attention import (_cut, ring_hop, ring_segment_attention,
+                                                        set_ring_context)
+    from mmmm_tpu_torch.parallel.zero import PipeLeaf
+    from mmmm_tpu_torch.peft.lora import flatten
+    from mmmm_tpu_torch.train.step import place_state
+
+    tmp, rank, port = Path(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    store = dist.TCPStore("127.0.0.1", port, 2, False, timedelta(seconds=SP_TIMEOUT_S))
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=2)
+    out = {"rank": rank, "seconds": {}}
+    t_all = time.perf_counter()
+
+    def counted(fn):
+        for kern in KERNELS.values():
+            kern.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t, {n: k.launches for n, k in KERNELS.items()
+                                               if k.launches}
+
+    # (i) the ring at the flagship LLM's attention, bf16, causal, over seq=2;
+    # the last sample's last 100 tokens padding
+    t0 = time.perf_counter()
+    b, s, h, d = SP_RING
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, g = (torch.randn((b, s, h, d), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+    seg = torch.ones((b, s), dtype=torch.int32, device="cuda")
+    seg[-1, -100:] = 0
+    mesh = make_mesh(data=1, seq=2, device="cuda")
+    group = mesh.get_group("seq")
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def ring():
+        o = ring_segment_attention(*leaves, seg, group, causal=True)
+        return (o.detach(), *torch.autograd.grad(o, leaves, g))
+
+    ring()  # warm
+    got, sec, launches = counted(ring)
+    out["ring"] = {"out": [t.cpu() for t in got], "seconds": sec, "launches": launches}
+    if rank == 0:
+        ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = flash_attention(*ref_leaves, seg, seg, causal=True, scale=d ** -0.5)
+        out["ring_ref"] = [t.cpu() for t in (o.detach(),
+                                             *torch.autograd.grad(o, ref_leaves, g))]
+    # one hop of a (4, 512, 32, 128) K/V shard and its segment ids
+    shard = tuple(_cut(t, rank, 2) for t in (k, v, seg))
+    for _ in range(2):
+        ring_hop(shard, group, rank, 2)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(10):
+        ring_hop(shard, group, rank, 2)
+    torch.cuda.synchronize()
+    out["hop_ms"] = (time.perf_counter() - t) / 10 * 1e3
+    del q, k, v, g, leaves, got
+    out["seconds"]["ring"] = time.perf_counter() - t0
+
+    # (ii)/(iii) one fp32 step at full width, SP_LAYERS layers, on each mesh
+    t0 = time.perf_counter()
+    cfg = _tp_model(SP_LAYERS)
+    opt = make_optimizer(OptimizerConfig(lr=5e-5, warmup_steps=1, max_steps=1000))
+    lcfg = LoraConfig(r=64, alpha=8.0)
+    batch = flagship_train_batch("none", torch.Generator(device="cuda").manual_seed(0))
+    step_kw = dict(vg_mode="none", remat=True, vis_span="auto", device="cuda")
+    # the gradients the optimizer is handed: this process's chunk of each leaf
+    seen, opt_step = {}, opt.step
+
+    def recording_step(params, grads, state, **kw):
+        seen.clear()
+        seen.update({p: torch.zeros_like(t) if grads.get(p) is None else grads[p].detach()
+                     for p, t in params.items()})
+        return opt_step(params, grads, state, **kw)
+
+    opt.step = recording_step
+
+    def run(label, mesh, impl):
+        state, frozen = init_train_state(cfg, opt, lcfg, seed=0, device="cuda")
+        if mesh is not None:
+            state, frozen = place_state(state, frozen, mesh)
+        step = make_train_step(cfg, opt, lcfg, attn_impl=impl, mesh=mesh, **step_kw)
+        (_, logs), sec, launches = counted(lambda: step(state, frozen, batch))
+        # each leaf's cut over pipe (dim, rows a rank; None: whole) and the
+        # norm of this rank's chunk of its gradient
+        cuts = {p: (leaf.pdim, leaf.shape[leaf.pdim] // leaf.world)
+                if isinstance(leaf, PipeLeaf) else (None, 0)
+                for p, leaf in flatten(state.trainable).items()}
+        out[label] = {"logs": {k: float(v) for k, v in logs.items()}, "seconds": sec,
+                      "launches": launches, "cuts": cuts,
+                      "chunk_norms": {p: float(g.norm()) for p, g in seen.items()}}
+        grads = dict(seen) if mesh is None else None
+        seen.clear()
+        del state, frozen, step
+        torch.cuda.empty_cache()
+        return grads
+
+    if rank == 0:
+        ref_grads = run("train_none", None, "auto")
+    dist.barrier()
+    set_ring_context(mesh, "seq")
+    run("train_seq", mesh, "ring")
+    set_ring_context(None)
+    pmesh = make_mesh(data=1, pipe=2, device="cuda")
+    set_pipe_context(pmesh, "pipe", 2)
+    run("train_pipe", pmesh, "auto")
+    set_pipe_context(None)
+    del mesh, pmesh
+    if rank == 0:  # the step without a mesh's gradients cut as each rank's
+        out["ref_chunk_norms"] = {
+            label: {p: [float(g.norm() if dim is None else g.narrow(dim, r * k, k).norm())
+                        for r in range(2)]
+                    for p, g in ref_grads.items() for dim, k in [out[label]["cuts"][p]]}
+            for label in ("train_seq", "train_pipe")}
+        del ref_grads
+    out["seconds"]["training"] = time.perf_counter() - t0
+    out["seconds"]["worker"] = time.perf_counter() - t_all
+    torch.save(out, tmp / f"sp_{rank}.pt")
+    dist.barrier()
+    destroy_distributed()
+    return 0
+
+
+def seq_pipe_phase() -> tuple[dict, dict]:
+    """Phase 7d: sequence parallelism (ring attention over ``seq``) and
+    pipeline parallelism (GPipe over ``pipe``) with two ranks on the one
+    card over gloo (one H100 holds one NCCL rank; the ring's hops and the
+    pipeline's go through host copies under gloo):
+
+      - the ring at the flagship LLM's attention (SP_RING, bf16, causal, the
+        last sample's last 100 tokens padding) against K3 forward and K7
+        backward over the whole sequence without a mesh: output, dq, dk and
+        dv within 0.05; each rank's K3 and K7 launches exact (rank 0 one
+        block, rank 1 two); one hop of a (4, 512, 32, 128) bf16 K/V shard
+        timed (both ranks, 10 hops after 2);
+      - one fp32 ``make_train_step`` (LoRA r 64, the ``"none"`` batch) at
+        full width and SP_LAYERS layers on ``make_mesh(data=1, seq=2)``
+        under ``attn_impl="ring"`` and on ``make_mesh(data=1, pipe=2)``
+        with 2 microbatches (SP_LAYERS / 2 layers a stage) against the step
+        without a mesh (``"auto"``: the same ViT route): loss and gradient
+        norm within 1e-5 relative (every log: ``lm_loss``, ``grad_norm``),
+        and the norm of each rank's chunk of each leaf's gradient within
+        1e-5 of the same rows' in the step without a mesh (relative to the
+        larger of that norm and a thousandth of the gradient norm); each
+        rank's launches exact (``_sp_expected``).
+
+    Returns the readings and each rank's launches of each counted run."""
+    import tempfile
+    from datetime import timedelta
+    import torch.distributed as dist
+
+    log(f"sequence and pipeline parallel: 2 ranks on one card over gloo, the ring at "
+        f"{SP_RING} bf16, an fp32 step at full width, {SP_LAYERS} layers")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sp_"))
+    store = dist.TCPStore("127.0.0.1", 0, 2, True, timedelta(seconds=SP_TIMEOUT_S),
+                          wait_for_workers=False)
+    here = Path(__file__).resolve().parent
+    procs = [subprocess.Popen([sys.executable, "-c",
+                               "import sys, chip_smoke; sys.exit(chip_smoke.sp_worker())",
+                               str(tmp), str(r), str(store.port)], cwd=here,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        errs = []
+        for p in procs:
+            o, e = p.communicate(timeout=SP_TIMEOUT_S)
+            if p.returncode != 0:
+                errs.append(f"rank {procs.index(p)} exit {p.returncode}: {e[-3000:]}")
+        if errs:
+            raise AssertionError("sequence/pipeline workers failed: " + " | ".join(errs))
+        ranks = [torch.load(tmp / f"sp_{r}.pt", weights_only=False) for r in range(2)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+        del store
+    r0 = ranks[0]
+    res = {"worker_s": [r["seconds"] for r in ranks], "hop_ms": [r["hop_ms"] for r in ranks]}
+    launches = {}
+    # (i) the ring
+    errs = {name: max(max_err(r["ring"]["out"][i], r0["ring_ref"][i]) for r in ranks)
+            for i, name in enumerate(("out", "dq", "dk", "dv"))}
+    for r in ranks:
+        blocks = r["rank"] + 1
+        want = {"K3": blocks, "K7dq": blocks, "K7dkv": blocks, "K7delta": blocks}
+        if r["ring"]["launches"] != want:
+            raise AssertionError(f"ring rank {r['rank']}: launches {r['ring']['launches']}, "
+                                 f"expected {want}")
+    launches["ring"] = [r["ring"]["launches"] for r in ranks]
+    res["ring"] = {"max_abs_err": errs, "seconds": [r["ring"]["seconds"] for r in ranks]}
+    log(f"  ring {SP_RING} bf16 causal over seq=2: "
+        f"{[round(r['ring']['seconds'], 4) for r in ranks]} s a forward and backward; one hop "
+        f"of a (4, 512, 32, 128) K/V shard "
+        f"{[round(x, 3) for x in res['hop_ms']]} ms; launches {launches['ring']}")
+    for name, e in errs.items():
+        check(f"ring {name} vs K3/K7 on the whole sequence", e, 0.05)
+    # (ii) and (iii) the steps
+    ref = r0["train_none"]
+    if ref["launches"] != {n: c for n, c in _sp_expected("none", 0).items() if c}:
+        raise AssertionError(f"step without a mesh: launches {ref['launches']}")
+    for kind in ("seq", "pipe"):
+        runs = [r[f"train_{kind}"] for r in ranks]
+        if runs[0]["logs"] != runs[1]["logs"]:
+            raise AssertionError(f"{kind} step: the ranks' logs differ {runs}")
+        for r, run in enumerate(runs):
+            want = {n: c for n, c in _sp_expected(kind, r).items() if c}
+            if run["launches"] != want:
+                raise AssertionError(f"{kind} step rank {r}: launches {run['launches']}, "
+                                     f"expected {want}")
+        rel = {k: abs(runs[0]["logs"][k] - v) / abs(v) for k, v in ref["logs"].items()}
+        # each rank's chunk of each leaf's gradient, by its norm, against the
+        # same rows of the step without a mesh (a chunk routed to the wrong
+        # rank keeps the global norm); relative to the larger of the chunk's
+        # norm and a thousandth of the whole gradient's
+        ref_norms = r0["ref_chunk_norms"][f"train_{kind}"]
+        floor = 1e-3 * ref["logs"]["grad_norm"]
+        if any(set(run["chunk_norms"]) != set(ref_norms) for run in runs):
+            raise AssertionError(f"{kind} step: the ranks' gradient leaves differ from the "
+                                 "step without a mesh's")
+        rel["grad_chunk_norms"] = max(abs(run["chunk_norms"][p] - want[r]) / max(want[r], floor)
+                                      for r, run in enumerate(runs)
+                                      for p, want in ref_norms.items())
+        res[f"train_{kind}"] = {"rel_err": rel, "seconds": [x["seconds"] for x in runs],
+                                "logs": runs[0]["logs"], "leaves": len(ref_norms),
+                                "pipe_cut_leaves": sum(c[0] is not None
+                                                       for c in runs[0]["cuts"].values())}
+        launches[f"train_{kind}"] = [x["launches"] for x in runs]
+        log(f"  {kind} step: {[round(x['seconds'], 3) for x in runs]} s {runs[0]['logs']}, "
+            f"no mesh {ref['seconds']:.3f} s {ref['logs']}; launches {launches[f'train_{kind}']}")
+        for k, v in rel.items():
+            check(f"{kind} step {k} vs the step without a mesh (relative)", v, 1e-5)
+    res["train_none"] = {"seconds": ref["seconds"], "logs": ref["logs"]}
     return res, launches
 
 
@@ -5783,17 +6099,17 @@ def fp32_first_logits(llm: dict, vcfg, tok, prompts: list) -> torch.Tensor:
 
 
 # the most a bf16 route's first-token logit may lie from the fp32 static
-# prefill's at the flagship's 32 random layers, and the most its distance
+# prefill's at the flagship's random layers, and the most its distance
 # may be as a share of the fp32 row's spread (the RMS of the difference over
 # the RMS of the centred fp32 row); the H100's readings were 15.2 and 0.085
-# (PERF.md §6). A route that lost its positions or its prefix would sit
+# at 32 layers (PERF.md §6). A route that lost its positions or its prefix would sit
 # near 1.4, as two unrelated rows do. DP_ARGMAX_SIGMAS: a route's argmax
 # must be fp32's where fp32's top-2 gap exceeds that many times the static
 # bf16 route's RMS distance on the row
 DP_LOGIT_BOUND, DP_LOGIT_REL_BOUND, DP_ARGMAX_SIGMAS = 24.0, 0.2, 4.0
 
 
-def first_token_gate(runs: dict, ref: torch.Tensor, layers: int = LAYERS) -> dict:
+def first_token_gate(runs: dict, ref: torch.Tensor, layers: int = FLAGSHIP_LAYERS) -> dict:
     """Each bf16 route's first-token logits in its first call (MIMIC's
     first cleaning pass over the studies), as the route computed them, held
     to the fp32 static prefill's ``ref``: every row within
@@ -5840,13 +6156,13 @@ def first_token_gate(runs: dict, ref: torch.Tensor, layers: int = LAYERS) -> dic
 
 
 def data_prep_llm_phase(params, cfg) -> dict:
-    """clean-reports then tag-reports at the flagship's full width and
-    depth over phase 5's bf16 weights (before they are quantized): 8
+    """clean-reports then tag-reports at the flagship's full width
+    (FLAGSHIP_LAYERS) over phase 5's bf16 weights (before they are quantized): 8
     MIMIC-style studies, 64 new tokens, static, ``--continuous`` and
     ``--continuous --speculate 7``, each call's launches exact; the routes'
     texts and files compared (recorded: bf16 rounding differs between the
     routes' kernels and batch shapes, PERF.md §6), and their first call's
-    first-token logits held to an fp32 static prefill at full depth
+    first-token logits held to an fp32 static prefill at the same depth
     (:func:`first_token_gate`). Then the same three routes over the first 2
     LLM layers cast to fp32, where the texts and files must be equal; and
     the ``clean-reports`` (static) and ``tag-reports`` (``--continuous``)
@@ -5874,7 +6190,8 @@ def data_prep_llm_phase(params, cfg) -> dict:
     with tempfile.TemporaryDirectory() as td:
         td = Path(td)
         runs = {kind: run_clean_tag(params["cogvlm"], cfg.vlm, tok, td / "bf16" / kind, kind,
-                                    LAYERS, tax) for kind in ("static", "continuous", "spec")}
+                                    cfg.vlm.num_hidden_layers, tax)
+                for kind in ("static", "continuous", "spec")}
         out["flagship_bf16"] = _dp_summary("flagship bf16", runs)
         t = time.perf_counter()
         ref = fp32_first_logits(params["cogvlm"], cfg.vlm, tok,
@@ -6219,7 +6536,10 @@ def profile_run(run, stages=STAGES):
     busy share of the run's wall time, over one more run (``run()`` returns
     ``(result, wall seconds)``; the result is kept under ``"result"``).
     Reads the profiler's raw events: building its per-op event tree takes
-    about a minute a million events, the raw list a second."""
+    about a minute a million events. Over a flagship run's 1.2-1.5 million
+    events the profiler's exit took 12-22 s and reading every event's four
+    fields 8-15 s on the H100's host, so only the device events and the
+    stage spans are read whole."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -6227,10 +6547,14 @@ def profile_run(run, stages=STAGES):
         result, wall_s = run()
     t0 = time.perf_counter()
     raw = prof.profiler.kineto_results.events()
-    # (name, device type, start us, duration us) of every event
-    events = [(e.name(), e.device_type(), e.start_ns() / 1e3, e.duration_ns() / 1e3)
-              for e in raw]
-    kernels = [e for e in events if e[1] == DeviceType.CUDA and e[0] not in stages]
+    # (name, device type, start us, duration us) of every device event and
+    # every stage span; any other host event is read for its name alone
+    kernels, spans, wanted = [], [], set(stages)
+    for e in raw:
+        name, dev = e.name(), e.device_type()
+        if dev == DeviceType.CUDA or name in wanted:
+            row = (name, dev, e.start_ns() / 1e3, e.duration_ns() / 1e3)
+            (spans if name in wanted else kernels).append(row)
     by_name: dict[str, list] = {}
     for name, _, _, us in kernels:
         acc = by_name.setdefault(name, [0.0, 0])
@@ -6244,7 +6568,7 @@ def profile_run(run, stages=STAGES):
         acc[0] += us
         acc[1] += n
     log(f"  profile: wall {wall_s:.3f} s (profiled run), kernels busy {busy_us / 1e6:.3f} s "
-        f"({100 * busy_us / 1e6 / wall_s:.1f}% of wall), {len(events)} events")
+        f"({100 * busy_us / 1e6 / wall_s:.1f}% of wall), {len(raw)} events")
     # a stage's span is recorded on the host (its CPU time) and on the device
     # timeline (first to last of its kernels); the kernels that start inside
     # the device span give the stage's busy time; a stage that runs several
@@ -6252,8 +6576,8 @@ def profile_run(run, stages=STAGES):
     starts = sorted((start, us) for _, _, start, us in kernels)
     stage_times = {}
     for name in stages:
-        host = [e for e in events if e[0] == name and e[1] == DeviceType.CPU]
-        dev = [e for e in events if e[0] == name and e[1] == DeviceType.CUDA]
+        host = [e for e in spans if e[0] == name and e[1] == DeviceType.CPU]
+        dev = [e for e in spans if e[0] == name and e[1] == DeviceType.CUDA]
         stage = {"host_ms": sum(e[3] for e in host) / 1e3 if host else None,
                  "device_span_ms": None, "kernels_ms": None, "launches": None,
                  "spans": len(host)}
@@ -6537,6 +6861,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         results["tensor_parallel"], tp_launches = phase("tensor_parallel",
                                                         tensor_parallel_phase)
+        results["seq_pipe"], sp_launches = phase("seq_pipe", seq_pipe_phase)
         results["entry"], entry_launches = phase("entry", entry_phase, keep / "adapter.npz", peaks)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
@@ -6610,6 +6935,10 @@ def main() -> int:
         # 2 ranks on one card: the bf16 and fp32 serving routes, the fp32 step)
         entry["launches_tensor_parallel_rank"] = {label: n.get(counter, 0) for label, n in
                                                   tp_launches.items()}
+        # each rank's launches in phase 7d's counted runs (the ring alone, the
+        # fp32 step on seq=2 and on pipe=2), ranks 0 and 1
+        entry["launches_seq_pipe_rank"] = {label: [n.get(counter, 0) for n in per_rank]
+                                           for label, per_rank in sp_launches.items()}
         # the data-preparation runs (clean/tag-reports routes, self-label)
         entry["launches_data_prep"] = {label: n.get(counter, 0) for label, n in
                                        dp_launches.items()}

@@ -43,9 +43,11 @@ interpolation) and builders. Every command runs on the card unless
 each (gloo processes with ``--device cpu``), launched with
 ``COORDINATOR_ADDRESS=host:port NUM_PROCESSES=N PROCESS_ID=i`` in each
 process's environment (``trainer.mesh_data`` defaults to ``gcd(batch_size,
-N / mesh_model)``; ``train/trainer.py``), and tensor parallel with
-``trainer.mesh_model`` above 1; ``mesh_seq`` and ``mesh_pipe`` must be 1
-(ROADMAP Queue 1 item 8c); ``demo`` and ``predict`` serve tensor parallel
+N / (mesh_model x mesh_seq x mesh_pipe))``; ``train/trainer.py``), tensor
+parallel with ``trainer.mesh_model`` above 1, sequence parallel (ring
+attention) with ``trainer.mesh_seq`` and pipeline parallel (GPipe, in
+``trainer.pipe_micro`` microbatches) with ``trainer.mesh_pipe`` above 1;
+``demo`` and ``predict`` serve tensor parallel
 over N such processes with ``--tp N`` (``parallel/sharding.py
 tp_serving_params``);
 ``finetune`` (``scripts/finetune/cli.py``) is ``fit`` over the one

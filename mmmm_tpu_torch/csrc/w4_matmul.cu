@@ -417,6 +417,11 @@ int launch_gemv_mma(const void* x, const void* q4, const void* s4, void* out, in
 // while this one is in use. Each row tile dequantizes the weight again;
 // TPW = 2 halves how often each x tile is read.
 //
+// A last column tile past N (N % BN != 0, a tensor-parallel piece of
+// 2,752 columns) reads zeros: the tensor map's true N makes TMA fill the
+// box's columns past it with zeros, its scales read as zero, and the
+// epilogue stores no column past N.
+//
 // Grid: the row tile varies fastest, so the blocks that read one weight
 // column tile run together and share it through L2. The caller picks TPW
 // (ops/w4_matmul.py mma_tpw): 2 (BN = 256) where its blocks take half as
@@ -442,7 +447,7 @@ __device__ __forceinline__ uint32_t pick4(uint32_t v0, uint32_t v1, uint32_t v2,
   return i == 0 ? v0 : (i == 1 ? v1 : (i == 2 ? v2 : v3));
 }
 
-// grid (ceil(M / kBM), N / BN), kMmaThreads threads, MmaCfg<TPW>::kSmem bytes.
+// grid (ceil(M / kBM), ceil(N / BN)), kMmaThreads threads, MmaCfg<TPW>::kSmem bytes.
 // xmap: x (M, K) bf16, boxes of kBM rows x 64 columns, 128-byte swizzle;
 // qmap: q4 (K/2, N) bytes, boxes of kBK rows x 128 columns, 128-byte swizzle.
 template <int TPW>
@@ -506,8 +511,10 @@ w4_mma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ 
       for (int t = 0; t < TPW; ++t)
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
-          const float2 v = *reinterpret_cast<const float2*>(
-              s4 + (size_t)(hf * (half / group) + grp) * N + n0 + col(t) + 2 * g);
+          const int c = n0 + col(t) + 2 * g;  // c < N: c + 1 < N too (N % 16 == 0)
+          const float2 v = c < N ? *reinterpret_cast<const float2*>(
+                                       s4 + (size_t)(hf * (half / group) + grp) * N + c)
+                                 : make_float2(0.f, 0.f);
           e[t][hf] = v.x;
           o[t][hf] = v.y;
         }
@@ -601,7 +608,7 @@ w4_mma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ 
             o[3] = slot == 3 ? got : o[3];
           }
           const int row = m0 + 8 * (4 * ag + u) + 2 * qd + e2;
-          if (row < M)
+          if (row < M && cbase < N)  // cbase % 8 == 0 and N % 16 == 0: 8 columns fit
             *reinterpret_cast<uint4*>(out + (size_t)row * N + cbase) =
                 make_uint4(o[0], o[1], o[2], o[3]);
         }
@@ -630,7 +637,7 @@ int launch_mma(const void* x, const void* q4, const void* s4, void* out, int M, 
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(C::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((M + kBM - 1) / kBM, N / C::kBN);
+  const dim3 grid((M + kBM - 1) / kBM, (N + C::kBN - 1) / C::kBN);
   w4_mma_kernel<TPW><<<grid, kMmaThreads, C::kSmem, st>>>(
       xmap, qmap, static_cast<const float*>(s4), static_cast<__nv_bfloat16*>(out), M, K, N,
       group);
@@ -662,14 +669,14 @@ extern "C" int mmmm_w4_gemv_smem(int m) {
 }
 
 // x (M, K) bf16; q4 (K/2, N) int8; s4 (K/group, N) fp32; out (M, N) bf16.
-// K % 128 == 0, N % 128 == 0, group % 64 == 0, (K/2) % group == 0; x, q4,
+// K % 128 == 0, N % 16 == 0, group % 64 == 0, (K/2) % group == 0; x, q4,
 // s4 and out 16-byte aligned (ops/w4_matmul.py mma_takes). tpw: 64-column
-// tiles a consumer warpgroup, 1 (BN 128) or 2 (BN 256, N % 256 == 0),
-// chosen by ops/w4_matmul.py mma_tpw.
+// tiles a consumer warpgroup, 1 (BN 128) or 2 (BN 256), chosen by
+// ops/w4_matmul.py mma_tpw; the last column tile may be partial.
 extern "C" int mmmm_w4_mma(const void* x, const void* q4, const void* s4, void* out, int M,
                            int K, int N, int group, int tpw, void* stream) {
-  if (M <= 0 || K <= 0 || K % (2 * kBK) || N <= 0 || N % 128 || group <= 0 || group % kBK ||
-      (K / 2) % group || (tpw != 1 && tpw != 2) || N % (128 * tpw))
+  if (M <= 0 || K <= 0 || K % (2 * kBK) || N <= 0 || N % 16 || group <= 0 || group % kBK ||
+      (K / 2) % group || (tpw != 1 && tpw != 2))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return tpw == 2 ? launch_mma<2>(x, q4, s4, out, M, K, N, group, st)

@@ -27,12 +27,19 @@ the prefill's static-span projections; the ``lm_head`` (applied by the
 callers) stays W8A16 in both.
 
 ``llm_forward`` is the training forward over a full sequence: its causal
-attention goes through ``segment_attention(impl=attn_impl)`` (under
+attention goes through ``segment_attention(impl=attn_impl)`` (by way of
+``parallel/ring_attention.py attention``, which rings it under ``"ring"``; under
 ``"pallas"`` K3 forward and K7 backward); under ``remat="attn"`` its
 context is tagged ``"attn_out"`` (the reference's ``checkpoint_name``,
 which that policy keeps: on the flash route K3's output and logsumexp, so
 the backward runs K7 without launching K3 again); each layer runs inside
 ``remat_call`` and merges its LoRA leaves there (``peft/lora.py``).
+Under a pipe context (``parallel/pipeline.py``, the trainer's
+``mesh_pipe``) whose stages hold the stacked layers, the layers run as a
+GPipe pipeline over this process's batch in microbatches, ``"ring"``
+attention taking ``"auto"`` in them, as the reference's; where the pipeline
+cannot take the call (``pipe_ready``) the stages' layers are gathered and
+every process runs them all.
 
 Prefill attention is kernel K3 (causal, segment ids). Caches are per-layer
 (B, H, Smax, D) pairs in the model's dtype, or int8 dicts
@@ -63,7 +70,7 @@ from functools import partial
 import torch
 import torch.nn.functional as F
 
-from ...ops.attention import decode_attention_bhsd, segment_attention
+from ...ops.attention import decode_attention_bhsd
 from ...ops.decode_kernel import (decode_attention_append, decode_attention_q8_append,
                                   decode_attention_window_append, dus_rows)
 from ...ops.flash import flash_segment_attention
@@ -72,6 +79,9 @@ from ...ops.quant import dequantize_kv, qdot, quantize_kv
 from ...ops.numerics import current
 from ...ops.remat import ATTN_OUT, remat_call
 from ...ops.rope import apply_rope, rope_cos_sin
+from ...parallel.pipeline import (gather_stages, get_pipe_context, pipe_ready,
+                                  pipeline_layers, stage_layers, staged)
+from ...parallel.ring_attention import attention
 from ...parallel.tensor import (check_local, copy_to_model, local_count, model_group,
                                 reduce_from_model)
 from ...params import layer
@@ -159,18 +169,33 @@ def llm_forward(params: dict, cfg: CogVLMConfig, inputs_embeds, token_type_ids, 
     # the tag, and off the flash route the tag is a copy
     name = ATTN_OUT if remat == "attn" else ""
 
-    def attend(q, k, v):
-        return segment_attention(q, k, v, seg, causal=True, impl=attn_impl, name=name)
+    def run_layers(x, indices, side, impl):
+        def attend(q, k, v):
+            return attention(q, k, v, side["segments"], causal=True, impl=impl, name=name)
 
-    def body(x, lp):
-        lp = materialize(lp)
-        return _decoder_layer(x, lp, cfg, position_ids=position_ids, cos=cos, sin=sin,
-                              attend=attend,
-                              routing=_routing(lp, vis_mask=vis_mask, expert_span=expert_span))
+        def body(x, lp):
+            lp = materialize(lp)
+            return _decoder_layer(x, lp, cfg, position_ids=side["position_ids"], cos=cos,
+                                  sin=sin, attend=attend,
+                                  routing=_routing(lp, vis_mask=side["vis_mask"],
+                                                   expert_span=expert_span))
 
-    x = inputs_embeds
-    for li in range(cfg.num_hidden_layers):
-        x = remat_call(body, remat, x, layer(params["layers"], li))
+        for li in indices:
+            x = remat_call(body, remat, x, layer(layers, li))
+        return x
+
+    layers = params["layers"]
+    side = {"vis_mask": vis_mask, "segments": seg, "position_ids": position_ids}
+    if staged(layers):
+        if pipe_ready(layers, inputs_embeds.shape[0]):
+            mesh, axis, n_micro = get_pipe_context()
+            mine = stage_layers(layers, cfg.num_hidden_layers)
+            impl = "auto" if attn_impl == "ring" else attn_impl
+            x = pipeline_layers(lambda s, h, sd: run_layers(h, mine, sd, impl), inputs_embeds,
+                                side, mesh.get_group(axis), n_micro)
+            return rms_norm(x, params["norm"], cfg.rms_norm_eps)
+        layers = gather_stages(layers)
+    x = run_layers(inputs_embeds, range(cfg.num_hidden_layers), side, attn_impl)
     return rms_norm(x, params["norm"], cfg.rms_norm_eps)
 
 

@@ -6,7 +6,8 @@ resampled to the token grid, a cls token, post-norm layers
 (``x = x + ln1(attn(x)); x = x + ln2(mlp(x))``), max-pool over
 ``pool_size``, the GLU projection into LLM space, and the boi/eoi tokens:
 output (B, 2 + T', C_llm). The attention is ``segment_attention`` over one
-all-valid segment (``impl="auto"``: kernel K4 on the card; ``"pallas"``:
+all-valid segment (through ``parallel/ring_attention.py attention``, which
+rings it under ``"ring"``; ``impl="auto"``: kernel K4 on the card; ``"pallas"``:
 K3 forward, K7 backward). Each layer runs inside ``remat_call`` and merges
 its LoRA leaves there; the GLU's are merged where it runs.
 
@@ -22,11 +23,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ...ops.attention import segment_attention
 from ...ops.gelu import gelu
 from ...ops.norm import layer_norm
 from ...ops.resample import resample_nd, variable_patch_embed_3d
 from ...ops.remat import remat_call
+from ...parallel.ring_attention import attention
 from ...parallel.tensor import check_local, copy_to_model, local_count, reduce_from_model
 from ...params import layer
 from ...peft.lora import materialize
@@ -52,7 +53,7 @@ def _vit_layer(x, lp, *, num_heads: int, width: int, eps: float, segments, attn_
     xin = copy_to_model(x)
     qkv = _dot(xin, lp["qkv_w"]) + lp["qkv_b"]
     q, k, v = (t.contiguous() for t in qkv.reshape(b, s, 3 * heads, head_dim).chunk(3, dim=2))
-    attn = segment_attention(q, k, v, segments, impl=attn_impl, scale=scale, all_valid=True)
+    attn = attention(q, k, v, segments, impl=attn_impl, scale=scale, all_valid=True)
     attn = reduce_from_model(_dot(attn.reshape(b, s, heads * head_dim), lp["dense_w"]))
     x = x + layer_norm(attn + lp["dense_b"], lp["ln1_w"], lp["ln1_b"], eps)
     h = gelu(_dot(copy_to_model(x), lp["fc1_w"]) + lp["fc1_b"])

@@ -1,7 +1,9 @@
 """SAM image encoder, the port of ``mmmm_tpu/models/segvol/encoder.py``
 (``encoder_forward``): a 3-D ViT with variable-z patch embedding and pre-norm
 blocks (``x = x + attn(norm1(x)); x = x + mlp(norm2(x))``), qkv without
-bias. Its attention is ``segment_attention`` over one all-valid segment,
+bias. Its attention is ``segment_attention`` over one all-valid segment
+(through ``parallel/ring_attention.py attention``, which rings it under
+``"ring"``),
 fp32 under the reference precision policy (``impl="auto"``: kernel K4 on
 the card; ``"pallas"``: K3 forward, K7 backward, both on CUDA cores with
 TF32 off); each block runs inside ``remat_call``."""
@@ -9,11 +11,11 @@ from __future__ import annotations
 
 import torch
 
-from ...ops.attention import segment_attention
 from ...ops.gelu import gelu
 from ...ops.norm import layer_norm
 from ...ops.resample import resample_nd, variable_patch_embed_3d
 from ...ops.remat import remat_call
+from ...parallel.ring_attention import attention
 from ...params import layer
 from ...peft.lora import materialize
 from .config import SamConfig
@@ -26,7 +28,7 @@ def _block(x, lp, *, num_heads: int, segments, attn_impl: str):
     h = layer_norm(x, lp["ln1_w"], lp["ln1_b"])
     q, k, v = (t.reshape(b, s, num_heads, d).contiguous()
                for t in (h @ lp["qkv_w"]).split(c, dim=-1))
-    attn = segment_attention(q, k, v, segments, impl=attn_impl, all_valid=True).reshape(b, s, c)
+    attn = attention(q, k, v, segments, impl=attn_impl, all_valid=True).reshape(b, s, c)
     x = x + attn @ lp["out_w"] + lp["out_b"]
     h = layer_norm(x, lp["ln2_w"], lp["ln2_b"])
     h = gelu(h @ lp["fc1_w"] + lp["fc1_b"])

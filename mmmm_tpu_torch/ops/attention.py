@@ -14,6 +14,11 @@ the CPU (the reference's ``"auto"`` off the TPU; where the card would take
 K4 with its fast softmax, ``ops/numerics.py dense_fast_softmax``, K4's plain
 version of it).
 
+``"ring"`` is ``"auto"`` here. The ring itself (sequence parallelism over
+a process group) is ``parallel/ring_attention.py attention``, which the
+models' attention sites call: it rings where its context allows and hands
+every other site on to this function as ``"auto"``, as the reference's.
+
 ``kernel_head_dim`` and ``with_padded_head`` are the head-dim rule that the
 attention kernels' wrappers (K3, K4, P1, K7) share.
 """
@@ -95,7 +100,8 @@ def segment_attention(q, k, v, q_segments, kv_segments=None, *, causal: bool = F
 
     q: (B, Sq, H, D); k, v: (B, Skv, H, D); segments (B, Sq) / (B, Skv),
     ``kv_segments`` defaulting to ``q_segments``. ``impl`` is ``"auto"``,
-    ``"xla"`` or ``"pallas"`` (``"ring"`` waits for the parallel slice);
+    ``"xla"``, ``"pallas"`` or ``"ring"`` (``"auto"`` here: the module
+    docstring);
     ``all_valid`` declares every position a real token of one segment (the
     encoders), which lets ``"xla"`` skip the mask and ``"auto"`` take K4
     (with its fast softmax under ``ops/numerics.py``'s
@@ -110,8 +116,7 @@ def segment_attention(q, k, v, q_segments, kv_segments=None, *, causal: bool = F
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if impl == "ring":
-        raise NotImplementedError("impl='ring' (sequence-parallel ring attention) waits for "
-                                  "ROADMAP Queue 1 item 8c")
+        impl = "auto"
     if impl == "auto":
         if all_valid and not causal:
             from .dense_attn import dense_attention_plain, dense_attention_site, fits_dense_kernel

@@ -18,10 +18,12 @@ byte (``ops/w4_matmul.py``). ``qdot`` takes, as the reference does:
     the product in the reference; here it is ``torch._int_mm`` on the card
     (which needs the weight transposed to K-contiguous, a copy per call)
     and an int32 matmul on the CPU;
-  - ``{"q4", "s4"}`` (W4A16): kernel K11 (``w4_matmul``); a tensor-parallel
-    row piece of an odd number of scale groups holds one more group of zero
-    weights (``parallel/sharding.py local_params``), and x is padded with
-    zeros to it.
+  - ``{"q4", "s4"}`` (W4A16): kernel K11 (``w4_matmul``). A
+    tensor-parallel row piece (``parallel/sharding.py local_params``) holds
+    every scale group that its rows touch, zero weights outside its rows and
+    an even number of groups; its ``rows4`` leaf, a tensor of no elements
+    whose shape is ``(..., front, rows, 0)``, says where its rows start, and
+    x is padded with zeros in front by ``front`` and at the end up to K.
 """
 from __future__ import annotations
 
@@ -126,8 +128,9 @@ def qdot(x: torch.Tensor, w, act_quant: bool = False, group=None) -> torch.Tenso
         return y.reshape(*x.shape[:-1], y.shape[-1])
     if "q4" in w:
         k = 2 * w["q4"].shape[-2]
-        if k - x.shape[-1] == k // w["s4"].shape[-2]:  # a row piece padded by a group
-            x = torch.nn.functional.pad(x, (0, k - x.shape[-1]))
+        if k != x.shape[-1]:  # a row piece: x's rows sit at its front offset
+            front = w["rows4"].shape[-3]
+            x = torch.nn.functional.pad(x, (front, k - front - x.shape[-1]))
         y = w4_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w["q4"], w["s4"])
         return y.reshape(*x.shape[:-1], y.shape[-1])
     y = x @ w["q"].to(x.dtype)

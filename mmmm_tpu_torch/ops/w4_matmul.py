@@ -55,8 +55,9 @@ def mma_takes(m: int, k: int, n: int, group: int) -> bool:
     """Whether the tensor-core kernel (K11mma) takes bf16 x (m, k) over a
     (k/2, n) packed weight with ``group`` rows a scale: a k-step of
     ``MMA_BK`` packed rows lies in one scale group of each half, and the
-    output tiles are ``MMA_BN`` columns wide."""
-    return (m > 0 and k % (2 * MMA_BK) == 0 and n % MMA_BN == 0 and group > 0
+    output tiles are ``MMA_BN`` columns wide, the last one cut at ``n``
+    (16-byte rows of the packed weight and of the output)."""
+    return (m > 0 and k % (2 * MMA_BK) == 0 and n % 16 == 0 and group > 0
             and group % MMA_BK == 0 and (k // 2) % group == 0)
 
 

@@ -14,6 +14,8 @@ multi-controller SPMD). Here every process owns one device and joins one
   - the sampler takes the process's rank (:func:`process_rank`), so the
     processes read disjoint slices of one schedule
     (``data/batching.py scheduled_batches``).
+  - the ring's and the pipeline's point-to-point hops go through
+    :func:`exchange`.
 
 A single-process run skips all of this: with no coordinator anywhere,
 :func:`init_distributed` makes no group and returns False.
@@ -116,8 +118,29 @@ def batch_to(batch: dict, device: torch.device) -> dict:
 def global_batch(batch: dict, mesh) -> dict:
     """This process's slice of the global batch (leading dimension = global
     batch / ``data`` size, rows in rank order) on its device
-    (:func:`batch_to`)."""
+    (:func:`batch_to`). The slice is the ``data`` index's: every process of
+    a ``model``, ``seq`` or ``pipe`` group passes the same one (the
+    trainer reads by ``mesh.get_local_rank("data")``)."""
     return batch_to(batch, mesh_device(mesh))
+
+
+def exchange(group, sends: list, to: int, likes: list, frm: int) -> list:
+    """Send ``sends`` to rank ``to`` of ``group`` and receive one tensor like
+    each of ``likes`` from rank ``frm``, in one ``batch_isend_irecv`` (every
+    send, then every receive; the peers issue the matching operations in the
+    same order). Returns the received tensors on the devices of ``likes``.
+    Under gloo, whose send and receive move host memory, CUDA tensors go
+    through host copies; the group's backend decides, before any transfer."""
+    if not sends and not likes:
+        return []
+    host = dist.get_backend(group) == "gloo" and (sends or likes)[0].is_cuda
+    bufs = [t.detach().cpu() if host else t.detach().contiguous() for t in sends]
+    got = [torch.empty(t.shape, dtype=t.dtype, device="cpu" if host else t.device) for t in likes]
+    ops = [dist.P2POp(dist.isend, b, dist.get_global_rank(group, to), group) for b in bufs]
+    ops += [dist.P2POp(dist.irecv, g, dist.get_global_rank(group, frm), group) for g in got]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return [g.to(t.device) for g, t in zip(got, likes)]
 
 
 def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:

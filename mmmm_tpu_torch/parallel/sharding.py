@@ -27,8 +27,11 @@ contiguously and lets XLA reshard; a process that runs its share of a layer
 alone needs whole heads of q, k and v, so those leaves are cut
 head-grouped: piece ``r`` of ``[q | k | v]`` is ``[q_r | k_r | v_r]``.
 Stored trees (``params_from_jax``, checkpoints, adapters) keep the
-reference's layout. ``seq`` and ``pipe`` above 1 wait for ROADMAP Queue 1
-item 8c; their rules are here so that they are held to the reference's.
+reference's layout. A W4A16 row piece (``down``, ``dense``) holds every
+scale group its rows touch, so ``k / n`` rows need not end on a group (the
+reference replicates W4A16 leaves instead). The ``pipe`` entries
+(the stacked LLM layers staged, large unstaged leaves cut) are placed by
+``parallel/zero.py place_tree``; ``seq`` cuts no leaf.
 """
 from __future__ import annotations
 
@@ -274,25 +277,65 @@ def _pack_rows(q: torch.Tensor) -> torch.Tensor:
     return ((lo & 0xF) | (hi << 4)).to(torch.int8)
 
 
-def _w4_rows(path: str, t: torch.Tensor, s4: torch.Tensor, n: int, r: int) -> torch.Tensor:
-    """Piece ``r`` of ``n`` of a W4A16 leaf (``q4`` or its scales ``s4``)
-    cut along its input rows. The packing pairs row i with row K/2 + i, so
-    a ``q4`` piece is unpacked, cut and packed again; a piece of an odd
-    number of scale groups gets one more group of zero weights (and zero
-    scales), so that each half of its packing holds whole groups, and
-    ``ops/quant.py qdot`` pads x with zeros to match."""
-    groups = s4.shape[-2] // n
-    if s4.shape[-2] % n:
-        raise ValueError(f"{path}: {s4.shape[-2]} scale groups do not split over model={n}; "
-                         "tensor parallelism of this layer is impossible")
-    if path.endswith("/s4"):
-        piece = t.narrow(-2, r * groups, groups)
-        pad = piece.new_zeros((*piece.shape[:-2], groups % 2, piece.shape[-1]))
-        return torch.cat([piece, pad], dim=-2)
-    k = 2 * t.shape[-2] // n
-    q = _unpack_rows(t).narrow(-2, r * k, k)
-    pad = q.new_zeros((*q.shape[:-2], (groups % 2) * (k // groups), q.shape[-1]))
-    return _pack_rows(torch.cat([q, pad], dim=-2))
+def w4_window(k: int, group: int, n: int, r: int) -> tuple[int, int, int, int]:
+    """Where piece ``r`` of ``n`` of a W4A16 weight of ``k`` input rows in
+    scale groups of ``group`` lies: ``(front, rows, g0, g1)``, its own
+    ``rows = k / n`` rows starting ``front`` rows into scale group ``g0``,
+    the groups ``[g0, g1)`` touching them."""
+    rows = k // n
+    start = r * rows
+    g0 = start // group
+    return start - g0 * group, rows, g0, -(-(start + rows) // group)
+
+
+def _w4_piece(path: str, w: dict, n: int, r: int) -> dict:
+    """Piece ``r`` of ``n`` of a W4A16 leaf ``{"q4", "s4"}`` cut along its
+    input rows: every scale group its rows touch (where ``k / n`` rows end
+    inside a group, two neighbours share it), with zero weights outside its
+    own rows, and zero groups at the end up to the even count every piece
+    has (the most any piece touches, rounded up), so that each half of the
+    packing (row i pairs with row K/2 + i) holds whole groups. ``rows4``, a
+    tensor of no elements of shape ``(..., front, rows, 0)``, records the
+    front offset and the row count, which ``ops/quant.py qdot`` pads x by:
+    it travels with the tree wherever the tree is moved or indexed."""
+    q4, s4 = w["q4"], w["s4"]
+    k, groups = 2 * q4.shape[-2], s4.shape[-2]
+    group = k // groups
+    if k % n:
+        raise ValueError(f"{path}: {k} input rows do not split over model={n}; tensor "
+                         "parallelism of this layer is impossible")
+    wins = [w4_window(k, group, n, i) for i in range(n)]
+    width = max(g1 - g0 for _, _, g0, g1 in wins)
+    width += width % 2
+    front, rows, g0, g1 = wins[r]
+    lead = q4.shape[:-2]
+    q = _unpack_rows(q4).narrow(-2, g0 * group, (g1 - g0) * group)
+    piece = torch.zeros((*lead, width * group, q4.shape[-1]), dtype=torch.int8,
+                        device=q4.device)
+    piece[..., front:front + rows, :] = q[..., front:front + rows, :]
+    scales = s4.new_zeros((*lead, width, s4.shape[-1]))
+    scales[..., :g1 - g0, :] = s4.narrow(-2, g0, g1 - g0)
+    return {**{key: v for key, v in w.items() if key not in ("q4", "s4")},
+            "q4": _pack_rows(piece), "s4": scales,
+            "rows4": q4.new_empty((*lead, front, rows, 0))}
+
+
+def join_w4(pieces: list) -> dict:
+    """The whole ``{"q4", "s4"}`` leaf from the W4A16 row pieces of every
+    process of the ``model`` axis, in rank order (:func:`_w4_piece`'s
+    inverse): each piece's own rows, and each scale group once."""
+    n, first = len(pieces), pieces[0]
+    rows = first["rows4"].shape[-2]
+    k = n * rows
+    group = 2 * first["q4"].shape[-2] // first["s4"].shape[-2]
+    lead, cols = first["q4"].shape[:-2], first["q4"].shape[-1]
+    q = torch.empty((*lead, k, cols), dtype=torch.int8, device=first["q4"].device)
+    s4 = first["s4"].new_empty((*lead, k // group, cols))
+    for r, p in enumerate(pieces):
+        front, _, g0, g1 = w4_window(k, group, n, r)
+        q[..., r * rows:(r + 1) * rows, :] = _unpack_rows(p["q4"])[..., front:front + rows, :]
+        s4[..., g0:g1, :] = p["s4"][..., :g1 - g0, :]
+    return {"q4": _pack_rows(q), "s4": s4}
 
 
 def _piece(path: str, t: torch.Tensor, d, n: int, r: int) -> torch.Tensor:
@@ -323,8 +366,6 @@ def local_params(tree, mesh, *, cfg=None, rules: PartitionRules = PartitionRules
     n = sizes.get("model", 1)
     if n == 1:
         return tree
-    flat = _flatten(tree)
-
     def one(path, leaf):
         if not isinstance(leaf, torch.Tensor) or getattr(leaf, "tp_piece", False):
             return leaf
@@ -335,28 +376,43 @@ def local_params(tree, mesh, *, cfg=None, rules: PartitionRules = PartitionRules
             heads = cfg.vision.num_heads if "vision/" in path else cfg.num_attention_heads
             if heads % n:
                 raise ValueError(f"{path}: {heads} heads do not split over model={n}")
-        if path.endswith(("/q4", "/s4")) and d == leaf.dim() - 2:
-            out = _w4_rows(path, leaf, flat[path[:-2] + "s4"], n, r)
-        else:
-            out = _piece(path, leaf, d, n, r)
+        out = _piece(path, leaf, d, n, r)
         out.tp_piece = True  # cutting it again returns it
         return out
 
-    return _map_paths(one, tree)
+    def walk(node, prefix: str):
+        if _is_w4_rows(node, prefix, n, rules):
+            return node if "rows4" in node else _w4_piece(prefix[:-1], node, n, r)
+        if isinstance(node, dict):
+            return {k: walk(v, f"{prefix}{k}/") for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, f"{prefix}{i}/") for i, v in enumerate(node)]
+        return one(prefix[:-1], node)
+
+    return walk(tree, "")
+
+
+def _is_w4_rows(node, prefix: str, n: int, rules: PartitionRules) -> bool:
+    """Whether ``node`` is a W4A16 leaf ``{"q4", "s4"}`` that the rules cut
+    along its input rows (a row-parallel weight; its pieces carry ``rows4``)."""
+    if not (isinstance(node, dict) and isinstance(node.get("q4"), torch.Tensor)):
+        return False
+    q4 = node["q4"]
+    return model_dim(prefix + "q4", q4.shape, n, rules) == q4.dim() - 2
 
 
 def join_pieces(path: str, pieces: list, rules: PartitionRules = PartitionRules()):
     """The whole leaf at ``path`` from the pieces of every process of the
-    ``model`` axis, in rank order: the inverse of :func:`local_params`
-    (W4A16 leaves are serving leaves, never gathered, and raise)."""
+    ``model`` axis, in rank order: the inverse of :func:`local_params` (a
+    W4A16 row piece is joined with its ``rows4`` by :func:`join_w4`)."""
     n = len(pieces)
     t = pieces[0]
     spec = rules.spec_for(path, t.dim())
     if n == 1 or "model" not in spec:
         return t
     d = spec.index("model")
-    if path.endswith(("/q4", "/s4")):
-        raise ValueError(f"{path}: W4A16 pieces are not gathered")
+    if path.endswith(("/q4", "/s4")) and d == t.dim() - 2:
+        raise ValueError(f"{path}: a W4A16 row piece is joined whole, by join_w4")
     if re.match(_HEAD_GROUPED, path) and d == t.dim() - 1:
         x = torch.stack([p.reshape(*p.shape[:-1], 3, -1) for p in pieces], dim=-2)
         return x.reshape(*t.shape[:-1], -1)
@@ -372,14 +428,25 @@ def gather_pieces(tree, group, rules: PartitionRules = PartitionRules()):
         return tree
     n = dist.get_world_size(group)
 
-    def one(path, leaf):
-        if not isinstance(leaf, torch.Tensor) or "model" not in rules.spec_for(path, leaf.dim()):
-            return leaf
-        parts = [torch.empty_like(leaf) for _ in range(n)]
-        dist.all_gather(parts, leaf.contiguous(), group=group)
-        return join_pieces(path, parts, rules)
+    def parts(leaf):
+        out = [torch.empty_like(leaf) for _ in range(n)]
+        dist.all_gather(out, leaf.contiguous(), group=group)
+        return out
 
-    return _map_paths(one, tree)
+    def walk(node, prefix: str):
+        if isinstance(node, dict) and "rows4" in node:
+            return join_w4([{"q4": q, "s4": s, "rows4": node["rows4"]}
+                            for q, s in zip(parts(node["q4"]), parts(node["s4"]))])
+        if isinstance(node, dict):
+            return {k: walk(v, f"{prefix}{k}/") for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, f"{prefix}{i}/") for i, v in enumerate(node)]
+        path = prefix[:-1]
+        if not isinstance(node, torch.Tensor) or "model" not in rules.spec_for(path, node.dim()):
+            return node
+        return join_pieces(path, parts(node), rules)
+
+    return walk(tree, "")
 
 
 def tp_serving_params(params, tp: int):

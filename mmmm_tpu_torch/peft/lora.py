@@ -83,6 +83,10 @@ class LoraLeaf:
         keep = None if self.keep is None else self.keep[i]
         return LoraLeaf(self.base[i], self.a[i], self.b[i], self.scale, keep, self.p)
 
+    def map_parts(self, fn) -> "LoraLeaf":
+        """The leaf with ``fn`` applied to its weight and factors."""
+        return LoraLeaf(fn(self.base), fn(self.a), fn(self.b), self.scale, self.keep, self.p)
+
     def merge(self) -> torch.Tensor:
         base, a, b = whole(self.base), whole(self.a), whole(self.b)
         if self.keep is not None:

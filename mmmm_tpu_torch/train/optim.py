@@ -83,26 +83,27 @@ def schedule(cfg: OptimizerConfig, count: int) -> float:
 
 
 def global_norm(grads: dict, sharded=frozenset(), group=None, model_sharded=frozenset(),
-                model_group=None) -> torch.Tensor:
+                model_group=None, pipe_sharded=frozenset(), pipe_group=None) -> torch.Tensor:
     """sqrt of the sum of squares over every gradient of ``grads`` (a
     ``{path: tensor}`` dict), fp32, on the device. Each leaf's squares are
     summed over the groups that cut it: the paths in ``sharded`` are this
     process's ZeRO chunks over the data ``group``, those in
-    ``model_sharded`` its pieces over ``model_group``. A leaf that a group
-    does not cut is the same on each of its processes and counts once."""
-    parts = [torch.zeros((), device=_device(grads.values()))] * 4
-    for p, g in grads.items():  # [replicated, data, model, both]
-        i = (p in sharded) + 2 * (p in model_sharded)
+    ``model_sharded`` its pieces over ``model_group``, those in
+    ``pipe_sharded`` its stage's layers or chunks over ``pipe_group``. A
+    leaf that a group does not cut is the same on each of its processes and
+    counts once."""
+    cuts = ((sharded, group), (model_sharded, model_group), (pipe_sharded, pipe_group))
+    parts = [torch.zeros((), device=_device(grads.values()))] * 8
+    for p, g in grads.items():  # indexed by the groups that cut the leaf, one bit each
+        i = sum(1 << j for j, (paths, _) in enumerate(cuts) if p in paths)
         parts[i] = parts[i] + g.float().square().sum()
     parts = torch.stack(parts)
-    if group is not None:
-        cut = parts[1::2].clone()
-        dist.all_reduce(cut, group=group)
-        parts[1::2] = cut
-    if model_group is not None:
-        cut = parts[2:].clone()
-        dist.all_reduce(cut, group=model_group)
-        parts[2:] = cut
+    for j, (_, grp) in enumerate(cuts):
+        if grp is not None:
+            idx = [i for i in range(8) if i >> j & 1]
+            cut = parts[idx].clone()
+            dist.all_reduce(cut, group=grp)
+            parts[idx] = cut
     return torch.sqrt(parts.sum())
 
 
@@ -124,7 +125,8 @@ class AdamW:
 
     @torch.no_grad()
     def step(self, params: dict, grads: dict, state: dict, *, sharded=frozenset(),
-             group=None, model_sharded=frozenset(), model_group=None) -> torch.Tensor:
+             group=None, model_sharded=frozenset(), model_group=None,
+             pipe_sharded=frozenset(), pipe_group=None) -> torch.Tensor:
         """Update ``params`` and ``state`` in place; returns the global norm
         of the gradients before clipping.
 
@@ -137,7 +139,9 @@ class AdamW:
 
         Tensor parallel (``model_group``): the paths in ``model_sharded``
         are this process's pieces over the ``model`` axis (``global_norm``
-        sums their squares over that group)."""
+        sums their squares over that group); pipeline parallel
+        (``pipe_group``) likewise for the paths in ``pipe_sharded``, this
+        stage's chunks."""
         cfg = self.cfg
         grads = {p: torch.zeros_like(t) if grads.get(p) is None else grads[p]
                  for p, t in params.items()}
@@ -147,7 +151,8 @@ class AdamW:
             dist.all_reduce(flat, group=group)
             for p, g in zip(replicated, flat.split([grads[p].numel() for p in replicated])):
                 grads[p] = g.view_as(grads[p])
-        g_norm = global_norm(grads, sharded, group, model_sharded, model_group)
+        g_norm = global_norm(grads, sharded, group, model_sharded, model_group, pipe_sharded,
+                             pipe_group)
         clip = None if cfg.grad_clip_norm is None else g_norm >= cfg.grad_clip_norm
         lr = schedule(cfg, state["count"])
         count = state["count"] + 1

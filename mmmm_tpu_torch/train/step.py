@@ -45,7 +45,7 @@ from ..peft.lora import (LoraConfig, flatten, lora_init, lora_merge, merge_train
 from ..parallel.distributed import batch_to, global_batch
 from ..parallel.sharding import axis_sizes, model_paths
 from ..parallel.tensor import model_parallel
-from ..parallel.zero import ZeroLeaf, gather_unstacked, local_tensor, place_tree
+from ..parallel.zero import PipeLeaf, data_cut, gather_unstacked, local_tensor, place_tree
 from .optim import AdamW
 
 
@@ -106,7 +106,7 @@ def make_step_fn(cfg: MMMMConfig, optimizer: AdamW, lora_cfg: LoraConfig, *,
                  vg_mode: str = "none", bf16_vlm: bool = False, attn_impl: str = "auto",
                  remat: bool | str = True, dropout_seed: int | None = 0,
                  vis_span: tuple[int, int] | str | None = None, gelu_mode: str = "auto",
-                 group=None, model_group=None):
+                 group=None, model_group=None, pipe_group=None):
     """The step_fn(state, frozen, batch) -> (state, logs) over a batch of
     tensors already on the state's device. A fresh LoRA-dropout mask each
     step, deterministic in ``(dropout_seed, step)`` (over each leaf's whole
@@ -118,7 +118,9 @@ def make_step_fn(cfg: MMMMConfig, optimizer: AdamW, lora_cfg: LoraConfig, *,
     the gradients of the LoRA factors that the group's processes all use
     whole beside a cut partner (``a`` of a column-parallel weight, ``b``
     of a row-parallel one) are summed over it: each process holds its
-    share."""
+    share. With a ``pipe_group`` the leaves placed over it are this stage's
+    chunks (``parallel/zero.py PipeLeaf``), whose squares the global norm
+    sums over the group."""
     use_dropout = dropout_seed is not None and lora_cfg.dropout > 0.0
     Numerics(gelu_mode=gelu_mode)  # a bad mode or policy raises here, not in a step
     check_policy(remat)
@@ -151,8 +153,10 @@ def make_step_fn(cfg: MMMMConfig, optimizer: AdamW, lora_cfg: LoraConfig, *,
         with record_function("optimizer"):
             logs["grad_norm"] = optimizer.step(
                 flat, grads, local_opt, group=group,
-                sharded={p for p, v in leaves.items() if isinstance(v, ZeroLeaf)},
-                model_sharded=cut, model_group=model_group)
+                sharded={p for p, v in leaves.items() if data_cut(v)},
+                model_sharded=cut, model_group=model_group,
+                pipe_sharded={p for p, v in leaves.items() if isinstance(v, PipeLeaf)},
+                pipe_group=pipe_group)
         opt_state["count"] = local_opt["count"]
         state.step += 1
         return state, logs
@@ -179,7 +183,10 @@ def place_state(state: TrainState, frozen: dict, mesh) -> tuple[TrainState, dict
     """``(state, frozen)`` placed for the mesh route by ``fsdp_shardings``
     (ZeRO-3, ``parallel/zero.py place_tree``): with a ``model`` axis above 1
     each leaf that the rules shard over it is first cut to this process's
-    piece (``parallel/sharding.py local_params``); then each leaf of the
+    piece (``parallel/sharding.py local_params``); with a ``pipe`` axis
+    above 1 the LLM's stacked layers become this stage's layers and the
+    large unstaged leaves this process's chunk over ``pipe`` (a
+    ``PipeLeaf``); then each leaf of the
     trainable tree, the Adam moments and the frozen base of at least
     ``FSDP_MIN_SIZE`` elements keeps this process's chunk (a
     :class:`ZeroLeaf`) of its piece over ``data``, so the whole leaf may be
@@ -210,9 +217,13 @@ def make_train_step(cfg: MMMMConfig, optimizer: AdamW, lora_cfg: LoraConfig, *,
     :func:`place_state` (ZeRO-3); a leaf left whole trains as a replicated
     one. Tensor parallelism over the mesh's ``model`` axis: the processes
     of a ``model`` group hold the pieces of one replica (``place_state``)
-    and feed the same slice of the batch; their logs are the same. ``seq``
-    or ``pipe`` above 1 raise (ROADMAP Queue 1 item 8c), and ``pipe`` with
-    ``model`` as the reference's pipeline does."""
+    and feed the same slice of the batch; their logs are the same.
+    Sequence parallelism over ``seq`` (``attn_impl="ring"`` under
+    ``parallel/ring_attention.py set_ring_context``) and pipeline
+    parallelism over ``pipe`` (``parallel/pipeline.py set_pipe_context``; the state placed
+    by :func:`place_state`): the processes of a ``seq`` or ``pipe`` group
+    feed the same slice of the batch and get the same logs; ``pipe`` with
+    ``model`` raises, as the reference's pipeline does."""
     step_kw = dict(vg_mode=vg_mode, bf16_vlm=bf16_vlm, attn_impl=attn_impl, remat=remat,
                    dropout_seed=dropout_seed, vis_span=vis_span, gelu_mode=gelu_mode)
     if mesh is None:
@@ -228,17 +239,13 @@ def make_train_step(cfg: MMMMConfig, optimizer: AdamW, lora_cfg: LoraConfig, *,
     if sizes.get("pipe", 1) > 1 and sizes.get("model", 1) > 1:
         raise ValueError("pipeline parallelism does not compose with tensor parallelism in one "
                          "mesh; use model>1 XOR pipe>1")
-    for axis in ("seq", "pipe"):
-        if sizes.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"make_train_step: mesh axis {axis}={sizes[axis]}; the port trains data and "
-                f"tensor parallel, {axis} parallelism waits for ROADMAP Queue 1 item 8c")
     if resolve_device(device).type != mesh.device_type:
         raise ValueError(f"make_train_step: device {device} is not the mesh's "
                          f"{mesh.device_type}")
     model_group = mesh.get_group("model") if sizes["model"] > 1 else None
+    pipe_group = mesh.get_group("pipe") if sizes.get("pipe", 1) > 1 else None
     step_fn = make_step_fn(cfg, optimizer, lora_cfg, group=mesh.get_group("data"),
-                           model_group=model_group, **step_kw)
+                           model_group=model_group, pipe_group=pipe_group, **step_kw)
 
     def run_sharded(state: TrainState, frozen: dict, batch: dict):
         return step_fn(state, frozen, global_batch(batch, mesh))

@@ -31,8 +31,20 @@ pieces of one replica (``place_state``) and read the same slice of every
 batch. Checkpoints and the adapter hold whole tensors, gathered over
 ``model`` as well, so a run resumes at any number of processes; the
 checkpoints and flags go over every process, and the process of global
-rank 0 alone writes. ``mesh_seq`` or ``mesh_pipe`` above 1 raise: sequence
-and pipeline parallelism wait for ROADMAP Queue 1 item 8c.
+rank 0 alone writes.
+
+Sequence and pipeline parallel (the reference's ``mesh_seq``, ``mesh_pipe``
+and ``pipe_micro``): the mesh gains a ``seq`` or ``pipe`` axis, ``data``
+defaulting to ``gcd(batch_size, processes / (mesh_model x mesh_seq x
+mesh_pipe))``, and the processes of a ``seq`` or ``pipe`` group read the
+same slice of every batch. Under ``mesh_seq`` every self-attention whose
+sequence the ring's size divides runs as ring attention over ``seq``
+(``attn_impl`` becomes ``"ring"``, ``parallel/ring_attention.py
+set_ring_context``); under ``mesh_pipe`` the LLM's decoder layers are
+staged over ``pipe`` and run as a GPipe pipeline of ``pipe_micro``
+microbatches (``parallel/pipeline.py set_pipe_context``). ``fit`` sets both
+contexts and clears them when it returns. ``MMMM_DEBUG`` also checks that
+the processes of ``seq`` and ``pipe`` hold slices of the same shapes.
 """
 from __future__ import annotations
 
@@ -55,6 +67,8 @@ from ..ops._cuda import resolve_device
 from ..parallel.debug import assert_replicated_equal, check_batch_uniform
 from ..parallel.distributed import init_distributed, mesh_device, process_rank
 from ..parallel.mesh import make_mesh
+from ..parallel.pipeline import set_pipe_context
+from ..parallel.ring_attention import set_ring_context
 from ..parallel.sharding import gather_pieces
 from ..parallel.zero import gather_tree
 from ..peft.lora import LoraConfig, flatten
@@ -103,11 +117,6 @@ class Trainer:
     def __init__(self, model: MMMMModel, dataset: MultiDataset, opt_cfg: OptimizerConfig,
                  lora_cfg: LoraConfig, cfg: TrainerConfig,
                  device: str | torch.device = "cuda"):
-        for key in ("mesh_seq", "mesh_pipe"):
-            if getattr(cfg, key) > 1:
-                raise NotImplementedError(
-                    f"Trainer: {key}={getattr(cfg, key)}; the port trains data and tensor "
-                    "parallel, this parallelism waits for ROADMAP Queue 1 item 8c")
         self.model = model
         self.dataset = dataset
         self.opt_cfg = opt_cfg
@@ -123,9 +132,11 @@ class Trainer:
         self.rank, self.world = 0, 1
         global_rank, world = process_rank()
         self.writer = global_rank == 0
-        if cfg.mesh_data is not None or world > 1 or cfg.mesh_model > 1:
-            data = cfg.mesh_data or math.gcd(cfg.batch_size, max(world // cfg.mesh_model, 1))
-            self.mesh = make_mesh(data=data, model=cfg.mesh_model, device=self.device)
+        rest = cfg.mesh_model * cfg.mesh_seq * cfg.mesh_pipe
+        if cfg.mesh_data is not None or world > 1 or rest > 1:
+            data = cfg.mesh_data or math.gcd(cfg.batch_size, max(world // rest, 1))
+            self.mesh = make_mesh(data=data, model=cfg.mesh_model, seq=cfg.mesh_seq,
+                                  pipe=cfg.mesh_pipe, device=self.device)
             self.device = mesh_device(self.mesh)
             self.group = self.mesh.get_group("data")
             if cfg.mesh_model > 1:
@@ -136,9 +147,10 @@ class Trainer:
             self.all_group = dist.group.WORLD
             self.host_group = self.all_group if dist.get_backend() == "gloo" else \
                 dist.new_group(list(range(world)), backend="gloo")
+        attn_impl = "ring" if cfg.mesh_seq > 1 else cfg.attn_impl
         self.steps = {
             mode: make_train_step(model.cfg, self.optimizer, lora_cfg, vg_mode=mode,
-                                  bf16_vlm=cfg.bf16_vlm, attn_impl=cfg.attn_impl,
+                                  bf16_vlm=cfg.bf16_vlm, attn_impl=attn_impl,
                                   remat=cfg.remat, vis_span=cfg.vis_span,
                                   gelu_mode=cfg.gelu_mode, device=self.device, mesh=self.mesh)
             for mode in ("none", "semantic", "instance")
@@ -162,7 +174,18 @@ class Trainer:
         ``(TrainState, frozen)`` pair to start from (it is updated in
         place); by default ``init_train_state`` from ``cfg.seed``. With
         ``resume`` the latest checkpoint under ``out_dir`` replaces its
-        trainable tree, optimizer state and step."""
+        trainable tree, optimizer state and step. The ring and pipe
+        contexts (``mesh_seq``, ``mesh_pipe``) hold for this call only."""
+        cfg = self.cfg
+        set_pipe_context(self.mesh if cfg.mesh_pipe > 1 else None, "pipe", cfg.pipe_micro)
+        set_ring_context(self.mesh if cfg.mesh_seq > 1 else None, "seq")
+        try:
+            return self._fit(resume, state)
+        finally:
+            set_pipe_context(None)
+            set_ring_context(None)
+
+    def _fit(self, resume: bool, state: tuple[TrainState, dict] | None) -> TrainState:
         cfg = self.cfg
         if state is None:
             state, frozen = init_train_state(
@@ -244,9 +267,13 @@ class Trainer:
                 mode = batch.pop("vg_mode")
                 batch.pop("src", None)
                 if debug:
-                    check_batch_uniform({k: v for k, v in batch.items()
-                                         if k not in ("patch_size", "pool_size")},
-                                        self.mesh, world_size=self.world)
+                    arrays = {k: v for k, v in batch.items()
+                              if k not in ("patch_size", "pool_size")}
+                    check_batch_uniform(arrays, self.mesh, world_size=self.world)
+                    for axis in ("seq", "pipe"):  # one slice on each of their processes
+                        if getattr(cfg, f"mesh_{axis}") > 1:
+                            check_batch_uniform(arrays, self.mesh, axis,
+                                                world_size=getattr(cfg, f"mesh_{axis}"))
                 state, logs = self.steps[mode](state, frozen, batch)
                 step_i += 1
                 if debug and step_i % cfg.log_every == 0:

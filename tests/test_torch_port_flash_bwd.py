@@ -124,8 +124,9 @@ def test_pallas_route_matches_xla_autograd(causal, all_valid):
 def test_dense_site_and_dispatch():
     """The dense site (K4 forward, plain recompute backward) has the plain
     dense attention's gradients; ``"auto"`` on the CPU is the plain route
-    (the reference's ``"auto"`` off the TPU); ``"ring"`` waits for the
-    parallel slice; ``fits_dense_kernel`` is the reference's gate."""
+    (the reference's ``"auto"`` off the TPU); ``"ring"`` is ``"auto"`` at
+    this layer (the ring is ``parallel/ring_attention.py attention``'s);
+    ``fits_dense_kernel`` is the reference's gate."""
     rng = np.random.default_rng(3)
     q, k, v, g = (rng.normal(size=(2, 33, 2, 8)).astype(np.float32) for _ in range(4))
     got, ref = [], []
@@ -138,8 +139,9 @@ def test_dense_site_and_dispatch():
     tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
     torch.testing.assert_close(patt.segment_attention(tq, tk, tv, seg, impl="auto"),
                                patt.segment_attention(tq, tk, tv, seg, impl="xla"))
-    with pytest.raises(NotImplementedError, match="parallel"):
-        patt.segment_attention(tq, tk, tv, seg, impl="ring")
+    torch.testing.assert_close(patt.segment_attention(tq, tk, tv, seg, impl="ring"),
+                               patt.segment_attention(tq, tk, tv, seg, impl="auto"),
+                               rtol=0, atol=0)
     from mmmm_tpu.ops.dense_attn import fits_dense_kernel
 
     for s, d in ((1153, 112), (577, 112), (512, 64), (4097, 128), (9000, 128)):

@@ -36,9 +36,11 @@ training against the JAX package's, on the CPU.
     and restores rank 0's checkpoint.
   - ``check_batch_uniform`` and ``assert_replicated_equal`` raise on an
     uneven batch and a perturbed replica; ``init_distributed`` without its
-    variables makes no group; the sequence and pipeline axes raise and name
-    their ROADMAP item, and pipeline with tensor parallelism raises (the
-    tensor axis runs: tests/test_torch_port_tensor_parallel.py).
+    variables makes no group; the sequence and pipeline axes make a step
+    (they run in tests/test_torch_port_ring.py and
+    tests/test_torch_port_pipeline.py), and pipeline with tensor
+    parallelism raises (the tensor axis runs:
+    tests/test_torch_port_tensor_parallel.py).
 
 Each multi-process case spawns 2 processes with ``OMP_NUM_THREADS=1`` and a
 timeout of its own, around a rendezvous store that this process serves.
@@ -542,18 +544,30 @@ def test_init_distributed_without_variables_makes_no_group(monkeypatch):
 
 
 def test_tensor_sequence_pipeline_axes_name_their_roadmap_items():
-    """The sequence and pipeline axes name item 8c; the model axis runs
-    (tests/test_torch_port_tensor_parallel.py), and with a pipeline axis it
-    raises as the reference's pipeline does."""
+    """The sequence and pipeline axes make a step (they run over processes
+    in tests/test_torch_port_ring.py and tests/test_torch_port_pipeline.py);
+    the model axis runs (tests/test_torch_port_tensor_parallel.py), and with
+    a pipeline axis it raises, in the step and in the pipe context, as the
+    reference's pipeline does. ``impl="ring"`` without a ring context is
+    ``"auto"``."""
     from mmmm_tpu_torch import LoraConfig, OptimizerConfig, make_optimizer, make_train_step
+    from mmmm_tpu_torch.parallel.pipeline import set_pipe_context
+
+    def mesh(**sizes):  # the parts of a DeviceMesh that make_train_step reads
+        return SimpleNamespace(mesh_dim_names=tuple(sizes), mesh=torch.zeros(*sizes.values()),
+                               device_type="cpu", get_group=lambda axis: None,
+                               size=lambda i: list(sizes.values())[i])
 
     opt = make_optimizer(OptimizerConfig())
-    for sizes, error, match in (
-            ({"data": 1, "model": 1, "seq": 2}, NotImplementedError, "Queue 1 item 8c"),
-            ({"pipe": 2, "data": 1, "model": 1}, NotImplementedError, "Queue 1 item 8c"),
-            ({"pipe": 2, "data": 1, "model": 2}, ValueError, "model>1 XOR pipe>1")):
-        with pytest.raises(error, match=match):
-            make_train_step(MMMMConfig.tiny(), opt, LoraConfig(), mesh=sizes, device="cpu")
-    q = torch.zeros((1, 4, 2, 8))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8c"):
-        segment_attention(q, q, q, torch.ones((1, 4), dtype=torch.int32), impl="ring")
+    for sizes in ({"data": 1, "model": 1, "seq": 2}, {"pipe": 2, "data": 1, "model": 1}):
+        assert callable(make_train_step(MMMMConfig.tiny(), opt, LoraConfig(),
+                                        mesh=mesh(**sizes), device="cpu"))
+    with pytest.raises(ValueError, match="model>1 XOR pipe>1"):
+        make_train_step(MMMMConfig.tiny(), opt, LoraConfig(),
+                        mesh={"pipe": 2, "data": 1, "model": 2}, device="cpu")
+    with pytest.raises(ValueError, match="model>1 XOR pipe>1"):
+        set_pipe_context(mesh(pipe=2, data=1, model=2))
+    q = torch.randn((1, 4, 2, 8), generator=torch.Generator().manual_seed(0))
+    seg = torch.ones((1, 4), dtype=torch.int32)
+    torch.testing.assert_close(segment_attention(q, q, q, seg, impl="ring"),
+                               segment_attention(q, q, q, seg, impl="auto"), rtol=0, atol=0)

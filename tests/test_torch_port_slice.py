@@ -223,7 +223,7 @@ def test_port_imports_no_jax_and_no_library_kernels():
                 *(("parallel", f"{m}.py") for m in PARALLEL_MODULES)):
         assert ROOT.joinpath("mmmm_tpu_torch", *rel) in files
     scripts = [ROOT / n for n in ("chip_smoke.py", "time_decode_reads.py",
-                                  "time_flagship_runs.py")]
+                                  "time_flagship_runs.py", "time_flagship_profile.py")]
     for f in files + scripts:
         tree = ast.parse(f.read_text(), filename=str(f))
         for mod in _imports(tree):

@@ -170,25 +170,72 @@ def test_indivisible_leaves_raise_and_name_the_leaf():
 
 
 def test_w4_row_pieces_sum_to_the_product():
-    """``down``'s int4 rows over 2 processes: 5 groups of 128 rows a piece of
-    the (1280, 256) weight, padded to 6 so that each half of the packing
-    holds whole groups; the pieces' products (x cut to their rows, padded by
-    ``qdot``) sum to the whole product."""
+    """``down``'s int4 rows over 2 and 4 processes. Over 2, 5 groups of 128
+    rows a piece of the (1280, 256) weight, padded to 6 so that each half
+    of the packing holds whole groups. Over 4, 320 rows a piece: each holds
+    the 3 groups its rows touch (ranks 1 and 3 start 64 rows into a group
+    that they share with their neighbour), padded to 4, zero weights outside
+    its rows. The pieces' products (x cut to their rows, padded by ``qdot``
+    at the piece's front offset) sum to the whole product, and
+    ``join_w4`` gives the whole leaf back bit for bit."""
     gen = torch.Generator().manual_seed(0)
     w = torch.randn((1, 1280, 256), generator=gen) * 0.05
     q = quantize_int4(w)
     tree = {"llm": {"layers": {"lang_mlp": {"down": q}}}}
     x = torch.randn((3, 1280), generator=gen)
     whole = qdot(x, {k: v[0] for k, v in q.items()})
-    total = torch.zeros_like(whole)
-    for r in range(2):
-        piece = psharding.local_params(tree, ({"model": 2}, r))["llm"]["layers"]["lang_mlp"]
-        piece = {k: v[0] for k, v in piece["down"].items()}
-        assert piece["q4"].shape == (384, 256) and piece["s4"].shape == (6, 256)
-        total += qdot(x[:, r * 640:(r + 1) * 640], piece)
-    torch.testing.assert_close(total, whole, rtol=1e-5, atol=1e-5)
-    with pytest.raises(ValueError, match="10 scale groups do not split over model=4"):
-        psharding.local_params(tree, ({"model": 4}, 0))
+    for n, rows, groups, fronts in ((2, 384, 6, (0, 0)), (4, 256, 4, (0, 64, 0, 64))):
+        total, pieces = torch.zeros_like(whole), []
+        for r in range(n):
+            piece = psharding.local_params(tree, ({"model": n}, r))["llm"]["layers"]["lang_mlp"]
+            pieces.append(piece["down"])
+            piece = {k: v[0] for k, v in piece["down"].items()}
+            assert piece["q4"].shape == (rows, 256) and piece["s4"].shape == (groups, 256)
+            assert piece["rows4"].shape == (fronts[r], 1280 // n, 0)
+            total += qdot(x[:, r * 1280 // n:(r + 1) * 1280 // n], piece)
+        torch.testing.assert_close(total, whole, rtol=1e-5, atol=1e-5)
+        joined = psharding.join_w4(pieces)
+        assert torch.equal(joined["q4"], q["q4"]) and torch.equal(joined["s4"], q["s4"])
+
+
+def test_w4_pieces_at_the_flagship_over_four_and_the_partial_column_tile():
+    """At ``tp=4`` the flagship's W4A16 leaves cut on every rank: ``down``'s
+    11,008 rows into pieces of the 22 scale groups (2,816 rows) that each
+    rank's 2,752 rows touch, front offsets 0, 64, 0, 64, and ``gate``'s
+    columns into pieces 2,752 wide, which K11mma takes (its last 128-column
+    tile partial). On the CPU: ``w4_matmul_plain`` at N = 2,752 equals the
+    whole product's columns, and ``qdot`` over rank 1's down piece (64 zero
+    rows in front) equals the product of its rows."""
+    from mmmm_tpu_torch.ops import w4_matmul as w4
+
+    gen = torch.Generator().manual_seed(1)
+    tree = {"llm": {"layers": {"lang_mlp": {
+        "gate": quantize_int4(torch.randn((1, 512, 11008), generator=gen) * 0.05),
+        "down": quantize_int4(torch.randn((1, 11008, 256), generator=gen) * 0.05)}}}}
+    x = torch.randn((20, 512), generator=gen)
+    xd = torch.randn((20, 11008), generator=gen)
+    gate = {k: v[0] for k, v in tree["llm"]["layers"]["lang_mlp"]["gate"].items()}
+    down = {k: v[0] for k, v in tree["llm"]["layers"]["lang_mlp"]["down"].items()}
+    whole_gate, whole_down = qdot(x, gate), qdot(xd, down)
+    total = torch.zeros_like(whole_down)
+    for r in range(4):
+        mlp = psharding.local_params(tree, ({"model": 4}, r))["llm"]["layers"]["lang_mlp"]
+        g = {k: v[0] for k, v in mlp["gate"].items()}
+        d = {k: v[0] for k, v in mlp["down"].items()}
+        assert g["q4"].shape == (256, 2752) and d["q4"].shape == (1408, 256)
+        assert d["rows4"].shape == ((0, 64, 0, 64)[r], 2752, 0)
+        assert w4.mma_takes(20, 512, 2752, 128) and w4.route(20, 512, 2752, 128,
+                                                            torch.bfloat16) == "K11mma"
+        cols = slice(r * 2752, (r + 1) * 2752)
+        torch.testing.assert_close(w4.w4_matmul_plain(x, g["q4"], g["s4"]), whole_gate[:, cols],
+                                   rtol=1e-5, atol=1e-5)
+        part = qdot(xd[:, r * 2752:(r + 1) * 2752], d)
+        if r == 1:  # its rows alone, the whole weight's rows 2,752-5,503
+            wd = w4.unpack_int4(down["q4"]).float() * down["s4"].repeat_interleave(128, dim=0)
+            torch.testing.assert_close(part, xd[:, 2752:5504] @ wd[2752:5504], rtol=1e-5,
+                                       atol=1e-5)
+        total += part
+    torch.testing.assert_close(total, whole_down, rtol=1e-5, atol=1e-4)
 
 
 # ---- (b) serving and (d) the argmax, one launch of 2 processes ----

@@ -259,18 +259,19 @@ def test_shipped_config_builds(path):
 @pytest.mark.parametrize("key,value", [("mesh_model", 4), ("mesh_seq", 2), ("mesh_pipe", 2),
                                        ("mesh_data", 2)])
 def test_mesh_raises_and_entry_points_default_to_the_card(fit_data, tmp_path, key, value):
-    """Sequence and pipeline parallelism name their ROADMAP item; a data
-    axis of 2 or a model axis of 4 in one process raises the world-size
-    error (the mesh must hold every process; tests/test_torch_port_parallel.py
-    and tests/test_torch_port_tensor_parallel.py run them over several)."""
+    """A data axis of 2, a model axis of 4, a sequence axis of 2 or a
+    pipeline axis of 2 in one process raises the world-size error (the mesh
+    must hold every process; tests/test_torch_port_parallel.py,
+    tests/test_torch_port_tensor_parallel.py, tests/test_torch_port_ring.py
+    and tests/test_torch_port_pipeline.py run them over several)."""
     cfg = _fit_config([f"trainer.out_dir={tmp_path}", _datasets(fit_data, ("VLSet",)),
                        "data.vl_trans={max_tokens: 64, max_tokens_z: 4}"])
     tok = build_tokenizer(cfg["tokenizer"])
     args = (build_model(cfg["model"], tok), build_dataset(cfg["data"], tok, TINY.parent),
             build(OptimizerConfig, cfg["optimizer"]), build(LoraConfig, cfg["lora"]))
     error, match = {"mesh_model": (ValueError, "must hold every one of the 1 processes"),
-                    "mesh_seq": (NotImplementedError, "Queue 1 item 8c"),
-                    "mesh_pipe": (NotImplementedError, "Queue 1 item 8c"),
+                    "mesh_seq": (ValueError, "must hold every one of the 1 processes"),
+                    "mesh_pipe": (ValueError, "must hold every one of the 1 processes"),
                     "mesh_data": (ValueError, "must hold every one of the 1 processes")}[key]
     with pytest.raises(error, match=match):
         Trainer(*args, build(TrainerConfig, {**cfg["trainer"], key: value}), device="cpu")
